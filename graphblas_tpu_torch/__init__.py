@@ -1,0 +1,21 @@
+"""graphblas_tpu_torch: the PyTorch and CUDA port of graphblas_tpu.
+
+The same user code runs after ``import graphblas_tpu_torch as gb`` for the
+part ported so far: sparse matrices built with ``Matrix.from_coo``, dense
+vectors, masks, ``vxm``/``mxv`` over the lanepipe SpMV engine (four
+hand-written CUDA kernels for the H100), ``apply``, ``reduce``, scalar
+assignment and ``ss.iterate``.  Everything runs on ``cuda`` unless the
+caller asks for the CPU with ``config.set(device="cpu")``.  What is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+
+The package imports torch and numpy only, never jax or graphblas_tpu.
+"""
+
+from . import binary, dtypes, monoid, semiring, ss, unary
+from .core.config import config
+from .core.matrix import Matrix
+from .core.scalar import Scalar
+from .core.vector import Vector
+
+__all__ = ["Matrix", "Vector", "Scalar", "config", "binary", "dtypes",
+           "monoid", "semiring", "ss", "unary"]

@@ -1,0 +1,150 @@
+"""Build, load and count the hand-written CUDA kernels of csrc/.
+
+Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface under ``csrc/_build/``
+(listed in ``.gitignore``), and loaded with ctypes.  :func:`build` starts
+one ``nvcc`` per source, all together, and is called at first use; nothing
+is built when this module is imported, so the CPU tests import it freely.
+
+Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
+when it is not 0.  Each wrapper adds one to ``launches[<kernel>]`` per
+kernel launch, so a run can show that the main path went through the
+kernels.  The op and type codes here must match csrc/common.cuh.
+"""
+
+import collections
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+_BUILD = os.path.join(_CSRC, "_build")
+SOURCES = ("tile_perm", "mid_perm", "gather_mult", "fused_scan")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches per kernel since the last reset, keyed by the kernel's name
+# (fused_permC_scan_permA counts both launches of csrc/fused_scan.cu,
+# scan_summary and scan_final)
+launches = collections.Counter()
+
+DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
+MULT_OP = {"times": 0, "plus": 1, "first": 2, "second": 3, "pair": 4,
+           "min": 5, "max": 6, "land": 7, "lor": 8, "band": 9, "bor": 10}
+MONOID_OP = {"plus": 0, "times": 1, "min": 2, "max": 3, "lor": 4, "land": 5,
+             "band": 6, "bor": 7}
+MAXCH = 4
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "tile_perm": [_P, _P, _P, _I, _I, _P],
+    "mid_perm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gather_mult": [_P] * 9 + [_I] * 7 + [_P],
+    "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
+}
+
+_libs = {}
+_lock = threading.Lock()
+build_log = {}
+
+
+def reset_launches():
+    launches.clear()
+
+
+def _nvcc():
+    cand = "/usr/local/cuda/bin/nvcc"
+    return cand if os.path.exists(cand) else shutil.which("nvcc")
+
+
+def _stale(name):
+    so = os.path.join(_BUILD, f"lib{name}.so")
+    if not os.path.exists(so):
+        return True
+    deps = [os.path.join(_CSRC, f"{name}.cu"), os.path.join(_CSRC, "common.cuh")]
+    return any(os.path.getmtime(so) < os.path.getmtime(d) for d in deps)
+
+
+def build():
+    """Compile every stale source, one nvcc each, all in parallel.
+
+    Returns the wall seconds spent; raises RuntimeError with the compiler's
+    output if a build fails."""
+    t0 = time.perf_counter()
+    todo = [n for n in SOURCES if _stale(n)]
+    if not todo:
+        return 0.0
+    nvcc = _nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    os.makedirs(_BUILD, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = os.path.join(_BUILD, f"lib{name}.so.{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+        else:
+            os.replace(tmp, os.path.join(_BUILD, f"lib{name}.so"))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def lib(name):
+    """The loaded library of csrc/<name>.cu, building it at first use."""
+    if name in _libs:
+        return _libs[name]
+    with _lock:
+        if name not in _libs:
+            build()
+            so = ctypes.CDLL(os.path.join(_BUILD, f"lib{name}.so"))
+            fn = getattr(so, name)
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            _libs[name] = so
+    return _libs[name]
+
+
+def check(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+
+
+def stream_ptr(t):
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr_array(tensors):
+    arr = (ctypes.c_void_p * MAXCH)()
+    for i, t in enumerate(tensors):
+        arr[i] = t.data_ptr()
+    return arr
+
+
+def require_cuda(name, tensors):
+    """Check that every tensor is a contiguous 32-bit tensor on one CUDA
+    device (permutations and gathers move 32-bit words)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.element_size() != 4:
+            raise TypeError(f"{name}: tensors must hold 32-bit words; got "
+                            f"{t.dtype}")

@@ -1,0 +1,59 @@
+"""Builtin monoids of the SpMV slice: an associative binary op and its
+identity (graphblas_tpu/core/operator/monoid.py, same identities)."""
+
+import numpy as np
+
+from .. import dtypes as _dt
+from .base import OpBase, TypedOpBase
+from .binary import BUILTINS as _B
+
+_REAL = (_dt.INT32, _dt.INT64, _dt.UINT32, _dt.FP32, _dt.FP64)
+
+
+def _identity_min(dt):
+    return np.inf if dt.is_float else int(np.iinfo(dt.np_type).max)
+
+
+def _identity_max(dt):
+    return -np.inf if dt.is_float else int(np.iinfo(dt.np_type).min)
+
+
+# name -> (domains, identity or identity(dt))
+_BUILTIN = {
+    "plus": (_REAL, 0),
+    "times": (_REAL, 1),
+    "min": (_REAL, _identity_min),
+    "max": (_REAL, _identity_max),
+    "lor": ((_dt.BOOL,), False),
+    "land": ((_dt.BOOL,), True),
+    "band": ((_dt.UINT32,), lambda dt: int(np.iinfo(dt.np_type).max)),
+    "bor": ((_dt.UINT32,), 0),
+}
+
+
+class TypedMonoid(TypedOpBase):
+    opclass = "Monoid"
+
+    def __init__(self, parent, name, type_, binaryop, identity):
+        super().__init__(parent, name, type_, type_)
+        self.binaryop = binaryop
+        self.identity = identity
+
+
+class Monoid(OpBase):
+    opclass = "Monoid"
+
+    def __init__(self, name, domains, identity):
+        super().__init__(name)
+        self._domains = domains
+        self._identity = identity
+
+    def _build_typed(self, dt):
+        if dt not in self._domains:
+            return None
+        ident = self._identity(dt) if callable(self._identity) else self._identity
+        return TypedMonoid(self, self.name, dt, _B[self.name][dt], ident)
+
+
+BUILTINS = {name: Monoid(name, doms, ident)
+            for name, (doms, ident) in _BUILTIN.items()}

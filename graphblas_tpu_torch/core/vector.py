@@ -1,0 +1,197 @@
+"""Vector: a dense (values, valid) store on the configured device
+(graphblas_tpu/core/vector.py, the methods PageRank and BFS call)."""
+
+import numpy as np
+import torch
+
+from . import config as _config
+from . import dtypes as _dt
+from .base import BaseExpression, BaseType
+from .mask import StructuralMask, ValueMask
+from .operator.base import typed
+
+
+def _values_dtype(values, dtype):
+    """numpy values and their DataType (inferred when dtype is None)."""
+    values = np.asarray(values)
+    if dtype is None:
+        dt = _dt.lookup_dtype(values.dtype)
+    else:
+        dt = _dt.lookup_dtype(dtype)
+    return values, dt
+
+
+def _unify(a, b):
+    return a if a == b else _dt.lookup_dtype(np.result_type(a.np_type,
+                                                            b.np_type))
+
+
+class Vector(BaseType):
+    ndim = 1
+
+    def __init__(self, dtype=_dt.FP64, size=0, *, name=None):
+        self.dtype = _dt.lookup_dtype(dtype)
+        size = int(size)
+        if size < 0:
+            raise ValueError("size must be non-negative")
+        self.name = name
+        dev = _config.device()
+        self._set_store(torch.zeros(size, dtype=self.dtype.torch_type,
+                                    device=dev),
+                        torch.zeros(size, dtype=torch.bool, device=dev))
+
+    @classmethod
+    def _empty(cls, dtype, shape, name=None):
+        return cls(dtype, shape[0], name=name)
+
+    @classmethod
+    def _from_store(cls, dtype, vals, valid, name=None):
+        v = cls.__new__(cls)
+        v.dtype = _dt.lookup_dtype(dtype)
+        v.name = name
+        v._set_store(vals, valid)
+        return v
+
+    @property
+    def size(self):
+        return int(self._valid.shape[0])
+
+    @property
+    def shape(self):
+        return (self.size,)
+
+    @property
+    def S(self):
+        return StructuralMask(self)
+
+    @property
+    def V(self):
+        return ValueMask(self)
+
+    def __repr__(self):
+        return (f"Vector(dtype={self.dtype.name}, size={self.size}, "
+                f"nvals={self.nvals})")
+
+    # ------------------------------------------------------------------ #
+    # constructors and exports
+    @classmethod
+    def from_coo(cls, indices, values=1.0, dtype=None, *, size=None,
+                 dup_op=None, name=None):
+        indices = np.asarray(indices, np.int64).reshape(-1)
+        values, dt = _values_dtype(values, dtype)
+        values = np.broadcast_to(values, indices.shape)
+        if size is None:
+            if len(indices) == 0:
+                raise ValueError("No indices provided. Unable to infer size.")
+            size = int(indices.max()) + 1
+        if len(indices) and (indices.min() < 0 or indices.max() >= size):
+            raise IndexError(f"index out of bounds for size {size}")
+        order = np.argsort(indices, kind="stable")
+        idx, vals = indices[order], values[order]
+        if len(idx) > 1 and (np.diff(idx) == 0).any():
+            from .engine.sparse import sorted_dedup_coo
+
+            idx, _, vals = sorted_dedup_coo(idx, np.zeros_like(idx), vals,
+                                            size, 1, dup_op)
+        v = cls(dt, size, name=name)
+        dev = v.device
+        t_idx = torch.from_numpy(idx).to(dev)
+        v._vals[t_idx] = _dt.to_tensor(vals, dt, dev)
+        v._valid[t_idx] = True
+        return v
+
+    @classmethod
+    def from_dense(cls, values, missing_value=None, dtype=None, *, name=None):
+        values, dt = _values_dtype(values, dtype)
+        if values.ndim != 1:
+            raise TypeError("values must be 1-dimensional for "
+                            "Vector.from_dense")
+        v = cls(dt, values.shape[0], name=name)
+        vals = _dt.to_tensor(values, dt, v.device)
+        if missing_value is None:
+            valid = torch.ones(values.shape[0], dtype=torch.bool,
+                               device=v.device)
+        else:
+            valid = torch.from_numpy(values != missing_value).to(v.device)
+        v._set_store(vals, valid)
+        return v
+
+    def to_coo(self, dtype=None, *, indices=True, values=True, sort=True):
+        ok = self._valid.cpu().numpy()
+        idx = np.nonzero(ok)[0]
+        out_vals = None
+        if values:
+            out_vals = _dt.to_numpy(self._vals, self.dtype)[idx]
+            if dtype is not None:
+                out_vals = out_vals.astype(_dt.lookup_dtype(dtype).np_type)
+        return (idx.astype(np.uint64) if indices else None), out_vals
+
+    def to_dense(self, fill_value=None, dtype=None):
+        ok = self._valid.cpu().numpy()
+        dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
+        out = _dt.to_numpy(self._vals, self.dtype).astype(dt.np_type)
+        if not ok.all():
+            if fill_value is None:
+                raise TypeError("fill_value must be given in to_dense when "
+                                "there are missing values")
+            out[~ok] = fill_value
+        return out
+
+    def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
+        if not isinstance(other, Vector):
+            raise TypeError(f"isclose expects a Vector; got "
+                            f"{type(other).__name__}")
+        if check_dtype and self.dtype != other.dtype:
+            return False
+        if self.shape != other.shape:
+            return False
+        ai, av = self.to_coo()
+        bi, bv = other.to_coo()
+        if not np.array_equal(ai, bi):
+            return False
+        return bool(np.all(np.isclose(av, bv, rtol=rel_tol, atol=abs_tol)))
+
+    # ------------------------------------------------------------------ #
+    # operations
+    def __getitem__(self, index):
+        if isinstance(index, (int, np.integer)):
+            i = int(index)
+            if not -self.size <= i < self.size:
+                raise IndexError(f"index {i} out of range for size "
+                                 f"{self.size}")
+            from .scalar import Scalar
+
+            return BaseExpression("extract_element", None, [self],
+                                  self.dtype, (), Scalar,
+                                  (i % self.size,))
+        raise NotImplementedError(
+            "only element extraction v[i] is in the PyTorch port yet "
+            "(ROADMAP.md queue 1, item 10)")
+
+    def vxm(self, other, op="plus_times"):
+        """Row vector times matrix (graphblas_tpu vector.py vxm)."""
+        from .matrix import Matrix, TransposedMatrix
+
+        bt = isinstance(other, TransposedMatrix)
+        b = other._matrix if bt else other
+        if not isinstance(b, Matrix):
+            raise TypeError(f"vxm expects a Matrix; got {type(b).__name__}")
+        ring = typed(op, _unify(self.dtype, b.dtype), "Semiring")
+        bshape = (b.ncols, b.nrows) if bt else (b.nrows, b.ncols)
+        if self.size != bshape[0]:
+            raise ValueError(f"Dimensions not compatible for vxm: "
+                             f"{self.size} vs {bshape}")
+        return BaseExpression("vxm", ring, [self, b], ring.return_type,
+                              (bshape[1],), Vector, (bt,))
+
+    def apply(self, op):
+        unop = typed(op, self.dtype, "UnaryOp")
+        return BaseExpression("apply", unop, [self], unop.return_type,
+                              self.shape, Vector)
+
+    def reduce(self, op="plus", *, allow_empty=True):
+        from .scalar import Scalar
+
+        mono = typed(op, self.dtype, "Monoid")
+        return BaseExpression("reduce", mono, [self], mono.return_type, (),
+                              Scalar, (bool(allow_empty),))

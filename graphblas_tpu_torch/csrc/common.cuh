@@ -1,0 +1,167 @@
+// Shared device code for the lanepipe kernels: the within-tile permutation
+// closed form and the typed multiply / monoid operators.
+//
+// All kernels move 32-bit words.  Values travel as raw bits (uint32_t) and
+// are reinterpreted per carrier type: FP32 as float, INT32 as int, UINT32 as
+// unsigned, BOOL as int 0/1.  The codes below must match the tables in
+// graphblas_tpu_torch/core/engine/kernels.py.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TILE_ELEMS 16384  // one (128,128) tile
+#define NT 1024           // threads per tile block
+#define EPT (TILE_ELEMS / NT)
+#define MAXCH 4           // channels per permutation launch
+
+// carrier type codes
+#define DT_F32 0
+#define DT_I32 1
+#define DT_U32 2
+#define DT_BOOL 3
+
+// multiply op codes
+#define OP_TIMES 0
+#define OP_PLUS 1
+#define OP_FIRST 2
+#define OP_SECOND 3
+#define OP_PAIR 4
+#define OP_MIN 5
+#define OP_MAX 6
+#define OP_LAND 7
+#define OP_LOR 8
+#define OP_BAND 9
+#define OP_BOR 10
+
+// monoid codes
+#define MO_PLUS 0
+#define MO_TIMES 1
+#define MO_MIN 2
+#define MO_MAX 3
+#define MO_LOR 4
+#define MO_LAND 5
+#define MO_BAND 6
+#define MO_BOR 7
+
+// Source offset, within one tile, of output element (r, l) of the packed
+// three-phase tile permutation p (A = bits 0-6, B = 7-13, C = 14-20):
+//   out[r, l] = x[B[m, r], A[B[m, r], m]],  m = C[r, l]
+// which is the lane gather / transpose / lane gather / transpose / lane
+// gather of graphblas_tpu/core/engine/permute.py:_tile_perm_body written as
+// one index.  p may live in shared or global memory.
+__device__ __forceinline__ int tile_perm_src(const int* p, int r, int l) {
+  int m = (p[r * 128 + l] >> 14) & 127;
+  int b = (p[m * 128 + r] >> 7) & 127;
+  int a = p[b * 128 + m] & 127;
+  return b * 128 + a;
+}
+
+__device__ __forceinline__ float as_f(uint32_t x) { return __uint_as_float(x); }
+__device__ __forceinline__ uint32_t f_bits(float x) { return __float_as_uint(x); }
+
+// NaN-propagating min/max, as jnp.minimum / torch.minimum
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a < b ? a : b;
+}
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+// typed multiply z = op(x, y) on carrier bits; integer arithmetic wraps
+template <int DT>
+__device__ __forceinline__ uint32_t mult_bits(int op, uint32_t x, uint32_t y) {
+  if (DT == DT_F32) {
+    float a = as_f(x), b = as_f(y);
+    switch (op) {
+      case OP_TIMES: return f_bits(a * b);
+      case OP_PLUS: return f_bits(a + b);
+      case OP_FIRST: return x;
+      case OP_SECOND: return y;
+      case OP_PAIR: return f_bits(1.0f);
+      case OP_MIN: return f_bits(fmin_nan(a, b));
+      case OP_MAX: return f_bits(fmax_nan(a, b));
+    }
+    return 0;
+  } else if (DT == DT_BOOL) {
+    uint32_t a = x != 0, b = y != 0;
+    switch (op) {
+      case OP_TIMES: case OP_MIN: case OP_LAND: return a & b;
+      case OP_PLUS: case OP_MAX: case OP_LOR: return a | b;
+      case OP_FIRST: return a;
+      case OP_SECOND: return b;
+      case OP_PAIR: return 1u;
+    }
+    return 0;
+  } else {
+    switch (op) {
+      case OP_TIMES: return x * y;
+      case OP_PLUS: return x + y;
+      case OP_FIRST: return x;
+      case OP_SECOND: return y;
+      case OP_PAIR: return 1u;
+      case OP_BAND: return x & y;
+      case OP_BOR: return x | y;
+      case OP_MIN:
+        if (DT == DT_I32) return (int)x < (int)y ? x : y;
+        return x < y ? x : y;
+      case OP_MAX:
+        if (DT == DT_I32) return (int)x > (int)y ? x : y;
+        return x > y ? x : y;
+    }
+    return 0;
+  }
+}
+
+// monoid combine(left, right) on carrier bits
+template <int DT>
+__device__ __forceinline__ uint32_t combine_bits(int mo, uint32_t x, uint32_t y) {
+  if (DT == DT_F32) {
+    float a = as_f(x), b = as_f(y);
+    switch (mo) {
+      case MO_PLUS: return f_bits(a + b);
+      case MO_TIMES: return f_bits(a * b);
+      case MO_MIN: return f_bits(fmin_nan(a, b));
+      case MO_MAX: return f_bits(fmax_nan(a, b));
+    }
+    return 0;
+  } else {
+    switch (mo) {
+      case MO_PLUS: return x + y;
+      case MO_TIMES: return x * y;
+      case MO_BAND: return x & y;
+      case MO_BOR: return x | y;
+      // booleans ride as 0/1: lor = max, land = product
+      case MO_LOR: return x > y ? x : y;
+      case MO_LAND: return x * y;
+      case MO_MIN:
+        if (DT == DT_U32) return x < y ? x : y;
+        return (int)x < (int)y ? x : y;
+      case MO_MAX:
+        if (DT == DT_U32) return x > y ? x : y;
+        return (int)x > (int)y ? x : y;
+    }
+    return 0;
+  }
+}
+
+// Packed BOOL codes: 0 = no value, 1 + v = value v; 0 is the identity.
+template <int DT>
+__device__ __forceinline__ uint32_t combine_any(int mo, bool packed, uint32_t x,
+                                                uint32_t y) {
+  if (!packed) return combine_bits<DT>(mo, x, y);
+  if (x == 0) return y;
+  if (y == 0) return x;
+  return combine_bits<DT_I32>(mo, x - 1, y - 1) + 1;
+}
+
+// Coalesced copy of one tile from global memory to shared memory.
+__device__ __forceinline__ void load_tile(int* dst, const int* src) {
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4* d4 = reinterpret_cast<int4*>(dst);
+  for (int i = threadIdx.x; i < TILE_ELEMS / 4; i += blockDim.x) d4[i] = s4[i];
+}

@@ -1,0 +1,31 @@
+"""``graphblas_tpu_torch.ss``: extensions beyond the GraphBLAS C API."""
+
+__all__ = ["iterate"]
+
+
+def iterate(body, state, *, cond=None, max_iter=64):
+    """Run an algorithm loop (graphblas_tpu/ss/__init__.py ``iterate``).
+
+    ``body(state, i)`` mutates the collections of ``state`` in place
+    through normal GraphBLAS calls; ``i`` is a 1-based INT64 Scalar
+    counter.  ``cond(state, i)``, evaluated after each body run, returns a
+    Scalar; the loop continues while it is truthy (do-while), and always
+    stops after ``max_iter`` runs.  Returns the number of runs.
+
+    The loop is plain Python: reading ``cond`` costs one device sync per
+    iteration.  Replaying the body as a CUDA graph is ROADMAP.md queue 1,
+    item 6.
+    """
+    from ..core.dtypes import INT64
+    from ..core.scalar import Scalar
+
+    i = 0
+    while i < max_iter:
+        i += 1
+        counter = Scalar.from_value(i, INT64)
+        body(state, counter)
+        if cond is not None:
+            c = cond(state, counter)
+            if c.is_empty or not c.value:
+                break
+    return i
