@@ -4,22 +4,30 @@
     python3 chip_smoke.py [--out DIR]
 
 Run from the repository root.  It builds the host native libraries and
-the four CUDA kernels of the lanepipe SpMV from the sources, then:
+the six CUDA kernels of the two SpMV engines from the sources, then:
 
 1. kernel phase: on the plans of bench.py's zipf graph (n = 2**19, degree
    8, FP32 weights 1/outdeg, and its BOOL twin), runs each kernel and its
    plain PyTorch version on the card on the same inputs and compares them
-   (bitwise for the permutations and integer paths, rel 1e-5 for the FP32
-   scan), including the extract trimmed to TV=34 and to TV=1, and times
-   both with CUDA events;
+   (bitwise for the permutations, integer paths, min/max and `first`, rel
+   1e-5 for the FP32 plus scans), including the extract trimmed to TV=34
+   and to TV=1, and times both with CUDA events;
 2. PageRank (bench.py's pr_body, 20 iterations of ss.iterate) on the zipf
    graph, checked against a float64 scipy power iteration;
 3. level BFS (bench.py's bfs_body with the lor-reduce cond) on the BOOL
    graph, checked level by level against a numpy frontier BFS;
-4. PageRank on bench.py's RMAT graph (scale 17), checked the same way.
+4. PageRank on bench.py's RMAT graph (scale 17), checked the same way;
+5. SSSP (algorithms.sssp, Bellman-Ford over min_plus) on the zipf graph,
+   checked against scipy's Dijkstra in float64: its distance vector starts
+   with one entry, so it runs the sparse-vector branch (lane_segscan);
+6. row and column reduces of the zipf matrices through the sort pipeline
+   (segscan), checked against numpy in float64;
+7. vxm/mxv on a hypersparse random digraph (n = 2**22, 2**21 edges), which
+   the lanepipe turns down, through the sort pipeline, checked against
+   numpy in float64.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
-runs and fails if a kernel was not launched.  The line before the last is
+runs and fails if a kernel of its path was not launched.  The line before the last is
 {"kernels": [...]}, the last {"ok": true, "device": {...}}.  Any failure
 exits non-zero before the last line.  It uses no JAX.
 """
@@ -197,7 +205,7 @@ def bound(nbytes, nops=0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def compare(name, got, want, rel=None):
+def compare(name, got, want, rel=None, quiet=False):
     """Max abs error; bitwise equality (rel None) or rel tolerance."""
     import torch
 
@@ -220,7 +228,8 @@ def compare(name, got, want, rel=None):
         bad = int(((g.double() - w.double()).abs() > tol).sum())
         if bad:
             fail(f"{name}: {bad} elements beyond rel {rel} (max abs err {err})")
-    log(f"  {name}: ok, max_abs_err {err:.3g}")
+    if not quiet:
+        log(f"  {name}: ok, max_abs_err {err:.3g}")
     return err
 
 
@@ -369,6 +378,9 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
         "graphblas_tpu/core/engine/permute.py:223", err2,
         cuda_ms(torch, k2), cuda_ms(torch, p2), 4 * 3 * fin.numel(),
         library_ms=lib2)
+    variants = {}
+    new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants)
+    results["kernel_variants"] = variants
     results["kernels"] = rows
     results["plan"] = {"L": e["L"], "R_g": R_g, "nblocks_g": nblocks,
                        "R_scan": R_scan, "V": e["V"], "TV": TV,
@@ -376,17 +388,223 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
                        "plan_bool_s": secs_b}
 
 
-KERNELS = ("gather_mult", "mid_perm", "fused_permC_scan_permA", "tile_perm")
+def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
+    """K1's validity output, K5 and K6 against their plain versions."""
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+    from graphblas_tpu_torch.core.engine import sortpipe as sp
+    from graphblas_tpu_torch.core.dtypes import FP32
+
+    d = e["dev"]
+    n, R_g, R_scan = e["n_in"], e["R_g"], e["R_scan"]
+    ring = gb.semiring.plus_times["FP32"]
+    mono, mult = ring.monoid, ring.binaryop
+
+    def timed(name, kfn, pfn, nbytes):
+        """A variant that has no row of its own in the kernels line."""
+        ms, pms = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
+        b_ms, _ = bound(nbytes)
+        variants[name] = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                          "bytes": nbytes}
+        log(f"  {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+
+    # ---- K1 with the validity output: a u of about 10% density
+    uok = torch.from_numpy(rng.random(n) < 0.1).to(dev)
+    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+    u2, u2ok = lp.pad_u(u, uok, FP32, n)
+    kw = dict(kind="vxm", R_g=R_g, nblocks=e["nblocks_g"],
+              permA=d["routeP"][0])
+    k1 = lambda: lp.gather_mult(plan_g, u2, u2ok, mult, FP32, FP32, mono, **kw)  # noqa: E731
+    p1 = lambda: lp.gather_mult_plain(plan_g, u2, u2ok, mult, FP32, FP32, mono, **kw)  # noqa: E731
+    (gv, gh), (pv, ph) = k1(), p1()
+    compare("K1 gather_mult FP32 sparse u, values", gv, pv)
+    compare("K1 gather_mult FP32 sparse u, okp", gh, ph)
+    # reads 4 plan words and the permA index per slot, idx1, both u tables;
+    # writes 2 words per slot
+    timed("gather_mult_okp", k1, p1,
+          4 * (6 * R_g * 128 + e["nblocks_g"] * 128 * 128 + 2 * u2.numel()
+               + 3 * e["nblocks_g"]))
+
+    # ---- K5 lane_segscan on the S layout of the zipf plan
+    barrier, oks = d["barrier"], d["oks"]
+    shape = (R_scan, 128)
+    vf = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    vi = torch.from_numpy(rng.integers(-1000, 1000, shape).astype(np.int32)).to(dev)
+    hh = (torch.from_numpy(rng.random(shape) < 0.5).to(dev) & (oks != 0)).to(torch.int32)
+    bar0 = barrier.clone()
+    bar0[0] = 0  # row 0 starts a run whether or not its barrier is set
+    err5 = None
+    for label, mono_k, vals, rel in (
+            ("FP32 plus", gb.monoid.plus["FP32"], vf, 1e-5),
+            ("FP32 min", gb.monoid.min["FP32"], vf, None),
+            ("INT32 plus", gb.monoid.plus["INT32"], vi, None)):
+        cmb = lp.combines(mono_k)[0]
+        for bar, btag in ((barrier, ""), (bar0, ", no barrier in row 0")):
+            for ok in (hh, None):
+                tag = f"K5 lane_segscan {label}" + \
+                    (" + validity" if ok is not None else "") + btag
+                gv, gh = lp.lane_segscan(bar, vals, ok, cmb)
+                pv, ph = lp.lane_segscan_plain(bar, vals, ok, cmb)
+                err = compare(tag, gv, pv, rel=rel)
+                if ok is not None:
+                    compare(tag + ", ok channel", gh, ph)
+                elif gh is not None:
+                    fail(f"{tag}: a validity channel came back")
+                if err5 is None:
+                    err5 = err
+    cmb = lp.combines(mono)[0]
+    k5 = lambda: lp.lane_segscan(barrier, vf, hh, cmb)  # noqa: E731
+    p5 = lambda: lp.lane_segscan_plain(barrier, vf, hh, cmb)  # noqa: E731
+    add("lane_segscan", "graphblas_tpu_torch/csrc/lane_segscan.cu",
+        "graphblas_tpu/core/engine/lanepipe.py:476", err5, cuda_ms(torch, k5),
+        cuda_ms(torch, p5), 4 * 5 * R_scan * 128, nops=2 * R_scan * 128)
+    k5v = lambda: lp.lane_segscan(barrier, vf, None, cmb)  # noqa: E731
+    p5v = lambda: lp.lane_segscan_plain(barrier, vf, None, cmb)  # noqa: E731
+    timed("lane_segscan_values_only", k5v, p5v, 4 * 3 * R_scan * 128)
+
+    # ---- K6 segscan on the zipf matrix's sort-pipeline plan (vxm side)
+    t0 = time.perf_counter()
+    se = sp.get_plan(A._sparse, False, device=dev)
+    torch.cuda.synchronize()
+    L = se["L"]
+    plan_bytes = sum(t.numel() * t.element_size() for t in sp.plan_dyn_tuple(se))
+    log(f"sort-pipeline plan: {time.perf_counter() - t0:.2f} s, L={L}, "
+        f"{plan_bytes / 1e6:.1f} MB on the card")
+    variants["sortpipe_plan"] = {"L": L, "bytes": plan_bytes}
+    src_m, barrier_m, src_back, barrier_i, _, vals_m, ok_m = sp.plan_dyn_tuple(se)
+    zpad = torch.zeros(L - n, dtype=torch.float32, device=dev)
+    uok9 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    m_v, m_h = sp.sort_apply(src_m, [torch.cat([u, zpad]),
+                                     torch.cat([uok9.to(torch.int32),
+                                                zpad.to(torch.int32)])])
+    pair = [sp.FIRST, sp.FIRST]
+    got = sp.segscan(barrier_m, [m_v, m_h], pair)
+    want = sp.segscan_channels_plain(barrier_m, [m_v, m_h], pair)
+    compare("K6 segscan fill (first, first), values", got[0], want[0])
+    compare("K6 segscan fill (first, first), validity", got[1], want[1])
+    timed("segscan_fill",
+          lambda: sp.segscan(barrier_m, [m_v, m_h], [sp.FIRST, sp.FIRST]),
+          lambda: sp.segscan_channels_plain(barrier_m, [m_v, m_h],
+                                            [sp.FIRST, sp.FIRST]), 4 * 5 * L)
+    okf = (got[1] != 0) & (ok_m != 0) & (barrier_m == 0)
+    i_v, i_h = sp.sort_apply(src_back, [torch.where(okf, got[0] * vals_m, 0.0),
+                                        okf.to(torch.int32)])
+    err6 = None
+    for label, mono_k, rel in (("plus", gb.monoid.plus["FP32"], 1e-5),
+                               ("min", gb.monoid.min["FP32"], None)):
+        pair = [sp.monoid_combine(mono_k), sp.COUNT]
+        got = sp.segscan(barrier_i, [i_v, i_h], pair)
+        want = sp.segscan_channels_plain(barrier_i, [i_v, i_h], pair)
+        err = compare(f"K6 segscan reduce ({label}, plus), values", got[0],
+                      want[0], rel=rel)
+        compare(f"K6 segscan reduce ({label}, plus), count", got[1], want[1])
+        if err6 is None:
+            err6 = err
+    b0 = barrier_i.clone()
+    b0[0] = 0  # element 0 starts a segment whether or not its barrier is set
+    pair = [sp.monoid_combine(gb.monoid.plus["INT32"]), sp.FIRST, sp.COUNT]
+    chans = [i_h, torch.arange(L, dtype=torch.int32, device=dev), i_h]
+    got = sp.segscan(b0, chans, pair)
+    want = sp.segscan_channels_plain(b0, chans, pair)
+    for g, w_, nm in zip(got, want, ("plus", "first", "count")):
+        compare(f"K6 segscan three channels, no barrier at 0, {nm}", g, w_)
+    pair = [sp.monoid_combine(mono), sp.COUNT]
+    k6 = lambda: sp.segscan(barrier_i, [i_v, i_h], pair)  # noqa: E731
+    p6 = lambda: sp.segscan_channels_plain(barrier_i, [i_v, i_h], pair)  # noqa: E731
+    add("segscan", "graphblas_tpu_torch/csrc/segscan.cu",
+        "graphblas_tpu/core/engine/sortpipe.py:168", err6, cuda_ms(torch, k6),
+        cuda_ms(torch, p6), 4 * 5 * L, nops=2 * L)
+    combine_sweep(gb, torch, dev, rng)
 
 
-def check_launches(K, phase, totals):
+def combine_sweep(gb, torch, dev, rng):
+    """K5 and K6 at small sizes over every monoid and 32-bit type the
+    engines take, against their plain versions: one and three tiles for
+    K5; one block, 16 blocks, and 1030 blocks (a second, partly filled
+    round of the carry kernel) for K6; and five channels, which takes two
+    launch groups.  FP32 plus and times to rel 1e-5, the rest bitwise."""
+    from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32, UINT32
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+    from graphblas_tpu_torch.core.engine import sortpipe as sp
+    from graphblas_tpu_torch.core.operator.monoid import BUILTINS
+
+    def values(shape, dt):
+        if dt is FP32:
+            return torch.from_numpy(
+                rng.random(shape, dtype=np.float32) + np.float32(0.5)).to(dev)
+        if dt is BOOL:
+            return torch.from_numpy(
+                (rng.random(shape) < 0.5).astype(np.int32)).to(dev)
+        lo, hi = (-2**31, 2**31) if dt is UINT32 else (-1000, 1000)
+        return torch.from_numpy(
+            rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+    def barriers(shape, p):
+        b = (rng.random(shape) < p).astype(np.int32)
+        b[0] = 1
+        return torch.from_numpy(b).to(dev)
+
+    monos = [m[dt] for m in BUILTINS.values() for dt in (BOOL, INT32, UINT32, FP32)
+             if dt in m._domains]
+    worst = 0.0
+    for mono in monos:
+        rel = 1e-5 if mono.type is FP32 and mono.parent.name in ("plus", "times") \
+            else None
+        tag = f"{mono.parent.name}[{mono.type}]"
+        cmb = lp.combines(mono)[0]
+        for R in (128, 384):
+            bar, v = barriers((R, 128), 1 / 40), values((R, 128), mono.type)
+            h = values((R, 128), BOOL)
+            for ok in (h, None):
+                gv, gh = lp.lane_segscan(bar, v, ok, cmb)
+                pv, ph = lp.lane_segscan_plain(bar, v, ok, cmb)
+                worst = max(worst, compare(f"K5 sweep {tag} R={R}", gv, pv,
+                                           rel=rel, quiet=True))
+                if ok is not None:
+                    compare(f"K5 sweep {tag} R={R} ok", gh, ph, quiet=True)
+        for L in (4096, 1 << 16):
+            bar = barriers(L, 1 / 100)
+            chans = [values(L, mono.type), values(L, INT32), values(L, BOOL)]
+            pair = [sp.monoid_combine(mono), sp.FIRST, sp.COUNT]
+            got = sp.segscan(bar, chans, pair)
+            want = sp.segscan_channels_plain(bar, chans, pair)
+            worst = max(worst, compare(f"K6 sweep {tag} L={L}", got[0], want[0],
+                                       rel=rel, quiet=True))
+            compare(f"K6 sweep {tag} L={L} first", got[1], want[1], quiet=True)
+            compare(f"K6 sweep {tag} L={L} count", got[2], want[2], quiet=True)
+    L = 4096 * 1030
+    bar = barriers(L, 1 / 5000)
+    bar[L // 3:2 * L // 3] = 0  # one segment over some 340 blocks
+    chans = [values(L, INT32), values(L, INT32), values(L, BOOL),
+             values(L, INT32), values(L, FP32)]
+    pair = [sp.monoid_combine(gb.monoid.plus["INT32"]), sp.FIRST, sp.COUNT,
+            sp.monoid_combine(gb.monoid.max["INT32"]),
+            sp.monoid_combine(gb.monoid.min["FP32"])]
+    got = sp.segscan(bar, chans, pair)
+    want = sp.segscan_channels_plain(bar, chans, pair)
+    for i, (g, w_) in enumerate(zip(got, want)):
+        compare(f"K6 sweep five channels, 1030 blocks, channel {i}", g, w_,
+                quiet=True)
+    log(f"  K5 and K6 sweep over {len(monos)} monoids: ok, largest FP32 abs "
+        f"err {worst:.3g}")
+
+
+KERNELS = ("gather_mult", "mid_perm", "fused_permC_scan_permA", "tile_perm",
+           "lane_segscan", "segscan")
+LANEPIPE_FAST = KERNELS[:4]
+
+
+def check_launches(K, phase, totals, need=LANEPIPE_FAST):
+    """Log the phase's launch counts, fail if a kernel in `need` was never
+    launched in it, and add all counts to totals."""
     got = {k: K.launches[k] for k in KERNELS}
     log(f"  launches in {phase}: {got}")
-    zero = [k for k, v in got.items() if v == 0]
+    zero = [k for k in need if got[k] == 0]
     if zero:
         fail(f"{phase}: kernels never launched on the main path: {zero}")
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
+    return got
 
 
 def pagerank_phase(gb, torch, K, src, dst, n, A, tag, iters, results, totals):
@@ -495,11 +713,218 @@ def bfs_phase(gb, torch, K, src, dst, n, Ab, results, totals):
                       "mteps": traversed / secs / 1e6, "profile": prof}
 
 
+def check_vector(name, vec, ref_idx, ref_vals, rel=None):
+    """A result Vector against a numpy reference: structure exactly, values
+    exactly (rel None) or within rel.  Returns the max abs error."""
+    gi, gv = vec.to_coo()
+    if not np.array_equal(gi.astype(np.int64), ref_idx):
+        fail(f"{name}: structure differs from the reference ({len(gi)} vs "
+             f"{len(ref_idx)} entries)")
+    if not np.isfinite(gv.astype(np.float64)).all():
+        fail(f"{name}: non-finite values")
+    g64, r64 = gv.astype(np.float64), ref_vals.astype(np.float64)
+    err = float(np.abs(g64 - r64).max()) if len(gi) else 0.0
+    if rel is None:
+        if not np.array_equal(gv, ref_vals.astype(gv.dtype)):
+            fail(f"{name}: values differ from the reference")
+    elif (np.abs(g64 - r64) > rel * np.abs(r64)).any():
+        fail(f"{name}: values beyond rel {rel} of the reference (max abs "
+             f"err {err})")
+    return err
+
+
+def timed_calls(torch, fn):
+    """Median host ms of RUNS calls of fn, each ending in a device sync
+    (after one warm-up call, which builds any plan)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(runs)), runs, first_s
+
+
+def sssp_phase(gb, torch, K, src, dst, w, n, A, results, totals):
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import dijkstra
+
+    t0 = time.perf_counter()
+    ref = dijkstra(sps.csr_matrix((w.astype(np.float64), (src, dst)),
+                                  shape=(n, n)), indices=0)
+    ref_s = time.perf_counter() - t0
+    reach = np.flatnonzero(np.isfinite(ref))
+    gb.algorithms.sssp(A, 0)  # warm-up
+    runs = []
+    for _ in range(RUNS):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = gb.algorithms.sssp(A, 0)
+        d.wait(how="complete")
+        runs.append(time.perf_counter() - t0)
+        err = check_vector("sssp", d, reach, ref[reach], rel=1e-5)
+    got = check_launches(K, "sssp", totals,
+                         need=("gather_mult", "mid_perm", "tile_perm",
+                               "lane_segscan"))
+    slow = got["lane_segscan"] // 2
+    fast = got["fused_permC_scan_permA"] // 2
+    iters = slow + fast
+    secs = float(np.median(runs))
+    log(f"  sssp: {iters} iterations ({slow} on the sparse-vector branch, "
+        f"{fast} on the dense one), ms {[r * 1e3 for r in runs]} (median "
+        f"{secs * 1e3:.3f}), {secs * 1e3 / iters:.4f} ms/iteration, reached "
+        f"{len(reach)}, max abs err {err:.3g} (scipy dijkstra {ref_s:.2f} s)")
+    prof = profile_breakdown(torch, lambda: gb.algorithms.sssp(A, 0), "sssp",
+                             secs * 1e3)
+    results["sssp"] = {"n": n, "iterations": iters, "slow_iterations": slow,
+                       "fast_iterations": fast,
+                       "ms_runs": [r * 1e3 for r in runs], "ms": secs * 1e3,
+                       "ms_per_iteration": secs * 1e3 / iters,
+                       "reached": int(len(reach)), "max_abs_err": err,
+                       "profile": prof}
+
+
+def reduce_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals):
+    w64 = w.astype(np.float64)
+    colmax = np.full(n, -np.inf)
+    np.maximum.at(colmax, dst, w64)
+    rows_i = np.flatnonzero(np.bincount(src, minlength=n))
+    cols_i = np.flatnonzero(np.bincount(dst, minlength=n))
+    cases = [
+        ("A.reduce_rowwise(plus)", lambda: A.reduce_rowwise("plus").new(),
+         rows_i, np.bincount(src, weights=w64, minlength=n)[rows_i], 1e-5),
+        ("A.reduce_columnwise(plus)", lambda: A.reduce_columnwise("plus").new(),
+         cols_i, np.bincount(dst, weights=w64, minlength=n)[cols_i], 1e-5),
+        ("A.T.reduce_rowwise(max)", lambda: A.T.reduce_rowwise("max").new(),
+         cols_i, colmax[cols_i], 1e-5),
+        ("Ab.reduce_columnwise(lor)", lambda: Ab.reduce_columnwise("lor").new(),
+         cols_i, np.ones(len(cols_i), bool), None),
+    ]
+    K.reset_launches()
+    out = {}
+    for name, fn, ref_i, ref_v, rel in cases:
+        vec, ms, runs, first_s = timed_calls(torch, fn)
+        err = check_vector(name, vec, ref_i, ref_v, rel=rel)
+        log(f"  {name}: ms {runs} (median {ms:.4f}), "
+            f"{len(src) / ms / 1e6:.4f} GnnZ/s, first call {first_s:.2f} s, "
+            f"{len(ref_i)} entries, max abs err {err:.3g}")
+        out[name] = {"ms": ms, "ms_runs": runs, "first_call_s": first_s,
+                     "gnnz_s": len(src) / ms / 1e6, "max_abs_err": err}
+    check_launches(K, "reduce", totals, need=("segscan",))
+    fn = cases[0][1]
+    out["profile"] = profile_breakdown(torch, fn, cases[0][0],
+                                       out[cases[0][0]]["ms"])
+    results["reduce"] = out
+
+
+def hypersparse_phase(gb, torch, K, dev, results, totals):
+    """vxm/mxv on a uniformly random digraph with far fewer edges than
+    rows: every 16384-wide window costs the lanepipe a whole gather block,
+    so its plan is over PACK_LIMIT and the sort pipeline runs."""
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+
+    n, m = 1 << 22, 1 << 21
+    rng = np.random.default_rng(SEED + 2)
+    lin = np.unique(rng.integers(0, n * n, int(m * 1.01)))
+    lin = np.sort(rng.choice(lin, m, replace=False))
+    r, c = lin // n, lin % n
+    w = (rng.random(m, dtype=np.float32) + np.float32(0.5))
+    t0 = time.perf_counter()
+    H = gb.Matrix.from_coo(r, c, w, dtype="FP32", nrows=n, ncols=n)
+    Hb = gb.Matrix.from_coo(r, c, np.ones(m, bool), dtype="BOOL", nrows=n,
+                            ncols=n)
+    for M, dest_is_row, tag in ((H, False, "FP32 vxm"), (H, True, "FP32 mxv"),
+                                (Hb, False, "BOOL vxm")):
+        if lp.get_plan(M._sparse, dest_is_row, device=dev) is not None:
+            fail(f"hypersparse {tag}: the lanepipe took the matrix, so the "
+                 f"sort pipeline would not run")
+    log(f"  hypersparse n={n} nnz={m}: matrices and the lanepipe's refusals "
+        f"in {time.perf_counter() - t0:.2f} s")
+    w64 = w.astype(np.float64)
+
+    # vxm plus_times with a dense u
+    uv = rng.random(n, dtype=np.float32)
+    u = gb.Vector.from_dense(uv)
+    ref1 = np.bincount(c, weights=uv.astype(np.float64)[r] * w64, minlength=n)
+    idx1 = np.flatnonzero(np.bincount(c, minlength=n))
+    # mxv min_plus with a 1% sparse u
+    si = np.sort(rng.choice(n, n // 100, replace=False))
+    sv = rng.random(len(si), dtype=np.float32)
+    us = gb.Vector.from_coo(si, sv, dtype="FP32", size=n)
+    uok = np.zeros(n, bool)
+    uok[si] = True
+    ud = np.zeros(n, np.float32)
+    ud[si] = sv
+    e2 = uok[c]
+    # the port adds in float32; the reference adds the same two float32
+    # numbers in float64, so rel 1e-5 covers the one rounding
+    ref2 = np.full(n, np.inf)
+    np.minimum.at(ref2, r[e2], w64[e2] + ud[c[e2]].astype(np.float64))
+    idx2 = np.flatnonzero(np.bincount(r[e2], minlength=n))
+    # BOOL lor_land vxm with a 30% sparse u of random truth values
+    bok = rng.random(n) < 0.3
+    bi = np.flatnonzero(bok)
+    bv = rng.random(len(bi)) < 0.5
+    ub = gb.Vector.from_coo(bi, bv, dtype="BOOL", size=n)
+    bd = np.zeros(n, bool)
+    bd[bi] = bv
+    e3 = bok[r]
+    idx3 = np.flatnonzero(np.bincount(c[e3], minlength=n))
+    ref3 = np.bincount(c[e3], weights=bd[r[e3]].astype(np.float64),
+                       minlength=n)[idx3] > 0
+    cases = [
+        ("vxm plus_times[FP32], dense u",
+         lambda: u.vxm(H, gb.semiring.plus_times["FP32"]).new(),
+         idx1, ref1[idx1], 1e-5),
+        ("mxv min_plus[FP32], 1% sparse u",
+         lambda: H.mxv(us, gb.semiring.min_plus["FP32"]).new(),
+         idx2, ref2[idx2], 1e-5),
+        ("vxm lor_land[BOOL], 30% sparse u",
+         lambda: ub.vxm(Hb, gb.semiring.lor_land["BOOL"]).new(),
+         idx3, ref3, None),
+    ]
+    K.reset_launches()
+    out = {"n": n, "nnz": m}
+    for name, fn, ref_i, ref_v, rel in cases:
+        vec, ms, runs, first_s = timed_calls(torch, fn)
+        err = check_vector(f"hypersparse {name}", vec, ref_i, ref_v, rel=rel)
+        log(f"  {name}: ms {runs} (median {ms:.4f}), {m / ms / 1e6:.4f} "
+            f"GnnZ/s, first call {first_s:.2f} s, {len(ref_i)} entries, max "
+            f"abs err {err:.3g}")
+        out[name] = {"ms": ms, "ms_runs": runs, "first_call_s": first_s,
+                     "gnnz_s": m / ms / 1e6, "entries": int(len(ref_i)),
+                     "max_abs_err": err}
+    got = check_launches(K, "hypersparse", totals, need=("segscan",))
+    if any(got[k] for k in KERNELS if k != "segscan"):
+        fail("hypersparse: a lanepipe kernel launched; the path was not the "
+             "sort pipeline")
+    fn = cases[0][1]
+    out["profile"] = profile_breakdown(torch, fn, cases[0][0],
+                                       out[cases[0][0]]["ms"])
+    results["hypersparse"] = out
+
+
+PHASES = ("kernels", "pagerank_zipf", "bfs", "pagerank_rmat", "sssp",
+          "reduce", "hypersparse")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the full results and the "
                     "compiler's register report")
+    ap.add_argument("--phases", default="all", help="comma-separated subset "
+                    f"of {','.join(PHASES)}; a partial run checks what it "
+                    "runs and prints no ok line")
     args = ap.parse_args()
+    phases = PHASES if args.phases == "all" else tuple(args.phases.split(","))
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phase in {args.phases!r}")
     t_start = time.perf_counter()
     import torch
 
@@ -525,7 +950,8 @@ def main():
         fail("native host libraries (permplan, builder) did not build")
     native_s = time.perf_counter() - t0
     cuda_s = K.build()
-    log(f"build: native {native_s:.2f} s, CUDA kernels {cuda_s:.2f} s")
+    log(f"build: native {native_s:.2f} s, CUDA kernels {cuda_s:.2f} s "
+        f"{ {k: round(v, 1) for k, v in K.build_secs.items()} }")
     for name in K.SOURCES:
         K.lib(name)
     results = {"gpu": line, "build_native_s": native_s, "build_cuda_s": cuda_s}
@@ -547,24 +973,40 @@ def main():
                                 dtype="BOOL", nrows=n, ncols=n)
         log(f"graph zipf n={n} nnz={len(src)} built in "
             f"{time.perf_counter() - t0:.2f} s")
-        log("phase: kernels")
-        kernel_phase(gb, torch, torch.device("cuda"), A, Ab, results)
-        log("phase: pagerank zipf")
-        pagerank_phase(gb, torch, K, src, dst, n, A, "zipf", 20, results,
-                       totals)
-        log("phase: bfs zipf")
-        bfs_phase(gb, torch, K, src, dst, n, Ab, results, totals)
-        log("phase: pagerank rmat")
-        rs, rd, rn = build_rmat(17)
-        routdeg = np.bincount(rs, minlength=rn).astype(np.float32)
-        rw = (1.0 / routdeg[rs]).astype(np.float32)
-        R = gb.Matrix.from_coo(rs, rd, rw, dtype="FP32", nrows=rn, ncols=rn)
-        pagerank_phase(gb, torch, K, rs, rd, rn, R, "rmat", 20, results,
-                       totals)
+        if "kernels" in phases:
+            log("phase: kernels")
+            kernel_phase(gb, torch, torch.device("cuda"), A, Ab, results)
+        if "pagerank_zipf" in phases:
+            log("phase: pagerank zipf")
+            pagerank_phase(gb, torch, K, src, dst, n, A, "zipf", 20, results,
+                           totals)
+        if "bfs" in phases:
+            log("phase: bfs zipf")
+            bfs_phase(gb, torch, K, src, dst, n, Ab, results, totals)
+        if "pagerank_rmat" in phases:
+            log("phase: pagerank rmat")
+            rs, rd, rn = build_rmat(17)
+            routdeg = np.bincount(rs, minlength=rn).astype(np.float32)
+            rw = (1.0 / routdeg[rs]).astype(np.float32)
+            R = gb.Matrix.from_coo(rs, rd, rw, dtype="FP32", nrows=rn, ncols=rn)
+            pagerank_phase(gb, torch, K, rs, rd, rn, R, "rmat", 20, results,
+                           totals)
+            del R
+        if "sssp" in phases:
+            log("phase: sssp zipf")
+            sssp_phase(gb, torch, K, src, dst, w, n, A, results, totals)
+        if "reduce" in phases:
+            log("phase: reduce zipf")
+            reduce_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals)
+        del A, Ab
+        if "hypersparse" in phases:
+            log("phase: hypersparse")
+            hypersparse_phase(gb, torch, K, torch.device("cuda"), results,
+                              totals)
 
     kernels = []
-    for name, row in results["kernels"].items():
-        row["launches"] = totals[name]
+    for name, row in results.get("kernels", {}).items():
+        row["launches"] = totals.get(name, 0)
         kernels.append(row)
     results["wall_s"] = time.perf_counter() - t_start
     if args.out:
@@ -573,6 +1015,12 @@ def main():
     log(f"wall {results['wall_s']:.1f} s")
     log(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)
+    if phases != PHASES:
+        log(f"partial run ({','.join(phases)}): no verdict")
+        return
+    never = [k["name"] for k in kernels if k["launches"] == 0]
+    if len(kernels) != len(KERNELS) or never:
+        fail(f"kernels missing from the line or never launched: {never}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

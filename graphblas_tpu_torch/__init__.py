@@ -2,9 +2,10 @@
 
 The same user code runs after ``import graphblas_tpu_torch as gb`` for the
 part ported so far: sparse matrices built with ``Matrix.from_coo``, dense
-vectors, masks, ``vxm``/``mxv`` over the lanepipe SpMV engine (four
+vectors, masks, ``vxm``/``mxv`` over the lanepipe SpMV engine and, for
+matrices it turns down, the sort pipeline, row and column reduces (six
 hand-written CUDA kernels for the H100), ``apply``, ``reduce``, scalar
-assignment and ``ss.iterate``.  Everything runs on ``cuda`` unless the
+assignment, ``ss.iterate`` and the algorithms ``sssp`` and ``bfs_level``.  Everything runs on ``cuda`` unless the
 caller asks for the CPU with ``config.set(device="cpu")``.  What is not
 ported yet raises ``NotImplementedError`` naming its ROADMAP.md item.
 
@@ -17,5 +18,7 @@ from .core.matrix import Matrix
 from .core.scalar import Scalar
 from .core.vector import Vector
 
-__all__ = ["Matrix", "Vector", "Scalar", "config", "binary", "dtypes",
-           "monoid", "semiring", "ss", "unary"]
+from . import algorithms  # noqa: E402  (imports Vector from this package)
+
+__all__ = ["Matrix", "Vector", "Scalar", "config", "algorithms", "binary",
+           "dtypes", "monoid", "semiring", "ss", "unary"]

@@ -23,13 +23,14 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
-SOURCES = ("tile_perm", "mid_perm", "gather_mult", "fused_scan")
+SOURCES = ("tile_perm", "mid_perm", "gather_mult", "fused_scan",
+           "lane_segscan", "segscan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset, keyed by the kernel's name
-# (fused_permC_scan_permA counts both launches of csrc/fused_scan.cu,
-# scan_summary and scan_final)
+# (fused_permC_scan_permA and lane_segscan count both launches of their
+# source, summary and final; segscan counts its three)
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
@@ -37,6 +38,7 @@ MULT_OP = {"times": 0, "plus": 1, "first": 2, "second": 3, "pair": 4,
            "min": 5, "max": 6, "land": 7, "lor": 8, "band": 9, "bor": 10}
 MONOID_OP = {"plus": 0, "times": 1, "min": 2, "max": 3, "lor": 4, "land": 5,
              "band": 6, "bor": 7}
+SEG_FIRST = 255  # segscan.cu's combine code for `first`
 MAXCH = 4
 
 _P = ctypes.c_void_p
@@ -44,13 +46,16 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "tile_perm": [_P, _P, _P, _I, _I, _P],
     "mid_perm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gather_mult": [_P] * 9 + [_I] * 7 + [_P],
+    "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
     "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
+    "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
+    "segscan": [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
 }
 
 _libs = {}
 _lock = threading.Lock()
 build_log = {}
+build_secs = {}  # seconds from the start of build() until each nvcc was done
 
 
 def reset_launches():
@@ -94,6 +99,7 @@ def build():
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate(timeout=600)
         build_log[name] = out
+        build_secs[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
         else:

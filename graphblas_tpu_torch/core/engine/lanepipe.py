@@ -20,23 +20,23 @@ copy of the JAX package's), as four kernels and a few torch ops:
    natural order; split high-degree destinations are recombined by a small
    tree reduction in torch (:func:`spmv_pipeline`'s ``tail_two_level``).
 
+A sparse u of a non-BOOL type takes the slow branch instead of steps 2-4
+fused: K1 also writes the validity of every slot, both channels are routed
+(K2, K3), scanned by :func:`lane_segscan` (K5) and extracted.
+
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs
 its plain PyTorch version for CPU tensors, so the CPU and the card run the
-same composition.  Not ported yet (each raises ``NotImplementedError``):
-the sparse-u branch on CUDA (needs ``lane_segscan``), plans over
-PACK_LIMIT (the sort-pipeline fallback) and values wider than 32 bits.
+same composition.  :func:`get_plan` returns None for a matrix that packs
+over PACK_LIMIT or holds values wider than 32 bits; the caller then takes
+the sort pipeline (sortpipe.py) or raises.
 """
-
-from collections import namedtuple
 
 import numpy as np
 import torch
 
-from . import dense
 from . import kernels as K
 from . import permute as pm
 from . import sortpipe as sp
-from . import store as st
 
 BR_G = 256      # gather-kernel sublanes per block (32768 edge slots)
 BR_S = 128      # scan tile rows
@@ -333,17 +333,6 @@ def build_plan(d, k, vals_np, n_out, n_in):
 
 # --------------------------------------------------------------------- #
 # K1: gather + multiply
-def _multiply(mult, a_c, g_c, a_dt, u_dt, z_dt, kind):
-    """Typed multiply on carrier tensors; result on z_dt's carrier."""
-    a_in = sp.from_carrier(a_c, a_dt)
-    x_in = sp.from_carrier(g_c, u_dt)
-    if kind == "mxv":
-        p = dense.apply_binop(mult, a_in, a_dt, x_in, u_dt)
-    else:
-        p = dense.apply_binop(mult, x_in, u_dt, a_in, a_dt)
-    return sp.to_carrier(st.cast_values(p, mult.return_type, z_dt), z_dt)
-
-
 def gather_mult_plain(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
                       nblocks, packed=False, full_u=False, permA=None):
     """Plain version of K1 (see :func:`gather_mult`)."""
@@ -361,7 +350,7 @@ def gather_mult_plain(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
     ok = okg != 0
     if not full_u:
         ok = ok & (u2ok.reshape(-1)[uo].reshape(R_g, 128) != 0)
-    p = _multiply(mult, avals, g, a_dt, u_dt, z_dt, kind)
+    p = sp.multiply(mult, avals, g, a_dt, u_dt, z_dt, kind)
     if packed:
         out = torch.where(ok, p.to(torch.int32) + 1, 0).to(torch.int32)
     else:
@@ -398,10 +387,6 @@ def gather_mult(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
                                  packed=packed, full_u=full_u, permA=permA)
     wbase, idx1, locidx, okg, avals = plan_g
     z_dt = mono.type
-    if not (packed or full_u):
-        raise NotImplementedError(
-            "the u-validity channel of gather_mult (sparse u, non-BOOL) is "
-            "not on CUDA yet: ROADMAP.md queue 2, item 5 (lane_segscan)")
     same = (a_dt == u_dt == mult.type == mult.type2 == mult.return_type
             == z_dt)
     if not same or mult.name not in K.MULT_OP:
@@ -419,58 +404,73 @@ def gather_mult(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
         raise ValueError("gather_mult: plan arrays do not match R_g/nblocks")
     out = torch.empty((R_g, 128), device=u2.device,
                       dtype=torch.int32 if packed else u2.dtype)
+    okp = None if (packed or full_u) else torch.empty(
+        (R_g, 128), device=u2.device, dtype=torch.int32)
     rc = K.lib("gather_mult").gather_mult(
         wbase.data_ptr(), u2.data_ptr(), u2ok.data_ptr(), idx1.data_ptr(),
         locidx.data_ptr(), okg.data_ptr(), avals.data_ptr(),
         None if permA is None else permA.data_ptr(), out.data_ptr(),
-        R_g // 128, K.DT[sp.kernel_dtype(z_dt)], K.MULT_OP[mult.name],
+        None if okp is None else okp.data_ptr(), R_g // 128, K.DT[sp.kernel_dtype(z_dt)], K.MULT_OP[mult.name],
         int(kind == "mxv"), int(packed), int(full_u),
         0 if packed else _ident_bits(mono), K.stream_ptr(u2))
     K.check("gather_mult", rc)
     K.launches["gather_mult"] += 1
-    return out, None
+    return out, okp
 
 
 # --------------------------------------------------------------------- #
 # segmented scans
-# fn: torch combine on carriers; monoid/dt/packed select the CUDA combine
-Combine = namedtuple("Combine", "fn monoid dt packed")
-
-
-def segscan_plain(barrier, vals, fn):
-    """Inclusive segmented scan down the rows of every lane (column),
-    restarting where barrier is set (log-step form on whole arrays)."""
-    b = barrier != 0
-    v = vals
-    R = v.shape[0]
-    s = 1
-    while s < R:
-        v = torch.cat([v[:s], torch.where(b[s:], v[s:], fn(v[:-s], v[s:]))])
-        b = torch.cat([b[:s], b[s:] | b[:-s]])
-        s <<= 1
-    return v
+def lane_segscan_plain(barrier, vals, ok, combine):
+    """Plain version of K5 (see :func:`lane_segscan`)."""
+    v = sp.segscan_plain(barrier, vals, combine.fn)
+    h = None if ok is None else sp.segscan_plain(barrier, ok, torch.maximum)
+    return v, h
 
 
 def lane_segscan(barrier, vals, ok, combine):
-    """Per-lane segmented scan of vals (and of a validity channel ok,
-    combined by max).  Returns (scanned_vals, scanned_ok or None).
+    """Per-lane segmented scan down the rows (kernel K5): vals by the
+    combine, and a validity channel ok (int32) by max.  Returns
+    (scanned_vals, scanned_ok), or (scanned_vals, None) with ok=None.
 
-    Only the plain version exists: the sparse-u branch that needs it runs
-    on the CPU; its CUDA kernel is ROADMAP.md queue 2, item 5."""
-    if vals.device.type != "cpu":
-        raise NotImplementedError(
-            "lane_segscan has no CUDA kernel yet (ROADMAP.md queue 2, "
-            "item 5): the sparse-u branch of a non-BOOL vxm/mxv runs on the "
-            "CPU only")
-    v = segscan_plain(barrier, vals, combine.fn)
-    h = None if ok is None else segscan_plain(barrier, ok, torch.maximum)
-    return v, h
+    All arrays (R,128), R a multiple of 128; runs restart where barrier is
+    set, and row 0 starts one either way.  On CUDA this is two launches
+    (tile summaries, then the carried scan); see csrc/lane_segscan.cu."""
+    if vals.device.type == "cpu":
+        return lane_segscan_plain(barrier, vals, ok, combine)
+    if combine.monoid not in K.MONOID_OP:
+        raise NotImplementedError(f"monoid {combine.monoid} has no CUDA scan")
+    v = pm._as_i32(vals)
+    tensors = [barrier, v] + ([] if ok is None else [ok])
+    K.require_cuda("lane_segscan", tensors)
+    R = v.shape[0]
+    if R % 128 or v.dim() != 2 or v.shape[1] != 128 or any(
+            t.shape != v.shape for t in tensors):
+        raise ValueError("lane_segscan: arrays must be (R,128), R % 128 == 0")
+    if ok is not None and ok.dtype != torch.int32:
+        raise TypeError("lane_segscan: ok must be int32")
+    ntiles = R // 128
+    nch = 1 if ok is None else 2
+    scratch = torch.empty((nch + 1, ntiles * 128), dtype=torch.int32,
+                          device=v.device)
+    out = torch.empty_like(v)
+    outh = None if ok is None else torch.empty_like(ok)
+    rc = K.lib("lane_segscan").lane_segscan(
+        barrier.data_ptr(), v.data_ptr(),
+        None if ok is None else ok.data_ptr(), scratch[0].data_ptr(),
+        None if ok is None else scratch[1].data_ptr(),
+        scratch[nch].data_ptr(), out.data_ptr(),
+        None if ok is None else outh.data_ptr(), ntiles,
+        K.DT[sp.kernel_dtype(combine.dt)], K.MONOID_OP[combine.monoid],
+        int(combine.packed), K.stream_ptr(v))
+    K.check("lane_segscan", rc)
+    K.launches["lane_segscan"] += 2
+    return out.view(vals.dtype), outh
 
 
 def fused_permC_scan_permA_plain(pc_route, barrier, pa_ext, vals, combine):
     """Plain version of K4 (see :func:`fused_permC_scan_permA`)."""
     v = pm.tile_perm_plain(pc_route, [vals])[0]
-    v = segscan_plain(barrier, v, combine.fn)
+    v = sp.segscan_plain(barrier, v, combine.fn)
     return pm.tile_perm_plain(pa_ext, [v])[0]
 
 
@@ -511,13 +511,6 @@ def eligible(ring, a_dt, u_dt):
     return sp.eligible_spmv(ring, a_dt, u_dt)
 
 
-def _np_carrier(vals, dt):
-    """Host values of dt -> numpy array on the 32-bit carrier."""
-    if dt.is_float:
-        return vals.astype(np.float32)
-    return vals.astype(np.uint32 if dt.is_unsigned else np.int32).view(np.int32)
-
-
 def plan_from_numpy(plan, perm_plans, device):
     """The cache entry of a plan: numpy dicts from :func:`build_plan` and
     :func:`permute.build_perm_plan` (or the JAX package's functions of the
@@ -546,9 +539,7 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     device, or None when the plan would exceed PACK_LIMIT."""
     if at:
         dest_is_row = not dest_is_row
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = sp.norm_device(device)
     key = (dest_is_row, device)
     plans = spstore._lanepipe_plans
     if key in plans:
@@ -561,7 +552,7 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     k = cols if dest_is_row else rows
     n_out = spstore.nrows if dest_is_row else spstore.ncols
     n_in = spstore.ncols if dest_is_row else spstore.nrows
-    plan = build_plan(d, k, _np_carrier(vals, spstore.dtype), n_out, n_in)
+    plan = build_plan(d, k, sp.np_carrier(vals, spstore.dtype), n_out, n_in)
     if plan is None:
         plans[key] = None
         return None
@@ -615,8 +606,8 @@ def combines(mono):
         r = comb(a - 1, b - 1) + 1
         return torch.where(a == 0, b, torch.where(b == 0, a, r))
 
-    return (Combine(comb, mono.parent.name, z_dt, False),
-            Combine(combine_packed_fn, mono.parent.name, z_dt, True))
+    return (sp.Combine(comb, mono.parent.name, z_dt, False),
+            sp.Combine(combine_packed_fn, mono.parent.name, z_dt, True))
 
 
 def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
@@ -627,8 +618,8 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
     Other types check ``u_valid.all()`` on the host (one sync per call):
     a fully valid u (the PageRank shape) takes the fast branch, with one
     value channel and the plan's static output structure (deg > 0); a
-    sparse u takes the slow branch, which routes a validity channel too
-    and is not on CUDA yet.
+    sparse u takes the slow branch, which routes and scans a validity
+    channel too (:func:`lane_segscan`).
     """
     (gmeta, idx1, locidx, okg, avals, barrier, oks, routeP, extP,
      out_ok) = plan_dyn[:10]
@@ -649,7 +640,6 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
     z_dt = mono.type
     ident_c = sp.carrier_scalar(mono.identity, z_dt)
     packed = z_dt.is_bool
-    dev = u_vals.device
     u2, u2ok = pad_u(u_vals, u_valid, u_dt, n_in)
     comb = sp.monoid_scan_fn(mono.parent.name, z_dt)
     combine, combine_packed = combines(mono)
@@ -701,10 +691,6 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
         e_v = run_single(pad_to_L(prods, ident_c), combine, ident_c)
         return sp.from_carrier(e_v[:n_out], z_dt), out_ok[:n_out] != 0
 
-    if dev.type != "cpu":
-        raise NotImplementedError(
-            "a non-BOOL vxm/mxv with a sparse vector needs lane_segscan on "
-            "CUDA: ROADMAP.md queue 2, item 5")
     prods, okp = gather(False, False)
     pf = pad_to_L(prods, ident_c)
     hf = pad_to_L(okp, 0)

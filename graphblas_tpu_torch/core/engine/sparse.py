@@ -5,7 +5,8 @@ slice needs).
 The store keeps the matrix as host COO arrays sorted by (row, col) with
 duplicates combined.  The lanepipe builds its plan from these arrays and
 caches the plan's device tensors on the store, once per direction and
-device (``_lanepipe_plans``), so no device-to-host read happens per call.
+device (``_lanepipe_plans``), so no device-to-host read happens per call;
+the sort pipeline keeps its plans the same way (``_sortpipe_plans``).
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ _DUP_REDUCE = {"plus": np.add, "times": np.multiply, "min": np.minimum,
 
 class SparseStore:
     __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "dtype",
-                 "_lanepipe_plans")
+                 "_lanepipe_plans", "_sortpipe_plans")
 
     def __init__(self, rows, cols, vals, nrows, ncols, dtype):
         self.rows = rows
@@ -28,6 +29,7 @@ class SparseStore:
         self.ncols = int(ncols)
         self.dtype = dtype
         self._lanepipe_plans = {}
+        self._sortpipe_plans = {}
 
     def nvals(self):
         return len(self.rows)

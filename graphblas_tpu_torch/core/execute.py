@@ -1,12 +1,12 @@
 """The funnel every operation goes through: compute an expression's
 (values, valid), then write it back into its target under mask, accum and
 replace (graphblas_tpu/core/execute.py ``materialize``/``update_into`` and
-the mxv/vxm branch of ``_inline_sparse_impl``).  PyTorch runs eagerly, so
+the mxv/vxm and row/column reduce branches of ``_inline_sparse_impl``).  PyTorch runs eagerly, so
 there is no jit cache and no recorder."""
 
 import torch
 
-from .engine import dense, lanepipe
+from .engine import dense, lanepipe, sortpipe
 from .operator.base import typed
 
 
@@ -73,6 +73,8 @@ def compute(expr):
     a = expr.args[0]
     if m in ("mxv", "vxm"):
         return _inline_sparse_impl(expr)
+    if m in ("reduce_rowwise", "reduce_columnwise"):
+        return _reduce_axis_impl(expr)
     if m == "identity":
         return a._vals, a._valid
     if m == "apply":
@@ -89,19 +91,24 @@ def compute(expr):
     raise NotImplementedError(f"{m} is not in the PyTorch port yet")
 
 
+def _empty_result(expr, dev):
+    n_out = expr.shape[0]
+    return (torch.zeros(n_out, dtype=expr.dtype.torch_type, device=dev),
+            torch.zeros(n_out, dtype=torch.bool, device=dev))
+
+
 def _inline_sparse_impl(expr):
-    """mxv/vxm of a sparse matrix and a dense vector through the lanepipe."""
+    """mxv/vxm of a sparse matrix and a dense vector: through the lanepipe,
+    or through the sort pipeline when the matrix packs over
+    ``lanepipe.PACK_LIMIT``."""
     m = expr.method_name
     tflag = expr._statics[0]
     mat, vec = (expr.args[0], expr.args[1]) if m == "mxv" else \
         (expr.args[1], expr.args[0])
     sp = mat._sparse
     ring = expr.op
-    n_out = expr.shape[0]
     if sp.nvals() == 0:
-        dev = vec.device
-        return (torch.zeros(n_out, dtype=expr.dtype.torch_type, device=dev),
-                torch.zeros(n_out, dtype=torch.bool, device=dev))
+        return _empty_result(expr, vec.device)
     if not lanepipe.eligible(ring, mat.dtype, vec.dtype):
         raise NotImplementedError(
             f"{m} with {ring!r} on {mat.dtype}/{vec.dtype} needs the generic "
@@ -110,9 +117,32 @@ def _inline_sparse_impl(expr):
     entry = lanepipe.get_plan(sp, m == "mxv", at=bool(tflag),
                               device=vec.device)
     if entry is None:
-        raise NotImplementedError(
-            "this matrix packs over lanepipe.PACK_LIMIT; the sort-pipeline "
-            "fallback is ROADMAP.md queue 1, item 9")
+        entry = sortpipe.get_plan(sp, m == "mxv", at=bool(tflag),
+                                  device=vec.device)
+        return sortpipe.spmv_pipeline(
+            sortpipe.plan_dyn_tuple(entry), vec._vals, vec._valid, ring,
+            mat.dtype, vec.dtype, kind=m, n_in=entry["n_in"], L=entry["L"])
     return lanepipe.spmv_pipeline(
         lanepipe.plan_dyn_tuple(entry), entry, vec._vals, vec._valid, ring,
         mat.dtype, vec.dtype, kind=m)
+
+
+def _reduce_axis_impl(expr):
+    """Row/column monoid reduce of a sparse matrix through the sort
+    pipeline's destination side."""
+    mat = expr.args[0]
+    axis, tflag = expr._statics
+    sp = mat._sparse
+    mono = expr.op
+    dev = mat._device
+    if sp.nvals() == 0:
+        return _empty_result(expr, dev)
+    if not sortpipe.eligible_reduce(mono, mat.dtype):
+        raise NotImplementedError(
+            f"{expr.method_name} with {mono!r} on {mat.dtype} needs the "
+            f"generic sparse.reduce_axis (FP64, UDT and other monoids): "
+            f"ROADMAP.md queue 1, item 9")
+    # axis=1 reduces rows (dest=row); axis=0 reduces columns
+    entry = sortpipe.get_plan(sp, axis == 1, at=bool(tflag), device=dev)
+    return sortpipe.reduce_pipeline(sortpipe.plan_dyn_tuple(entry), mono,
+                                    mat.dtype)

@@ -1,7 +1,8 @@
 """Matrix: always sparse-backed in the port (graphblas_tpu/core/matrix.py,
-the methods PageRank and BFS call).  ``from_coo`` builds the host store;
-the lanepipe plan and its device tensors are built at the first mxv/vxm
-of each direction."""
+the methods PageRank, BFS, SSSP and the row/column reduces call).
+``from_coo`` builds the host store; the lanepipe or sort-pipeline plan and
+its device tensors are built at the first mxv/vxm or reduce of each
+direction."""
 
 import numpy as np
 import torch
@@ -73,6 +74,12 @@ class Matrix:
     def mxv(self, other, op="plus_times"):
         return _mxv(self, False, other, op)
 
+    def reduce_rowwise(self, op="plus"):
+        return _reduce_axis(self, op, 1, "reduce_rowwise")
+
+    def reduce_columnwise(self, op="plus"):
+        return _reduce_axis(self, op, 0, "reduce_columnwise")
+
     def mxm(self, other, op="plus_times"):
         raise NotImplementedError(
             "SpGEMM is not in the PyTorch port yet (ROADMAP.md queue 1, "
@@ -95,6 +102,21 @@ class TransposedMatrix:
 
     def mxv(self, other, op="plus_times"):
         return _mxv(self._matrix, True, other, op)
+
+    def reduce_rowwise(self, op="plus"):
+        return _reduce_axis(self._matrix, op, 0, "reduce_rowwise")
+
+    def reduce_columnwise(self, op="plus"):
+        return _reduce_axis(self._matrix, op, 1, "reduce_columnwise")
+
+
+def _reduce_axis(mat, op, axis, method):
+    """Monoid reduce along an axis of the stored matrix (axis 1 folds each
+    row); for ``A.T`` the caller has already swapped the axis."""
+    mono = typed(op, mat.dtype, "Monoid")
+    size = mat.nrows if axis == 1 else mat.ncols
+    return BaseExpression(method, mono, [mat], mono.return_type, (size,),
+                          Vector, (axis, False))
 
 
 def _mxv(mat, at, vec, op):

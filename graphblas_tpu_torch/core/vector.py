@@ -1,5 +1,6 @@
 """Vector: a dense (values, valid) store on the configured device
-(graphblas_tpu/core/vector.py, the methods PageRank and BFS call)."""
+(graphblas_tpu/core/vector.py, the methods PageRank, BFS and SSSP
+call)."""
 
 import numpy as np
 import torch
@@ -151,19 +152,65 @@ class Vector(BaseType):
             return False
         return bool(np.all(np.isclose(av, bv, rtol=rel_tol, atol=abs_tol)))
 
+    def isequal(self, other, *, check_dtype=False):
+        """Exact equality: same size, same structure, same values (compared
+        on the device; one read of the verdict)."""
+        if not isinstance(other, Vector):
+            raise TypeError(f"isequal expects a Vector; got "
+                            f"{type(other).__name__}")
+        if check_dtype and self.dtype != other.dtype:
+            return False
+        if self.shape != other.shape:
+            return False
+        common = self.dtype if check_dtype else _unify(self.dtype, other.dtype)
+        ok = self._valid
+        av = _dt.normalize(self._vals, common)
+        bv = _dt.normalize(other._vals.to(self.device), common)
+        same = (ok == other._valid.to(self.device)) & ((av == bv) | ~ok)
+        return bool(same.all())
+
+    def dup(self, dtype=None, *, clear=False, mask=None, name=None):
+        """A copy, optionally cast, masked or cleared."""
+        from . import execute
+
+        dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
+        out = Vector(dt, self.size, name=name)
+        if not clear:
+            execute.update_into(out, execute.as_expr(self), mask=mask)
+        return out
+
     # ------------------------------------------------------------------ #
     # operations
+    def _check_index(self, index):
+        i = int(index)
+        if not -self.size <= i < self.size:
+            raise IndexError(f"index {i} out of range for size {self.size}")
+        return i % self.size
+
+    def __setitem__(self, index, value):
+        """``v[i] = value``: set one element (an empty Scalar deletes it)."""
+        from .scalar import Scalar
+
+        if not isinstance(index, (int, np.integer)):
+            raise NotImplementedError(
+                "only single-element assignment v[i] = s is in the PyTorch "
+                "port yet (ROADMAP.md queue 1, item 10)")
+        i = self._check_index(index)
+        if not isinstance(value, Scalar):
+            value = Scalar.from_value(value, self.dtype)
+        # stores may be shared between collections: write into copies
+        vals, valid = self._vals.clone(), self._valid.clone()
+        valid[i] = value._valid.to(self.device)
+        vals[i] = _dt.normalize(value._vals.to(self.device), self.dtype)
+        self._set_store(vals, valid)
+
     def __getitem__(self, index):
         if isinstance(index, (int, np.integer)):
-            i = int(index)
-            if not -self.size <= i < self.size:
-                raise IndexError(f"index {i} out of range for size "
-                                 f"{self.size}")
             from .scalar import Scalar
 
             return BaseExpression("extract_element", None, [self],
                                   self.dtype, (), Scalar,
-                                  (i % self.size,))
+                                  (self._check_index(index),))
         raise NotImplementedError(
             "only element extraction v[i] is in the PyTorch port yet "
             "(ROADMAP.md queue 1, item 10)")

@@ -173,6 +173,44 @@ def test_vector_basics(cpu):
         gbt.Vector.from_coo([1, 1], [1.0, 2.0], size=3)
 
 
+def test_setitem_dup_isequal(cpu):
+    """What algorithms.sssp and bfs_level touch beyond the bench loops."""
+    d = gbt.Vector(gbt.dtypes.FP32, 5)
+    d[2] = 0
+    assert d.nvals == 1 and d[2].new().value == 0.0
+    prev = d.dup()
+    assert prev.isequal(d) and prev.dtype is d.dtype
+    d[-1] = 3.5
+    assert prev.nvals == 1 and d.nvals == 2  # the copy does not follow
+    assert not d.isequal(prev)
+    d[4] = gbt.Scalar(gbt.dtypes.FP32)  # an empty Scalar deletes
+    assert d.isequal(prev)
+    as_int = d.dup(dtype="INT32")
+    assert as_int.dtype.name == "INT32" and as_int.isequal(d)
+    assert not as_int.isequal(d, check_dtype=True)
+    assert d.dup(clear=True).nvals == 0
+    other = gbt.Vector.from_coo([2], [1.0], dtype="FP32", size=5)
+    assert not d.isequal(other)                     # same structure
+    assert not d.isequal(gbt.Vector(gbt.dtypes.FP32, 6))
+    with pytest.raises(IndexError):
+        d[5] = 1.0
+    with pytest.raises(TypeError):
+        d.isequal(3)
+    q = gbt.Vector(gbt.dtypes.BOOL, 3)
+    q[0] = True
+    assert q.to_coo()[1].tolist() == [True]
+
+
+def test_accum_min_union_structure(cpu):
+    """``d(accum=min) << z``: min where both, z where only z, d stays
+    where only d (the SSSP relaxation on a sparse d and a sparse z)."""
+    d = gbt.Vector.from_coo([0, 2], [5.0, 1.0], dtype="FP32", size=5)
+    z = gbt.Vector.from_coo([2, 3, 0], [4.0, 7.0, 2.0], dtype="FP32", size=5)
+    d(accum=gbt.binary.min) << z
+    assert d.to_coo()[0].tolist() == [0, 2, 3]
+    assert d.to_coo()[1].tolist() == [2.0, 1.0, 7.0]
+
+
 def test_masked_accum_write_back(cpu):
     """c(mask, accum) << expr keeps c outside the mask, accumulates inside."""
     c = gbt.Vector.from_coo([0, 1, 2], [1.0, 1.0, 1.0], size=4)
@@ -262,10 +300,19 @@ def test_not_ported_raises(cpu):
         A.mxm(A)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gbt.dtypes.lookup_dtype("FC64")
-    # one destination with 5000 in-edges packs over PACK_LIMIT
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        A.reduce_rowwise("plus").new()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gbt.algorithms.bfs_parent(A)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        x[:2] = 1.0
+    # one destination with 5000 in-edges packs over PACK_LIMIT: the sort
+    # pipeline takes it
     n = 5001
     H = gbt.Matrix.from_coo(np.arange(1, n), np.zeros(n - 1, np.int64),
                             np.ones(n - 1, np.float32), nrows=n, ncols=n)
     u = gbt.Vector.from_dense(np.ones(n, np.float32))
-    with pytest.raises(NotImplementedError, match="PACK_LIMIT"):
-        u.vxm(H, gbt.semiring.plus_times["FP32"]).new()
+    out = u.vxm(H, gbt.semiring.plus_times["FP32"]).new()
+    assert H._sparse._lanepipe_plans[(False, torch.device("cpu"))] is None
+    assert out.to_coo()[0].tolist() == [0]
+    assert out.to_coo()[1].tolist() == [float(n - 1)]

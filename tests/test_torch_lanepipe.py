@@ -1,8 +1,9 @@
 """Lanepipe SpMV of the PyTorch port against the JAX package's lanepipe.
 
-Kernel level: the port's plain versions of K1 (gather_mult) and K4
-(fused_permC_scan_permA) against the Pallas kernels in interpret mode, on
-the same plan arrays (handed over with ``lanepipe.plan_from_numpy``).
+Kernel level: the port's plain versions of K1 (gather_mult, with its
+validity output), K4 (fused_permC_scan_permA) and K5 (lane_segscan)
+against the Pallas kernels in interpret mode, on the same plan arrays
+(handed over with ``lanepipe.plan_from_numpy``).
 Pipeline level: mxv/vxm through both public APIs, the JAX side under the
 ``lane_on`` pattern of tests/test_lanepipe.py so that its lanepipe runs
 (on the CPU it would otherwise take another engine).  BOOL and integer
@@ -177,6 +178,89 @@ def test_fused_scan_matches_pallas(monkeypatch, mono_name, dtype, packed):
         assert np.allclose(got, want, rtol=1e-5, atol=0)
     else:
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def lane_scan_inputs(dtype, with_ok, row0_barrier=True):
+    """(R,128) scan inputs whose runs cross 128-row tiles."""
+    rng = np.random.default_rng(11)
+    R = 512
+    barrier = (rng.random((R, 128)) < 1 / 200).astype(np.int32)
+    barrier[0] = 1 if row0_barrier else 0
+    barrier[:, 7] = 0  # one lane's run crosses every tile
+    if dtype == "FP32":
+        vals = rng.random((R, 128)).astype(np.float32)
+    else:
+        vals = rng.integers(-1000, 1000, (R, 128)).astype(CARRIER[dtype])
+    ok = (rng.random((R, 128)) < 0.3).astype(np.int32) if with_ok else None
+    return barrier, vals, ok
+
+
+def jax_scan_combine(mono_name, dtype):
+    comb = jsp.monoid_scan_fn(mono_name, CARRIER[dtype])
+
+    def jcombine(a, b):
+        r = comb(a, b)
+        return r.astype(a.dtype) if r.dtype != a.dtype else r
+
+    return jcombine
+
+
+def port_lane_segscan(barrier, vals, ok, mono_name, dtype):
+    combine = tlp.combines(getattr(gbt.monoid, mono_name)[dtype])[0]
+    tvals = torch.from_numpy(vals.view(np.int32) if dtype == "UINT32" else vals)
+    got, got_ok = tlp.lane_segscan(
+        torch.from_numpy(barrier), tvals,
+        None if ok is None else torch.from_numpy(ok), combine)
+    return got.numpy(), None if got_ok is None else got_ok.numpy()
+
+
+def assert_scan_match(got, want, mono_name, dtype):
+    if dtype == "FP32" and mono_name in ("plus", "times"):
+        assert np.allclose(got, want, rtol=1e-5, atol=0)
+    else:
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+LANE_SCAN_CASES = [("plus", "FP32"), ("min", "FP32"), ("plus", "INT32"),
+                   ("max", "INT32"), ("min", "UINT32")]
+
+
+@pytest.mark.parametrize("with_ok", [True, False])
+@pytest.mark.parametrize("mono_name,dtype", LANE_SCAN_CASES)
+def test_lane_segscan_matches_pallas(monkeypatch, mono_name, dtype, with_ok):
+    """K5's plain version against the Pallas kernel, with the validity
+    channel and with ok=None."""
+    monkeypatch.setattr(jlp, "_INTERPRET", True)
+    barrier, vals, ok = lane_scan_inputs(dtype, with_ok)
+    with jax.enable_x64(False):
+        want, want_ok = jlp.lane_segscan(
+            jnp.asarray(barrier), jnp.asarray(vals),
+            None if ok is None else jnp.asarray(ok),
+            jax_scan_combine(mono_name, dtype))
+    got, got_ok = port_lane_segscan(barrier, vals, ok, mono_name, dtype)
+    assert_scan_match(got, np.asarray(want), mono_name, dtype)
+    assert (got_ok is None) == (want_ok is None) == (not with_ok)
+    if with_ok:
+        assert np.array_equal(got_ok, np.asarray(want_ok))
+
+
+@pytest.mark.parametrize("with_ok", [True, False])
+@pytest.mark.parametrize("mono_name,dtype", LANE_SCAN_CASES[:3])
+def test_lane_segscan_row0_without_barrier(mono_name, dtype, with_ok):
+    """Row 0 starts a run whether or not its barrier is set."""
+    barrier, vals, ok = lane_scan_inputs(dtype, with_ok, row0_barrier=False)
+    want, want_ok = jlp._segscan_xla(
+        jnp.asarray(barrier), jnp.asarray(vals),
+        None if ok is None else jnp.asarray(ok),
+        jax_scan_combine(mono_name, dtype))
+    got, got_ok = port_lane_segscan(barrier, vals, ok, mono_name, dtype)
+    assert_scan_match(got, np.asarray(want), mono_name, dtype)
+    if with_ok:
+        assert np.array_equal(got_ok, np.asarray(want_ok))
+    # the same input with row 0 flagged gives the same scan
+    barrier[0] = 1
+    again, _ = port_lane_segscan(barrier, vals, ok, mono_name, dtype)
+    assert np.array_equal(again.view(np.int32), got.view(np.int32))
 
 
 # --------------------------------------------------------------------- #
