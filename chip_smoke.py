@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out DIR]
 
 Run from the repository root.  It builds the host native libraries and
-the six CUDA kernels of the two SpMV engines from the sources, then:
+the seven CUDA kernels (six of the two SpMV engines, one of the dense
+engine) from the sources, then:
 
 1. kernel phase: on the plans of bench.py's zipf graph (n = 2**19, degree
    8, FP32 weights 1/outdeg, and its BOOL twin), runs each kernel and its
@@ -24,7 +25,17 @@ the six CUDA kernels of the two SpMV engines from the sources, then:
    (segscan), checked against numpy in float64;
 7. vxm/mxv on a hypersparse random digraph (n = 2**22, 2**21 edges), which
    the lanepipe turns down, through the sort pipeline, checked against
-   numpy in float64.
+   numpy in float64;
+8. the dense engine.  Kernel phase `tropical`: tropical_matmul against its
+   plain version (every element equal) for all 12 (reduce, combine) pairs
+   in FP32 and two in FP64 at ragged and one-row/one-column shapes, the
+   entry point with validity planes on finite operands and on stored
+   inf/NaN, and FP32 min_plus at 2048^3 and 8192^3 in full, with times.
+   Phase `apsp`: all-pairs shortest paths of an 8192-node weighted zipf
+   graph by `A.power(n, min_plus)` (13 products) and by the
+   `D(accum=min) << D.mxm(D, min_plus)` loop under ss.iterate, checked
+   against scipy's Dijkstra in float64 (rel 1e-5); the lor_land closure;
+   an FP32 plus_times mxm against the same call on the CPU.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched.  The line before the last is
@@ -44,9 +55,17 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and FP32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# 67 TFLOP/s counts a fused multiply-add as two operations; a kernel whose
+# pairs are two separate FP32 instructions (an add, then a min) is bounded
+# by the instruction rate, half of it.  min/max run on the 64-lane ALU
+# pipe (NVIDIA's arithmetic-throughput table for compute capability 9.0), for
+# one min per pair the same bound: MNK / (132 SMs x 64 lanes x 1.98 GHz).
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
 SEED = 0
 SPIN_CYCLES = 20_000_000  # ~10 ms of spinning at the H100's clock
 RUNS = 5  # timed runs of each loop; the median is reported
+APSP_N = 8192  # the largest square matrix dense_limit = 2**26 densifies
+APSP_MXM_N = 2048  # the plus_times and generic-product checks
 
 
 def fail(msg):
@@ -197,11 +216,11 @@ def profile_breakdown(torch, fn, label, wall_unprofiled_ms):
             "kernels": [{"name": k, "ms": m, "count": c} for k, m, c in rows]}
 
 
-def bound(nbytes, nops=0):
+def bound(nbytes, nops=0, rate=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     32-bit operations over the FP32 rate."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = nops / FP32_OPS_PER_S * 1e3
+    to = nops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -381,7 +400,7 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
     variants = {}
     new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants)
     results["kernel_variants"] = variants
-    results["kernels"] = rows
+    results.setdefault("kernels", {}).update(rows)
     results["plan"] = {"L": e["L"], "R_g": R_g, "nblocks_g": nblocks,
                        "R_scan": R_scan, "V": e["V"], "TV": TV,
                        "T": T, "T_pad": T_pad, "plan_s": secs,
@@ -544,8 +563,10 @@ def combine_sweep(gb, torch, dev, rng):
         b[0] = 1
         return torch.from_numpy(b).to(dev)
 
+    # every monoid the scan engines take (`any` has no identity: the dense
+    # engine alone has it)
     monos = [m[dt] for m in BUILTINS.values() for dt in (BOOL, INT32, UINT32, FP32)
-             if dt in m._domains]
+             if dt in m._domains and sp.eligible_reduce(m[dt], dt)]
     worst = 0.0
     for mono in monos:
         rel = 1e-5 if mono.type is FP32 and mono.parent.name in ("plus", "times") \
@@ -589,8 +610,124 @@ def combine_sweep(gb, torch, dev, rng):
         f"err {worst:.3g}")
 
 
+def k7_compare(name, got, want, quiet=True):
+    """K7 against its plain version: every element equal, NaN matching NaN
+    (== also takes -0.0 for +0.0, the one freedom a min of zeros has)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(want.shape)} {want.dtype}")
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same.all()):
+        fail(f"{name}: kernel differs from its plain version in "
+             f"{int((~same).sum())} of {same.numel()} elements")
+    if not quiet:
+        log(f"  {name}: ok, equal in all {same.numel()} elements")
+    return 0.0
+
+
+def tropical_phase(gb, torch, dev, results):
+    """K7 against its plain version: all 12 (red, comb) pairs in FP32 and
+    two in FP64 at ragged and degenerate shapes, the entry point with
+    validity planes on finite operands and on stored inf/NaN, then the
+    main path's shape (8192^3, validity planes, FP32 min_plus) in full,
+    and the times at 8192^3 and 2048^3."""
+    from graphblas_tpu_torch.core.engine import tropical as tr
+
+    rng = np.random.default_rng(SEED + 3)
+    shapes = ((300, 260, 200), (1, 260, 200), (300, 260, 1), (1, 70, 1),
+              (129, 17, 65))
+
+    def operand(shape, dtype, ident, p_missing=0.2, special=False):
+        v = (rng.standard_normal(shape) * 10).astype(dtype)
+        ok = rng.random(shape) >= p_missing
+        if special:
+            pick = rng.random(shape)
+            v[pick < 0.02] = np.inf
+            v[(pick >= 0.02) & (pick < 0.04)] = -np.inf
+            v[(pick >= 0.04) & (pick < 0.05)] = np.nan
+        enc = np.where(ok, v, dtype(ident))
+        return (torch.from_numpy(v).to(dev), torch.from_numpy(ok).to(dev),
+                torch.from_numpy(enc).to(dev))
+
+    cases = 0
+    for dtype, pairs in ((np.float32, [(r, c) for r in tr.RED_CODE
+                                       for c in ("plus", "min", "max", "times",
+                                                 "first", "second")]),
+                         (np.float64, [("min", "plus"), ("max", "min")])):
+        for red, comb in pairs:
+            ident = np.inf if red == "min" else -np.inf
+            for m, k, n in shapes:
+                _, _, a = operand((m, k), dtype, ident)
+                _, _, b = operand((k, n), dtype, ident)
+                k7_compare(f"K7 {red}_{comb} {dtype.__name__} {m}x{k}x{n}",
+                           tr.tropical_matmul(a, b, red, comb),
+                           tr.tropical_matmul_plain(a, b, red, comb))
+                cases += 1
+    for dtype in (np.float32, np.float64):
+        for red, comb in tr.MASKED_PAIRS:
+            ident = np.inf if red == "min" else -np.inf
+            for special in (False, True):
+                for m, k, n in shapes:
+                    a, aok, _ = operand((m, k), dtype, ident, 0.4, special)
+                    b, bok, _ = operand((k, n), dtype, ident, 0.4, special)
+                    k7_compare(
+                        f"K7 validity planes {red}_{comb} {dtype.__name__} "
+                        f"{m}x{k}x{n} special={special}",
+                        tr.tropical_matmul(a, b, red, comb, aok, bok),
+                        tr.tropical_matmul_plain(a, b, red, comb, aok, bok))
+                    cases += 1
+    log(f"  K7 against its plain version at small shapes: {cases} cases ok")
+
+    out = {}
+    row = None
+    for size in (2048, 8192):
+        a = torch.from_numpy(rng.random((size, size), dtype=np.float32)).to(dev)
+        b = torch.from_numpy(rng.random((size, size), dtype=np.float32)).to(dev)
+        aok = torch.from_numpy(rng.random((size, size)) < 0.5).to(dev)
+        bok = torch.from_numpy(rng.random((size, size)) < 0.5).to(dev)
+        inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
+        ae, be = torch.where(aok, a, inf), torch.where(bok, b, inf)
+        kfn = lambda: tr.tropical_matmul(a, b, "min", "plus", aok, bok)  # noqa: E731
+        efn = lambda: tr.tropical_matmul(ae, be, "min", "plus")  # noqa: E731
+        got = kfn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = tr.tropical_matmul_plain(a, b, "min", "plus", aok, bok)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = k7_compare(f"K7 min_plus FP32 {size}^3, validity planes", got,
+                         want, quiet=False)
+        k7_compare(f"K7 min_plus FP32 {size}^3, encoded", efn(), want,
+                   quiet=False)
+        del want, got
+        ms, enc_ms = cuda_ms(torch, kfn), cuda_ms(torch, efn)
+        nbytes = 4 * 3 * size * size + 2 * size * size
+        b_ms, b_by = bound(nbytes, 2 * size ** 3, FP32_INSTR_PER_S)
+        e_ms, _ = bound(4 * 3 * size * size, 2 * size ** 3, FP32_INSTR_PER_S)
+        log(f"  tropical_matmul {size}^3 FP32 min_plus: validity planes "
+            f"{ms:.4f} ms, encoded {enc_ms:.4f} ms, plain (one run) "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; bytes alone "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+            f"{2 * size ** 3 / ms / 1e9:.3f} T instructions/s")
+        out[f"{size}^3"] = {"ms": ms, "encoded_ms": enc_ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "encoded_bound_ms": e_ms, "bytes": nbytes}
+        row = {"name": "tropical_matmul", "route": "cuda",
+               "source": "graphblas_tpu_torch/csrc/tropical.cu",
+               "replaces": "graphblas_tpu/core/engine/kernels/tropical.py:61",
+               "launches": 0, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        del a, b, aok, bok, ae, be
+        torch.cuda.empty_cache()
+    results.setdefault("kernels", {})["tropical_matmul"] = row
+    results["tropical"] = out
+
+
 KERNELS = ("gather_mult", "mid_perm", "fused_permC_scan_permA", "tile_perm",
-           "lane_segscan", "segscan")
+           "lane_segscan", "segscan", "tropical_matmul")
 LANEPIPE_FAST = KERNELS[:4]
 
 
@@ -910,8 +1047,192 @@ def hypersparse_phase(gb, torch, K, dev, results, totals):
     results["hypersparse"] = out
 
 
-PHASES = ("kernels", "pagerank_zipf", "bfs", "pagerank_rmat", "sssp",
-          "reduce", "hypersparse")
+def apsp_phase(gb, torch, K, results, totals):
+    """All-pairs shortest paths at the full default width of the dense
+    engine: n = 8192, the largest square matrix dense_limit = 2**26 lets
+    the library densify.  `A.power(n, min_plus)` (13 squarings) and the
+    `D(accum=min) << D.mxm(D, min_plus)` loop against scipy's Dijkstra in
+    float64; the lor_land closure; an FP32 plus_times mxm against the same
+    call on the CPU; the generic blocked product timed once."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import connected_components, shortest_path
+    from graphblas_tpu_torch.core.engine import tropical as tr
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("apsp: TF32 matmul is on; plus_times and the structure product "
+             "need full float32")
+    n = APSP_N
+    # repeated squaring: 13 squarings and no multiply for n = 8192
+    products = n.bit_length() - 1 + bin(n).count("1") - 1
+    rng = np.random.default_rng(SEED + 4)
+    src, dst = build_graph(n, 8)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    w = (rng.random(len(src), dtype=np.float32) + np.float32(0.05))
+    diag = np.arange(n, dtype=np.int64)
+    src_d = np.concatenate([src, diag])
+    dst_d = np.concatenate([dst, diag])
+    w_d = np.concatenate([w, np.zeros(n, np.float32)])
+    t0 = time.perf_counter()
+    G = sps.csr_matrix((w.astype(np.float64), (src, dst)), shape=(n, n))
+    ref = shortest_path(G, method="D")
+    ncomp, _ = connected_components(G, connection="strong")
+    ref_s = time.perf_counter() - t0
+    if ncomp != 1 or not np.isfinite(ref).all():
+        fail("apsp: the reference graph is not strongly connected")
+    log(f"  apsp n={n} nnz={len(src)}: scipy Dijkstra from every source "
+        f"{ref_s:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    A = gb.Matrix.from_coo(src_d, dst_d, w_d, dtype="FP32", nrows=n, ncols=n)
+    if A._sparse is None:
+        fail(f"apsp: from_coo at n={n} should be sparse-backed")
+    ring = gb.semiring.min_plus["FP32"]
+    plain0 = tr.plain_calls
+
+    def run_power():
+        return A.power(n, ring).new()
+
+    K.reset_launches()
+    D = run_power()          # densifies A under dense_limit; warm-up
+    torch.cuda.synchronize()
+    if K.launches["tropical_matmul"] != products:
+        fail(f"apsp: power({n}) launched K7 "
+             f"{K.launches['tropical_matmul']} times, expected {products}")
+    if A._sparse is not None:
+        fail("apsp: power did not densify its operand")
+    got = D.to_dense(fill_value=np.inf).astype(np.float64)
+    if D.nvals != n * n:
+        fail(f"apsp: power reached {D.nvals} pairs, scipy {n * n}")
+    err = np.abs(got - ref)
+    if (err > 1e-5 * np.abs(ref)).any():
+        fail(f"apsp: distances beyond rel 1e-5 of scipy (max abs err "
+             f"{err.max()})")
+    max_err = float(err.max())
+    runs = []
+    for _ in range(RUNS):
+        del D
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D = run_power()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    power_ms = float(np.median(runs))
+    log(f"  A.power({n}, min_plus): ms {runs} (median {power_ms:.2f}), "
+        f"{power_ms / products:.4f} ms per product, "
+        f"{products} K7 launches, max abs err {max_err:.3g} against scipy")
+
+    # the explicit loop, with the Matrix as ss.iterate's state
+    L = A.dup()
+    seen = {}
+
+    def body(s, i):
+        seen["prev"] = s["D"].dup()
+        s["D"](accum=gb.binary.min) << s["D"].mxm(s["D"], ring)
+
+    def changed(s, i):
+        return gb.Scalar.from_value(not s["D"].isequal(seen["prev"]))
+
+    LOOP_MAX = 48
+    before = K.launches["tropical_matmul"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = gb.ss.iterate(body, {"D": L}, cond=changed, max_iter=LOOP_MAX)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    if K.launches["tropical_matmul"] - before != it:
+        fail(f"apsp: the mxm loop ran {it} products but launched K7 "
+             f"{K.launches['tropical_matmul'] - before} times")
+    if it >= LOOP_MAX:
+        fail(f"apsp: the mxm loop did not converge in {LOOP_MAX} products")
+    got_loop = L.to_dense(fill_value=np.inf).astype(np.float64)
+    err_loop = np.abs(got_loop - ref)
+    if L.nvals != n * n or (err_loop > 1e-5 * np.abs(ref)).any():
+        fail(f"apsp: the mxm loop's distances beyond rel 1e-5 of scipy (max "
+             f"abs err {err_loop.max()})")
+    # both are repeated squarings, but the loop squares until nothing
+    # changes and power a fixed 13 times: in float32 a squaring past
+    # convergence in exact arithmetic can still lower a last bit
+    differ = int((got_loop != got).sum())
+    if (np.abs(got_loop - got) > 1e-6 * np.abs(got)).any():
+        fail(f"apsp: the mxm loop ({it} products) and power disagree "
+             f"beyond rel 1e-6 in {differ} distances")
+    log(f"  mxm loop: {it} products in {loop_ms:.2f} ms "
+        f"({loop_ms / it:.4f} ms per iteration), max abs err "
+        f"{err_loop.max():.3g} against scipy; {differ} of {n * n} distances "
+        f"differ from power's in the last bits")
+    del L, seen
+
+    if tr.plain_calls != plain0:
+        fail("apsp: the plain version of K7 ran on the main path")
+    got_l = check_launches(K, "apsp", totals, need=("tropical_matmul",))
+    prof = profile_breakdown(torch, run_power, f"A.power({n}, min_plus)",
+                             power_ms)
+    del D
+
+    # transitive closure over lor_land: library products only
+    Ab = gb.Matrix.from_coo(src_d, dst_d, np.ones(len(src_d), bool),
+                            dtype="BOOL", nrows=n, ncols=n)
+    ringb = gb.semiring.lor_land["BOOL"]
+    R, closure_ms, closure_runs, _ = timed_calls(
+        torch, lambda: Ab.power(n, ringb).new())
+    ok = bool((R._valid & R._vals).all())
+    if not ok or R.nvals != n * n:
+        fail("apsp: the lor_land closure of a strongly connected graph is "
+             "not full")
+    log(f"  Ab.power({n}, lor_land): ms {closure_runs} (median "
+        f"{closure_ms:.2f}), {closure_ms / products:.4f} ms per product, "
+        f"closure full as scipy's one strong component says")
+    del R, Ab
+
+    # plus_times FP32 against the same call on the CPU (full float32)
+    m = APSP_MXM_N
+    av = rng.random((m, m), dtype=np.float32) * (rng.random((m, m)) < 0.5)
+    bv = rng.random((m, m), dtype=np.float32) * (rng.random((m, m)) < 0.5)
+
+    def product(ring_name):
+        P = gb.Matrix.from_dense(av, missing_value=0)
+        Q = gb.Matrix.from_dense(bv, missing_value=0)
+        return P.mxm(Q, getattr(gb.semiring, ring_name)["FP32"]).new()
+
+    C, pt_ms, _, _ = timed_calls(torch, lambda: product("plus_times"))
+    with gb.config.set(device="cpu"):
+        C_cpu = product("plus_times")
+    gv, gok = C._host_arrays()
+    cv, cok = C_cpu._host_arrays()
+    if not np.array_equal(gok, cok):
+        fail("apsp: plus_times structure differs between the card and the CPU")
+    pt_err = float(np.abs(gv - cv)[cok].max())
+    if (np.abs(gv - cv)[cok] > 1e-5 * np.abs(cv[cok])).any():
+        fail(f"apsp: plus_times beyond rel 1e-5 of the CPU (max abs err "
+             f"{pt_err})")
+    # the generic blocked product, once: at 2048^3 a step is one k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Gm = product("min_times")
+    torch.cuda.synchronize()
+    generic_ms = (time.perf_counter() - t0) * 1e3
+    T = product("min_plus")
+    if Gm.nvals != T.nvals:
+        fail("apsp: the generic product and K7 disagree on structure")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  mxm {m}^3 FP32, each with its two from_dense uploads: "
+        f"plus_times {pt_ms:.3f} ms, max abs err {pt_err:.3g} against the "
+        f"CPU; generic blocked product (min_times) {generic_ms:.1f} ms, one "
+        f"run; peak memory of the phase {peak / 1e9:.3f} GB")
+    results["apsp"] = {
+        "n": n, "nnz": int(len(src)), "products": products,
+        "power_ms_runs": runs, "power_ms": power_ms,
+        "ms_per_product": power_ms / products, "max_abs_err": max_err,
+        "loop_products": int(it), "loop_ms": loop_ms,
+        "closure_ms": closure_ms, "closure_ms_runs": closure_runs,
+        "plus_times_2048_ms": pt_ms, "plus_times_max_abs_err": pt_err,
+        "generic_min_times_2048_ms": generic_ms, "scipy_s": ref_s,
+        "peak_memory_bytes": int(peak), "launches": got_l, "profile": prof}
+
+
+PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
+          "sssp", "reduce", "hypersparse", "apsp")
 
 
 def main():
@@ -976,6 +1297,9 @@ def main():
         if "kernels" in phases:
             log("phase: kernels")
             kernel_phase(gb, torch, torch.device("cuda"), A, Ab, results)
+        if "tropical" in phases:
+            log("phase: tropical")
+            tropical_phase(gb, torch, torch.device("cuda"), results)
         if "pagerank_zipf" in phases:
             log("phase: pagerank zipf")
             pagerank_phase(gb, torch, K, src, dst, n, A, "zipf", 20, results,
@@ -1003,6 +1327,10 @@ def main():
             log("phase: hypersparse")
             hypersparse_phase(gb, torch, K, torch.device("cuda"), results,
                               totals)
+
+        if "apsp" in phases:
+            log("phase: apsp")
+            apsp_phase(gb, torch, K, results, totals)
 
     kernels = []
     for name, row in results.get("kernels", {}).items():

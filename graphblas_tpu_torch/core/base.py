@@ -1,10 +1,17 @@
 """Collections and expressions: ``<<``, ``.new()``,
-``c(mask=, accum=, replace=)`` (graphblas_tpu/core/base.py, reduced to
-what the SpMV slice calls)."""
+``c(mask=, accum=, replace=)`` (graphblas_tpu/core/base.py).
+
+A collection has one of two backings.  The dense one is a (values, valid)
+pair of tensors on its device.  A Matrix with more than
+``auto_sparse_limit`` elements is sparse-backed instead (host COO in a
+SparseStore); reading ``_vals``/``_valid`` of such a matrix densifies it,
+under the ``dense_limit`` guard."""
 
 import torch
 
+from . import config as _config
 from . import execute
+from ..exceptions import OutOfMemory
 from .mask import Mask
 
 
@@ -23,22 +30,71 @@ def _split_call_args(optional, mask, accum):
 
 
 class BaseType:
-    """A Vector or Scalar with a dense (values, valid) store on its device."""
+    """A Matrix, Vector or Scalar."""
 
-    _vals = None
-    _valid = None
+    _d_vals = None
+    _d_valid = None
+    _sparse = None
+    _device = None
 
     def _set_store(self, vals, valid):
-        self._vals = vals
-        self._valid = valid
+        self._d_vals = vals
+        self._d_valid = valid
+        self._sparse = None
+        self._device = valid.device
+
+    def _set_sparse_store(self, sp):
+        """Adopt a SparseStore (engine/sparse.py) as the backing."""
+        self._sparse = sp
+        self._d_vals = None
+        self._d_valid = None
+
+    @property
+    def _vals(self):
+        if self._sparse is not None:
+            self._densify()
+        return self._d_vals
+
+    @property
+    def _valid(self):
+        if self._sparse is not None:
+            self._densify()
+        return self._d_valid
+
+    def _densify(self):
+        """Convert the sparse backing to the bitmap store, guarded by the
+        ``dense_limit`` config so that an O(nrows*ncols) allocation on a
+        graph-scale matrix raises instead of exhausting device memory."""
+        sp = self._sparse
+        limit = int(_config.config.get("dense_limit", 1 << 26))
+        total = sp.nrows * max(sp.ncols, 1)
+        if total > limit:
+            raise OutOfMemory(
+                f"operation requires densifying a {sp.nrows}x{sp.ncols} "
+                f"sparse {type(self).__name__} ({total} > dense_limit="
+                f"{limit}).  This operation has no sparse path in the "
+                f"PyTorch port yet; raise config[\"dense_limit\"] to force "
+                f"it on a small matrix.")
+        from .engine import sparse as spx
+
+        self._set_store(*spx.densify(sp, self.dtype, self._device))
 
     @property
     def device(self):
-        return self._valid.device
+        return self._device
 
     @property
     def nvals(self):
-        return int(self._valid.sum())
+        if self._sparse is not None:
+            return self._sparse.nvals()
+        return int(self._d_valid.sum())
+
+    def _host_arrays(self):
+        """(values ndarray, valid ndarray) on the host."""
+        from . import dtypes as _dt
+
+        return (_dt.to_numpy(self._vals, self.dtype),
+                self._valid.cpu().numpy())
 
     def __call__(self, *optional, mask=None, accum=None, replace=False):
         from .expr import Updater

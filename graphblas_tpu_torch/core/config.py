@@ -6,8 +6,11 @@ graphblas_tpu/core/config.py).
 It defaults to ``"cuda"``; a caller that wants the CPU asks for it with
 ``config.set(device="cpu")``.  There is no quiet fallback: with the default
 and no GPU, :func:`device` raises.
-``auto_sparse_limit`` is accepted so that code written for the JAX package
-runs unchanged; the port keeps every Matrix sparse.
+``auto_sparse_limit``: a Matrix with more elements than this is
+sparse-backed, a smaller one is a dense (values, valid) store
+(graphblas_tpu/core/matrix.py:56).  ``dense_limit``: the largest sparse
+Matrix, in elements, that an operation without a sparse path may densify
+(graphblas_tpu/core/base.py:139).
 """
 
 import contextlib
@@ -78,6 +81,7 @@ class Config:
 
 config = Config({
     "auto_sparse_limit": 1 << 22,
+    "dense_limit": 1 << 26,
     "device": "cuda",
 })
 

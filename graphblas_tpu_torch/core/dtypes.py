@@ -110,7 +110,10 @@ def to_tensor(array, dt, device):
         a = a.astype(np.uint32).astype(np.int64)
     else:
         a = a.astype(dt.np_type, copy=False)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a CPU tensor would share the read-only buffer
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def to_numpy(t, dt):

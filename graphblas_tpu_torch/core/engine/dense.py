@@ -1,11 +1,18 @@
-"""Bitmap (values, valid) helpers over tensors: the parts of
-graphblas_tpu/core/engine/dense.py that PageRank and BFS touch (masks,
-apply, reduce and the mask/accum/replace write-back)."""
+"""Bitmap (values, valid) engine over tensors
+(graphblas_tpu/core/engine/dense.py): masks, apply, element-wise
+operations, monoid reduces, the semiring matmul family, transpose and
+diagonals, and the mask/accum/replace write-back.
+
+A positional multiply takes its index from the pair ``(i, k, j)`` it is
+applied to in a product.  PyTorch runs eagerly, so the blocked product is a
+Python loop where the JAX package traces a ``lax.scan``.
+"""
 
 import torch
 
 from .. import dtypes as _dt
 from . import store as st
+from . import tropical
 
 
 def truthy(vals, dtype):
@@ -17,8 +24,20 @@ def mask_array(m_vals, m_valid, m_dtype, structure, complement):
     return ~arr if complement else arr
 
 
+def _iota(shape, dim, device, start=0):
+    """int64 index along `dim`, shaped to broadcast against `shape`."""
+    view = [1] * len(shape)
+    view[dim] = shape[dim]
+    return torch.arange(start, start + shape[dim], dtype=torch.int64,
+                        device=device).reshape(view)
+
+
 def apply_binop(op, x_vals, x_dt, y_vals, y_dt):
     """Apply a typed BinaryOp with casting; result in op.return_type."""
+    if op._positional is not None:
+        raise NotImplementedError(
+            f"{op!r} outside a semiring is not in the PyTorch port yet "
+            f"(ROADMAP.md queue 1, item 11)")
     x = st.cast_values(x_vals, x_dt, op.type)
     y = st.cast_values(y_vals, y_dt, op.type2)
     return op(x, y)
@@ -32,29 +51,238 @@ def apply_op(a_vals, a_valid, op, a_dt):
     return apply_unop(op, a_vals, a_dt), a_valid
 
 
-def reduce_monoid(vals, valid, mono, in_dt):
-    """Monoid-reduce a vector to a 0-d (value, valid) pair."""
-    x = st.cast_values(vals, in_dt, mono.type)
-    ident = st.identity_value_array(mono, mono.type, x.device)
-    x = torch.where(valid, x, ident)
-    name = mono.parent.name
+def ewise_mult(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
+    return apply_binop(op, a_vals, a_dt, b_vals, b_dt), a_valid & b_valid
+
+
+def ewise_add(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, out_dt):
+    both = a_valid & b_valid
+    combined = st.cast_values(apply_binop(op, a_vals, a_dt, b_vals, b_dt),
+                              op.return_type, out_dt)
+    a_pass = st.cast_values(a_vals, a_dt, out_dt)
+    b_pass = st.cast_values(b_vals, b_dt, out_dt)
+    vals = torch.where(both, combined,
+                           torch.where(a_valid, a_pass, b_pass))
+    return vals, a_valid | b_valid
+
+
+def ewise_union(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, ldef, rdef):
+    """ldef/rdef: 0-d tensors of op.type / op.type2 standing in for the
+    missing side."""
+    x = torch.where(a_valid, st.cast_values(a_vals, a_dt, op.type), ldef)
+    y = torch.where(b_valid, st.cast_values(b_vals, b_dt, op.type2), rdef)
+    return apply_binop(op, x, op.type, y, op.type2), a_valid | b_valid
+
+
+def _fold(x, name, dim, mono, ident):
+    """Reduce the identity-filled tensor x along `dim` (None: all of it)
+    with the monoid called `name`."""
+    dims = tuple(range(x.dim())) if dim is None else (dim,)
+    if any(x.shape[d] == 0 for d in dims):
+        keep = [s for d, s in enumerate(x.shape) if d not in dims]
+        return ident.expand(keep).clone()
     if name == "plus":
-        red = x.sum()
+        red = x.sum(dim=dims)
     elif name == "times":
-        red = x.prod()
-    elif name in ("min", "land"):
-        red = x.min() if x.numel() else ident
-    elif name in ("max", "lor"):
-        red = x.max() if x.numel() else ident
+        red = x
+        for d in sorted(dims, reverse=True):
+            red = red.prod(dim=d)
+    elif name == "land":
+        red = x.all(dim=dims[0]) if len(dims) == 1 else x.all()
+    elif name == "lor":
+        red = x.any(dim=dims[0]) if len(dims) == 1 else x.any()
+    elif name == "min":
+        red = x.amin(dim=dims)
+    elif name == "max":
+        red = x.amax(dim=dims)
     else:
         # band/bor have no torch reduction: halve with the monoid
-        red = x
-        while red.numel() > 1:
-            if red.numel() % 2:
-                red = torch.cat([red, ident.reshape(1)])
+        red = x.reshape(-1).unsqueeze(1) if dim is None else x.movedim(dim, 0)
+        while red.shape[0] > 1:
+            if red.shape[0] % 2:
+                red = torch.cat([red, ident.expand(red.shape[1:]).unsqueeze(0)])
             red = mono.binaryop(red[0::2], red[1::2])
-        red = red[0] if red.numel() else ident
-    return _dt.normalize(red, mono.type), valid.any()
+        red = red[0, 0] if dim is None else red[0]
+    return _dt.normalize(red, mono.type)
+
+
+def reduce_monoid(vals, valid, mono, in_dt, axis=None):
+    """Monoid-reduce along `axis` (None: to a 0-d pair).  Returns
+    (values, valid); the ``any`` monoid takes the first stored element in
+    row-major order."""
+    x = st.cast_values(vals, in_dt, mono.type)
+    name = mono.parent.name
+    if axis is None:
+        out_valid = valid.any()
+    else:
+        out_valid = valid.any(dim=axis)
+    if name == "any":
+        ok = valid.to(torch.uint8)
+        if axis is None:
+            if x.numel() == 0:
+                return torch.zeros((), dtype=x.dtype, device=x.device), out_valid
+            return x.reshape(-1)[ok.reshape(-1).argmax()], out_valid
+        if x.shape[axis] == 0:
+            return torch.zeros(out_valid.shape, dtype=x.dtype,
+                               device=x.device), out_valid
+        first = ok.argmax(dim=axis, keepdim=True)
+        return torch.take_along_dim(x, first, dim=axis).squeeze(axis), out_valid
+    ident = st.identity_value_array(mono, mono.type, x.device)
+    x = torch.where(valid, x, ident)
+    return _fold(x, name, axis, mono, ident), out_valid
+
+
+# --------------------------------------------------------------------- #
+# semiring matmul family
+# (reduce, combine) of csrc/tropical.cu for the semirings K7 takes: the
+# four whose missing-as-identity encoding is sound
+_TROPICAL = {("min", "plus"): "plus", ("max", "plus"): "plus",
+             ("min", "max"): "fmax", ("max", "min"): "fmin"}
+
+
+def _matmul_block_size(m, k, n):
+    budget = 1 << 22  # elements in the (m, kb, n) intermediate
+    return int(max(1, min(k, budget // max(1, m * n))))
+
+
+def _f32_product(x, y):
+    """0/1 planes multiplied in float32: exact up to 2**24 terms."""
+    return torch.matmul(x.to(torch.float32), y.to(torch.float32))
+
+
+def semiring_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt):
+    """C = A (ring) B over bitmap stores.  A: (m,k), B: (k,n).
+
+    As in the JAX package the structure is a float32 product of the
+    validity planes, ``pair`` rings and float ``plus_times`` and
+    ``lor_land`` are library products, and everything else is the blocked
+    generic product; but the floating-point tropical rings min_plus,
+    max_plus, min_max and max_min go to kernel K7 (its plain version on
+    the CPU) with both validity planes."""
+    mult = ring.binaryop
+    mono = ring.monoid
+    m, k = a_valid.shape
+    n = b_valid.shape[1]
+    mono_name = mono.parent.name
+    mult_name = mult.parent.name
+    dev = a_valid.device
+
+    counts = _f32_product(a_valid, b_valid)
+    out_valid = counts > 0.5
+
+    if mult_name == "pair":
+        if mono_name == "plus":
+            return _dt.normalize(counts, mono.type), out_valid
+        # all products are 1: the result is 1 wherever present
+        return torch.ones((m, n), dtype=mono.type.torch_type,
+                         device=dev), out_valid
+    if mono_name == "plus" and mult_name == "times":
+        av = st.cast_values(a_vals, a_dt, mult.type)
+        bv = st.cast_values(b_vals, b_dt, mult.type2)
+        if a_dt.is_bool:
+            cnt = _f32_product(a_valid & truthy(av, mult.type),
+                               b_valid & truthy(bv, mult.type2))
+            return _dt.normalize(cnt > 0.5, mono.type), out_valid
+        # torch.matmul has no integer kernel on CUDA: integers take the
+        # generic product there (exact), never a float cast
+        if mult.type.is_float or dev.type == "cpu":
+            av = torch.where(a_valid, av, torch.zeros((), dtype=av.dtype,
+                                                      device=dev))
+            bv = torch.where(b_valid, bv, torch.zeros((), dtype=bv.dtype,
+                                                      device=dev))
+            return _dt.normalize(torch.matmul(av, bv), mono.type), out_valid
+    if mono_name == "lor" and mult_name == "land" and mult.type.is_bool:
+        av = a_valid & truthy(st.cast_values(a_vals, a_dt, mult.type), mult.type)
+        bv = b_valid & truthy(st.cast_values(b_vals, b_dt, mult.type2),
+                              mult.type2)
+        return _f32_product(av, bv) > 0.5, out_valid
+    comb = _TROPICAL.get((mono_name, mult_name))
+    if comb is not None and mult.type.is_float:
+        av = st.cast_values(a_vals, a_dt, mult.type).contiguous()
+        bv = st.cast_values(b_vals, b_dt, mult.type2).contiguous()
+        vals = tropical.tropical_matmul(av, bv, mono_name, comb,
+                                        a_valid.contiguous(),
+                                        b_valid.contiguous())
+        return vals, out_valid
+    return _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
+                           out_valid)
+
+
+_MATMUL_DIM = {"ai": 0, "aj": 1, "bi": 1, "bj": 2}
+
+
+def _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
+                    out_valid):
+    """Any semiring, positional multiplies included: k in blocks of kb, a
+    (m, kb, n) tensor of products per block, reduced along k and merged
+    into the running result.  At m*n >= 2**22 a block is one k: it is the
+    path that is always right, not a fast one."""
+    mult = ring.binaryop
+    mono = ring.monoid
+    m, k = a_valid.shape
+    n = b_valid.shape[1]
+    dev = a_valid.device
+    kb = _matmul_block_size(m, k, n)
+    positional = mult._positional is not None
+    if positional:
+        av, bv = a_vals, b_vals
+    else:
+        av = st.cast_values(a_vals, a_dt, mult.type)
+        bv = st.cast_values(b_vals, b_dt, mult.type2)
+    name = mono.parent.name
+    is_any = name == "any"
+    if is_any:
+        ident = torch.zeros((), dtype=mono.type.torch_type, device=dev)
+    else:
+        ident = st.identity_value_array(mono, mono.type, dev)
+    acc_vals = ident.expand(m, n).clone()
+    acc_valid = torch.zeros((m, n), dtype=torch.bool, device=dev)
+    for k0 in range(0, k, kb):
+        a_blk, b_blk = av[:, k0:k0 + kb], bv[k0:k0 + kb, :]
+        shape = (m, a_blk.shape[1], n)
+        pvalid = a_valid[:, k0:k0 + kb, None] & b_valid[None, k0:k0 + kb, :]
+        if positional:
+            key, off = mult._positional
+            dim = _MATMUL_DIM[key]
+            parr = _iota(shape, dim, dev, start=k0 if dim == 1 else 0)
+            pv = _dt.normalize((parr + off).expand(shape), mult.return_type)
+        else:
+            pv = mult(a_blk[:, :, None].expand(shape),
+                      b_blk[None, :, :].expand(shape))
+        pv = st.cast_values(pv, mult.return_type, mono.type)
+        has = pvalid.any(dim=1)
+        if is_any:
+            # first stored product in k order
+            first = pvalid.to(torch.uint8).argmax(dim=1, keepdim=True)
+            picked = torch.take_along_dim(pv, first, dim=1)[:, 0, :]
+            acc_vals = torch.where(acc_valid | ~has, acc_vals, picked)
+        else:
+            blk = _fold(torch.where(pvalid, pv, ident), name, 1, mono, ident)
+            acc_vals = torch.where(
+                acc_valid & has, mono.binaryop(acc_vals, blk),
+                torch.where(has, blk, acc_vals))
+        acc_valid = acc_valid | has
+    return acc_vals, out_valid
+
+
+def transpose(vals, valid):
+    """The transposed store, materialised once (``.t()`` is a view; the
+    kernels and reduces downstream take row-major tensors)."""
+    return vals.t().contiguous(), valid.t().contiguous()
+
+
+def diag_extract(a_vals, a_valid, k):
+    return (torch.diagonal(a_vals, offset=k).clone(),
+            torch.diagonal(a_valid, offset=k).clone())
+
+
+def diag_build(v_vals, v_valid, k, n):
+    """(n, n) store with v on diagonal k."""
+    vals = torch.zeros((n, n), dtype=v_vals.dtype, device=v_vals.device)
+    valid = torch.zeros((n, n), dtype=torch.bool, device=v_vals.device)
+    torch.diagonal(vals, offset=k).copy_(v_vals)
+    torch.diagonal(valid, offset=k).copy_(v_valid)
+    return vals, valid
 
 
 def write_back(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, mask_arr, accum,

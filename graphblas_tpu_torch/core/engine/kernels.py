@@ -24,13 +24,14 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 SOURCES = ("tile_perm", "mid_perm", "gather_mult", "fused_scan",
-           "lane_segscan", "segscan")
+           "lane_segscan", "segscan", "tropical")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset, keyed by the kernel's name
 # (fused_permC_scan_permA and lane_segscan count both launches of their
-# source, summary and final; segscan counts its three)
+# source, summary and final; segscan counts its three; tropical_matmul
+# counts both entry points of tropical.cu)
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
@@ -50,7 +51,11 @@ _ARGTYPES = {
     "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
     "segscan": [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
+    "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],
+    "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
 }
+# C entry points of a source, where they are not the one named after it
+_ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked")}
 
 _libs = {}
 _lock = threading.Lock()
@@ -117,9 +122,10 @@ def lib(name):
         if name not in _libs:
             build()
             so = ctypes.CDLL(os.path.join(_BUILD, f"lib{name}.so"))
-            fn = getattr(so, name)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            for entry in _ENTRY_POINTS.get(name, (name,)):
+                fn = getattr(so, entry)
+                fn.argtypes = _ARGTYPES[entry]
+                fn.restype = ctypes.c_int
             _libs[name] = so
     return _libs[name]
 
@@ -142,15 +148,16 @@ def ptr_array(tensors):
     return arr
 
 
-def require_cuda(name, tensors):
-    """Check that every tensor is a contiguous 32-bit tensor on one CUDA
-    device (permutations and gathers move 32-bit words)."""
+def require_cuda(name, tensors, word=4):
+    """Check that every tensor is a contiguous tensor of `word`-byte
+    elements (any size with word=None) on one CUDA device (permutations,
+    gathers and scans move 32-bit words)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-        if t.element_size() != 4:
-            raise TypeError(f"{name}: tensors must hold 32-bit words; got "
-                            f"{t.dtype}")
+        if word is not None and t.element_size() != word:
+            raise TypeError(f"{name}: tensors must hold {8 * word}-bit words; "
+                            f"got {t.dtype}")

@@ -1,6 +1,6 @@
-"""SparseStore: the storage of every Matrix in the port
-(graphblas_tpu/core/engine/sparse.py:54-166, reduced to what the SpMV
-slice needs).
+"""SparseStore: the storage of every Matrix over ``auto_sparse_limit``
+elements (graphblas_tpu/core/engine/sparse.py:54-200, reduced to what the
+SpMV slice and ``densify`` need).
 
 The store keeps the matrix as host COO arrays sorted by (row, col) with
 duplicates combined.  The lanepipe builds its plan from these arrays and
@@ -10,8 +10,10 @@ the sort pipeline keeps its plans the same way (``_sortpipe_plans``).
 """
 
 import numpy as np
+import torch
 
 from ... import native
+from .. import dtypes as _dt
 
 _DUP_REDUCE = {"plus": np.add, "times": np.multiply, "min": np.minimum,
                "max": np.maximum}
@@ -68,3 +70,16 @@ def build_sparse_store(rows, cols, values, nrows, ncols, dtype, dup_op=None):
     r, c, v = sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op)
     v = np.asarray(v).astype(dtype.np_type, copy=False)
     return SparseStore(r, c, v, nrows, ncols, dtype)
+
+
+def densify(sp, dtype, device):
+    """SparseStore -> (vals, valid) bitmap store on device.  The store holds
+    each coordinate once, so the scatter has no ties."""
+    vals = torch.zeros((sp.nrows, sp.ncols), dtype=dtype.torch_type,
+                       device=device)
+    valid = torch.zeros((sp.nrows, sp.ncols), dtype=torch.bool, device=device)
+    if sp.nvals():
+        lin = torch.from_numpy(sp.rows * sp.ncols + sp.cols).to(device)
+        vals.view(-1)[lin] = _dt.to_tensor(sp.vals, dtype, device)
+        valid.view(-1)[lin] = True
+    return vals, valid

@@ -1,5 +1,8 @@
 """Value helpers over storage tensors (graphblas_tpu/core/engine/store.py:
-``cast_values`` and ``identity_value_array``)."""
+``cast_values`` and ``identity_value_array``).  Values are plain tensors,
+the port has no struct types, so that module's ``zeros_values``,
+``np_values_to_device`` and ``where_values`` are ``torch.zeros``,
+``dtypes.to_tensor`` and ``torch.where`` here."""
 
 import numpy as np
 import torch

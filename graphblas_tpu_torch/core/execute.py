@@ -1,26 +1,30 @@
 """The funnel every operation goes through: compute an expression's
 (values, valid), then write it back into its target under mask, accum and
-replace (graphblas_tpu/core/execute.py ``materialize``/``update_into`` and
-the mxv/vxm and row/column reduce branches of ``_inline_sparse_impl``).  PyTorch runs eagerly, so
-there is no jit cache and no recorder."""
+replace (graphblas_tpu/core/execute.py ``materialize``/``update_into``,
+``_format_plan`` and the trace implementations ``T_*``).  PyTorch runs
+eagerly, so there is no jit cache and no recorder."""
 
 import torch
 
 from .engine import dense, lanepipe, sortpipe
+from .engine import store as st
 from .operator.base import typed
 
 
 def as_expr(obj):
-    """An expression, or a collection to copy (``c << v``)."""
-    from .base import BaseExpression
+    """An expression, or a collection to copy (``c << v``, ``C << A.T``)."""
+    from .base import BaseExpression, BaseType
+    from .matrix import TransposedMatrix
 
     if isinstance(obj, BaseExpression):
         return obj
-    from .vector import Vector
-
-    if isinstance(obj, Vector):
+    if isinstance(obj, TransposedMatrix):
+        m = obj._matrix
+        return BaseExpression("transpose", None, [m], m.dtype, obj.shape,
+                              type(m))
+    if isinstance(obj, BaseType) and obj.ndim:
         return BaseExpression("identity", None, [obj], obj.dtype, obj.shape,
-                              Vector)
+                              type(obj))
     raise TypeError(f"cannot assign {type(obj).__name__} with <<")
 
 
@@ -32,7 +36,16 @@ def materialize(expr, out_dtype, *, mask=None, name=None):
 
 def update_into(target, expr, *, mask=None, accum=None, replace=False):
     if tuple(target.shape) != tuple(expr.shape):
-        raise ValueError(f"shape mismatch: {target.shape} << {expr.shape}")
+        from ..exceptions import DimensionMismatch
+
+        raise DimensionMismatch(
+            f"shape mismatch: {target.shape} << {expr.shape}")
+    if mask is not None and tuple(mask.parent.shape) != tuple(target.shape):
+        from ..exceptions import DimensionMismatch
+
+        raise DimensionMismatch(
+            f"mask shape {mask.parent.shape} does not match output shape "
+            f"{target.shape}")
     z_vals, z_valid = compute(expr)
     mask_arr = None if mask is None else mask._as_array()
     typed_accum = None if accum is None else typed(accum, target.dtype,
@@ -67,28 +80,188 @@ def assign_scalar(target, value, *, mask=None, accum=None, replace=False):
     target._set_store(vals, valid)
 
 
+# --------------------------------------------------------------------- #
+# sparse-format planning.  Sparse-backed operands take the SpMV engines
+# for mxv, vxm and the row/column reduces; everything else densifies them
+# first, guarded by the dense_limit config in BaseType._densify.
+def _sp_args(expr):
+    return [a for a in expr.args if getattr(a, "_sparse", None) is not None]
+
+
+def _format_plan(expr):
+    """How to execute given the operands' current backings.
+
+    None      -- all dense, the normal path.
+    "inline"  -- a sparse matrix operand, dense result: the lanepipe or the
+                 sort pipeline.
+    "sparse"  -- the result is itself sparse: SpGEMM, not ported.
+    "densify" -- no sparse path; densify the sparse operands and go dense.
+
+    The JAX package also sends ``mxm`` with a traced dense operand (loop
+    state inside its ``ss.iterate``) to "densify"; nothing is traced here,
+    so that branch has no counterpart.
+    """
+    if not _sp_args(expr):
+        return None
+    m = expr.method_name
+    if m in ("mxv", "vxm", "reduce_rowwise", "reduce_columnwise"):
+        return "inline"
+    if m == "mxm":
+        return "sparse"
+    return "densify"
+
+
 def compute(expr):
     """(values, valid) of an expression, in expr.dtype."""
+    plan = _format_plan(expr)
     m = expr.method_name
-    a = expr.args[0]
-    if m in ("mxv", "vxm"):
-        return _inline_sparse_impl(expr)
-    if m in ("reduce_rowwise", "reduce_columnwise"):
+    if plan == "sparse":
+        raise NotImplementedError(
+            "mxm with a sparse-backed operand is SpGEMM, which is not in "
+            "the PyTorch port yet (ROADMAP.md queue 1, item 10); a Matrix "
+            "of at most auto_sparse_limit elements is dense-backed and "
+            "multiplies through the dense engine")
+    if plan == "inline":
+        if m in ("mxv", "vxm"):
+            return _inline_sparse_impl(expr)
         return _reduce_axis_impl(expr)
-    if m == "identity":
-        return a._vals, a._valid
-    if m == "apply":
-        return dense.apply_op(a._vals, a._valid, expr.op, a.dtype)
-    if m == "reduce":
-        vals, valid = dense.reduce_monoid(a._vals, a._valid, expr.op,
-                                          a.dtype)
-        if not expr._statics[0]:  # allow_empty=False: identity when empty
-            valid = torch.ones((), dtype=torch.bool, device=valid.device)
-        return vals, valid
-    if m == "extract_element":
-        i = expr._statics[0]
-        return a._vals[i], a._valid[i]
-    raise NotImplementedError(f"{m} is not in the PyTorch port yet")
+    if plan == "densify":
+        for a in _sp_args(expr):
+            a._densify()
+    impl = _DENSE_IMPL.get(m)
+    if impl is None:
+        raise NotImplementedError(f"{m} is not in the PyTorch port yet")
+    return impl(expr)
+
+
+def _store(obj, transposed=False):
+    if transposed:
+        return dense.transpose(obj._vals, obj._valid)
+    return obj._vals, obj._valid
+
+
+def T_copy(expr):
+    a = expr.args[0]
+    vals, valid = _store(a, expr.method_name == "transpose")
+    return st.cast_values(vals, a.dtype, expr.dtype), valid
+
+
+def T_apply(expr):
+    a = expr.args[0]
+    return dense.apply_op(a._vals, a._valid, expr.op, a.dtype)
+
+
+def T_reduce_scalar(expr):
+    a = expr.args[0]
+    vals, valid = dense.reduce_monoid(a._vals, a._valid, expr.op, a.dtype)
+    if not expr._statics[0]:  # allow_empty=False: identity when empty
+        ident = st.identity_value_array(expr.op, expr.op.type, vals.device)
+        if ident is not None:
+            vals = torch.where(valid, vals, ident)
+        valid = torch.ones((), dtype=torch.bool, device=valid.device)
+    return vals, valid
+
+
+def T_reduce_axis(expr):
+    a = expr.args[0]
+    axis, tflag = expr._statics
+    vals, valid = _store(a, tflag)
+    return dense.reduce_monoid(vals, valid, expr.op, a.dtype, axis)
+
+
+def T_extract_element(expr):
+    a = expr.args[0]
+    i = expr._statics[0]
+    return a._vals[i], a._valid[i]
+
+
+def T_matmul(expr):
+    """mxm, and mxv/vxm/inner of dense-backed operands as products with a
+    one-column or one-row matrix."""
+    kind = expr.method_name
+    a, b = expr.args
+    ring = expr.op
+    if kind == "mxm":
+        at, bt = expr._statics
+        a_vals, a_valid = _store(a, at)
+        b_vals, b_valid = _store(b, bt)
+        return dense.semiring_matmul(a_vals, a_valid, b_vals, b_valid, ring,
+                                     a.dtype, b.dtype)
+    if kind == "mxv":
+        a_vals, a_valid = _store(a, expr._statics[0])
+        v, ok = dense.semiring_matmul(a_vals, a_valid, b._vals[:, None],
+                                      b._valid[:, None], ring, a.dtype,
+                                      b.dtype)
+        return v[:, 0], ok[:, 0]
+    if kind == "vxm":
+        b_vals, b_valid = _store(b, expr._statics[0])
+        v, ok = dense.semiring_matmul(a._vals[None, :], a._valid[None, :],
+                                      b_vals, b_valid, ring, a.dtype, b.dtype)
+        return v[0], ok[0]
+    v, ok = dense.semiring_matmul(a._vals[None, :], a._valid[None, :],
+                                  b._vals[:, None], b._valid[:, None], ring,
+                                  a.dtype, b.dtype)
+    return v[0, 0], ok[0, 0]
+
+
+def T_power(expr):
+    """Exponentiation by repeated squaring."""
+    a = expr.args[0]
+    ring = expr.op
+    dt = expr.dtype
+    result = None
+    base = (st.cast_values(a._vals, a.dtype, dt), a._valid)
+    e = expr._statics[0]
+    while e > 0:
+        if e & 1:
+            result = base if result is None else dense.semiring_matmul(
+                *result, *base, ring, dt, dt)
+        e >>= 1
+        if e:
+            base = dense.semiring_matmul(*base, *base, ring, dt, dt)
+    return result
+
+
+def T_ewise(expr):
+    variant, at, bt = expr._statics[:3]
+    a, b = expr.args
+    a_vals, a_valid = _store(a, at)
+    b_vals, b_valid = _store(b, bt)
+    if variant == "mult":
+        return dense.ewise_mult(a_vals, a_valid, b_vals, b_valid, expr.op,
+                                a.dtype, b.dtype)
+    if variant == "add":
+        return dense.ewise_add(a_vals, a_valid, b_vals, b_valid, expr.op,
+                               a.dtype, b.dtype, expr.dtype)
+    ldef, rdef = expr._statics[3:]
+    dev = a_valid.device
+    return dense.ewise_union(a_vals, a_valid, b_vals, b_valid, expr.op,
+                             a.dtype, b.dtype, ldef._vals.to(dev),
+                             rdef._vals.to(dev))
+
+
+def T_diag_extract(expr):
+    a = expr.args[0]
+    k, tflag = expr._statics
+    vals, valid = _store(a, tflag)
+    return dense.diag_extract(vals, valid, k)
+
+
+def T_diag_build(expr):
+    v = expr.args[0]
+    k, n = expr._statics
+    return dense.diag_build(v._vals, v._valid, k, n)
+
+
+_DENSE_IMPL = {
+    "identity": T_copy, "transpose": T_copy, "apply": T_apply,
+    "reduce": T_reduce_scalar, "reduce_rowwise": T_reduce_axis,
+    "reduce_columnwise": T_reduce_axis,
+    "extract_element": T_extract_element, "mxm": T_matmul, "mxv": T_matmul,
+    "vxm": T_matmul, "inner": T_matmul, "power": T_power,
+    "ewise_mult": T_ewise, "ewise_add": T_ewise, "ewise_union": T_ewise,
+    "diag": T_diag_extract, "diag_build": T_diag_build,
+}
 
 
 def _empty_result(expr, dev):

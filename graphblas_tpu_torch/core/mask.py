@@ -1,5 +1,6 @@
-"""Masks: ``v.S``, ``v.V`` and their complements ``~v.S``, ``~v.V``
-(graphblas_tpu/core/mask.py)."""
+"""Masks: ``v.S``, ``v.V`` and their complements ``~v.S``, ``~v.V``, of a
+Vector or a Matrix (graphblas_tpu/core/mask.py).  A mask of a sparse-backed
+Matrix densifies it, under the ``dense_limit`` guard."""
 
 from .engine import dense
 

@@ -1,31 +1,69 @@
-"""Matrix: always sparse-backed in the port (graphblas_tpu/core/matrix.py,
-the methods PageRank, BFS, SSSP and the row/column reduces call).
-``from_coo`` builds the host store; the lanepipe or sort-pipeline plan and
-its device tensors are built at the first mxv/vxm or reduce of each
-direction."""
+"""Matrix and TransposedMatrix (graphblas_tpu/core/matrix.py).
+
+Two backings, as in the JAX package: a Matrix with at most
+``auto_sparse_limit`` elements is a dense (values, valid) store on its
+device; a larger one is sparse-backed (host COO; the lanepipe or
+sort-pipeline plan and its device tensors are built at the first mxv/vxm
+or reduce of each direction).  An operation without a sparse path
+(``power``, element-wise operations, ``diag``, masks) densifies a sparse
+operand under the ``dense_limit`` guard; ``mxm`` with a sparse operand is
+SpGEMM and raises until that is ported."""
 
 import numpy as np
 import torch
 
 from . import config as _config
 from . import dtypes as _dt
-from .base import BaseExpression
-from .engine.sparse import SparseStore, build_sparse_store
+from ..exceptions import DimensionMismatch, EmptyObject
+from .base import BaseExpression, BaseType
+from .engine.sparse import build_sparse_store
+from .mask import StructuralMask, ValueMask
 from .operator.base import typed
+from .scalar import Scalar
 from .vector import Vector, _unify, _values_dtype
 
 
-class Matrix:
+def _untranspose(x):
+    """(matrix, transposed?) of a Matrix or a TransposedMatrix."""
+    if isinstance(x, TransposedMatrix):
+        return x._matrix, True
+    return x, False
+
+
+def _shape_of(mat, transposed):
+    return (mat.ncols, mat.nrows) if transposed else (mat.nrows, mat.ncols)
+
+
+class Matrix(BaseType):
     ndim = 2
 
     def __init__(self, dtype=_dt.FP64, nrows=0, ncols=0, *, name=None):
         self.dtype = _dt.lookup_dtype(dtype)
+        nrows, ncols = int(nrows), int(ncols)
+        if nrows < 0 or ncols < 0:
+            raise ValueError("nrows and ncols must be non-negative")
+        self._nrows, self._ncols = nrows, ncols
         self.name = name
         self._device = _config.device()
-        e = np.zeros(0, np.int64)
-        self._sparse = SparseStore(e, e, np.zeros(0, self.dtype.np_type),
-                                   nrows, ncols, self.dtype)
+        if nrows * ncols > int(_config.config.get("auto_sparse_limit",
+                                                  1 << 22)):
+            e = np.zeros(0, np.int64)
+            self._set_sparse_store(build_sparse_store(
+                e, e, np.zeros(0, self.dtype.np_type), nrows, ncols,
+                self.dtype))
+        else:
+            self._set_store(
+                torch.zeros((nrows, ncols), dtype=self.dtype.torch_type,
+                            device=self._device),
+                torch.zeros((nrows, ncols), dtype=torch.bool,
+                            device=self._device))
 
+    @classmethod
+    def _empty(cls, dtype, shape, name=None):
+        return cls(dtype, shape[0], shape[1], name=name)
+
+    # ------------------------------------------------------------------ #
+    # constructors and exports
     @classmethod
     def from_coo(cls, rows, columns, values=1.0, dtype=None, *, nrows=None,
                  ncols=None, dup_op=None, name=None):
@@ -43,89 +81,366 @@ class Matrix:
                           or columns.min() < 0 or columns.max() >= ncols):
             raise IndexError("index out of bounds")
         m = cls(dt, nrows, ncols, name=name)
-        m._sparse = build_sparse_store(rows, columns, values, nrows, ncols,
-                                       dt, dup_op)
+        sp = build_sparse_store(rows, columns, values, nrows, ncols, dt, dup_op)
+        dense = m._sparse is None
+        m._set_sparse_store(sp)
+        if dense:
+            m._densify()
         return m
 
+    @classmethod
+    def from_dense(cls, values, missing_value=None, dtype=None, *, name=None):
+        values, dt = _values_dtype(values, dtype)
+        if values.ndim != 2:
+            raise TypeError("values must be 2-dimensional for "
+                            "Matrix.from_dense")
+        m = cls(dt, 0, 0, name=name)
+        m._nrows, m._ncols = values.shape
+        dev = m._device
+        if missing_value is None:
+            valid = torch.ones(values.shape, dtype=torch.bool, device=dev)
+        else:
+            valid = torch.from_numpy(values != missing_value).to(dev)
+        m._set_store(_dt.to_tensor(values, dt, dev), valid)
+        return m
+
+    @classmethod
+    def from_scalar(cls, value, nrows, ncols, dtype=None, *, name=None):
+        """Dense matrix with every element stored and equal to value."""
+        if isinstance(value, Scalar):
+            if value.is_empty:
+                raise EmptyObject("Scalar is empty; cannot create Matrix "
+                                  "from it")
+            dtype = value.dtype if dtype is None else dtype
+            value = value.value
+        return cls.from_dense(np.full((int(nrows), int(ncols)), value),
+                              dtype=dtype, name=name)
+
+    def to_coo(self, dtype=None, *, rows=True, columns=True, values=True,
+               sort=True):
+        if self._sparse is not None:
+            sp = self._sparse
+            r, c, v = sp.rows, sp.cols, sp.vals
+        else:
+            host_vals, host_ok = self._host_arrays()
+            r, c = np.nonzero(host_ok)
+            v = host_vals[r, c]
+        if dtype is not None:
+            v = v.astype(_dt.lookup_dtype(dtype).np_type)
+        return (r.astype(np.uint64) if rows else None,
+                c.astype(np.uint64) if columns else None,
+                v if values else None)
+
+    def to_dense(self, fill_value=None, dtype=None):
+        host_vals, host_ok = self._host_arrays()
+        dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
+        out = host_vals.astype(dt.np_type, copy=True)
+        if not host_ok.all():
+            if fill_value is None:
+                raise TypeError("fill_value must be given in to_dense when "
+                                "there are missing values")
+            out[~host_ok] = fill_value
+        return out
+
+    # ------------------------------------------------------------------ #
     @property
     def nrows(self):
-        return self._sparse.nrows
+        return self._nrows
 
     @property
     def ncols(self):
-        return self._sparse.ncols
+        return self._ncols
 
     @property
     def shape(self):
-        return (self.nrows, self.ncols)
-
-    @property
-    def nvals(self):
-        return self._sparse.nvals()
+        return (self._nrows, self._ncols)
 
     @property
     def T(self):
         return TransposedMatrix(self)
 
+    @property
+    def S(self):
+        return StructuralMask(self)
+
+    @property
+    def V(self):
+        return ValueMask(self)
+
     def __repr__(self):
         return (f"Matrix(dtype={self.dtype.name}, shape={self.shape}, "
                 f"nvals={self.nvals})")
 
+    def dup(self, dtype=None, *, clear=False, mask=None, name=None):
+        """A copy, optionally cast, masked or cleared."""
+        from . import execute
+
+        dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
+        if self._sparse is not None and not clear and mask is None \
+                and dt == self.dtype:
+            out = Matrix.__new__(Matrix)
+            out.dtype, out.name, out._device = dt, name, self._device
+            out._nrows, out._ncols = self.shape
+            out._set_sparse_store(self._sparse)  # stores are never mutated
+            return out
+        out = Matrix(dt, self._nrows, self._ncols, name=name)
+        if not clear:
+            execute.update_into(out, execute.as_expr(self), mask=mask)
+        return out
+
+    def isequal(self, other, *, check_dtype=False):
+        """Exact equality: same shape, structure and values (compared on
+        the device; one read of the verdict)."""
+        other = _as_matrix(other, "isequal")
+        if check_dtype and self.dtype != other.dtype:
+            return False
+        if self.shape != other.shape:
+            return False
+        common = self.dtype if check_dtype else _unify(self.dtype, other.dtype)
+        ok = self._valid
+        av = _dt.normalize(self._vals, common)
+        bv = _dt.normalize(other._vals.to(self.device), common)
+        same = (ok == other._valid.to(self.device)) & ((av == bv) | ~ok)
+        return bool(same.all())
+
+    def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
+        other = _as_matrix(other, "isclose")
+        if check_dtype and self.dtype != other.dtype:
+            return False
+        if self.shape != other.shape:
+            return False
+        ar, ac, av = self.to_coo()
+        br, bc, bv = other.to_coo()
+        if not (np.array_equal(ar, br) and np.array_equal(ac, bc)):
+            return False
+        return bool(np.all(np.isclose(av, bv, rtol=rel_tol, atol=abs_tol)))
+
+    def __getitem__(self, keys):
+        if (isinstance(keys, tuple) and len(keys) == 2
+                and all(isinstance(k, (int, np.integer)) for k in keys)):
+            idx = []
+            for k, size in zip(keys, self.shape):
+                k = int(k)
+                if not -size <= k < size:
+                    raise IndexError(f"index {k} out of range for size {size}")
+                idx.append(k % size)
+            return BaseExpression("extract_element", None, [self], self.dtype,
+                                  (), Scalar, (tuple(idx),))
+        raise NotImplementedError(
+            "only element extraction A[i, j] is in the PyTorch port yet "
+            "(ROADMAP.md queue 1, item 10)")
+
+    def diag(self, k=0, *, name=None):
+        """Diagonal k as a Vector."""
+        k = int(k)
+        if k >= 0:
+            size = max(0, min(self._nrows, self._ncols - k))
+        else:
+            size = max(0, min(self._nrows + k, self._ncols))
+        return BaseExpression("diag", None, [self], self.dtype, (size,),
+                              Vector, (k, False)).new(name=name)
+
+    # ------------------------------------------------------------------ #
+    # linear algebra
+    def _matmul_expr(self, kind, other, op):
+        a, at = _untranspose(self)
+        b, bt = _untranspose(other)
+        ring = typed(op, _unify(a.dtype, b.dtype), "Semiring")
+        sa = _shape_of(a, at)
+        if kind == "mxv":
+            if not isinstance(b, Vector):
+                raise TypeError(f"mxv expects a Vector; got "
+                                f"{type(b).__name__}")
+            if sa[1] != b.size:
+                raise DimensionMismatch(
+                    f"Dimensions not compatible for mxv: {sa} x {b.size}")
+            return BaseExpression("mxv", ring, [a, b], ring.return_type,
+                                  (sa[0],), Vector, (at,))
+        if not isinstance(b, Matrix):
+            raise TypeError(f"mxm expects a Matrix; got {type(b).__name__}")
+        sb = _shape_of(b, bt)
+        if sa[1] != sb[0]:
+            raise DimensionMismatch(
+                f"Dimensions not compatible for mxm: {sa} x {sb}")
+        return BaseExpression("mxm", ring, [a, b], ring.return_type,
+                              (sa[0], sb[1]), Matrix, (at, bt))
+
     def mxv(self, other, op="plus_times"):
-        return _mxv(self, False, other, op)
-
-    def reduce_rowwise(self, op="plus"):
-        return _reduce_axis(self, op, 1, "reduce_rowwise")
-
-    def reduce_columnwise(self, op="plus"):
-        return _reduce_axis(self, op, 0, "reduce_columnwise")
+        return self._matmul_expr("mxv", other, op)
 
     def mxm(self, other, op="plus_times"):
-        raise NotImplementedError(
-            "SpGEMM is not in the PyTorch port yet (ROADMAP.md queue 1, "
-            "item 10)")
+        return self._matmul_expr("mxm", other, op)
 
-    def wait(self, how="materialize"):
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+    def power(self, n, op="plus_times"):
+        """Matrix power by repeated squaring."""
+        if not isinstance(n, (int, np.integer)) or isinstance(n, bool):
+            raise TypeError(f"n must be a positive integer; got {type(n)}")
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"n must be a positive integer; got {n}")
+        if self._nrows != self._ncols:
+            raise DimensionMismatch("power requires a square Matrix")
+        ring = typed(op, self.dtype, "Semiring")
+        return BaseExpression("power", ring, [self], ring.return_type,
+                              self.shape, Matrix, (n,))
+
+    def _ewise_expr(self, other, op, variant, ldef=None, rdef=None):
+        a, at = _untranspose(self)
+        b, bt = _untranspose(other)
+        if not isinstance(b, Matrix):
+            raise TypeError(f"Bad type for argument `other` in "
+                            f"ewise_{variant}: {type(other).__name__}")
+        sa, sb = _shape_of(a, at), _shape_of(b, bt)
+        if sa != sb:
+            raise DimensionMismatch(
+                f"Shapes do not match in ewise_{variant}: {sa} != {sb}")
+        bop = typed(op, _unify(a.dtype, b.dtype), "BinaryOp")
+        statics = (variant, at, bt)
+        if variant == "union":
+            statics += (Scalar.from_value(_scalar_value(ldef), bop.type),
+                        Scalar.from_value(_scalar_value(rdef), bop.type2))
+        return BaseExpression(f"ewise_{variant}", bop, [a, b],
+                              bop.return_type, sa, Matrix, statics)
+
+    def ewise_add(self, other, op="plus"):
+        return self._ewise_expr(other, op, "add")
+
+    def ewise_mult(self, other, op="times"):
+        return self._ewise_expr(other, op, "mult")
+
+    def ewise_union(self, other, op, left_default, right_default):
+        return self._ewise_expr(other, op, "union", left_default,
+                                right_default)
+
+    def _reduce_axis_expr(self, op, axis, method):
+        """Monoid reduce along an axis of the stored matrix (axis 1 folds
+        each row); for ``A.T`` the caller has already swapped the axis."""
+        mat, _ = _untranspose(self)
+        mono = typed(op, mat.dtype, "Monoid")
+        size = mat.nrows if axis == 1 else mat.ncols
+        return BaseExpression(method, mono, [mat], mono.return_type, (size,),
+                              Vector, (axis, False))
+
+    def reduce_rowwise(self, op="plus"):
+        return self._reduce_axis_expr(op, 1, "reduce_rowwise")
+
+    def reduce_columnwise(self, op="plus"):
+        return self._reduce_axis_expr(op, 0, "reduce_columnwise")
+
+    def reduce_scalar(self, op="plus", *, allow_empty=True):
+        mat, _ = _untranspose(self)
+        mono = typed(op, mat.dtype, "Monoid")
+        return BaseExpression("reduce", mono, [mat], mono.return_type, (),
+                              Scalar, (bool(allow_empty),))
+
+    def _not_ported(self, what, item):
+        raise NotImplementedError(
+            f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1, "
+            f"item {item})")
+
+    def kronecker(self, other, op="times"):
+        self._not_ported("kronecker", 11)
+
+    def reposition(self, row_offset, column_offset, *, nrows=None, ncols=None):
+        self._not_ported("reposition", 11)
+
+    def select(self, op, thunk=None):
+        self._not_ported("select", 12)
+
+    def apply(self, op, right=None, *, left=None):
+        self._not_ported("Matrix.apply", 12)
+
+
+def _as_matrix(other, within):
+    if isinstance(other, TransposedMatrix):
+        return other.new()
+    if not isinstance(other, Matrix):
+        raise TypeError(f"{within} expects a Matrix; got "
+                        f"{type(other).__name__}")
+    return other
+
+
+def _scalar_value(x):
+    if isinstance(x, Scalar):
+        if x.is_empty:
+            raise EmptyObject("a default of ewise_union is an empty Scalar")
+        return x.value
+    return x
 
 
 class TransposedMatrix:
-    """``A.T``: a view that mxv/vxm read in the other direction."""
+    """``A.T``: a view that every operation reads in the other direction."""
+
+    ndim = 2
 
     def __init__(self, matrix):
         self._matrix = matrix
 
     @property
+    def dtype(self):
+        return self._matrix.dtype
+
+    @property
+    def nrows(self):
+        return self._matrix.ncols
+
+    @property
+    def ncols(self):
+        return self._matrix.nrows
+
+    @property
     def shape(self):
         return (self._matrix.ncols, self._matrix.nrows)
 
-    def mxv(self, other, op="plus_times"):
-        return _mxv(self._matrix, True, other, op)
+    @property
+    def nvals(self):
+        return self._matrix.nvals
+
+    @property
+    def T(self):
+        return self._matrix
+
+    def new(self, dtype=None, *, mask=None, name=None):
+        out_dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
+        return BaseExpression("transpose", None, [self._matrix], self.dtype,
+                              self.shape, Matrix).new(out_dt, mask=mask,
+                                                      name=name)
+
+    dup = new
+
+    mxv = Matrix.mxv
+    mxm = Matrix.mxm
+    _matmul_expr = Matrix._matmul_expr
+    ewise_add = Matrix.ewise_add
+    ewise_mult = Matrix.ewise_mult
+    ewise_union = Matrix.ewise_union
+    _ewise_expr = Matrix._ewise_expr
+    _reduce_axis_expr = Matrix._reduce_axis_expr
+    reduce_scalar = Matrix.reduce_scalar
 
     def reduce_rowwise(self, op="plus"):
-        return _reduce_axis(self._matrix, op, 0, "reduce_rowwise")
+        return self._reduce_axis_expr(op, 0, "reduce_rowwise")
 
     def reduce_columnwise(self, op="plus"):
-        return _reduce_axis(self._matrix, op, 1, "reduce_columnwise")
+        return self._reduce_axis_expr(op, 1, "reduce_columnwise")
 
+    def power(self, n, op="plus_times"):
+        return self.new().power(n, op)
 
-def _reduce_axis(mat, op, axis, method):
-    """Monoid reduce along an axis of the stored matrix (axis 1 folds each
-    row); for ``A.T`` the caller has already swapped the axis."""
-    mono = typed(op, mat.dtype, "Monoid")
-    size = mat.nrows if axis == 1 else mat.ncols
-    return BaseExpression(method, mono, [mat], mono.return_type, (size,),
-                          Vector, (axis, False))
+    def to_dense(self, fill_value=None, dtype=None):
+        return self._matrix.to_dense(fill_value, dtype).T.copy()
 
+    def isequal(self, other, *, check_dtype=False):
+        return self.new().isequal(other, check_dtype=check_dtype)
 
-def _mxv(mat, at, vec, op):
-    if not isinstance(vec, Vector):
-        raise TypeError(f"mxv expects a Vector; got {type(vec).__name__}")
-    ring = typed(op, _unify(mat.dtype, vec.dtype), "Semiring")
-    shape = (mat.ncols, mat.nrows) if at else (mat.nrows, mat.ncols)
-    if vec.size != shape[1]:
-        raise ValueError(f"Dimensions not compatible for mxv: {shape} vs "
-                         f"{vec.size}")
-    return BaseExpression("mxv", ring, [mat, vec], ring.return_type,
-                          (shape[0],), Vector, (at,))
+    def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
+        return self.new().isclose(other, rel_tol=rel_tol, abs_tol=abs_tol,
+                                  check_dtype=check_dtype)
+
+    @property
+    def S(self):
+        return StructuralMask(self.new())
+
+    @property
+    def V(self):
+        return ValueMask(self.new())

@@ -1,4 +1,11 @@
-"""Builtin binary operators of the SpMV slice, as torch functions."""
+"""Builtin binary operators, as torch functions
+(graphblas_tpu/core/operator/binary.py, the subset the ported paths name).
+
+``min`` and ``max`` on floats are ``fmin``/``fmax`` as in the JAX package
+(GraphBLAS ``min`` ignores a NaN operand).  The positional operators
+``firsti``/``firstj``/``secondi``/``secondj`` return an index of the pair
+they are applied to; the engine computes them from positions, so they have
+no function here."""
 
 import torch
 
@@ -15,13 +22,20 @@ _BUILTIN = {
     "pair": (_NUM, lambda x, y: torch.ones_like(x)),
     "plus": (_NUM, lambda x, y: x + y),
     "times": (_NUM, lambda x, y: x * y),
-    "min": (_NUM, torch.minimum),
-    "max": (_NUM, torch.maximum),
+    "any": (_NUM, lambda x, y: x),  # either operand will do: the first
+    "min": (_NUM, lambda x, y: torch.fmin(x, y) if x.dtype.is_floating_point
+            else torch.minimum(x, y)),
+    "max": (_NUM, lambda x, y: torch.fmax(x, y) if x.dtype.is_floating_point
+            else torch.maximum(x, y)),
     "land": ((_dt.BOOL,), lambda x, y: x & y),
     "lor": ((_dt.BOOL,), lambda x, y: x | y),
     "band": (_INTS, lambda x, y: x & y),
     "bor": (_INTS, lambda x, y: x | y),
 }
+# name -> (which index of the pair a(i,k) b(k,j), offset)
+_POSITIONAL = {"firsti": ("ai", 0), "firstj": ("aj", 0),
+               "secondi": ("bi", 0), "secondj": ("bj", 0)}
+_POS = (_dt.INT32, _dt.INT64)
 
 
 class TypedBinaryOp(TypedOpBase):
@@ -30,6 +44,7 @@ class TypedBinaryOp(TypedOpBase):
     def __init__(self, parent, name, type_, func):
         super().__init__(parent, name, type_, type_)
         self.func = func
+        self._positional = parent._positional
 
     def __call__(self, x, y):
         """Apply to storage tensors of self.type; result in return_type."""
@@ -39,10 +54,11 @@ class TypedBinaryOp(TypedOpBase):
 class BinaryOp(OpBase):
     opclass = "BinaryOp"
 
-    def __init__(self, name, domains, func):
+    def __init__(self, name, domains, func, positional=None):
         super().__init__(name)
         self._domains = domains
         self._func = func
+        self._positional = positional
 
     def _build_typed(self, dt):
         if dt not in self._domains:
@@ -52,3 +68,6 @@ class BinaryOp(OpBase):
 
 BUILTINS = {name: BinaryOp(name, doms, fn)
             for name, (doms, fn) in _BUILTIN.items()}
+BUILTINS["oneb"] = BUILTINS["pair"]
+BUILTINS.update({name: BinaryOp(name, _POS, None, positional=pos)
+                 for name, pos in _POSITIONAL.items()})

@@ -1,5 +1,7 @@
-"""Builtin monoids of the SpMV slice: an associative binary op and its
-identity (graphblas_tpu/core/operator/monoid.py, same identities)."""
+"""Builtin monoids: an associative binary op and its identity
+(graphblas_tpu/core/operator/monoid.py, same identities).  ``any`` picks
+one of its operands and has no identity; the dense engine takes the first
+stored one in index order."""
 
 import numpy as np
 
@@ -28,6 +30,7 @@ _BUILTIN = {
     "land": ((_dt.BOOL,), True),
     "band": ((_dt.UINT32,), lambda dt: int(np.iinfo(dt.np_type).max)),
     "bor": ((_dt.UINT32,), 0),
+    "any": ((_dt.BOOL,) + _REAL, None),
 }
 
 

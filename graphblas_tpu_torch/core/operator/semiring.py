@@ -2,6 +2,7 @@
 (``min_plus``, ``lor_land``) as graphblas_tpu/core/operator/semiring.py
 does."""
 
+from .. import dtypes as _dt
 from .base import OpBase, TypedOpBase
 from .binary import BUILTINS as _BINARY
 from .monoid import BUILTINS as _MONOID
@@ -25,6 +26,9 @@ class Semiring(OpBase):
         self.binaryop = binaryop
 
     def _build_typed(self, dt):
+        if self.binaryop._positional is not None and \
+                dt not in self.binaryop._domains:
+            dt = _dt.INT64  # a positional multiply ignores the values
         try:
             bop = self.binaryop[dt]
             mono = self.monoid[bop.return_type]

@@ -7,6 +7,7 @@ import torch
 
 from . import config as _config
 from . import dtypes as _dt
+from ..exceptions import DimensionMismatch
 from .base import BaseExpression, BaseType
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
@@ -226,10 +227,24 @@ class Vector(BaseType):
         ring = typed(op, _unify(self.dtype, b.dtype), "Semiring")
         bshape = (b.ncols, b.nrows) if bt else (b.nrows, b.ncols)
         if self.size != bshape[0]:
-            raise ValueError(f"Dimensions not compatible for vxm: "
-                             f"{self.size} vs {bshape}")
+            raise DimensionMismatch(f"Dimensions not compatible for vxm: "
+                                    f"{self.size} vs {bshape}")
         return BaseExpression("vxm", ring, [self, b], ring.return_type,
                               (bshape[1],), Vector, (bt,))
+
+    def inner(self, other, op="plus_times"):
+        """Inner product with another Vector, a Scalar expression."""
+        from .scalar import Scalar
+
+        if not isinstance(other, Vector):
+            raise TypeError(f"inner expects a Vector; got "
+                            f"{type(other).__name__}")
+        ring = typed(op, _unify(self.dtype, other.dtype), "Semiring")
+        if self.size != other.size:
+            raise DimensionMismatch(f"Dimensions not compatible for inner: "
+                                    f"{self.size} vs {other.size}")
+        return BaseExpression("inner", ring, [self, other], ring.return_type,
+                              (), Scalar)
 
     def apply(self, op):
         unop = typed(op, self.dtype, "UnaryOp")

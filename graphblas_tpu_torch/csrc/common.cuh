@@ -60,7 +60,7 @@ __device__ __forceinline__ int tile_perm_src(const int* p, int r, int l) {
 __device__ __forceinline__ float as_f(uint32_t x) { return __uint_as_float(x); }
 __device__ __forceinline__ uint32_t f_bits(float x) { return __float_as_uint(x); }
 
-// NaN-propagating min/max, as jnp.minimum / torch.minimum
+// NaN-propagating min/max, as jnp.minimum / torch.minimum (the monoids)
 __device__ __forceinline__ float fmin_nan(float a, float b) {
   if (a != a) return a;
   if (b != b) return b;
@@ -83,8 +83,9 @@ __device__ __forceinline__ uint32_t mult_bits(int op, uint32_t x, uint32_t y) {
       case OP_FIRST: return x;
       case OP_SECOND: return y;
       case OP_PAIR: return f_bits(1.0f);
-      case OP_MIN: return f_bits(fmin_nan(a, b));
-      case OP_MAX: return f_bits(fmax_nan(a, b));
+      // the binary ops min/max ignore a NaN operand (GraphBLAS, jnp.fmin)
+      case OP_MIN: return f_bits(fminf(a, b));
+      case OP_MAX: return f_bits(fmaxf(a, b));
     }
     return 0;
   } else if (DT == DT_BOOL) {

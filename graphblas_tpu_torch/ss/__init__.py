@@ -12,9 +12,12 @@ def iterate(body, state, *, cond=None, max_iter=64):
     Scalar; the loop continues while it is truthy (do-while), and always
     stops after ``max_iter`` runs.  Returns the number of runs.
 
-    The loop is plain Python: reading ``cond`` costs one device sync per
-    iteration.  Replaying the body as a CUDA graph is ROADMAP.md queue 1,
-    item 6.
+    ``state`` may hold Vectors and Matrices alike: the body replaces their
+    stores through ``<<``.  The loop is plain Python and nothing is traced
+    (the JAX package traces the body once, and its ``mxm`` planning has a
+    branch for traced dense operands that needs no counterpart here);
+    reading ``cond`` costs one device sync per iteration.  Replaying the
+    body as a CUDA graph is ROADMAP.md queue 1, item 6.
     """
     from ..core.dtypes import INT64
     from ..core.scalar import Scalar

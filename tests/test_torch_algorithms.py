@@ -32,7 +32,9 @@ N = 600
 
 @pytest.fixture
 def cpu():
-    with gbt.config.set(device="cpu"):
+    """The CPU, and every Matrix sparse-backed: these tests hold the SpMV
+    engines, which a matrix under ``auto_sparse_limit`` would bypass."""
+    with gbt.config.set(device="cpu", auto_sparse_limit=0):
         yield
 
 

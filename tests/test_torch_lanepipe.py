@@ -283,7 +283,9 @@ def both_vectors(xv, dtype, idx=None, n=None):
 
 @pytest.fixture
 def cpu():
-    with gbt.config.set(device="cpu"):
+    """The CPU, and every Matrix sparse-backed: these tests hold the SpMV
+    engines, which a matrix under ``auto_sparse_limit`` would bypass."""
+    with gbt.config.set(device="cpu", auto_sparse_limit=0):
         yield
 
 
