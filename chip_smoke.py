@@ -12,7 +12,9 @@ engine) from the sources, then:
    plain PyTorch version on the card on the same inputs and compares them
    (bitwise for the permutations, integer paths, min/max and `first`, rel
    1e-5 for the FP32 plus scans), including the extract trimmed to TV=34
-   and to TV=1, and times both with CUDA events;
+   and to TV=1, and times both with CUDA events; K2 and K3 at every shape
+   the main paths launch them at (one and two channels, the route at
+   T=264, the extract trimmed), beside torch.take of the composite index;
 2. PageRank (bench.py's pr_body, 20 iterations of ss.iterate) on the zipf
    graph, checked against a float64 scipy power iteration;
 3. level BFS (bench.py's bfs_body with the lor-reduce cond) on the BOOL
@@ -38,9 +40,10 @@ engine) from the sources, then:
    an FP32 plus_times mxm against the same call on the CPU.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
-runs and fails if a kernel of its path was not launched.  The line before the last is
-{"kernels": [...]}, the last {"ok": true, "device": {...}}.  Any failure
-exits non-zero before the last line.  It uses no JAX.
+runs and fails if a kernel of its path was not launched, or if an exchange
+transpose ran (K3 reads and writes the tile layout itself).  The line
+before the last is {"kernels": [...]}, the last {"ok": true, "device":
+{...}}.  Any failure exits non-zero before the last line.  It uses no JAX.
 """
 
 import argparse
@@ -324,30 +327,92 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
         "graphblas_tpu/core/engine/lanepipe.py:363", err,
         cuda_ms(torch, k1), cuda_ms(torch, p1), nbytes, nops=R_g * 128)
 
-    # ---- K3 mid_perm: the route in full, the extract trimmed to TV
+    # ---- K3 mid_perm_tiles: at the route with one and two channels and at
+    # the extract trimmed to TV
+    variants = {}
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, shape,
+                                             dtype=np.int64).astype(np.int32)).to(dev)
+
+    def flat_source(fn, nrows):
+        """The int64 flat index a permutation fn reads each output from."""
+        return fn(torch.arange(nrows * 128, dtype=torch.int32,
+                               device=dev).reshape(nrows, 128)).long().reshape(-1)
+
+    def perm_variant(name, kfn, pfn, nbytes, x, src, chans=1):
+        """Kernel and plain ms, the bound, and torch.take of the composite
+        flat index over the channels stacked (one PyTorch call)."""
+        xs = torch.stack([pm._as_i32(t) for t in x]).reshape(-1) if chans > 1 \
+            else pm._as_i32(x).reshape(-1)
+        idx = torch.cat([src + c * (xs.numel() // chans) for c in range(chans)])
+        if not bool(torch.equal(torch.take(xs, idx).reshape(-1), torch.cat(
+                [pm._as_i32(o).reshape(-1) for o in (kfn() if chans > 1 else [kfn()])]))):
+            fail(f"{name}: torch.take of the composite index differs")
+        ms, pms = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
+        lms = cuda_ms(torch, lambda: torch.take(xs, idx))
+        b_ms, _ = bound(nbytes)
+        variants[name] = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                          "bytes": nbytes, "take_ms": lms}
+        log(f"  {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB), torch.take {lms:.4f} ms")
+        return ms, pms, lms
+
+    def k3_bytes(pb, m, TW, chans=1):
+        """Bytes K3's function needs on this plan: the index words that its
+        outputs' sources name, the input words they read (ports < T) and
+        the outputs, each once."""
+        pl = pb.long()
+        j = torch.arange(TW, device=dev).expand(NT, TW)
+        mm = (pl[:, :TW] >> 7) & 127
+        i2 = (j & ~127) + mm
+        s = (pl.gather(1, i2) >> 14) & 127
+        i3 = s * 128 + mm
+        col = s * 128 + (pl.gather(1, i3) & 127)
+        idx = torch.zeros(pl.shape, dtype=torch.bool, device=dev)
+        for i in (j, i2, i3):
+            idx.scatter_(1, i, True)
+        src = torch.zeros(pl.shape, dtype=torch.bool, device=dev)
+        src.scatter_(1, col, True)
+        return 4 * (int(idx.sum())
+                    + chans * (int(src[:, :m["T"]].sum()) + NT * TW))
+
     mr, me = e["permmeta"]["routeP"], e["permmeta"]["extP"]
+    T, T_pad = mr["T"], mr["T_pad"]
+    NT = pm.N_TILE
     pf = lp.pad_rows(prods, 0.0, L)
-    x_mid = pm._exchange_in(pf, mr["T"])
-    k3 = lambda: pm.mid_perm(routeP[1], [x_mid], mr["T128"], mr["T_pad"])[0]  # noqa: E731
-    p3 = lambda: pm.mid_perm_plain(routeP[1], [x_mid], mr["T128"], mr["T_pad"])[0]  # noqa: E731
-    err3 = compare("K3 mid_perm route", k3(), p3())
+    hr = ints((L // 128, 128))
+
+    def k3(xs, out_T=None, plain=False, P=routeP, m=mr):
+        f = pm.mid_perm_tiles_plain if plain else pm.mid_perm_tiles
+        return f(P[1], xs, m["T"], m["T128"], m["T_pad"], out_T)
+
+    err3 = compare("K3 mid_perm_tiles route", k3([pf])[0], k3([pf], plain=True)[0])
+    for g, w_, nm in zip(k3([pf, hr]), k3([pf, hr], plain=True), ("values", "validity")):
+        compare(f"K3 mid_perm_tiles route, two channels, {nm}", g, w_)
     lim1 = e["L2req"] if e["two_level"] else e["n_out"]
     TV = pm._trimmed_tiles(me, lim1)
-    y_ext = pm._exchange_in(torch.from_numpy(
-        rng.integers(-2**31, 2**31, (L // 128, 128), dtype=np.int64)
-        .astype(np.int32)).to(dev), me["T"])
-    compare(f"K3 mid_perm extract out_T={TV}",
-            pm.mid_perm(extP[1], [y_ext], me["T128"], me["T_pad"], out_T=TV)[0],
-            pm.mid_perm_plain(extP[1], [y_ext], me["T128"], me["T_pad"], out_T=TV)[0])
-    src3 = pm.mid_perm_plain(routeP[1], [torch.arange(
-        x_mid.numel(), dtype=torch.int32, device=dev).reshape(x_mid.shape)],
-        mr["T128"], mr["T_pad"])[0].long()
-    lib3 = cuda_ms(torch, lambda: torch.take(x_mid, src3))
-    T, T_pad = mr["T"], mr["T_pad"]
+    y_ext = ints((L // 128, 128))
+    compare(f"K3 mid_perm_tiles extract out_T={TV}",
+            k3([y_ext], TV, P=extP, m=me)[0],
+            k3([y_ext], TV, plain=True, P=extP, m=me)[0])
+    src3 = flat_source(lambda a: k3([a], plain=True)[0], L // 128)
+    route_bytes = k3_bytes(routeP[1], mr, T)
+    ms3, pms3, lib3 = perm_variant(
+        "mid_perm_tiles route", lambda: k3([pf])[0],
+        lambda: k3([pf], plain=True)[0], route_bytes, pf, src3)
+    perm_variant("mid_perm_tiles route, two channels", lambda: k3([pf, hr]),
+                 lambda: k3([pf, hr], plain=True),
+                 k3_bytes(routeP[1], mr, T, chans=2), [pf, hr], src3, chans=2)
+    perm_variant(f"mid_perm_tiles extract out_T={TV}",
+                 lambda: k3([y_ext], TV, P=extP, m=me)[0],
+                 lambda: k3([y_ext], TV, plain=True, P=extP, m=me)[0],
+                 k3_bytes(extP[1], me, TV), y_ext,
+                 flat_source(lambda a: k3([a], TV, plain=True, P=extP, m=me)[0],
+                             L // 128))
     add("mid_perm", "graphblas_tpu_torch/csrc/mid_perm.cu",
-        "graphblas_tpu/core/engine/permute.py:255", err3,
-        cuda_ms(torch, k3), cuda_ms(torch, p3),
-        4 * pm.N_TILE * (T_pad + 2 * T), library_ms=lib3)
+        "graphblas_tpu/core/engine/permute.py:255", err3, ms3, pms3,
+        route_bytes, library_ms=lib3)
 
     # ---- K4 fused route-C + scan + extract-A
     combine, combine_packed = lp.combines(mono)
@@ -370,34 +435,51 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
         cuda_ms(torch, k4), cuda_ms(torch, p4), 4 * 5 * R_scan * 128,
         nops=R_scan * 128)
 
-    # ---- K2 tile_perm: the extract's stage C, trimmed to TV tiles, and
-    # the whole extract (apply_perm_post_a) trimmed to TV and to TV=1
-    fin = pm._exchange_out(pm.mid_perm(extP[1], [pm._exchange_in(yAe, me["T"])],
-                                       me["T128"], me["T_pad"], out_T=TV)[0])
+    # ---- K2 tile_perm: the extract's stage C trimmed to TV tiles (one
+    # channel: the dense branch; two: the sparse-vector branch), the
+    # route's stage C and the extract's stage A at all T tiles with two
+    # channels (the sparse-vector branch), and the whole extract
+    # (apply_perm_post_a) untrimmed, at TV and at TV=1
+    fin = k3([yAe], TV, P=extP, m=me)[0]
     pcv = extP[2][:TV * 128]
     k2 = lambda: pm.tile_perm(pcv, [fin])[0]  # noqa: E731
     p2 = lambda: pm.tile_perm_plain(pcv, [fin])[0]  # noqa: E731
     err2 = compare(f"K2 tile_perm extract stage C (TV={TV})", k2(), p2())
-    xr = torch.from_numpy(rng.integers(-2**31, 2**31, (L // 128, 128),
-                                       dtype=np.int64).astype(np.int32)).to(dev)
+    xr = ints((L // 128, 128))
     compare("K2 tile_perm route stage A", pm.tile_perm(routeP[0], [xr])[0],
             pm.tile_perm_plain(routeP[0], [xr])[0])
-    # the whole extract, untrimmed and trimmed, against its plain version:
-    # the same composition through mid_perm_plain and tile_perm_plain
+    hv = ints((TV * 128, 128))
+    for g, w_, nm in zip(pm.tile_perm(pcv, [fin, hv]),
+                         pm.tile_perm_plain(pcv, [fin, hv]), ("values", "validity")):
+        compare(f"K2 tile_perm extract stage C (TV={TV}), two channels, {nm}", g, w_)
+    mids = k3([pf, hr])
+    sv, sh = ints((L // 128, 128)), ints((L // 128, 128))
+    stage_cases = (("route stage C", routeP[2], mids), ("extract stage A", extP[0], [sv, sh]))
+    for nm, idx, xs in stage_cases:
+        for g, w_, ch in zip(pm.tile_perm(idx, xs), pm.tile_perm_plain(idx, xs),
+                             ("values", "validity")):
+            compare(f"K2 tile_perm {nm} (T={T}), two channels, {ch}", g, w_)
     ref = pm.tile_perm_plain(extP[2], [pm._exchange_out(pm.mid_perm_plain(
         extP[1], [pm._exchange_in(xr, me["T"])], me["T128"], me["T_pad"])[0])])[0]
     for lim in (None, lim1, 1):
         tv = pm._trimmed_tiles(me, lim)
         got = pm.apply_perm_post_a(me, extP, [xr], out_limit=lim)[0]
         compare(f"apply_perm_post_a TV={tv} vs plain", got, ref[:tv * 128])
-    src2 = pm.tile_perm_plain(pcv, [torch.arange(fin.numel(), dtype=torch.int32,
-                                                 device=dev).reshape(fin.shape)])[0].long()
-    lib2 = cuda_ms(torch, lambda: torch.take(fin, src2))
+    src2 = flat_source(lambda a: pm.tile_perm_plain(pcv, [a])[0], TV * 128)
+    ms2, pms2, lib2 = perm_variant(f"tile_perm extract stage C (TV={TV})", k2, p2,
+                                   4 * 3 * fin.numel(), fin, src2)
+    perm_variant(f"tile_perm extract stage C (TV={TV}), two channels",
+                 lambda: pm.tile_perm(pcv, [fin, hv]),
+                 lambda: pm.tile_perm_plain(pcv, [fin, hv]),
+                 4 * 5 * fin.numel(), [fin, hv], src2, chans=2)
+    for nm, idx, xs in stage_cases:
+        perm_variant(f"tile_perm {nm} (T={T}), two channels",
+                     lambda: pm.tile_perm(idx, xs), lambda: pm.tile_perm_plain(idx, xs),
+                     4 * 5 * L, xs, flat_source(
+                         lambda a: pm.tile_perm_plain(idx, [a])[0], L // 128), chans=2)
     add("tile_perm", "graphblas_tpu_torch/csrc/tile_perm.cu",
-        "graphblas_tpu/core/engine/permute.py:223", err2,
-        cuda_ms(torch, k2), cuda_ms(torch, p2), 4 * 3 * fin.numel(),
-        library_ms=lib2)
-    variants = {}
+        "graphblas_tpu/core/engine/permute.py:223", err2, ms2, pms2,
+        4 * 3 * fin.numel(), library_ms=lib2)
     new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants)
     results["kernel_variants"] = variants
     results.setdefault("kernels", {}).update(rows)
@@ -731,14 +813,27 @@ KERNELS = ("gather_mult", "mid_perm", "fused_permC_scan_permA", "tile_perm",
 LANEPIPE_FAST = KERNELS[:4]
 
 
+def reset_counts(K):
+    """Set the kernels' launch counts and the exchange count to 0."""
+    from graphblas_tpu_torch.core.engine import permute as pm
+
+    K.reset_launches()
+    pm.exchanges = 0
+
+
 def check_launches(K, phase, totals, need=LANEPIPE_FAST):
     """Log the phase's launch counts, fail if a kernel in `need` was never
-    launched in it, and add all counts to totals."""
+    launched in it or if an exchange transpose ran (K3 folds them), and add
+    all counts to totals."""
+    from graphblas_tpu_torch.core.engine import permute as pm
+
     got = {k: K.launches[k] for k in KERNELS}
-    log(f"  launches in {phase}: {got}")
+    log(f"  launches in {phase}: {got}; exchanges {pm.exchanges}")
     zero = [k for k in need if got[k] == 0]
     if zero:
         fail(f"{phase}: kernels never launched on the main path: {zero}")
+    if pm.exchanges:
+        fail(f"{phase}: {pm.exchanges} exchange transposes ran on the main path")
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
     return got
@@ -769,7 +864,7 @@ def pagerank_phase(gb, torch, K, src, dst, n, A, tag, iters, results, totals):
     runs = []
     for _ in range(RUNS):
         rank = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
-        K.reset_launches()
+        reset_counts(K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         it = gb.ss.iterate(pr_body, {"rank": rank, "y": y}, max_iter=iters)
@@ -826,7 +921,7 @@ def bfs_phase(gb, torch, K, src, dst, n, Ab, results, totals):
     ref_i = np.flatnonzero(lev)
     runs = []
     for _ in range(RUNS):
-        K.reset_launches()
+        reset_counts(K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         v, it = run_bfs()
@@ -899,7 +994,7 @@ def sssp_phase(gb, torch, K, src, dst, w, n, A, results, totals):
     gb.algorithms.sssp(A, 0)  # warm-up
     runs = []
     for _ in range(RUNS):
-        K.reset_launches()
+        reset_counts(K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         d = gb.algorithms.sssp(A, 0)
@@ -943,7 +1038,7 @@ def reduce_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals):
         ("Ab.reduce_columnwise(lor)", lambda: Ab.reduce_columnwise("lor").new(),
          cols_i, np.ones(len(cols_i), bool), None),
     ]
-    K.reset_launches()
+    reset_counts(K)
     out = {}
     for name, fn, ref_i, ref_v, rel in cases:
         vec, ms, runs, first_s = timed_calls(torch, fn)
@@ -1026,7 +1121,7 @@ def hypersparse_phase(gb, torch, K, dev, results, totals):
          lambda: ub.vxm(Hb, gb.semiring.lor_land["BOOL"]).new(),
          idx3, ref3, None),
     ]
-    K.reset_launches()
+    reset_counts(K)
     out = {"n": n, "nnz": m}
     for name, fn, ref_i, ref_v, rel in cases:
         vec, ms, runs, first_s = timed_calls(torch, fn)
@@ -1093,7 +1188,7 @@ def apsp_phase(gb, torch, K, results, totals):
     def run_power():
         return A.power(n, ring).new()
 
-    K.reset_launches()
+    reset_counts(K)
     D = run_power()          # densifies A under dense_limit; warm-up
     torch.cuda.synchronize()
     if K.launches["tropical_matmul"] != products:

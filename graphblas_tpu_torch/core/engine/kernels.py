@@ -6,8 +6,8 @@ its own shared library with a plain C interface under ``csrc/_build/``
 one ``nvcc`` per source, all together, and is called at first use; nothing
 is built when this module is imported, so the CPU tests import it freely.
 
-Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
-when it is not 0.  Each wrapper adds one to ``launches[<kernel>]`` per
+Every C entry point that launches returns ``cudaGetLastError()``;
+:func:`check` raises when it is not 0.  Each wrapper adds one to ``launches[<kernel>]`` per
 kernel launch, so a run can show that the main path went through the
 kernels.  The op and type codes here must match csrc/common.cuh.
 """
@@ -46,7 +46,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "tile_perm": [_P, _P, _P, _I, _I, _P],
-    "mid_perm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tile_perm_channels": [],
+    "mid_perm_tiles": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mid_perm_channels": [_I, _I, _I],
     "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
     "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
@@ -55,7 +57,9 @@ _ARGTYPES = {
     "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
 }
 # C entry points of a source, where they are not the one named after it
-_ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked")}
+_ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked"),
+                 "tile_perm": ("tile_perm", "tile_perm_channels"),
+                 "mid_perm": ("mid_perm_tiles", "mid_perm_channels")}
 
 _libs = {}
 _lock = threading.Lock()

@@ -3,11 +3,18 @@ graphblas_tpu/core/engine/permute.py on PyTorch and CUDA.
 
 A permutation of L = T*16384 elements, fixed at plan time, runs as
 
-    stage A : independent within-tile permutations    (kernel K2, tile_perm)
-    exchange: (T, 16384) -> (16384, T) transpose      (torch)
-    stage B : independent within-row permutations     (kernel K3, mid_perm)
-    exchange: transpose back                          (torch)
-    stage C : independent within-tile permutations    (kernel K2)
+    stage A : independent within-tile permutations  (kernel K2, tile_perm)
+    exchange: (T, 16384) -> (16384, T) transpose    (folded into K3)
+    stage B : independent within-row permutations   (K3, mid_perm_tiles)
+    exchange: transpose back                        (folded into K3)
+    stage C : independent within-tile permutations  (kernel K2)
+
+The JAX package runs the exchanges as XLA transposes around its stage-B
+kernel.  Here K3 reads and writes the tile layout (T*128, 128) itself
+(:func:`mid_perm_tiles`), so the main path moves no exchange; the
+transposes (:func:`_exchange_in`, :func:`_exchange_out`, counted in
+``exchanges``) remain in the plain versions only.  :func:`mid_perm_plain`
+is stage B on the port layout (16384, T), the Pallas kernel's own.
 
 The host plan (:func:`build_perm_plan`, a copy of the JAX package's) colors
 the elements with the native Euler-split coloring and packs the stage
@@ -152,6 +159,12 @@ def _as_i32(x):
     return x if x.dtype == torch.int32 else x.view(torch.int32)
 
 
+def _require_aligned(name, tensors):
+    """K2 and K3 copy with 16-byte cp.async."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
 def tile_perm_plain(p, arrs):
     """Plain version of K2: lane gather, transpose, lane gather, transpose,
     lane gather on every (128,128) tile, as the Pallas body does."""
@@ -178,16 +191,18 @@ def tile_perm(p, arrs):
         return tile_perm_plain(p, arrs)
     ins = [_as_i32(x) for x in arrs]
     K.require_cuda("tile_perm", [p] + ins)
+    _require_aligned("tile_perm", [p] + ins)
     if p.dtype != torch.int32 or p.shape[0] % 128 or p.shape[1] != 128:
         raise ValueError("tile_perm: index must be (R,128) int32, R % 128 == 0")
     outs = []
-    fn = K.lib("tile_perm").tile_perm
-    for c0 in range(0, len(ins), K.MAXCH):
-        chunk = ins[c0:c0 + K.MAXCH]
+    so = K.lib("tile_perm")
+    per = so.tile_perm_channels()
+    for c0 in range(0, len(ins), per):
+        chunk = ins[c0:c0 + per]
         res = [torch.empty_like(x) for x in chunk]
-        K.check("tile_perm", fn(p.data_ptr(), K.ptr_array(chunk),
-                                K.ptr_array(res), len(chunk),
-                                p.shape[0] // 128, K.stream_ptr(p)))
+        K.check("tile_perm", so.tile_perm(p.data_ptr(), K.ptr_array(chunk),
+                                          K.ptr_array(res), len(chunk),
+                                          p.shape[0] // 128, K.stream_ptr(p)))
         K.launches["tile_perm"] += 1
         outs += res
     return [o.view(x.dtype) for o, x in zip(outs, arrs)]
@@ -212,30 +227,52 @@ def mid_perm_plain(p, arrs, T128, T_pad, out_T=None):
     return outs
 
 
-def mid_perm(p, arrs, T128, T_pad, out_T=None):
-    """Apply the packed within-row permutations p ((16384, T_pad) i32) to
-    each (16384, T) array; only output ports < out_T are produced."""
+def mid_perm_tiles_plain(p, arrs, T, T128, T_pad, out_T=None):
+    """Plain version of K3 on the tile layout: the exchange, the port-layout
+    plain version, and the exchange back."""
+    zs = mid_perm_plain(p, [_exchange_in(y, T) for y in arrs], T128, T_pad,
+                        out_T)
+    return [_exchange_out(z) for z in zs]
+
+
+def _check_mid_index(p, T, T128, T_pad):
+    if p.shape != (N_TILE, T_pad) or T128 * 128 != T_pad or T > T_pad:
+        raise ValueError(f"mid_perm: bad index shape {tuple(p.shape)} for "
+                         f"T={T}, T_pad={T_pad}")
+
+
+def mid_perm_tiles(p, arrs, T, T128, T_pad, out_T=None):
+    """K3 on the tile layout: each (T*128, 128) array x, with x[t, r] =
+    y[r, t] for the port-layout y, gives the (TW*128, 128) array whose
+    [j, r] is mid_perm_plain's [r, j]: exchange, stage B and exchange in
+    one kernel."""
     arrs = list(arrs)
-    T = arrs[0].shape[1]
     for y in arrs:
-        if y.shape != (N_TILE, T) or T > T_pad:
-            raise ValueError(f"mid_perm: bad input shape {tuple(y.shape)}")
-    if p.shape != (N_TILE, T_pad) or T128 * 128 != T_pad:
-        raise ValueError(f"mid_perm: bad index shape {tuple(p.shape)}")
+        if y.shape != (T * 128, 128):
+            raise ValueError(f"mid_perm_tiles: bad input shape "
+                             f"{tuple(y.shape)} for T={T}")
+    _check_mid_index(p, T, T128, T_pad)
     if p.device.type == "cpu":
-        return mid_perm_plain(p, arrs, T128, T_pad, out_T)
+        return mid_perm_tiles_plain(p, arrs, T, T128, T_pad, out_T)
     TW = T if out_T is None else min(T, out_T)
     ins = [_as_i32(y) for y in arrs]
     K.require_cuda("mid_perm", [p] + ins)
+    _require_aligned("mid_perm", [p] + ins)
+    so = K.lib("mid_perm")
+    per = so.mid_perm_channels(T, T128, len(ins))
+    if per < 0:
+        K.check("mid_perm_channels", -per)
+    if per == 0:
+        raise ValueError(f"mid_perm_tiles: T_pad={T_pad} needs more shared "
+                         f"memory than a block has")
     outs = []
-    fn = K.lib("mid_perm").mid_perm
-    for c0 in range(0, len(ins), K.MAXCH):
-        chunk = ins[c0:c0 + K.MAXCH]
-        res = [torch.empty((N_TILE, TW), dtype=torch.int32, device=p.device)
+    for c0 in range(0, len(ins), per):
+        chunk = ins[c0:c0 + per]
+        res = [torch.empty((TW * 128, 128), dtype=torch.int32, device=p.device)
                for _ in chunk]
-        K.check("mid_perm", fn(p.data_ptr(), K.ptr_array(chunk),
-                               K.ptr_array(res), len(chunk), N_TILE, T,
-                               T_pad, TW, K.stream_ptr(p)))
+        K.check("mid_perm_tiles", so.mid_perm_tiles(
+            p.data_ptr(), K.ptr_array(chunk), K.ptr_array(res), len(chunk), T,
+            T128, TW, K.stream_ptr(p)))
         K.launches["mid_perm"] += 1
         outs += res
     return [o.view(y.dtype) for o, y in zip(outs, arrs)]
@@ -243,13 +280,20 @@ def mid_perm(p, arrs, T128, T_pad, out_T=None):
 
 # --------------------------------------------------------------------- #
 # composition
+exchanges = 0  # exchange transposes run (plain versions only), like K.launches
+
+
 def _exchange_in(y, T):
     """(T*128, 128) tile layout -> (16384, T) port layout."""
+    global exchanges
+    exchanges += 1
     return y.reshape(T, N_TILE).t().contiguous()
 
 
 def _exchange_out(z):
     """(16384, TW) port layout -> (TW*128, 128) tile layout."""
+    global exchanges
+    exchanges += 1
     return z.t().contiguous().reshape(-1, 128)
 
 
@@ -272,22 +316,20 @@ def apply_perm(meta, dev, arrs, *, out_limit=None, skip_a=False):
 
 
 def apply_perm_pre_c(meta, dev, arrs, *, skip_a=False):
-    """Stages A, exchange, B and exchange: the (R,128) arrays that stage C
+    """Stages A and B (with both exchanges): the (R,128) arrays that stage C
     would consume (the lanepipe's fused kernel applies stage C itself)."""
     T, T_pad, T128 = meta["T"], meta["T_pad"], meta["T128"]
     pa, pb, pc = dev
     ys = list(arrs) if skip_a else tile_perm(pa, arrs)
-    zs = mid_perm(pb, [_exchange_in(y, T) for y in ys], T128, T_pad)
-    return [_exchange_out(z) for z in zs]
+    return mid_perm_tiles(pb, ys, T, T128, T_pad)
 
 
 def apply_perm_post_a(meta, dev, arrs, *, out_limit=None):
-    """Exchange, B, exchange and C, on arrays that stage A already made
-    (the lanepipe's fused kernel applies the extract's stage A)."""
+    """Stages B (with both exchanges) and C, on arrays that stage A already
+    made (the lanepipe's fused kernel applies the extract's stage A)."""
     T, T_pad, T128 = meta["T"], meta["T_pad"], meta["T128"]
     TV = _trimmed_tiles(meta, out_limit)
     pa, pb, pc = dev
-    zs = mid_perm(pb, [_exchange_in(y, T) for y in arrs], T128, T_pad,
-                  out_T=None if TV == T else TV)
-    return tile_perm(pc[:TV * 128] if TV < T else pc,
-                     [_exchange_out(z) for z in zs])
+    zs = mid_perm_tiles(pb, arrs, T, T128, T_pad,
+                        out_T=None if TV == T else TV)
+    return tile_perm(pc[:TV * 128] if TV < T else pc, zs)

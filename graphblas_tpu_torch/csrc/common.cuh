@@ -160,6 +160,42 @@ __device__ __forceinline__ uint32_t combine_any(int mo, bool packed, uint32_t x,
   return combine_bits<DT_I32>(mo, x - 1, y - 1) + 1;
 }
 
+// Asynchronous 16-byte copy from global to shared memory (bypassing L1);
+// both addresses 16-byte aligned.  cp_async_wait_all waits for all of the
+// thread's copies; a __syncthreads after it publishes them to the block.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Word e (0..3) of v.  Kernels that store a 16-byte load word by word
+// rotate e with the lane, (s + lane / 8) % 4 at step s, so that a warp's
+// 32 stores of one step fall in 32 different banks.
+__device__ __forceinline__ int int4_word(const int4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// *value = attribute ATTR of the current device, queried once per device
+// (a launch policy asks on every call).
+template <cudaDeviceAttr ATTR>
+static cudaError_t device_attr(int* value) {
+  static int cache[64];  // 0: not read yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaDeviceGetAttribute(value, ATTR, dev);
+  if (!cache[dev]) {
+    err = cudaDeviceGetAttribute(&cache[dev], ATTR, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *value = cache[dev];
+  return cudaSuccess;
+}
+
 // Coalesced copy of one tile from global memory to shared memory.
 __device__ __forceinline__ void load_tile(int* dst, const int* src) {
   const int4* s4 = reinterpret_cast<const int4*>(src);
