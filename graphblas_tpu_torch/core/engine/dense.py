@@ -158,7 +158,15 @@ def semiring_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt):
     ``lor_land`` are library products, and everything else is the blocked
     generic product; but the floating-point tropical rings min_plus,
     max_plus, min_max and max_min go to kernel K7 (its plain version on
-    the CPU) with both validity planes."""
+    the CPU) with both validity planes.  A logical monoid over products
+    of another type (``lor_land["FP32"]``) casts the operands to BOOL and
+    runs the ring's BOOL instance, where that computes the same."""
+    twin = ring.bool_twin()
+    if twin is not None:
+        mult = ring.binaryop
+        a_vals = truthy(st.cast_values(a_vals, a_dt, mult.type), mult.type)
+        b_vals = truthy(st.cast_values(b_vals, b_dt, mult.type2), mult.type2)
+        ring, a_dt, b_dt = twin, _dt.BOOL, _dt.BOOL
     mult = ring.binaryop
     mono = ring.monoid
     m, k = a_valid.shape

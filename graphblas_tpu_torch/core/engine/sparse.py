@@ -21,7 +21,7 @@ _DUP_REDUCE = {"plus": np.add, "times": np.multiply, "min": np.minimum,
 
 class SparseStore:
     __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "dtype",
-                 "_lanepipe_plans", "_sortpipe_plans")
+                 "_lanepipe_plans", "_sortpipe_plans", "_bool_twins")
 
     def __init__(self, rows, cols, vals, nrows, ncols, dtype):
         self.rows = rows
@@ -32,9 +32,21 @@ class SparseStore:
         self.dtype = dtype
         self._lanepipe_plans = {}
         self._sortpipe_plans = {}
+        self._bool_twins = {}
 
     def nvals(self):
         return len(self.rows)
+
+    def bool_twin(self, dtype):
+        """The store of this matrix's truth values after a cast to dtype,
+        as BOOL (cached, with plans of its own)."""
+        twin = self._bool_twins.get(dtype)
+        if twin is None:
+            vals = self.vals.astype(dtype.np_type) != 0
+            twin = SparseStore(self.rows, self.cols, vals, self.nrows,
+                               self.ncols, _dt.BOOL)
+            self._bool_twins[dtype] = twin
+        return twin
 
 
 def sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op):

@@ -6,6 +6,7 @@ eagerly, so there is no jit cache and no recorder."""
 
 import torch
 
+from . import dtypes as _dt
 from .engine import dense, lanepipe, sortpipe
 from .engine import store as st
 from .operator.base import typed
@@ -282,9 +283,17 @@ def _inline_sparse_impl(expr):
     ring = expr.op
     if sp.nvals() == 0:
         return _empty_result(expr, vec.device)
-    if not lanepipe.eligible(ring, mat.dtype, vec.dtype):
+    a_dt, u_dt, u_vals = mat.dtype, vec.dtype, vec._vals
+    twin = ring.bool_twin()
+    if twin is not None:  # lor_land["FP32"]: the BOOL ring on truth values
+        mult = ring.binaryop
+        sp = sp.bool_twin(mult.type)
+        u_vals = dense.truthy(st.cast_values(u_vals, u_dt, mult.type),
+                              mult.type)
+        ring, a_dt, u_dt = twin, _dt.BOOL, _dt.BOOL
+    if not lanepipe.eligible(ring, a_dt, u_dt):
         raise NotImplementedError(
-            f"{m} with {ring!r} on {mat.dtype}/{vec.dtype} needs the generic "
+            f"{m} with {ring!r} on {a_dt}/{u_dt} needs the generic "
             f"SpMV engine (FP64, UDT and other monoids): ROADMAP.md queue 1, "
             f"item 9")
     entry = lanepipe.get_plan(sp, m == "mxv", at=bool(tflag),
@@ -293,11 +302,11 @@ def _inline_sparse_impl(expr):
         entry = sortpipe.get_plan(sp, m == "mxv", at=bool(tflag),
                                   device=vec.device)
         return sortpipe.spmv_pipeline(
-            sortpipe.plan_dyn_tuple(entry), vec._vals, vec._valid, ring,
-            mat.dtype, vec.dtype, kind=m, n_in=entry["n_in"], L=entry["L"])
+            sortpipe.plan_dyn_tuple(entry), u_vals, vec._valid, ring,
+            a_dt, u_dt, kind=m, n_in=entry["n_in"], L=entry["L"])
     return lanepipe.spmv_pipeline(
-        lanepipe.plan_dyn_tuple(entry), entry, vec._vals, vec._valid, ring,
-        mat.dtype, vec.dtype, kind=m)
+        lanepipe.plan_dyn_tuple(entry), entry, u_vals, vec._valid, ring,
+        a_dt, u_dt, kind=m)
 
 
 def _reduce_axis_impl(expr):
@@ -308,14 +317,17 @@ def _reduce_axis_impl(expr):
     sp = mat._sparse
     mono = expr.op
     dev = mat._device
+    in_dt = mat.dtype
     if sp.nvals() == 0:
         return _empty_result(expr, dev)
-    if not sortpipe.eligible_reduce(mono, mat.dtype):
+    if mono.type is _dt.BOOL and in_dt is not _dt.BOOL:
+        sp, in_dt = sp.bool_twin(in_dt), _dt.BOOL  # lor/land of truth values
+    if not sortpipe.eligible_reduce(mono, in_dt):
         raise NotImplementedError(
-            f"{expr.method_name} with {mono!r} on {mat.dtype} needs the "
+            f"{expr.method_name} with {mono!r} on {in_dt} needs the "
             f"generic sparse.reduce_axis (FP64, UDT and other monoids): "
             f"ROADMAP.md queue 1, item 9")
     # axis=1 reduces rows (dest=row); axis=0 reduces columns
     entry = sortpipe.get_plan(sp, axis == 1, at=bool(tflag), device=dev)
     return sortpipe.reduce_pipeline(sortpipe.plan_dyn_tuple(entry), mono,
-                                    mat.dtype)
+                                    in_dt)

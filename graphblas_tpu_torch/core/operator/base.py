@@ -45,6 +45,18 @@ class TypedOpBase:
         return f"{self.opclass}.{self.name}[{self.type.name}]"
 
 
+def missing(namespace, name, reference_names):
+    """The error for an attribute an operator namespace lacks: the JAX
+    package's operators that are not ported raise NotImplementedError,
+    other names AttributeError."""
+    if name in reference_names:
+        return NotImplementedError(
+            f"{namespace}.{name} is not in the PyTorch port yet (ROADMAP.md "
+            f"queue 1, item 12)")
+    return AttributeError(
+        f"module 'graphblas_tpu_torch.{namespace}' has no attribute {name!r}")
+
+
 def typed(op, dtype, opclass):
     """Resolve op (typed, untyped or name string) to a typed op of
     `opclass` for `dtype`."""

@@ -5,7 +5,8 @@
 (GraphBLAS ``min`` ignores a NaN operand).  The positional operators
 ``firsti``/``firstj``/``secondi``/``secondj`` return an index of the pair
 they are applied to; the engine computes them from positions, so they have
-no function here."""
+no function here.  ``land`` and ``lor`` take every type, as in the JAX
+package: the operands' truth values, returned in their own type."""
 
 import torch
 
@@ -14,6 +15,16 @@ from .base import OpBase, TypedOpBase
 
 _NUM = (_dt.BOOL, _dt.INT32, _dt.INT64, _dt.UINT32, _dt.FP32, _dt.FP64)
 _INTS = (_dt.INT32, _dt.INT64, _dt.UINT32)
+
+
+def _logical(fn):
+    def op(x, y):
+        if x.dtype == torch.bool:
+            return fn(x, y)
+        return fn(x != 0, y != 0).to(x.dtype)
+
+    return op
+
 
 # name -> (domains, torch function); every op returns its input type
 _BUILTIN = {
@@ -27,8 +38,8 @@ _BUILTIN = {
             else torch.minimum(x, y)),
     "max": (_NUM, lambda x, y: torch.fmax(x, y) if x.dtype.is_floating_point
             else torch.maximum(x, y)),
-    "land": ((_dt.BOOL,), lambda x, y: x & y),
-    "lor": ((_dt.BOOL,), lambda x, y: x | y),
+    "land": (_NUM, _logical(torch.logical_and)),
+    "lor": (_NUM, _logical(torch.logical_or)),
     "band": (_INTS, lambda x, y: x & y),
     "bor": (_INTS, lambda x, y: x | y),
 }

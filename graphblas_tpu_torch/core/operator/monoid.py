@@ -1,7 +1,14 @@
 """Builtin monoids: an associative binary op and its identity
 (graphblas_tpu/core/operator/monoid.py, same identities).  ``any`` picks
 one of its operands and has no identity; the dense engine takes the first
-stored one in index order."""
+stored one in index order.
+
+Two coercions of the JAX package (graphblas_tpu/core/operator/
+coercions.py) hold here too: ``min``, ``max`` and ``times`` over BOOL are
+the logical monoids ``land``, ``lor`` and ``land`` (SuiteSparse's boolean
+renaming; ``plus`` is renamed only inside a semiring), and ``lor`` and
+``land`` over any other type are their BOOL instances, which cast the
+values to BOOL."""
 
 import numpy as np
 
@@ -19,6 +26,10 @@ def _identity_min(dt):
 def _identity_max(dt):
     return -np.inf if dt.is_float else int(np.iinfo(dt.np_type).min)
 
+
+# SuiteSparse's boolean renaming: an arithmetic monoid over BOOL means
+# its logical counterpart
+BOOL_RENAME = {"plus": "lor", "times": "land", "min": "land", "max": "lor"}
 
 # name -> (domains, identity or identity(dt))
 _BUILTIN = {
@@ -53,6 +64,11 @@ class Monoid(OpBase):
 
     def _build_typed(self, dt):
         if dt not in self._domains:
+            if dt is _dt.BOOL and self.name in BOOL_RENAME and \
+                    self.name != "plus":
+                return BUILTINS[BOOL_RENAME[self.name]][dt]
+            if self.name in ("lor", "land") and dt in _REAL:
+                return self[_dt.BOOL]
             return None
         ident = self._identity(dt) if callable(self._identity) else self._identity
         return TypedMonoid(self, self.name, dt, _B[self.name][dt], ident)

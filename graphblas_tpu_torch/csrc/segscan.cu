@@ -41,7 +41,8 @@
 // them, so that the device code switches once over a dozen cases.
 enum SegOp {
   SO_FIRST, SO_ADD, SO_MUL, SO_AND, SO_OR, SO_MIN_I, SO_MAX_I, SO_MIN_U,
-  SO_MAX_U, SO_ADD_F, SO_MUL_F, SO_MIN_F, SO_MAX_F, SO_INVALID
+  SO_MAX_U, SO_ADD_F, SO_MUL_F, SO_MIN_F, SO_MAX_F, SO_INVALID,
+  SO_DYN  // the op is read at run time from SegChans::cc
 };
 
 struct SegChans {
@@ -75,9 +76,10 @@ static int seg_op(int code) {
   return SO_INVALID;
 }
 
-// combine(left, right) of one channel.  Not inlined: the scans below call
-// it at some eighty unrolled sites per kernel, the kernels are bound by
-// memory, and one shared body keeps the build to seconds.
+// combine(left, right) of one channel with its op read at run time.  Not
+// inlined: the scans below call it at some eighty unrolled sites per
+// kernel, and one shared body keeps the build to seconds (a switch
+// inlined at every site kept nvcc busy for over ten minutes).
 __device__ __noinline__ uint32_t comb(int op, uint32_t x, uint32_t y) {
   switch (op) {
     case SO_FIRST: return x;
@@ -97,11 +99,48 @@ __device__ __noinline__ uint32_t comb(int op, uint32_t x, uint32_t y) {
   return y;
 }
 
+// combine(left, right) with the op OP known when the kernel is compiled,
+// inlined; SO_DYN calls the shared body above with the run-time op dyn.
+template <int OP>
+__device__ __forceinline__ uint32_t comb_t(int dyn, uint32_t x, uint32_t y) {
+  if constexpr (OP == SO_DYN) return comb(dyn, x, y);
+  else if constexpr (OP == SO_FIRST) return x;
+  else if constexpr (OP == SO_ADD) return x + y;
+  else if constexpr (OP == SO_MUL) return x * y;
+  else if constexpr (OP == SO_AND) return x & y;
+  else if constexpr (OP == SO_OR) return x | y;
+  else if constexpr (OP == SO_MIN_I) return (int)x < (int)y ? x : y;
+  else if constexpr (OP == SO_MAX_I) return (int)x > (int)y ? x : y;
+  else if constexpr (OP == SO_MIN_U) return x < y ? x : y;
+  else if constexpr (OP == SO_MAX_U) return x > y ? x : y;
+  else if constexpr (OP == SO_ADD_F) return f_bits(as_f(x) + as_f(y));
+  else if constexpr (OP == SO_MUL_F) return f_bits(as_f(x) * as_f(y));
+  else if constexpr (OP == SO_MIN_F) return f_bits(fmin_nan(as_f(x), as_f(y)));
+  else return f_bits(fmax_nan(as_f(x), as_f(y)));
+}
+
+// The combines of a launch's channels, one template argument each.  The
+// channel index c is a constant once the channel loops are unrolled, so
+// the switch folds away and every site runs one op inline.
+template <int O0, int O1 = SO_DYN, int O2 = SO_DYN, int O3 = SO_DYN>
+struct Ops {
+  __device__ static __forceinline__ uint32_t comb(const int* cc, int c,
+                                                  uint32_t x, uint32_t y) {
+    switch (c) {
+      case 0: return comb_t<O0>(cc[0], x, y);
+      case 1: return comb_t<O1>(cc[1], x, y);
+      case 2: return comb_t<O2>(cc[2], x, y);
+      default: return comb_t<O3>(cc[3], x, y);
+    }
+  }
+};
+using DynOps = Ops<SO_DYN>;
+
 // Segmented scan of one (flag, values) item per thread over the block.
 // In: f, v = the thread's own flag and values.  Out: f, v = the inclusive
 // scan through this thread; (ex_has, ex_f, ex_v) = the scan through the
 // thread before it (ex_has false for thread 0).  sw: 32 * (NV + 1) words.
-template <int NV>
+template <class OPS, int NV>
 __device__ __forceinline__ void block_scan(const int* cc, int& f, uint32_t* v,
                                            bool& ex_has, int& ex_f,
                                            uint32_t* ex_v, uint32_t* sw) {
@@ -113,7 +152,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int& f, uint32_t* v,
 #pragma unroll
     for (int c = 0; c < NV; c++) {
       const uint32_t pv = __shfl_up_sync(0xffffffffu, v[c], s);
-      if (lane >= s && !f) v[c] = comb(cc[c], pv, v[c]);
+      if (lane >= s && !f) v[c] = OPS::comb(cc, c, pv, v[c]);
     }
     if (lane >= s) f |= pf;
   }
@@ -135,7 +174,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int& f, uint32_t* v,
 #pragma unroll
       for (int c = 0; c < NV; c++) {
         const uint32_t pv = __shfl_up_sync(0xffffffffu, wv[c], s);
-        if (lane >= s && !wf) wv[c] = comb(cc[c], pv, wv[c]);
+        if (lane >= s && !wf) wv[c] = OPS::comb(cc, c, pv, wv[c]);
       }
       if (lane >= s) wf |= pf;
     }
@@ -148,7 +187,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int& f, uint32_t* v,
     const int pf = (int)sw[(warp - 1) * (NV + 1)];
 #pragma unroll
     for (int c = 0; c < NV; c++)
-      if (!f) v[c] = comb(cc[c], sw[(warp - 1) * (NV + 1) + 1 + c], v[c]);
+      if (!f) v[c] = OPS::comb(cc, c, sw[(warp - 1) * (NV + 1) + 1 + c], v[c]);
     f |= pf;
   }
   // the scan through the previous thread
@@ -166,7 +205,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int& f, uint32_t* v,
 // The thread's 4 elements: local inclusive scan in x, the fold from its
 // last barrier (or its first element) in v, whether it has a barrier in f,
 // and the index of its first barrier (SEG_EPT if none) in first.
-template <int NV>
+template <class OPS, int NV>
 __device__ __forceinline__ void thread_scan(const SegChans& ch,
                                             const int* __restrict__ barrier,
                                             size_t e0, uint32_t (*x)[SEG_EPT],
@@ -184,12 +223,12 @@ __device__ __forceinline__ void thread_scan(const SegChans& ch,
     x[c][0] = x4.x; x[c][1] = x4.y; x[c][2] = x4.z; x[c][3] = x4.w;
 #pragma unroll
     for (int k = 1; k < SEG_EPT; k++)
-      if (b[k] == 0) x[c][k] = comb(ch.cc[c], x[c][k - 1], x[c][k]);
+      if (b[k] == 0) x[c][k] = OPS::comb(ch.cc, c, x[c][k - 1], x[c][k]);
     v[c] = x[c][SEG_EPT - 1];
   }
 }
 
-template <int NV>
+template <class OPS, int NV>
 __global__ void __launch_bounds__(NT) seg_summary_kernel(
     SegChans ch, const int* __restrict__ barrier, uint32_t* __restrict__ summ,
     int* __restrict__ sflag, int nblocks) {
@@ -198,8 +237,8 @@ __global__ void __launch_bounds__(NT) seg_summary_kernel(
   uint32_t x[NV][SEG_EPT], v[NV], ex_v[NV];
   int f, first, ex_f;
   bool ex_has;
-  thread_scan<NV>(ch, barrier, e0, x, v, f, first);
-  block_scan<NV>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
+  thread_scan<OPS, NV>(ch, barrier, e0, x, v, f, first);
+  block_scan<OPS, NV>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
   if (threadIdx.x == NT - 1) {
     sflag[blockIdx.x] = f;
 #pragma unroll
@@ -208,7 +247,7 @@ __global__ void __launch_bounds__(NT) seg_summary_kernel(
 }
 
 // One block: carry[b] = segmented scan of the summaries through block b-1.
-template <int NV>
+template <class OPS, int NV>
 __global__ void __launch_bounds__(NT) seg_carry_kernel(
     SegChans ch, const uint32_t* __restrict__ summ,
     const int* __restrict__ sflag, uint32_t* __restrict__ carry, int nblocks) {
@@ -226,14 +265,14 @@ __global__ void __launch_bounds__(NT) seg_carry_kernel(
       v[c] = live ? summ[(size_t)c * nblocks + b] : 0u;
     int ex_f;
     bool ex_has;
-    block_scan<NV>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
+    block_scan<OPS, NV>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
     // fold the running carry of earlier rounds in front
     if (run_has) {
 #pragma unroll
       for (int c = 0; c < NV; c++) {
-        if (!f) v[c] = comb(ch.cc[c], run[1 + c], v[c]);
+        if (!f) v[c] = OPS::comb(ch.cc, c, run[1 + c], v[c]);
         if (ex_has) {
-          if (!ex_f) ex_v[c] = comb(ch.cc[c], run[1 + c], ex_v[c]);
+          if (!ex_f) ex_v[c] = OPS::comb(ch.cc, c, run[1 + c], ex_v[c]);
         } else {
           ex_v[c] = run[1 + c];
         }
@@ -254,7 +293,7 @@ __global__ void __launch_bounds__(NT) seg_carry_kernel(
   }
 }
 
-template <int NV>
+template <class OPS, int NV>
 __global__ void __launch_bounds__(NT) seg_apply_kernel(
     SegChans ch, const int* __restrict__ barrier,
     const uint32_t* __restrict__ carry, int nblocks) {
@@ -263,8 +302,8 @@ __global__ void __launch_bounds__(NT) seg_apply_kernel(
   uint32_t x[NV][SEG_EPT], v[NV], ex_v[NV];
   int f, first, ex_f;
   bool ex_has;
-  thread_scan<NV>(ch, barrier, e0, x, v, f, first);
-  block_scan<NV>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
+  thread_scan<OPS, NV>(ch, barrier, e0, x, v, f, first);
+  block_scan<OPS, NV>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
   // prefix of this thread: the block's carry, then the threads before it
   const bool has_carry = blockIdx.x > 0;
   const bool open = ex_has ? !ex_f : true;  // no barrier before it in block
@@ -274,25 +313,27 @@ __global__ void __launch_bounds__(NT) seg_apply_kernel(
     bool have = ex_has;
     if (has_carry && open) {
       const uint32_t cin = carry[(size_t)c * nblocks + blockIdx.x];
-      pre = have ? comb(ch.cc[c], cin, pre) : cin;
+      pre = have ? OPS::comb(ch.cc, c, cin, pre) : cin;
       have = true;
     }
     uint4 o;
     uint32_t* op = reinterpret_cast<uint32_t*>(&o);
 #pragma unroll
     for (int k = 0; k < SEG_EPT; k++)
-      op[k] = (have && k < first) ? comb(ch.cc[c], pre, x[c][k]) : x[c][k];
+      op[k] = (have && k < first) ? OPS::comb(ch.cc, c, pre, x[c][k]) : x[c][k];
     *reinterpret_cast<uint4*>(ch.out[c] + e0) = o;
   }
 }
 
-template <int NV>
+template <class OPS, int NV>
 static void launch(const SegChans& ch, const int* barrier, uint32_t* summ,
                    int* sflag, uint32_t* carry, int nblocks, cudaStream_t st) {
-  seg_summary_kernel<NV><<<nblocks, NT, 0, st>>>(ch, barrier, summ, sflag,
-                                                 nblocks);
-  seg_carry_kernel<NV><<<1, NT, 0, st>>>(ch, summ, sflag, carry, nblocks);
-  seg_apply_kernel<NV><<<nblocks, NT, 0, st>>>(ch, barrier, carry, nblocks);
+  seg_summary_kernel<OPS, NV><<<nblocks, NT, 0, st>>>(ch, barrier, summ,
+                                                      sflag, nblocks);
+  seg_carry_kernel<OPS, NV><<<1, NT, 0, st>>>(ch, summ, sflag, carry,
+                                              nblocks);
+  seg_apply_kernel<OPS, NV><<<nblocks, NT, 0, st>>>(ch, barrier, carry,
+                                                    nblocks);
 }
 
 // Three launches (the caller counts all three).  n must be a multiple of
@@ -314,11 +355,22 @@ extern "C" int segscan(const void* barrier, void** ins, void** outs,
   ch, (const int*)barrier, (uint32_t*)summ, (int*)sflag, (uint32_t*)carry, \
       nblocks, st
   if (nblocks > 0) {
-    switch (nv) {
-      case 1: launch<1>(ARGS); break;
-      case 2: launch<2>(ARGS); break;
-      case 3: launch<3>(ARGS); break;
-      case 4: launch<4>(ARGS); break;
+    // the (monoid, count) pairs that row folds meet and the (first, first)
+    // fill run inline combines; every other tuple reads its ops at run time
+    const int a = ch.cc[0], b = nv == 2 ? ch.cc[1] : -1;
+    if (b == SO_ADD && a == SO_ADD_F) launch<Ops<SO_ADD_F, SO_ADD>, 2>(ARGS);
+    else if (b == SO_ADD && a == SO_MIN_F) launch<Ops<SO_MIN_F, SO_ADD>, 2>(ARGS);
+    else if (b == SO_ADD && a == SO_MAX_F) launch<Ops<SO_MAX_F, SO_ADD>, 2>(ARGS);
+    else if (b == SO_ADD && a == SO_MAX_U) launch<Ops<SO_MAX_U, SO_ADD>, 2>(ARGS);
+    else if (b == SO_ADD && a == SO_ADD) launch<Ops<SO_ADD, SO_ADD>, 2>(ARGS);
+    else if (b == SO_FIRST && a == SO_FIRST) launch<Ops<SO_FIRST, SO_FIRST>, 2>(ARGS);
+    else {
+      switch (nv) {
+        case 1: launch<DynOps, 1>(ARGS); break;
+        case 2: launch<DynOps, 2>(ARGS); break;
+        case 3: launch<DynOps, 3>(ARGS); break;
+        case 4: launch<DynOps, 4>(ARGS); break;
+      }
     }
   }
 #undef ARGS
