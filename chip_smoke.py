@@ -15,6 +15,11 @@ engine) from the sources, then:
    and to TV=1, and times both with CUDA events; K2 and K3 at every shape
    the main paths launch them at (one and two channels, the route at
    T=264, the extract trimmed), beside torch.take of the composite index;
+   K6 (one launch per group of channels) also where its look-back is most
+   exposed (no barrier, barriers only at tile starts or tile ends, at
+   every element, one tile, every channel tuple), 200 launches of the
+   main path's scan bitwise equal, and its time beside the three-launch
+   design it replaced;
 2. PageRank (bench.py's pr_body, 20 iterations of ss.iterate) on the zipf
    graph, checked against a float64 scipy power iteration;
 3. level BFS (bench.py's bfs_body with the lor-reduce cond) on the BOOL
@@ -583,10 +588,6 @@ def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
     want = sp.segscan_channels_plain(barrier_m, [m_v, m_h], pair)
     compare("K6 segscan fill (first, first), values", got[0], want[0])
     compare("K6 segscan fill (first, first), validity", got[1], want[1])
-    timed("segscan_fill",
-          lambda: sp.segscan(barrier_m, [m_v, m_h], [sp.FIRST, sp.FIRST]),
-          lambda: sp.segscan_channels_plain(barrier_m, [m_v, m_h],
-                                            [sp.FIRST, sp.FIRST]), 4 * 5 * L)
     okf = (got[1] != 0) & (ok_m != 0) & (barrier_m == 0)
     i_v, i_h = sp.sort_apply(src_back, [torch.where(okf, got[0] * vals_m, 0.0),
                                         okf.to(torch.int32)])
@@ -610,12 +611,181 @@ def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
     for g, w_, nm in zip(got, want, ("plus", "first", "count")):
         compare(f"K6 segscan three channels, no barrier at 0, {nm}", g, w_)
     pair = [sp.monoid_combine(mono), sp.COUNT]
+    # how long the fold's segments run: what K6's look-back meets
+    starts = torch.nonzero(barrier_i).reshape(-1)
+    seg = torch.diff(torch.cat([starts, torch.tensor([L], device=dev)]))
+    long_share = float(seg[seg > 64 * sp.SEG_BLOCK].sum()) / L
+    bar_tiles = float((barrier_i.reshape(-1, sp.SEG_BLOCK) != 0).any(1)
+                      .float().mean())
+    log(f"  K6 fold: {long_share:.3f} of the elements in segments over 64 "
+        f"tiles long, {bar_tiles:.3f} of the tiles hold a barrier")
+    variants["segscan_fold_segments"] = {"over_64_tiles": long_share,
+                                         "tiles_with_barrier": bar_tiles}
+    k6_edge_cases(gb, torch, dev, rng, L)
+    k6_race_check(torch, sp, barrier_i, [i_v, i_h], pair, 200)
     k6 = lambda: sp.segscan(barrier_i, [i_v, i_h], pair)  # noqa: E731
     p6 = lambda: sp.segscan_channels_plain(barrier_i, [i_v, i_h], pair)  # noqa: E731
     add("segscan", "graphblas_tpu_torch/csrc/segscan.cu",
         "graphblas_tpu/core/engine/sortpipe.py:168", err6, cuda_ms(torch, k6),
         cuda_ms(torch, p6), 4 * 5 * L, nops=2 * L)
+    k6_designs(torch, sp, barrier_i, [i_v, i_h], pair, barrier_m, [m_v, m_h],
+               variants)
     combine_sweep(gb, torch, dev, rng)
+
+
+def k6_compare(name, got, want, combines):
+    """K6 against its plain version: FP32 plus and times to rel 1e-5, the
+    rest bitwise."""
+    err = 0.0
+    for i, (g, w, c) in enumerate(zip(got, want, combines)):
+        fp_sum = c.dt is not None and c.dt.is_float and \
+            c.monoid in ("plus", "times")
+        err = max(err, compare(f"{name}, channel {i}", g, w,
+                               rel=1e-5 if fp_sum else None, quiet=True))
+    return err
+
+
+def k6_edge_cases(gb, torch, dev, rng, L):
+    """Where the look-back is most exposed, against the plain version: no
+    barrier at all over L (one segment through every tile), barriers only
+    at tile starts, only at the last element of each tile, at every
+    element; one tile (L = 4096); every channel tuple with inline combines,
+    the run-time path at one to four channels, and five channels (two
+    launches), at L with random barriers and one long segment."""
+    from graphblas_tpu_torch.core.engine import kernels as K
+    from graphblas_tpu_torch.core.engine import sortpipe as sp
+
+    T = sp.SEG_BLOCK
+
+    def bars(kind, n):
+        b = torch.zeros(n, dtype=torch.int32, device=dev)
+        if kind == "tile starts":
+            b[::T] = 1
+        elif kind == "tile ends":
+            b[T - 1::T] = 1
+        elif kind == "every element":
+            b[:] = 1
+        elif kind == "random":
+            b = torch.from_numpy((rng.random(n) < 1 / 500).astype(np.int32)).to(dev)
+            b[n // 4:n // 2] = 0  # one segment over a quarter of the tiles
+        return b
+
+    def chan(c, n):
+        if c.dt is not None and c.dt.is_float:
+            return torch.from_numpy(rng.random(n, dtype=np.float32)
+                                    + np.float32(0.5)).to(dev)
+        small = c is sp.COUNT or (c.dt is not None and c.dt.is_bool)
+        lo, hi = (0, 2) if small else (-1000, 1000)
+        return torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+
+    def run(tag, bar, combines):
+        vals = [chan(c, bar.numel()) for c in combines]
+        got = sp.segscan(bar, vals, combines)
+        want = sp.segscan_channels_plain(bar, vals, combines)
+        return k6_compare(f"K6 {tag}", got, want, combines)
+
+    plus_count = [sp.monoid_combine(gb.monoid.plus["FP32"]), sp.COUNT]
+    fill = [sp.FIRST, sp.FIRST]
+    worst = 0.0
+    for kind in ("none", "tile starts", "tile ends", "every element"):
+        for n in (L, T):
+            b = bars(kind, n)
+            for tag, combines in (("plus", plus_count), ("fill", fill)):
+                worst = max(worst, run(f"{kind}, L={n}, {tag}", b, combines))
+    tuples = {
+        "plus FP32, count": plus_count,
+        "min FP32, count": [sp.monoid_combine(gb.monoid.min["FP32"]), sp.COUNT],
+        "max FP32, count": [sp.monoid_combine(gb.monoid.max["FP32"]), sp.COUNT],
+        "lor BOOL, count": [sp.monoid_combine(gb.monoid.lor["BOOL"]), sp.COUNT],
+        "plus INT32, count": [sp.monoid_combine(gb.monoid.plus["INT32"]),
+                              sp.COUNT],
+        "first, first": fill,
+        "run-time, 1 channel": [sp.monoid_combine(gb.monoid.times["FP32"])],
+        "run-time, 2 channels": [sp.monoid_combine(gb.monoid.min["INT32"]),
+                                 sp.FIRST],
+        "run-time, 3 channels": [sp.monoid_combine(gb.monoid.max["UINT32"]),
+                                 sp.FIRST, sp.COUNT],
+        "run-time, 4 channels": [sp.monoid_combine(gb.monoid.band["UINT32"]),
+                                 sp.FIRST, sp.COUNT,
+                                 sp.monoid_combine(gb.monoid.land["BOOL"])],
+        "5 channels, two launches": [
+            sp.monoid_combine(gb.monoid.plus["FP32"]), sp.FIRST, sp.COUNT,
+            sp.monoid_combine(gb.monoid.max["INT32"]),
+            sp.monoid_combine(gb.monoid.min["FP32"])],
+    }
+    b = bars("random", L)
+    for tag, combines in tuples.items():
+        before = K.launches["segscan"]
+        worst = max(worst, run(f"{tag}, L={L} random", b, combines))
+        if K.launches["segscan"] - before != -(-len(combines) // K.MAXCH):
+            fail(f"K6 {tag}: not one launch per group of four channels")
+    log(f"  K6 look-back edge cases (4 barrier layouts at L={L} and {T}, "
+        f"{len(tuples)} channel tuples): ok, largest FP32 abs err {worst:.3g}")
+
+
+def k6_race_check(torch, sp, barrier, vals, combines, runs):
+    """A look-back with a wrong fence fails now and then, not always: the
+    main path's scan `runs` times, each output equal to the first in every
+    bit (the fold order of FP32 sums is fixed: see csrc/segscan.cu)."""
+    first = [t.view(torch.int32).clone() for t in sp.segscan(barrier, vals,
+                                                             combines)]
+    for r in range(runs):
+        got = sp.segscan(barrier, vals, combines)
+        for g, f in zip(got, first):
+            if not bool(torch.equal(g.view(torch.int32), f)):
+                fail(f"K6 race check: launch {r + 1} of {runs} differs from "
+                     f"the first")
+    log(f"  K6 race check: {runs} launches bitwise equal to the first")
+
+
+def segscan_three_pass(torch, sp, barrier, vals, combines):
+    """K6's three-launch design (PR 2, combines inlined since PR 6): the
+    entry point segscan_three_pass of csrc/segscan.cu, which the package
+    never calls; at most four channels."""
+    import ctypes
+
+    from graphblas_tpu_torch.core.engine import kernels as K
+
+    L, nv = barrier.numel(), len(vals)
+    nb = L // sp.SEG_BLOCK
+    ins = [v.view(torch.int32) for v in vals]
+    res = [torch.empty_like(x) for x in ins]
+    scratch = torch.empty((2 * nv + 1) * nb, dtype=torch.int32,
+                          device=barrier.device)
+    cc = (ctypes.c_int * K.MAXCH)(*[sp._combine_code(c) for c in combines])
+    K.check("segscan_three_pass", K.lib("segscan").segscan_three_pass(
+        barrier.data_ptr(), K.ptr_array(ins), K.ptr_array(res), cc, nv,
+        scratch.data_ptr(), scratch[2 * nv * nb:].data_ptr(),
+        scratch[nv * nb:].data_ptr(), L, K.stream_ptr(barrier)))
+    return [r.view(v.dtype) for r, v in zip(res, vals)]
+
+
+def k6_designs(torch, sp, bar_i, fold, fold_c, bar_m, fill, variants):
+    """The single pass beside the three-launch design, on the main path's
+    two scans (the row fold and the fill), both checked against the plain
+    version first.  The achieved rate is the function's bytes (1 + 2 nv
+    words an element) over the kernel's time; ncu, which would read the
+    DRAM rate itself, does not run on the card's machine."""
+    fill_c = [sp.FIRST, sp.FIRST]
+    for tag, bar, vals, combines in (("fold", bar_i, fold, fold_c),
+                                     ("fill", bar_m, fill, fill_c)):
+        want = sp.segscan_channels_plain(bar, vals, combines)
+        k6_compare(f"K6 three-pass {tag}",
+                   segscan_three_pass(torch, sp, bar, vals, combines), want,
+                   combines)
+        nbytes = 4 * (1 + 2 * len(vals)) * bar.numel()
+        one = cuda_ms(torch, lambda: sp.segscan(bar, vals, combines))
+        three = cuda_ms(torch, lambda: segscan_three_pass(torch, sp, bar, vals,
+                                                          combines))
+        b_ms, _ = bound(nbytes)
+        variants[f"segscan_{tag}_designs"] = {
+            "single_pass_ms": one, "three_pass_ms": three, "bound_ms": b_ms,
+            "bytes": nbytes, "single_pass_gb_s": nbytes / one / 1e6,
+            "three_pass_gb_s": nbytes / three / 1e6}
+        log(f"  K6 {tag}: single pass {one:.4f} ms ({nbytes / one / 1e6:.0f} "
+            f"GB/s, {b_ms / one:.0%} of the bound), three launches "
+            f"{three:.4f} ms ({nbytes / three / 1e6:.0f} GB/s); bound "
+            f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
 
 
 def combine_sweep(gb, torch, dev, rng):

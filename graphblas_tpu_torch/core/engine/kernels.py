@@ -30,8 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches per kernel since the last reset, keyed by the kernel's name
 # (fused_permC_scan_permA and lane_segscan count both launches of their
-# source, summary and final; segscan counts its three; tropical_matmul
-# counts both entry points of tropical.cu)
+# source, summary and final; segscan one per group of channels;
+# tropical_matmul counts both entry points of tropical.cu)
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
@@ -52,12 +52,14 @@ _ARGTYPES = {
     "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
     "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
-    "segscan": [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
+    "segscan": [_P] * 4 + [_I, _P, _I, _P],
+    "segscan_three_pass": [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
     "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
 }
 # C entry points of a source, where they are not the one named after it
 _ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked"),
+                 "segscan": ("segscan", "segscan_three_pass"),
                  "tile_perm": ("tile_perm", "tile_perm_channels"),
                  "mid_perm": ("mid_perm_tiles", "mid_perm_channels")}
 

@@ -183,7 +183,7 @@ def multiply(mult, a_c, g_c, a_dt, u_dt, z_dt, kind):
 Combine = namedtuple("Combine", "fn monoid dt packed")
 FIRST = Combine(lambda a, b: a, "first", None, False)
 COUNT = Combine(lambda a, b: a + b, "plus", _dt.INT32, False)
-SEG_BLOCK = 4096  # elements per block of csrc/segscan.cu
+SEG_BLOCK = 4096  # elements per tile of csrc/segscan.cu
 
 
 def monoid_combine(mono):
@@ -227,8 +227,9 @@ def segscan(barrier, vals, combines):
 
     barrier: int32[L]; vals: list of 32-bit [L] tensors; combines: one
     :class:`Combine` per tensor, applied as combine(left, right).  On CUDA
-    L must be a multiple of 4096 and the scan is three launches per group
-    of up to four channels; see csrc/segscan.cu."""
+    L must be a multiple of 4096 and the scan is one launch per group of
+    up to four channels, a single pass with a decoupled look-back; see
+    csrc/segscan.cu."""
     vals = list(vals)
     if barrier.device.type == "cpu":
         return segscan_channels_plain(barrier, vals, combines)
@@ -242,23 +243,20 @@ def segscan(barrier, vals, combines):
                          "multiple of 4096")
     if any(t.data_ptr() % 16 for t in [barrier] + ins):
         raise ValueError("segscan: arrays must be 16-byte aligned")
-    nblk = L // SEG_BLOCK
+    ntiles = L // SEG_BLOCK
     fn = K.lib("segscan").segscan
     outs = []
     for c0 in range(0, len(ins), K.MAXCH):
         chunk = ins[c0:c0 + K.MAXCH]
         res = [torch.empty_like(x) for x in chunk]
-        scratch = torch.empty((2 * len(chunk) + 1) * nblk, dtype=torch.int32,
+        # per tile and channel an aggregate and a prefix word, the counter
+        scratch = torch.empty(4 * len(chunk) * ntiles + 1, dtype=torch.int32,
                               device=barrier.device)
-        summ, carry, sflag = (scratch[:len(chunk) * nblk],
-                              scratch[len(chunk) * nblk:2 * len(chunk) * nblk],
-                              scratch[2 * len(chunk) * nblk:])
         cc = (ctypes.c_int * K.MAXCH)(*codes[c0:c0 + K.MAXCH])
         K.check("segscan", fn(barrier.data_ptr(), K.ptr_array(chunk),
                               K.ptr_array(res), cc, len(chunk),
-                              summ.data_ptr(), sflag.data_ptr(),
-                              carry.data_ptr(), L, K.stream_ptr(barrier)))
-        K.launches["segscan"] += 3
+                              scratch.data_ptr(), L, K.stream_ptr(barrier)))
+        K.launches["segscan"] += 1
         outs += res
     return [o.view(v.dtype) for o, v in zip(outs, vals)]
 

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from graphblas_tpu_torch import monoid
 from graphblas_tpu_torch.core.engine import kernels as K
 from graphblas_tpu_torch.core.engine import permute as pm
+from graphblas_tpu_torch.core.engine import sortpipe as sp
 from graphblas_tpu_torch.core.engine import tropical as ttr
 
 
@@ -156,3 +158,116 @@ def test_apply_perm_on_the_card_moves_no_exchange(cuda, out_limit):
         == (before[0] + 2, before[1] + 1, before[2])
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# --------------------------------------------------------------------- #
+# K6 segscan: the single pass with its decoupled look-back
+def seg_barrier(rng, kind, L):
+    T = sp.SEG_BLOCK
+    b = np.zeros(L, np.int32)
+    if kind == "tile starts":
+        b[::T] = 1
+    elif kind == "tile ends":
+        b[T - 1::T] = 1
+    elif kind == "every element":
+        b[:] = 1
+    elif kind == "random":
+        b[rng.random(L) < 1 / 500] = 1
+        b[L // 4:L // 2] = 0  # one segment over a quarter of the tiles
+    return torch.from_numpy(b)
+
+
+def seg_values(rng, combine, L):
+    """Values for a channel: FP32 in [0.5, 1.5) or 32-bit integers."""
+    if combine.dt is not None and combine.dt.is_float:
+        return torch.from_numpy(rng.random(L, dtype=np.float32) + 0.5)
+    hi = 2 if combine is sp.COUNT or (combine.dt is not None
+                                      and combine.dt.is_bool) else 1000
+    return torch.from_numpy(rng.integers(0 if hi == 2 else -hi, hi, L)
+                            .astype(np.int32))
+
+
+def seg_check(cuda, barrier, combines, vals):
+    """K6 on the card against its plain version on the CPU: FP32 plus and
+    times to rel 1e-5, everything else bitwise; one launch per group of
+    at most four channels."""
+    before = K.launches["segscan"]
+    got = sp.segscan(barrier.to(cuda), [v.to(cuda) for v in vals], combines)
+    assert K.launches["segscan"] - before == -(-len(vals) // K.MAXCH)
+    want = sp.segscan_channels_plain(barrier, vals, combines)
+    for g, w, c in zip(got, want, combines):
+        g = g.cpu()
+        if c.dt is not None and c.dt.is_float and c.monoid in ("plus", "times"):
+            assert bool(((g - w).abs() <= 1e-5 * w.abs()).all()), c
+        else:
+            assert torch.equal(g, w), c
+    return got
+
+
+PLUS_COUNT = [sp.monoid_combine(monoid.plus["FP32"]), sp.COUNT]
+FILL = [sp.FIRST, sp.FIRST]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,L", [
+    ("none", 1 << 23), ("none", 4096), ("tile starts", 1 << 20),
+    ("tile ends", 1 << 20), ("every element", 1 << 20), ("random", 1 << 20),
+    ("random", 4096), ("tile ends", 4096)])
+@pytest.mark.parametrize("combines", [PLUS_COUNT, FILL], ids=["plus", "fill"])
+def test_segscan_look_back_edge_cases(cuda, kind, L, combines):
+    """No barrier at all (one segment through every tile), barriers only at
+    tile starts or only at tile ends, at every element, and one tile."""
+    rng = np.random.default_rng(21)
+    bar = seg_barrier(rng, kind, L)
+    seg_check(cuda, bar, combines, [seg_values(rng, c, L) for c in combines])
+
+
+SEG_TUPLES = {
+    "plus_fp32": PLUS_COUNT,
+    "min_fp32": [sp.monoid_combine(monoid.min["FP32"]), sp.COUNT],
+    "max_fp32": [sp.monoid_combine(monoid.max["FP32"]), sp.COUNT],
+    "lor_bool": [sp.monoid_combine(monoid.lor["BOOL"]), sp.COUNT],
+    "plus_int32": [sp.monoid_combine(monoid.plus["INT32"]), sp.COUNT],
+    "fill": FILL,
+    # an FP32 product over one segment of 2**16 elements differs between
+    # two fold orders by some sqrt(2**16) * 2**-24 = 1.5e-5 relative, so
+    # FP32 times is held over chip_smoke.py's short segments instead
+    "generic_1": [sp.monoid_combine(monoid.times["INT32"])],
+    "generic_2": [sp.monoid_combine(monoid.min["INT32"]), sp.FIRST],
+    "generic_3": [sp.monoid_combine(monoid.max["UINT32"]), sp.FIRST,
+                  sp.COUNT],
+    "generic_4": [sp.monoid_combine(monoid.band["UINT32"]), sp.FIRST,
+                  sp.COUNT, sp.monoid_combine(monoid.land["BOOL"])],
+    "two_groups": [sp.monoid_combine(monoid.plus["FP32"]), sp.FIRST,
+                   sp.COUNT, sp.monoid_combine(monoid.max["INT32"]),
+                   sp.monoid_combine(monoid.min["FP32"])],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SEG_TUPLES))
+def test_segscan_every_combine(cuda, name):
+    """Each channel tuple with inline combines, the run-time path at one to
+    four channels, and five channels (two launches)."""
+    combines = SEG_TUPLES[name]
+    rng = np.random.default_rng(22)
+    L = 64 * sp.SEG_BLOCK
+    bar = seg_barrier(rng, "random", L)
+    seg_check(cuda, bar, combines, [seg_values(rng, c, L) for c in combines])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["none", "random"])
+def test_segscan_repeated_launches_are_bitwise_stable(cuda, kind):
+    """A look-back with a wrong fence fails now and then, not always: 200
+    launches, each equal to the first in every bit (FP32 plus included,
+    whose fold order is fixed by the tiles, not by the timing)."""
+    rng = np.random.default_rng(23)
+    L = 1 << 22
+    bar = seg_barrier(rng, kind, L).to(cuda)
+    vals = [seg_values(rng, c, L).to(cuda) for c in PLUS_COUNT]
+    first = sp.segscan(bar, vals, PLUS_COUNT)
+    for _ in range(200):
+        again = sp.segscan(bar, vals, PLUS_COUNT)
+        for a, f in zip(again, first):
+            assert torch.equal(a.view(torch.int32), f.view(torch.int32))

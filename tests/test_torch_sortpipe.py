@@ -103,18 +103,46 @@ SCAN_PAIRS = [
 
 # XLA takes tens of seconds to compile an associative scan over `first`;
 # the Pallas kernel covers those pairs
-SCAN_CASES = [("pallas", p) for p in SCAN_PAIRS] + [
-    ("xla", p) for p in SCAN_PAIRS if all(n != "first" for n, _ in p)]
+SCAN_CASES = [("pallas", p, "random") for p in SCAN_PAIRS] + [
+    ("xla", p, "random") for p in SCAN_PAIRS
+    if all(n != "first" for n, _ in p)]
+# where the CUDA kernel's look-back is most exposed: one segment across
+# all of its 4096-element tiles, barriers only at tile starts or only at
+# tile ends, and four channels (one launch)
+SCAN_CASES += [
+    ("pallas", (("plus", "FP32"), ("count", "INT32")), "one segment"),
+    ("pallas", (("first", "FP32"), ("first", "INT32")), "one segment"),
+    ("pallas", (("plus", "FP32"), ("count", "INT32")), "tile starts"),
+    ("pallas", (("min", "FP32"), ("count", "INT32")), "tile ends"),
+    ("pallas", (("plus", "FP32"), ("first", "INT32"), ("max", "UINT32"),
+                ("count", "INT32")), "random")]
 
 
-@pytest.mark.parametrize(
-    "ref,pair", SCAN_CASES,
-    ids=lambda v: v if isinstance(v, str) else "-".join(n + d for n, d in v))
-def test_segscan_plain_matches_jax(monkeypatch, pair, ref):
+def scan_case_id(ref, pair, layout):
+    tag = "-".join([ref] + [n + d for n, d in pair])
+    return tag if layout == "random" else f"{tag}-{layout.replace(' ', '_')}"
+
+
+def layout_barrier(barrier, layout):
+    T = tsp.SEG_BLOCK
+    if layout == "random":
+        return barrier
+    b = np.zeros_like(barrier)
+    if layout == "tile starts":
+        b[::T] = 1
+    elif layout == "tile ends":
+        b[T - 1::T] = 1
+    return b
+
+
+@pytest.mark.parametrize("ref,pair,layout", SCAN_CASES,
+                         ids=[scan_case_id(*c) for c in SCAN_CASES])
+def test_segscan_plain_matches_jax(monkeypatch, pair, ref, layout):
     # Pallas: 4 grid blocks of 256*128; the XLA scan has no blocks, and its
     # compile time grows with L
     L = 1 << 17 if ref == "pallas" else 1 << 13
     rng, barrier = scan_inputs(L)
+    barrier = layout_barrier(barrier, layout)
     vals = [scan_values(rng, L, dt) for _, dt in pair]
     jcomb = tuple(jax_combine(n, dt) for n, dt in pair)
     if ref == "pallas":
