@@ -791,9 +791,10 @@ def k6_designs(torch, sp, bar_i, fold, fold_c, bar_m, fill, variants):
 def combine_sweep(gb, torch, dev, rng):
     """K5 and K6 at small sizes over every monoid and 32-bit type the
     engines take, against their plain versions: one and three tiles for
-    K5; one block, 16 blocks, and 1030 blocks (a second, partly filled
-    round of the carry kernel) for K6; and five channels, which takes two
-    launch groups.  FP32 plus and times to rel 1e-5, the rest bitwise."""
+    K5; one tile and 16 tiles for K6 (three channels: the run-time
+    combines), and 1030 tiles with one segment over some 340 of them and
+    five channels, which takes two launches.  FP32 plus and times to rel
+    1e-5, the rest bitwise."""
     from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32, UINT32
     from graphblas_tpu_torch.core.engine import lanepipe as lp
     from graphblas_tpu_torch.core.engine import sortpipe as sp
