@@ -17,9 +17,10 @@ engine) from the sources, then:
    T=264, the extract trimmed), beside torch.take of the composite index;
    K6 (one launch per group of channels) also where its look-back is most
    exposed (no barrier, barriers only at tile starts or tile ends, at
-   every element, one tile, every channel tuple), 200 launches of the
-   main path's scan bitwise equal, and its time beside the three-launch
-   design it replaced;
+   every element, one tile, every channel tuple, an FP32 product carried
+   across tiles), 200 launches of the main path's scan bitwise equal, and
+   its achieved rate on the main path's two scans; K1 also with the
+   logical multiplies on FP32 and INT32 (plus_land, min_lor);
 2. PageRank (bench.py's pr_body, 20 iterations of ss.iterate) on the zipf
    graph, checked against a float64 scipy power iteration;
 3. level BFS (bench.py's bfs_body with the lor-reduce cond) on the BOOL
@@ -264,7 +265,7 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
     """Each kernel against its plain version at the main path's shapes."""
     from graphblas_tpu_torch.core.engine import lanepipe as lp
     from graphblas_tpu_torch.core.engine import permute as pm
-    from graphblas_tpu_torch.core.dtypes import BOOL, FP32
+    from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32
 
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -325,6 +326,33 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
                            ringb.monoid, **kwb)[0]
     compare("K1 gather_mult BOOL packed+permA", codes, lp.gather_mult_plain(
         plan_gb, ub2, ub2ok, ringb.binaryop, BOOL, BOOL, ringb.monoid, **kwb)[0])
+    # the logical multiplies in a type of their own: the operands' truth
+    # values as 1 or 0 (a NaN is true, -0.0 false), through the plan of A
+    # with values of that type; plus_land with a full u, min_lor with a
+    # sparse one
+    zero = torch.from_numpy(rng.random((R_g, 128)) < 0.3).to(dev)
+    af = torch.where(zero, 0.0, d["avals_g"])
+    af[0, :4] = torch.tensor([float("nan"), -0.0, 2.0, 0.0])
+    uf = torch.from_numpy(rng.choice(np.float32([0, -0.0, 1.5, np.nan]), n)).to(dev)
+    ai = torch.from_numpy(rng.integers(-2, 3, (R_g, 128)).astype(np.int32)).to(dev)
+    ui = torch.from_numpy(rng.integers(-2, 3, n).astype(np.int32)).to(dev)
+    uiok = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    for ring_l, a_l, u_l, u_ok, dt, full in (
+            (gb.semiring.plus_land["FP32"], af, uf, None, FP32, True),
+            (gb.semiring.min_lor["INT32"], ai, ui, uiok, INT32, False)):
+        ul2, ul2ok = lp.pad_u(u_l, torch.ones(n, dtype=torch.bool, device=dev)
+                              if u_ok is None else u_ok, dt, n)
+        kwl = dict(kind="vxm", R_g=R_g, nblocks=nblocks, full_u=full,
+                   permA=routeP[0])
+        args = (plan_g[:4] + (a_l,), ul2, ul2ok, ring_l.binaryop, dt, dt,
+                ring_l.monoid)
+        (gv, gh), (pv, ph) = lp.gather_mult(*args, **kwl), \
+            lp.gather_mult_plain(*args, **kwl)
+        compare(f"K1 gather_mult {ring_l.name}[{dt.name}], values", gv, pv)
+        if not full:
+            compare(f"K1 gather_mult {ring_l.name}[{dt.name}], okp", gh, ph)
+        if not bool((pv != 0).any() & (pv == 0).any()):
+            fail(f"K1 {ring_l.name}: the check saw one truth value only")
     # the timed variant is full_u: u2ok is never read
     nbytes = 4 * (5 * R_g * 128 + nblocks * 128 * 128 + u2.numel()
                   + 3 * nblocks)
@@ -628,8 +656,8 @@ def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
     add("segscan", "graphblas_tpu_torch/csrc/segscan.cu",
         "graphblas_tpu/core/engine/sortpipe.py:168", err6, cuda_ms(torch, k6),
         cuda_ms(torch, p6), 4 * 5 * L, nops=2 * L)
-    k6_designs(torch, sp, barrier_i, [i_v, i_h], pair, barrier_m, [m_v, m_h],
-               variants)
+    k6_rates(torch, sp, barrier_i, [i_v, i_h], pair, barrier_m, [m_v, m_h],
+             variants)
     combine_sweep(gb, torch, dev, rng)
 
 
@@ -719,8 +747,20 @@ def k6_edge_cases(gb, torch, dev, rng, L):
         worst = max(worst, run(f"{tag}, L={L} random", b, combines))
         if K.launches["segscan"] - before != -(-len(combines) // K.MAXCH):
             fail(f"K6 {tag}: not one launch per group of four channels")
+    # an FP32 product carried across tiles, in segments of about three: the
+    # factors are 1/2, 1 and 2, so each product is exact in any fold order
+    # and must agree in every bit, and a wrong carry shows
+    times = [sp.monoid_combine(gb.monoid.times["FP32"])]
+    bt = torch.zeros(L, dtype=torch.int32, device=dev)
+    bt[1000::3 * T + 1234] = 1
+    f = torch.from_numpy(rng.choice(np.float32([0.5, 1, 2]), L,
+                                    p=[0.01, 0.98, 0.01])).to(dev)
+    compare("K6 times FP32 across tiles, exact factors",
+            sp.segscan(bt, [f], times)[0],
+            sp.segscan_channels_plain(bt, [f], times)[0], quiet=True)
     log(f"  K6 look-back edge cases (4 barrier layouts at L={L} and {T}, "
-        f"{len(tuples)} channel tuples): ok, largest FP32 abs err {worst:.3g}")
+        f"{len(tuples)} channel tuples, an FP32 product across tiles): ok, "
+        f"largest FP32 abs err {worst:.3g}")
 
 
 def k6_race_check(torch, sp, barrier, vals, combines, runs):
@@ -738,54 +778,22 @@ def k6_race_check(torch, sp, barrier, vals, combines, runs):
     log(f"  K6 race check: {runs} launches bitwise equal to the first")
 
 
-def segscan_three_pass(torch, sp, barrier, vals, combines):
-    """K6's three-launch design (PR 2, combines inlined since PR 6): the
-    entry point segscan_three_pass of csrc/segscan.cu, which the package
-    never calls; at most four channels."""
-    import ctypes
-
-    from graphblas_tpu_torch.core.engine import kernels as K
-
-    L, nv = barrier.numel(), len(vals)
-    nb = L // sp.SEG_BLOCK
-    ins = [v.view(torch.int32) for v in vals]
-    res = [torch.empty_like(x) for x in ins]
-    scratch = torch.empty((2 * nv + 1) * nb, dtype=torch.int32,
-                          device=barrier.device)
-    cc = (ctypes.c_int * K.MAXCH)(*[sp._combine_code(c) for c in combines])
-    K.check("segscan_three_pass", K.lib("segscan").segscan_three_pass(
-        barrier.data_ptr(), K.ptr_array(ins), K.ptr_array(res), cc, nv,
-        scratch.data_ptr(), scratch[2 * nv * nb:].data_ptr(),
-        scratch[nv * nb:].data_ptr(), L, K.stream_ptr(barrier)))
-    return [r.view(v.dtype) for r, v in zip(res, vals)]
-
-
-def k6_designs(torch, sp, bar_i, fold, fold_c, bar_m, fill, variants):
-    """The single pass beside the three-launch design, on the main path's
-    two scans (the row fold and the fill), both checked against the plain
-    version first.  The achieved rate is the function's bytes (1 + 2 nv
-    words an element) over the kernel's time; ncu, which would read the
-    DRAM rate itself, does not run on the card's machine."""
+def k6_rates(torch, sp, bar_i, fold, fold_c, bar_m, fill, variants):
+    """K6 on the main path's two scans (the row fold and the fill): its
+    time and achieved rate, the function's bytes (1 + 2 nv words an
+    element) over the kernel's time, beside the bound."""
     fill_c = [sp.FIRST, sp.FIRST]
     for tag, bar, vals, combines in (("fold", bar_i, fold, fold_c),
                                      ("fill", bar_m, fill, fill_c)):
-        want = sp.segscan_channels_plain(bar, vals, combines)
-        k6_compare(f"K6 three-pass {tag}",
-                   segscan_three_pass(torch, sp, bar, vals, combines), want,
-                   combines)
         nbytes = 4 * (1 + 2 * len(vals)) * bar.numel()
-        one = cuda_ms(torch, lambda: sp.segscan(bar, vals, combines))
-        three = cuda_ms(torch, lambda: segscan_three_pass(torch, sp, bar, vals,
-                                                          combines))
+        ms = cuda_ms(torch, lambda: sp.segscan(bar, vals, combines))
         b_ms, _ = bound(nbytes)
-        variants[f"segscan_{tag}_designs"] = {
-            "single_pass_ms": one, "three_pass_ms": three, "bound_ms": b_ms,
-            "bytes": nbytes, "single_pass_gb_s": nbytes / one / 1e6,
-            "three_pass_gb_s": nbytes / three / 1e6}
-        log(f"  K6 {tag}: single pass {one:.4f} ms ({nbytes / one / 1e6:.0f} "
-            f"GB/s, {b_ms / one:.0%} of the bound), three launches "
-            f"{three:.4f} ms ({nbytes / three / 1e6:.0f} GB/s); bound "
-            f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+        variants[f"segscan_{tag}"] = {"ms": ms, "bound_ms": b_ms,
+                                      "bytes": nbytes,
+                                      "gb_s": nbytes / ms / 1e6}
+        log(f"  K6 {tag}: {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+            f"{b_ms / ms:.0%} of the bound); bound {b_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
 
 
 def combine_sweep(gb, torch, dev, rng):
@@ -1275,6 +1283,8 @@ def hypersparse_phase(gb, torch, K, dev, results, totals):
     bi = np.flatnonzero(bok)
     bv = rng.random(len(bi)) < 0.5
     ub = gb.Vector.from_coo(bi, bv, dtype="BOOL", size=n)
+    uf = gb.Vector.from_coo(bi, np.where(bv, np.float32(2.5), np.float32(0)),
+                            dtype="FP32", size=n)
     bd = np.zeros(n, bool)
     bd[bi] = bv
     e3 = bok[r]
@@ -1291,6 +1301,11 @@ def hypersparse_phase(gb, torch, K, dev, results, totals):
         ("vxm lor_land[BOOL], 30% sparse u",
          lambda: ub.vxm(Hb, gb.semiring.lor_land["BOOL"]).new(),
          idx3, ref3, None),
+        # the same truth values as FP32: the BOOL ring over the truth of
+        # H's values, on the plan of the plus_times vxm above
+        ("vxm lor_land[FP32], 30% sparse u",
+         lambda: uf.vxm(H, gb.semiring.lor_land["FP32"]).new(),
+         idx3, ref3, None),
     ]
     reset_counts(K)
     out = {"n": n, "nnz": m}
@@ -1303,6 +1318,11 @@ def hypersparse_phase(gb, torch, K, dev, results, totals):
         out[name] = {"ms": ms, "ms_runs": runs, "first_call_s": first_s,
                      "gnnz_s": m / ms / 1e6, "entries": int(len(ref_i)),
                      "max_abs_err": err}
+    nplans = len(H._sparse._sortpipe_plans)
+    if nplans != 2 or H._sparse._bool_twins:
+        fail(f"hypersparse: H holds {nplans} sort-pipeline plans and "
+             f"{len(H._sparse._bool_twins)} BOOL twins; lor_land[FP32] "
+             f"should share the plus_times vxm's plan")
     got = check_launches(K, "hypersparse", totals, need=("segscan",))
     if any(got[k] for k in KERNELS if k != "segscan"):
         fail("hypersparse: a lanepipe kernel launched; the path was not the "
@@ -1310,6 +1330,10 @@ def hypersparse_phase(gb, torch, K, dev, results, totals):
     fn = cases[0][1]
     out["profile"] = profile_breakdown(torch, fn, cases[0][0],
                                        out[cases[0][0]]["ms"])
+    # what the FP32 ring costs beyond the BOOL one on the same structure
+    for name, fn, *_ in cases[2:]:
+        out[f"profile {name}"] = profile_breakdown(torch, fn, name,
+                                                   out[name]["ms"])
     results["hypersparse"] = out
 
 

@@ -53,13 +53,11 @@ _ARGTYPES = {
     "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
     "segscan": [_P] * 4 + [_I, _P, _I, _P],
-    "segscan_three_pass": [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
     "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
 }
 # C entry points of a source, where they are not the one named after it
 _ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked"),
-                 "segscan": ("segscan", "segscan_three_pass"),
                  "tile_perm": ("tile_perm", "tile_perm_channels"),
                  "mid_perm": ("mid_perm_tiles", "mid_perm_channels")}
 

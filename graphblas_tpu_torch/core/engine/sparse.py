@@ -39,7 +39,8 @@ class SparseStore:
 
     def bool_twin(self, dtype):
         """The store of this matrix's truth values after a cast to dtype,
-        as BOOL (cached, with plans of its own)."""
+        as BOOL (cached, with plans of its own: for a 64-bit matrix, which
+        no pipeline takes itself; see execute._plan)."""
         twin = self._bool_twins.get(dtype)
         if twin is None:
             vals = self.vals.astype(dtype.np_type) != 0

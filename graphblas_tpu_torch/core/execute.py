@@ -284,29 +284,61 @@ def _inline_sparse_impl(expr):
     if sp.nvals() == 0:
         return _empty_result(expr, vec.device)
     a_dt, u_dt, u_vals = mat.dtype, vec.dtype, vec._vals
+    truth_of = None
     twin = ring.bool_twin()
     if twin is not None:  # lor_land["FP32"]: the BOOL ring on truth values
         mult = ring.binaryop
-        sp = sp.bool_twin(mult.type)
+        truth_of = mult.type
         u_vals = dense.truthy(st.cast_values(u_vals, u_dt, mult.type),
                               mult.type)
-        ring, a_dt, u_dt = twin, _dt.BOOL, _dt.BOOL
-    if not lanepipe.eligible(ring, a_dt, u_dt):
+        ring, u_dt = twin, _dt.BOOL
+    k_dt = a_dt if truth_of is None else _dt.BOOL  # the matrix's, as computed
+    if not lanepipe.eligible(ring, k_dt, u_dt):
         raise NotImplementedError(
-            f"{m} with {ring!r} on {a_dt}/{u_dt} needs the generic "
+            f"{m} with {ring!r} on {k_dt}/{u_dt} needs the generic "
             f"SpMV engine (FP64, UDT and other monoids): ROADMAP.md queue 1, "
             f"item 9")
-    entry = lanepipe.get_plan(sp, m == "mxv", at=bool(tflag),
-                              device=vec.device)
+    where = dict(dest_is_row=m == "mxv", at=bool(tflag), device=vec.device)
+    entry, dyn = _plan(lanepipe, sp, a_dt, truth_of, **where)
     if entry is None:
-        entry = sortpipe.get_plan(sp, m == "mxv", at=bool(tflag),
-                                  device=vec.device)
+        entry, dyn = _plan(sortpipe, sp, a_dt, truth_of, **where)
         return sortpipe.spmv_pipeline(
-            sortpipe.plan_dyn_tuple(entry), u_vals, vec._valid, ring,
-            a_dt, u_dt, kind=m, n_in=entry["n_in"], L=entry["L"])
-    return lanepipe.spmv_pipeline(
-        lanepipe.plan_dyn_tuple(entry), entry, u_vals, vec._valid, ring,
-        a_dt, u_dt, kind=m)
+            dyn, u_vals, vec._valid, ring, k_dt, u_dt, kind=m,
+            n_in=entry["n_in"], L=entry["L"])
+    return lanepipe.spmv_pipeline(dyn, entry, u_vals, vec._valid, ring, k_dt,
+                                  u_dt, kind=m)
+
+
+# where plan_dyn_tuple puts the matrix's values
+_VALS_AT = {lanepipe: 4, sortpipe: 5}
+
+
+def _plan(pipe, sp, a_dt, truth_of, *, dest_is_row, at, device):
+    """(entry, plan_dyn) of the matrix's plan in `pipe` (lanepipe or
+    sortpipe); (None, None) where the lanepipe declines it.
+
+    truth_of: for a logical ring or monoid over values of another type,
+    the type whose truth values (after a cast of the matrix's values to
+    it) take the place of the values, as BOOL.  They are computed once from
+    the matrix's own plan and kept in its entry, so the plan's structure
+    is shared.  No pipeline takes a 64-bit matrix itself, and its plan
+    would carry its values on 32 bits: there the store's BOOL twin, made on
+    the host, holds the only plans."""
+    if truth_of is not None and a_dt.np_type.itemsize > 4:
+        sp, truth_of = sp.bool_twin(truth_of), None
+    entry = pipe.get_plan(sp, dest_is_row, at=at, device=device)
+    if entry is None:
+        return None, None
+    dyn = pipe.plan_dyn_tuple(entry)
+    if truth_of is None:
+        return entry, dyn
+    i = _VALS_AT[pipe]
+    truth = entry.setdefault("truth", {})
+    if truth_of not in truth:
+        vals = st.cast_values(sortpipe.from_carrier(dyn[i], a_dt), a_dt,
+                              truth_of)
+        truth[truth_of] = (vals != 0).to(torch.int32)
+    return entry, dyn[:i] + (truth[truth_of],) + dyn[i + 1:]
 
 
 def _reduce_axis_impl(expr):
@@ -320,14 +352,15 @@ def _reduce_axis_impl(expr):
     in_dt = mat.dtype
     if sp.nvals() == 0:
         return _empty_result(expr, dev)
-    if mono.type is _dt.BOOL and in_dt is not _dt.BOOL:
-        sp, in_dt = sp.bool_twin(in_dt), _dt.BOOL  # lor/land of truth values
-    if not sortpipe.eligible_reduce(mono, in_dt):
+    # lor/land of another type: of the values' truth
+    truth_of = in_dt if mono.type is _dt.BOOL and not in_dt.is_bool else None
+    k_dt = in_dt if truth_of is None else _dt.BOOL
+    if not sortpipe.eligible_reduce(mono, k_dt):
         raise NotImplementedError(
             f"{expr.method_name} with {mono!r} on {in_dt} needs the "
             f"generic sparse.reduce_axis (FP64, UDT and other monoids): "
             f"ROADMAP.md queue 1, item 9")
     # axis=1 reduces rows (dest=row); axis=0 reduces columns
-    entry = sortpipe.get_plan(sp, axis == 1, at=bool(tflag), device=dev)
-    return sortpipe.reduce_pipeline(sortpipe.plan_dyn_tuple(entry), mono,
-                                    in_dt)
+    _, dyn = _plan(sortpipe, sp, in_dt, truth_of, dest_is_row=axis == 1,
+                   at=bool(tflag), device=dev)
+    return sortpipe.reduce_pipeline(dyn, mono, k_dt)

@@ -86,6 +86,9 @@ __device__ __forceinline__ uint32_t mult_bits(int op, uint32_t x, uint32_t y) {
       // the binary ops min/max ignore a NaN operand (GraphBLAS, jnp.fmin)
       case OP_MIN: return f_bits(fminf(a, b));
       case OP_MAX: return f_bits(fmaxf(a, b));
+      // the operands' truth values, as 1 or 0 in the type (a NaN is true)
+      case OP_LAND: return f_bits(a != 0.0f && b != 0.0f ? 1.0f : 0.0f);
+      case OP_LOR: return f_bits(a != 0.0f || b != 0.0f ? 1.0f : 0.0f);
     }
     return 0;
   } else if (DT == DT_BOOL) {
@@ -107,6 +110,8 @@ __device__ __forceinline__ uint32_t mult_bits(int op, uint32_t x, uint32_t y) {
       case OP_PAIR: return 1u;
       case OP_BAND: return x & y;
       case OP_BOR: return x | y;
+      case OP_LAND: return x != 0 && y != 0;
+      case OP_LOR: return x != 0 || y != 0;
       case OP_MIN:
         if (DT == DT_I32) return (int)x < (int)y ? x : y;
         return x < y ? x : y;

@@ -45,11 +45,6 @@
 // channel tuple reads its ops at run time through one out-of-line body,
 // which keeps the build to seconds.
 //
-// The three-launch design of PR 2 (block summaries, one block scanning
-// them, the scan again with its carry; 1024 threads of 4 elements) stays
-// as the entry point segscan_three_pass, which nothing in the package
-// calls: chip_smoke.py times it beside this one.
-//
 // The fold order differs from the Pallas kernel's roll tree: FP32
 // plus/times agree to rounding, the rest exactly; every run gives the same
 // bits.
@@ -162,6 +157,13 @@ struct Ops {
 };
 using DynOps = Ops<SO_DYN>;
 
+// The barrier of the block's first 32 NW threads, the data warps (named
+// barrier 1: the look-back warp does not take part).
+template <int NW>
+__device__ __forceinline__ void data_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(32 * NW) : "memory");
+}
+
 // Segmented scan over a block of NW warps in which each thread holds G
 // items, item (g, thread) at position g * 32 NW + thread.  In: f[g], v[g]
 // = the item's own flag and values.  Out: f[g], v[g] = the inclusive scan
@@ -169,15 +171,7 @@ using DynOps = Ops<SO_DYN>;
 // before it (ex_has false for the first); sw[G NW - 1] the scan through
 // the whole block.  One warp scans the G NW warp totals, 32 at a time.
 // sw: G * NW * (NV + 1) words.
-// The block's barrier, or with NAMED the barrier of its first 32 NW
-// threads alone (named barrier 1).
-template <bool NAMED, int NW>
-__device__ __forceinline__ void data_sync() {
-  if constexpr (NAMED) asm volatile("bar.sync 1, %0;" :: "n"(32 * NW) : "memory");
-  else __syncthreads();
-}
-
-template <class OPS, int NV, int NW, int G, bool NAMED = false>
+template <class OPS, int NV, int NW, int G>
 __device__ __forceinline__ void block_scan(const int* cc, int* f,
                                            uint32_t (*v)[NV], bool* ex_has,
                                            int* ex_f, uint32_t (*ex_v)[NV],
@@ -198,7 +192,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int* f,
       if (lane >= s) f[g] |= pf;
     }
   }
-  data_sync<NAMED, NW>();  // sw may still be read from an earlier call
+  data_sync<NW>();  // sw may still be read from an earlier call
   if (lane == 31) {
 #pragma unroll
     for (int g = 0; g < G; g++) {
@@ -208,7 +202,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int* f,
       for (int c = 0; c < NV; c++) e[1 + c] = v[g][c];
     }
   }
-  data_sync<NAMED, NW>();
+  data_sync<NW>();
   if (warp == 0) {  // scan the E totals, 32 at a time with a carry
     int cf = 0;
     uint32_t cv[NV];
@@ -247,7 +241,7 @@ __device__ __forceinline__ void block_scan(const int* cc, int* f,
       for (int c = 0; c < NV; c++) cv[c] = __shfl_sync(FULL, wv[c], 31);
     }
   }
-  data_sync<NAMED, NW>();
+  data_sync<NW>();
 #pragma unroll
   for (int g = 0; g < G; g++) {
     const int e = g * NW + warp;  // this warp's total among the E
@@ -268,27 +262,6 @@ __device__ __forceinline__ void block_scan(const int* cc, int* f,
 #pragma unroll
       for (int c = 0; c < NV; c++) ex_v[g][c] = prev[1 + c];
     }
-  }
-}
-
-// block_scan with one item per thread.
-template <class OPS, int NV, int NW>
-__device__ __forceinline__ void block_scan1(const int* cc, int& f, uint32_t* v,
-                                            bool& ex_has, int& ex_f,
-                                            uint32_t* ex_v, uint32_t* sw) {
-  int fa[1] = {f}, exf[1];
-  bool exh[1];
-  uint32_t va[1][NV], exv[1][NV];
-#pragma unroll
-  for (int c = 0; c < NV; c++) va[0][c] = v[c];
-  block_scan<OPS, NV, NW, 1>(cc, fa, va, exh, exf, exv, sw);
-  f = fa[0];
-  ex_has = exh[0];
-  ex_f = exf[0];
-#pragma unroll
-  for (int c = 0; c < NV; c++) {
-    v[c] = va[0][c];
-    ex_v[c] = exv[0][c];
   }
 }
 
@@ -527,7 +500,7 @@ __global__ void __launch_bounds__(SP_THREADS + 32) segscan_kernel(
 #pragma unroll
   for (int g = 0; g < G; g++)
     scan_items<OPS, NV>(ch.cc, items[g], x[g], v[g], f[g], first[g]);
-  block_scan<OPS, NV, NW, G, true>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
+  block_scan<OPS, NV, NW, G>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
   if (threadIdx.x == 0)
     publish<NV>(tile == 0 || tot[0] != 0 ? pre : agg, ntiles, tile, tot + 1);
   __syncthreads();  // meets the look-back warp: the carry is in shared memory
@@ -535,98 +508,6 @@ __global__ void __launch_bounds__(SP_THREADS + 32) segscan_kernel(
   for (int g = 0; g < G; g++)
     apply_store<OPS, NV>(ch, e0 + 4 * SP_THREADS * g, x[g], first[g],
                          ex_has[g], ex_f[g], ex_v[g], s_cin != 0, carry);
-}
-
-// ---------------------------------------------------------------------- //
-// the three-launch design (timed beside the single pass; see the header)
-
-#define TP_NT 1024  // threads of a block; 4 elements each, one tile
-
-template <class OPS, int NV>
-__global__ void __launch_bounds__(TP_NT) seg_summary_kernel(
-    SegChans ch, const int* __restrict__ barrier, uint32_t* __restrict__ summ,
-    int* __restrict__ sflag, int nblocks) {
-  __shared__ uint32_t sw[32 * (NV + 1)];
-  const size_t e0 = ((size_t)blockIdx.x * TP_NT + threadIdx.x) * 4;
-  Items<NV> it;
-  load_items<NV>(ch, barrier, e0, it);
-  uint32_t x[NV][4], v[NV], ex_v[NV];
-  int f, first, ex_f;
-  bool ex_has;
-  scan_items<OPS, NV>(ch.cc, it, x, v, f, first);
-  block_scan1<OPS, NV, 32>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
-  if (threadIdx.x == TP_NT - 1) {
-    sflag[blockIdx.x] = f;
-#pragma unroll
-    for (int c = 0; c < NV; c++) summ[(size_t)c * nblocks + blockIdx.x] = v[c];
-  }
-}
-
-// One block: carry[b] = segmented scan of the summaries through block b-1.
-template <class OPS, int NV>
-__global__ void __launch_bounds__(TP_NT) seg_carry_kernel(
-    SegChans ch, const uint32_t* __restrict__ summ,
-    const int* __restrict__ sflag, uint32_t* __restrict__ carry, int nblocks) {
-  __shared__ uint32_t sw[32 * (NV + 1)];
-  __shared__ uint32_t run[NV];  // scan through the previous 1024 blocks
-  bool run_has = false;
-  for (int b0 = 0; b0 < nblocks; b0 += TP_NT) {
-    const int b = b0 + threadIdx.x;
-    const bool live = b < nblocks;
-    // dead threads sit after every live one; a flag keeps them inert
-    int f = live ? sflag[b] : 1;
-    uint32_t v[NV], ex_v[NV];
-#pragma unroll
-    for (int c = 0; c < NV; c++)
-      v[c] = live ? summ[(size_t)c * nblocks + b] : 0u;
-    int ex_f;
-    bool ex_has;
-    block_scan1<OPS, NV, 32>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
-    // fold the running carry of earlier rounds in front
-    if (run_has) {
-#pragma unroll
-      for (int c = 0; c < NV; c++) {
-        if (!f) v[c] = OPS::comb(ch.cc, c, run[c], v[c]);
-        if (ex_has) {
-          if (!ex_f) ex_v[c] = OPS::comb(ch.cc, c, run[c], ex_v[c]);
-        } else {
-          ex_v[c] = run[c];
-        }
-      }
-      ex_has = true;
-    }
-    if (live && ex_has) {
-#pragma unroll
-      for (int c = 0; c < NV; c++) carry[(size_t)c * nblocks + b] = ex_v[c];
-    }
-    __syncthreads();  // everyone has read run
-    if (threadIdx.x == TP_NT - 1) {
-#pragma unroll
-      for (int c = 0; c < NV; c++) run[c] = v[c];
-    }
-    run_has = true;
-    __syncthreads();
-  }
-}
-
-template <class OPS, int NV>
-__global__ void __launch_bounds__(TP_NT) seg_apply_kernel(
-    SegChans ch, const int* __restrict__ barrier,
-    const uint32_t* __restrict__ carry, int nblocks) {
-  __shared__ uint32_t sw[32 * (NV + 1)];
-  const size_t e0 = ((size_t)blockIdx.x * TP_NT + threadIdx.x) * 4;
-  Items<NV> it;
-  load_items<NV>(ch, barrier, e0, it);
-  uint32_t x[NV][4], v[NV], ex_v[NV], cin[NV];
-  int f, first, ex_f;
-  bool ex_has;
-  scan_items<OPS, NV>(ch.cc, it, x, v, f, first);
-  block_scan1<OPS, NV, 32>(ch.cc, f, v, ex_has, ex_f, ex_v, sw);
-#pragma unroll
-  for (int c = 0; c < NV; c++)
-    cin[c] = blockIdx.x > 0 ? carry[(size_t)c * nblocks + blockIdx.x] : 0u;
-  apply_store<OPS, NV>(ch, e0, x, first, ex_has, ex_f, ex_v, blockIdx.x > 0,
-                       cin);
 }
 
 // ---------------------------------------------------------------------- //
@@ -685,32 +566,6 @@ extern "C" int segscan(const void* barrier, void** ins, void** outs,
     segscan_kernel<decltype(ops), decltype(k)::value>
         <<<ntiles, SP_THREADS + 32, 0, st>>>(ch, (const int*)barrier, counter,
                                              agg, pre, ntiles);
-  });
-  return (int)cudaGetLastError();
-}
-
-// The three-launch design, for timing beside segscan.  summ and carry hold
-// nv * n / 4096 words, sflag n / 4096.
-extern "C" int segscan_three_pass(const void* barrier, void** ins,
-                                  void** outs, const int* codes, int nv,
-                                  void* summ, void* sflag, void* carry, int n,
-                                  void* stream) {
-  SegChans ch;
-  const int rc = channels(ch, ins, outs, codes, nv, n);
-  if (rc) return rc;
-  const int nblocks = n / SEG_BLOCK;
-  if (nblocks == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int* bar = (const int*)barrier;
-  dispatch(ch, nv, [&](auto ops, auto k) {
-    using O = decltype(ops);
-    constexpr int NV = decltype(k)::value;
-    seg_summary_kernel<O, NV><<<nblocks, TP_NT, 0, st>>>(
-        ch, bar, (uint32_t*)summ, (int*)sflag, nblocks);
-    seg_carry_kernel<O, NV><<<1, TP_NT, 0, st>>>(
-        ch, (uint32_t*)summ, (int*)sflag, (uint32_t*)carry, nblocks);
-    seg_apply_kernel<O, NV><<<nblocks, TP_NT, 0, st>>>(
-        ch, bar, (uint32_t*)carry, nblocks);
   });
   return (int)cudaGetLastError();
 }

@@ -231,7 +231,8 @@ SEG_TUPLES = {
     "fill": FILL,
     # an FP32 product over one segment of 2**16 elements differs between
     # two fold orders by some sqrt(2**16) * 2**-24 = 1.5e-5 relative, so
-    # FP32 times is held over chip_smoke.py's short segments instead
+    # FP32 times is held with exact factors instead (see
+    # test_segscan_fp32_times_across_tiles)
     "generic_1": [sp.monoid_combine(monoid.times["INT32"])],
     "generic_2": [sp.monoid_combine(monoid.min["INT32"]), sp.FIRST],
     "generic_3": [sp.monoid_combine(monoid.max["UINT32"]), sp.FIRST,
@@ -271,3 +272,57 @@ def test_segscan_repeated_launches_are_bitwise_stable(cuda, kind):
         again = sp.segscan(bar, vals, PLUS_COUNT)
         for a, f in zip(again, first):
             assert torch.equal(a.view(torch.int32), f.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_segscan_fp32_times_across_tiles(cuda):
+    """An FP32 product carried across tiles, in segments of about three:
+    the factors are 1/2, 1 and 2, so each product is exact in any fold
+    order and must agree in every bit, and a wrong carry shows."""
+    rng = np.random.default_rng(25)
+    T = sp.SEG_BLOCK
+    L = 64 * T
+    bar = torch.zeros(L, dtype=torch.int32)
+    bar[1000::3 * T + 1234] = 1
+    f = torch.from_numpy(rng.choice(np.float32([0.5, 1, 2]), L,
+                                    p=[0.01, 0.98, 0.01]))
+    times = [sp.monoid_combine(monoid.times["FP32"])]
+    got = sp.segscan(bar.to(cuda), [f.to(cuda)], times)[0].cpu()
+    assert torch.equal(got, sp.segscan_channels_plain(bar, [f], times)[0])
+    assert len(set(got.tolist())) > 10
+
+
+# --------------------------------------------------------------------- #
+# K1 gather_mult with the logical multiplies in a type of their own
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vxm", "mxv"])
+@pytest.mark.parametrize("dtype,ring", [("FP32", "plus_land"),
+                                        ("INT32", "min_lor")])
+def test_logical_multiplies_in_their_type_on_the_card(cuda, dtype, ring, kind):
+    """land and lor over FP32 and INT32 multiply the operands' truth values
+    to 1 or 0 in the type (a NaN is true, -0.0 false): the lanepipe on the
+    card, through K1, gives the CPU's result."""
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(24)
+    n = 3000
+    r, c = np.nonzero(rng.random((n, n)) < 0.002)
+    if dtype == "FP32":
+        pool = np.float32([0, -0.0, 1.5, -2, np.nan])
+        v, x = rng.choice(pool, len(r)), rng.choice(pool, n)
+    else:
+        v, x = rng.integers(-2, 3, len(r)), rng.integers(-2, 3, n)
+    xi = np.flatnonzero(rng.random(n) < 0.7)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with gb.config.set(device=dev, auto_sparse_limit=0):
+            A = gb.Matrix.from_coo(r, c, v, dtype=dtype, nrows=n, ncols=n)
+            u = gb.Vector.from_coo(xi, x[xi], dtype=dtype, size=n)
+            sr = getattr(gb.semiring, ring)[dtype]
+            before = K.launches["gather_mult"]
+            w = (u.vxm(A, sr) if kind == "vxm" else A.mxv(u, sr)).new()
+            out[dev] = w.to_coo()
+    assert K.launches["gather_mult"] > before
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    assert len(np.unique(out["cpu"][1])) > 1

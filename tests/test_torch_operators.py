@@ -12,7 +12,8 @@ port raises NotImplementedError naming ROADMAP queue 1, item 12.
 
 Engine: vxm, mxv and reduces with the renamed and cast operators through
 both public APIs, on dense- and sparse-backed matrices, on the CPU:
-values, type and structure exact (every result here is BOOL).  Names the
+values, type and structure exact; ``land``/``lor`` as the multiplies of an
+arithmetic monoid over FP32 and INT32 too (``plus_land["FP32"]``).  Names the
 JAX package has and the port lacks raise NotImplementedError; ``ss.iterate``
 refuses a state that is not a Vector or a Matrix.
 """
@@ -156,7 +157,7 @@ def _data(dtype, seed):
     r, c = np.nonzero(rng.random((N, N)) < 0.3)
     if dtype == "BOOL":
         v, x = rng.random(len(r)) < 0.6, rng.random(N) < 0.6
-    elif dtype == "INT64":
+    elif dtype in ("INT32", "INT64"):
         v, x = rng.integers(-2, 3, len(r)), rng.integers(-2, 3, N)
     else:
         v = rng.choice(np.float32([0, -1.5, 0.25, 2, np.nan]), len(r))
@@ -189,6 +190,11 @@ def _same(got, want):
 ENGINE_CASES = [("BOOL", r, k) for r in ("plus_times", "min_plus", "max_times")
                 for k in ("vxm", "mxv")] + \
                [(dt, "lor_land", k) for dt in ("FP32", "INT64")
+                for k in ("vxm", "mxv")] + \
+               [(dt, r, k) for dt, r in (("FP32", "plus_land"),
+                                         ("INT32", "min_lor"),
+                                         ("FP32", "max_lor"),
+                                         ("INT32", "plus_land"))
                 for k in ("vxm", "mxv")]
 
 
@@ -203,7 +209,11 @@ def test_products_with_renamed_and_cast_rings(cpu, dtype, ring, kind, sparse):
     else:
         want = jA.mxv(jx, getattr(gbj.semiring, ring)[dtype]).new()
         got = tA.mxv(tx, getattr(gbt.semiring, ring)[dtype]).new()
-    assert want.dtype.name == "BOOL" and want.nvals > 0
+    # a logical monoid reduces BOOL; land and lor as multiplies of an
+    # arithmetic monoid give 1 or 0 in their own type
+    logical = dtype == "BOOL" or ring.startswith(("lor_", "land_"))
+    assert want.dtype.name == ("BOOL" if logical else dtype)
+    assert want.nvals > 0
     _same(got, want)
 
 
@@ -227,14 +237,32 @@ def test_reduces_with_renamed_and_cast_monoids(cpu, mono, dtype, sparse):
     _same(tA.T.reduce_rowwise(tm).new(), jA.T.reduce_rowwise(jm).new())
 
 
+def _entries(store):
+    return [e for plans in (store._lanepipe_plans, store._sortpipe_plans)
+            for e in plans.values() if e is not None]
+
+
 def test_bool_twin_is_cached(cpu):
+    """A logical ring over FP32 values runs on the matrix's own plan: the
+    truth values are made once and kept in its entry, beside the values.
+    A 64-bit matrix, which no pipeline takes itself, runs on the plans of
+    its BOOL twin, made once."""
     (_, _), (tA, tx) = _both("FP32", 3, True)
     ring = gbt.semiring.lor_land["FP32"]
+    tx.vxm(tA, gbt.semiring.plus_times["FP32"]).new()
+    (entry,) = _entries(tA._sparse)
     tx.vxm(tA, ring).new()
-    twin = tA._sparse._bool_twins[gbt.dtypes.FP32]
+    truth = entry["truth"][gbt.dtypes.FP32]
     tx.vxm(tA, ring).new()
-    assert tA._sparse._bool_twins[gbt.dtypes.FP32] is twin
-    assert twin.dtype is gbt.dtypes.BOOL
+    assert _entries(tA._sparse) == [entry] and not tA._sparse._bool_twins
+    assert entry["truth"][gbt.dtypes.FP32] is truth
+    assert truth.dtype == torch.int32 and set(truth.unique().tolist()) == {0, 1}
+    (_, _), (tB, ty) = _both("INT64", 3, True)
+    ty.vxm(tB, gbt.semiring.lor_land["INT64"]).new()
+    twin = tB._sparse._bool_twins[gbt.dtypes.INT64]
+    ty.vxm(tB, gbt.semiring.lor_land["INT64"]).new()
+    assert tB._sparse._bool_twins[gbt.dtypes.INT64] is twin
+    assert twin.dtype is gbt.dtypes.BOOL and not _entries(tB._sparse)
     assert ring.bool_twin() is gbt.semiring.lor_land["BOOL"]
     # a multiply that does not commute with the cast keeps its own type
     assert gbt.semiring.lor_times["FP32"].bool_twin() is None
