@@ -20,7 +20,10 @@ engine) from the sources, then:
    every element, one tile, every channel tuple, an FP32 product carried
    across tiles), 200 launches of the main path's scan bitwise equal, and
    its achieved rate on the main path's two scans; K1 also with the
-   logical multiplies on FP32 and INT32 (plus_land, min_lor);
+   logical multiplies on FP32 and INT32 (plus_land, min_lor); K4 (one
+   launch a call) also with FP32 min, on the RMAT plan, over every
+   (monoid, 32-bit type, packed) triple, on a lane whose run crosses 128
+   tiles, 200 launches bitwise equal, and timed after an L2 flush;
 2. PageRank (bench.py's pr_body, 20 iterations of ss.iterate) on the zipf
    graph, checked against a float64 scipy power iteration;
 3. level BFS (bench.py's bfs_body with the lor-reduce cond) on the BOOL
@@ -165,12 +168,18 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps=20, warm=3):
+_flush = []
+
+
+def cuda_ms(torch, fn, reps=20, warm=3, cold=False):
     """Median device ms of fn over reps runs, each between two CUDA events.
 
     A spin kernel queued before the start event keeps the card busy while
     the host enqueues fn, so the events bracket device work and not the
-    host's launch overhead."""
+    host's launch overhead.  cold: before each run, 256 MB are written,
+    which evicts fn's inputs from the 50 MB L2."""
+    if cold and not _flush:
+        _flush.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -178,6 +187,8 @@ def cuda_ms(torch, fn, reps=20, warm=3):
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if cold:
+            _flush[0].zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
@@ -454,6 +465,10 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
     p4 = lambda: lp.fused_permC_scan_permA_plain(routeP[2], d["barrier"], extP[0], preC, combine)  # noqa: E731
     yAe = k4()
     err4 = compare("K4 fused_scan FP32 plus", yAe, p4(), rel=1e-5)
+    cmin = lp.combines(gb.monoid.min["FP32"])[0]
+    compare("K4 fused_scan FP32 min",
+            lp.fused_permC_scan_permA(routeP[2], d["barrier"], extP[0], preC, cmin),
+            lp.fused_permC_scan_permA_plain(routeP[2], d["barrier"], extP[0], preC, cmin))
     pcb = lp.pad_rows(codes, 0, eb["L"])
     preCb = pm.apply_perm_pre_c(eb["permmeta"]["routeP"], db["routeP"], [pcb],
                                 skip_a=True)[0]
@@ -462,11 +477,16 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
                                       db["extP"][0], preCb, lp.combines(ringb.monoid)[1]),
             lp.fused_permC_scan_permA_plain(db["routeP"][2], db["barrier"],
                                             db["extP"][0], preCb, lp.combines(ringb.monoid)[1]))
+    k4_checks(gb, torch, dev, rng, k4)
     R_scan = e["R_scan"]
+    k4_bytes = 4 * 5 * R_scan * 128
     add("fused_permC_scan_permA", "graphblas_tpu_torch/csrc/fused_scan.cu",
         "graphblas_tpu/core/engine/lanepipe.py:554", err4,
-        cuda_ms(torch, k4), cuda_ms(torch, p4), 4 * 5 * R_scan * 128,
-        nops=R_scan * 128)
+        cuda_ms(torch, k4), cuda_ms(torch, p4), k4_bytes, nops=R_scan * 128)
+    ms4c = cuda_ms(torch, k4, cold=True)
+    variants["fused_permC_scan_permA_cold"] = {
+        "ms": ms4c, "bound_ms": bound(k4_bytes)[0], "bytes": k4_bytes}
+    log(f"  fused_permC_scan_permA after an L2 flush: {ms4c:.4f} ms")
 
     # ---- K2 tile_perm: the extract's stage C trimmed to TV tiles (one
     # channel: the dense branch; two: the sparse-vector branch), the
@@ -520,6 +540,97 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
                        "R_scan": R_scan, "V": e["V"], "TV": TV,
                        "T": T, "T_pad": T_pad, "plan_s": secs,
                        "plan_bool_s": secs_b}
+
+
+def k4_checks(gb, torch, dev, rng, k4):
+    """K4 against its plain version beyond the zipf plan: the RMAT plan
+    (FP32 plus and min); every (monoid, 32-bit type, packed) triple the
+    kernel takes, at 3 and 40 tiles, which runs the run-time combine; a
+    lane whose only barrier is row 0 over 128 tiles; one launch a call;
+    200 launches of the main path's scan bitwise equal.  FP32 plus to rel
+    1e-5 (bitwise on exact values), the rest bitwise."""
+    from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32, UINT32
+    from graphblas_tpu_torch.core.engine import kernels as K
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+    from graphblas_tpu_torch.core.engine import sortpipe as sp
+    from graphblas_tpu_torch.core.operator.monoid import BUILTINS
+
+    def check(tag, mono, packed, pc, bar, pa, vals, rel=None):
+        cmb = lp.combines(mono)[1 if packed else 0]
+        before = K.launches["fused_permC_scan_permA"]
+        got = lp.fused_permC_scan_permA(pc, bar, pa, vals, cmb)
+        if K.launches["fused_permC_scan_permA"] - before != 1:
+            fail(f"K4 {tag}: not one launch a call")
+        return compare(f"K4 {tag}", got,
+                       lp.fused_permC_scan_permA_plain(pc, bar, pa, vals, cmb),
+                       rel=rel, quiet=True)
+
+    def ints(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def values(shape, dt, packed):
+        if packed:
+            return ints(shape, 0, 3)
+        if dt is FP32:
+            return torch.from_numpy(rng.random(shape, dtype=np.float32)
+                                    + np.float32(0.5)).to(dev)
+        if dt is BOOL:
+            return ints(shape, 0, 2)
+        return ints(shape, -2**31, 2**31) if dt is UINT32 else ints(shape, -1000, 1000)
+
+    # the RMAT plan's route, barrier and extract, random values
+    rs, rd, rn = build_rmat(17)
+    R = gb.Matrix.from_coo(rs, rd, np.ones(len(rs), np.float32), dtype="FP32",
+                           nrows=rn, ncols=rn)
+    er = lp.get_plan(R._sparse, False, device=dev)
+    if er is None:
+        fail("RMAT plan exceeds PACK_LIMIT")
+    rdv = er["dev"]
+    shape = tuple(rdv["barrier"].shape)
+    x = values(shape, FP32, False)
+    for name, rel in (("plus", 1e-5), ("min", None)):
+        check(f"RMAT plan FP32 {name} ({shape[0] // 128} tiles)",
+              getattr(gb.monoid, name)["FP32"], False, rdv["routeP"][2],
+              rdv["barrier"], rdv["extP"][0], x, rel)
+    del R, er, rdv
+    # every triple at small sizes
+    monos = [m[dt] for m in BUILTINS.values() for dt in (BOOL, INT32, UINT32, FP32)
+             if dt in m._domains and sp.eligible_reduce(m[dt], dt)
+             and m.name in K.MONOID_OP]
+    cases = 0
+    for mono in monos:
+        for packed in ((False, True) if mono.type is BOOL else (False,)):
+            rel = 1e-5 if mono.type is FP32 and mono.parent.name in ("plus", "times") \
+                else None
+            for tiles in (3, 40):
+                sh = (tiles * 128, 128)
+                bar = (torch.from_numpy(rng.random(sh) < 1 / 40).to(dev)).to(torch.int32)
+                bar[0] = 1
+                check(f"sweep {mono.parent.name}[{mono.type}] packed={packed} "
+                      f"{tiles} tiles", mono, packed, ints(sh, 0, 1 << 21), bar,
+                      ints(sh, 0, 1 << 21), values(sh, mono.type, packed), rel)
+                cases += 1
+    # a lane whose only barrier is row 0 over 128 tiles; FP32 plus on
+    # values 0, 1 and 2, whose sums are exact in any order
+    sh = (128 * 128, 128)
+    bar = (torch.from_numpy(rng.random(sh) < 1 / 300).to(dev)).to(torch.int32)
+    bar[0] = 1
+    bar[1:, 5] = 0
+    pc, pa = ints(sh, 0, 1 << 21), ints(sh, 0, 1 << 21)
+    exact = ints(sh, 0, 3).to(torch.float32)
+    for tag, mono, vals in (("FP32 plus", gb.monoid.plus["FP32"], exact),
+                            ("FP32 min", gb.monoid.min["FP32"], values(sh, FP32, False)),
+                            ("INT32 plus", gb.monoid.plus["INT32"], ints(sh, -1000, 1000))):
+        check(f"lane 5 one run over 128 tiles, {tag}", mono, False, pc, bar, pa, vals)
+    # the race check on the main path's scan
+    first = k4().view(torch.int32).clone()
+    for r in range(200):
+        if not bool(torch.equal(k4().view(torch.int32), first)):
+            fail(f"K4 race check: launch {r + 1} of 200 differs from the first")
+    log(f"  K4 checks: RMAT plan ({shape[0] // 128} tiles), {cases} sweep cases "
+        f"over {len(monos)} monoids, one lane over 128 tiles, one launch a call, "
+        f"200 launches bitwise equal: ok")
 
 
 def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
@@ -1183,8 +1294,8 @@ def sssp_phase(gb, torch, K, src, dst, w, n, A, results, totals):
     got = check_launches(K, "sssp", totals,
                          need=("gather_mult", "mid_perm", "tile_perm",
                                "lane_segscan"))
-    slow = got["lane_segscan"] // 2
-    fast = got["fused_permC_scan_permA"] // 2
+    slow = got["lane_segscan"] // 2  # two launches a call
+    fast = got["fused_permC_scan_permA"]  # one launch a call
     iters = slow + fast
     secs = float(np.median(runs))
     log(f"  sssp: {iters} iterations ({slow} on the sparse-vector branch, "

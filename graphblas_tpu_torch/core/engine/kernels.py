@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset, keyed by the kernel's name
-# (fused_permC_scan_permA and lane_segscan count both launches of their
+# (fused_permC_scan_permA one per call; lane_segscan both launches of its
 # source, summary and final; segscan one per group of channels;
 # tropical_matmul counts both entry points of tropical.cu)
 launches = collections.Counter()
@@ -50,7 +50,7 @@ _ARGTYPES = {
     "mid_perm_tiles": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mid_perm_channels": [_I, _I, _I],
     "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
-    "fused_scan": [_P] * 7 + [_I] * 4 + [_P],
+    "fused_scan": [_P] * 6 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
     "segscan": [_P] * 4 + [_I, _P, _I, _P],
     "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],

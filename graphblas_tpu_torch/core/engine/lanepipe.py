@@ -478,8 +478,8 @@ def fused_permC_scan_permA(pc_route, barrier, pa_ext, vals, combine):
     """Route stage C, per-lane segmented scan, extract stage A (kernel K4).
 
     All arrays (R,128), R a multiple of 128; the scan carry runs down each
-    lane across all tiles.  On CUDA this is two launches (tile summaries,
-    then the carried scan); see csrc/fused_scan.cu."""
+    lane across all tiles.  On CUDA this is one launch, a single pass whose
+    carry comes from a look-back; see csrc/fused_scan.cu."""
     if vals.device.type == "cpu":
         return fused_permC_scan_permA_plain(pc_route, barrier, pa_ext, vals,
                                             combine)
@@ -492,16 +492,17 @@ def fused_permC_scan_permA(pc_route, barrier, pa_ext, vals, combine):
             or barrier.shape != v.shape or pa_ext.shape != v.shape):
         raise ValueError("fused_permC_scan_permA: arrays must be (R,128)")
     ntiles = R // 128
-    last = torch.empty(ntiles * 128, dtype=torch.int32, device=v.device)
-    hasbar = torch.empty(ntiles * 128, dtype=torch.int32, device=v.device)
+    # per tile and lane a 64-bit published word, then the tile counter
+    scratch = torch.empty(2 * (ntiles * 128 + 1), dtype=torch.int32,
+                          device=v.device)
     out = torch.empty_like(v)
     rc = K.lib("fused_scan").fused_scan(
         pc_route.data_ptr(), barrier.data_ptr(), pa_ext.data_ptr(),
-        v.data_ptr(), last.data_ptr(), hasbar.data_ptr(), out.data_ptr(),
-        ntiles, K.DT[sp.kernel_dtype(combine.dt)],
-        K.MONOID_OP[combine.monoid], int(combine.packed), K.stream_ptr(v))
+        v.data_ptr(), scratch.data_ptr(), out.data_ptr(), ntiles,
+        K.DT[sp.kernel_dtype(combine.dt)], K.MONOID_OP[combine.monoid],
+        int(combine.packed), K.stream_ptr(v))
     K.check("fused_permC_scan_permA", rc)
-    K.launches["fused_permC_scan_permA"] += 2
+    K.launches["fused_permC_scan_permA"] += 1
     return out.view(vals.dtype)
 
 

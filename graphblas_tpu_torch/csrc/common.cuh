@@ -57,6 +57,53 @@ __device__ __forceinline__ int tile_perm_src(const int* p, int r, int l) {
   return b * 128 + a;
 }
 
+// The same index on a swizzled 16-bit copy of the tile in shared memory:
+// ab_store keeps the A and B fields of word p at (r, c) in column
+// c ^ ((r & 31) << 1), so the lookup B[m, r] across a warp's 32 values of
+// m reads 32 distinct banks when the m are distinct mod 32 (a row-major
+// copy puts them all on one bank).  The caller keeps m = C[r, l] itself.
+// Built with -DAB_SWIZZLE=0 the copy is row-major (scripts/k4_probe.py
+// times what the swizzle saves).
+#ifndef AB_SWIZZLE
+#define AB_SWIZZLE 1
+#endif
+__device__ __forceinline__ int ab_col(int r, int c) {
+  return AB_SWIZZLE ? c ^ ((r & 31) << 1) : c;
+}
+
+__device__ __forceinline__ void ab_store(uint16_t* s, int r, int c, int p) {
+  s[r * 128 + ab_col(r, c)] = (uint16_t)(p & 0x3fff);
+}
+
+__device__ __forceinline__ int ab_at(const uint16_t* s, int r, int c) {
+  return s[r * 128 + ab_col(r, c)];
+}
+
+__device__ __forceinline__ int ab_src(const uint16_t* s, int r, int m) {
+  const int b = (ab_at(s, m, r) >> 7) & 127;
+  return b * 128 + (ab_at(s, b, m) & 127);
+}
+
+// A published value for a look-back: the 32-bit value in the high half of
+// a 64-bit word, a nonzero flag in the low half.  The word is stored and
+// loaded whole (a naturally aligned 64-bit access is single-copy atomic),
+// so a reader that sees the flag sees the value written with it, and no
+// fence is needed.
+__device__ __forceinline__ void st_word(unsigned long long* p, uint32_t v,
+                                        uint32_t flag) {
+  const unsigned long long w = (unsigned long long)v << 32 | flag;
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" :: "l"(p), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_word(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p)
+               : "memory");
+  return w;
+}
+
 __device__ __forceinline__ float as_f(uint32_t x) { return __uint_as_float(x); }
 __device__ __forceinline__ uint32_t f_bits(float x) { return __float_as_uint(x); }
 

@@ -1,171 +1,299 @@
-// K4: route stage C + per-lane segmented monoid scan + extract stage A.
+// K4: route stage C + per-lane segmented monoid scan + extract stage A,
+// one launch, a single pass.
 //
 // Replaces graphblas_tpu/core/engine/lanepipe.py:fused_permC_scan_permA.
 // On each (128,128) tile: apply the route's stage-C tile permutation, scan
 // every lane (column) down the rows with the monoid, restarting where
 // `barrier` is set, and apply the extract's stage-A tile permutation to
-// the scanned tile.  The scan's carry runs down each lane across ALL
-// tiles.  The Pallas kernel carries it through a sequential grid; Hopper
-// runs blocks in no fixed order, so here the carry takes two launches:
-//   1. scan_summary: per tile and lane, the fold of the tile's rows (from
-//      its last barrier, or from row 0) and whether the lane has a barrier;
-//   2. scan_final: per tile and lane, the carry-in is found by walking
-//      back over earlier tiles' summaries until one with a barrier (runs
-//      are at most SPLIT_DEG + 1 rows, so the walk is short), then the
-//      tile is scanned with that carry and written through extract stage A.
-// Each launch only reads what the previous launch wrote, so no order
-// between blocks is assumed.  The fold order differs from the Pallas
-// kernel's roll-based tree, so FP32 sums agree to rounding; integer and
-// BOOL results are exact.
+// the scanned tile.  The scan's carry runs down each lane across ALL tiles
+// (row 0 of the array starts a run whether or not its barrier is set).
 //
-// Bound: bytes.  Launch 1 reads the values and the route index; launch 2
-// reads them again with the barrier and extract index and writes the
-// output: about 7 words per element where the bound counts 5.  The lane
-// scan itself is sequential over 128 rows per tile in shared memory.
+// Bound: bytes.  The function reads the route index, the barrier, the
+// extract index and the values once and writes the output once: 5 words an
+// element, 86.5 MB at the zipf plan's 264 tiles, 0.0258 ms at 3.35 TB/s.
+//
+// The design, one 1024-thread block a tile; thread (l, c) = (tid % 128,
+// tid / 128) owns rows 16 c .. 16 c + 15 of lane l, so every warp load and
+// store is one coalesced 128-byte row segment:
+//   1. Thread 0 claims the next tile from an atomic counter, so a block
+//      only ever waits on tiles that running blocks have claimed.
+//   2. Every input is read once, all reads in flight together: the values
+//      tile by cp.async into shared memory; the two index tiles and the
+//      barrier words of the thread's own elements into registers.  A
+//      thread keeps the C field of each index word (its own lookup) in
+//      registers and stores the A and B fields, 16 bits, into a swizzled
+//      copy: field (r, c) at column c ^ ((r & 31) << 1), so the lookup
+//      B[m, r] across a warp's 32 values of m reads 32 distinct banks (up
+//      to collisions of the data), where the plain layout put all of them
+//      on one bank.  The barrier becomes a 16-bit mask, without atomics.
+//   3. Route stage C gathers the thread's 16 values from the tile; the
+//      thread scans them in registers, and the 8 chunk folds of a lane
+//      meet in shared memory, so the scan is spread over all 1024 threads.
+//   4. The carry, by a look-back (as K6's, csrc/segscan.cu, but 128 lanes
+//      wide): per tile and lane, one 64-bit word holds a value and its
+//      status.  Threads c = 0 publish the lane's aggregate (the fold from
+//      its last barrier, or from row 0), as the inclusive prefix where the
+//      lane holds a barrier in the tile or the tile is tile 0; a lane
+//      whose row 0 has no barrier then walks back over its predecessors,
+//      8 words loaded at a time, to the nearest published prefix, and
+//      folds that prefix and the aggregates after it one at a time from
+//      the oldest: the chain prefix(t) = prefix(t - 1) + aggregate(t), in
+//      its own order, so FP32 sums come out the same bits on every run.
+//      It then publishes the lane's prefix where the lane had none.  A
+//      lane reads at most FS_WINDOW words; past that it waits for the
+//      prefix of the tile at the window's edge (the lanepipe's runs are at
+//      most SPLIT_DEG + 1 = 2049 rows, 17 tiles, but any barrier pattern
+//      is taken).  Value and status share one word, stored and loaded
+//      whole, so no fence orders them; the entry point clears the words
+//      and the counter with one memset a launch.  A spin that outlasts a
+//      claimed tile's publication by orders of magnitude traps.
+//   5. The carry is combined into the rows before each chunk's first
+//      barrier; the scanned tile goes back into the values' shared
+//      memory, and extract stage A writes each output once.
+//
+// The combines are template arguments for the main paths' (type, monoid,
+// packed) triples: FP32 plus (PageRank), packed BOOL lor (BFS) and FP32 min
+// (SSSP's dense-u iterations).  Every other triple goes through one
+// out-of-line combine, which keeps the build to seconds.
+//
+// Against the two-launch design this replaces (0.1854 ms on an H100,
+// PERF.md): it read the route index, the barrier and the values twice;
+// it looked the index up row-major, 32 lanes on one bank (built with
+// -DAB_SWIZZLE=0 this kernel takes 0.080 ms against 0.051); it scanned on
+// 128 of 1024 threads through a run-time combine; and it loaded tile after
+// tile synchronously, building the barrier mask with shared-memory
+// atomics.  What holds this design at about half its bound: 150 KB of
+// shared memory a block allow one block an SM, so 264 tiles run in two
+// waves whose loads and scans do not overlap.
+//
+// The fold order differs from the Pallas kernel's roll tree: FP32 plus and
+// times agree to rounding, the rest exactly.
 #include "common.cuh"
 
-// Route stage C of one tile into registers: v[k] = vals[tile][src(k)].
-__device__ __forceinline__ void permuted_tile(int* buf, const int* pcr,
-                                              const int* vals, uint32_t* v) {
-  load_tile(buf, pcr);
-  __syncthreads();
-  int src[EPT];
-#pragma unroll
-  for (int k = 0; k < EPT; k++) {
-    const int e = threadIdx.x + k * NT;
-    src[k] = tile_perm_src(buf, e >> 7, e & 127);
+#define FS_ROWS 16                // rows a thread scans
+#define FS_CHUNKS (128 / FS_ROWS) // chunks of a lane in a tile
+#define FS_BATCH 8                // predecessor words loaded at a time
+#define FS_WINDOW 32              // words a lane reads before it waits
+#define FS_SMEM (TILE_ELEMS * 4 + 2 * TILE_ELEMS * 2)  // values, 2 indices
+
+enum { ST_AGG = 1, ST_PRE = 2 };  // status of a published word; 0: none yet
+
+// The combine of a launch, known when the kernel is compiled, or read at
+// run time (FS_DYN).
+enum FsOp { FS_ADD_F, FS_MIN_F, FS_MAX_U, FS_DYN };
+
+// code = dt | mo << 4 | packed << 8.  Not inlined: one shared body keeps
+// the build short (see ROADMAP, traps).
+__device__ __noinline__ uint32_t comb_dyn(int code, uint32_t x, uint32_t y) {
+  const int mo = (code >> 4) & 15;
+  const bool packed = (code >> 8) & 1;
+  switch (code & 15) {
+    case DT_F32: return combine_any<DT_F32>(mo, packed, x, y);
+    case DT_I32: return combine_any<DT_I32>(mo, packed, x, y);
+    case DT_U32: return combine_any<DT_U32>(mo, packed, x, y);
+    default: return combine_any<DT_BOOL>(mo, packed, x, y);
   }
-  __syncthreads();
-  load_tile(buf, vals);
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < EPT; k++) v[k] = (uint32_t)buf[src[k]];
-  __syncthreads();
 }
 
-// Barrier bits of one tile, per lane: bm[(r >> 5) * 128 + l] bit (r & 31).
-__device__ __forceinline__ void barrier_bits(uint32_t* bm, const int* bar) {
-  for (int i = threadIdx.x; i < 4 * 128; i += NT) bm[i] = 0;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < EPT; k++) {
-    const int e = threadIdx.x + k * NT;
-    if (bar[e] != 0) atomicOr(&bm[(e >> 12) * 128 + (e & 127)], 1u << ((e >> 7) & 31));
-  }
-  __syncthreads();
+// combine(left, right); packed BOOL lor is the unsigned max of the codes
+// (0 = no value, 1 + v = value v).
+template <int OP>
+__device__ __forceinline__ uint32_t comb(int code, uint32_t x, uint32_t y) {
+  if constexpr (OP == FS_ADD_F) return f_bits(as_f(x) + as_f(y));
+  else if constexpr (OP == FS_MIN_F) return f_bits(fmin_nan(as_f(x), as_f(y)));
+  else if constexpr (OP == FS_MAX_U) return x > y ? x : y;
+  else return comb_dyn(code, x, y);
 }
 
-template <int DT>
-__global__ void __launch_bounds__(NT) scan_summary_kernel(
-    const int* __restrict__ pcr, const int* __restrict__ barrier,
-    const int* __restrict__ vals, uint32_t* __restrict__ last,
-    int* __restrict__ hasbar, int mo, int packed) {
-  extern __shared__ int4 smem4[];
-  int* buf = reinterpret_cast<int*>(smem4);
-  __shared__ uint32_t bm[4 * 128];
-  const size_t base = (size_t)blockIdx.x * TILE_ELEMS;
-  uint32_t v[EPT];
-  permuted_tile(buf, pcr + base, vals + base, v);
+// Inclusive prefix of tile - 1 in lane l: the nearest predecessor's
+// published prefix, then the aggregates after it, folded from the oldest.
+// lb: this lane's column of the block's look-back buffer (stride 128).
+template <int OP>
+__device__ __forceinline__ uint32_t look_back(int code,
+                                              const unsigned long long* words,
+                                              int tile, int l, uint32_t* lb) {
+  int d = 0;  // predecessors read
+  bool found = false;
+  while (!found) {
+    unsigned long long w[FS_BATCH];
 #pragma unroll
-  for (int k = 0; k < EPT; k++) buf[threadIdx.x + k * NT] = (int)v[k];
-  barrier_bits(bm, barrier + base);
-  if (threadIdx.x < 128) {
-    const int l = threadIdx.x;
-    uint32_t acc = 0, any = 0;
-    for (int r = 0; r < 128; r++) {
-      const uint32_t x = (uint32_t)buf[r * 128 + l];
-      const uint32_t b = (bm[(r >> 5) * 128 + l] >> (r & 31)) & 1u;
-      acc = (r == 0 || b) ? x : combine_any<DT>(mo, packed, acc, x);
-      any |= b;
+    for (int i = 0; i < FS_BATCH; i++) {
+      const int t = tile - 1 - d - i;
+      w[i] = t >= 0 && d + i < FS_WINDOW
+                 ? ld_word(words + (size_t)t * 128 + l) : 0ull;
     }
-    last[(size_t)blockIdx.x * 128 + l] = acc;
-    hasbar[(size_t)blockIdx.x * 128 + l] = (int)any;
+#pragma unroll
+    for (int i = 0; i < FS_BATCH; i++) {
+      if (found) break;
+      const unsigned long long* p = words + (size_t)(tile - 1 - d) * 128 + l;
+      // at the window's edge only a prefix will do
+      const unsigned need = d == FS_WINDOW - 1 ? ST_PRE : ST_AGG;
+      unsigned long long x = w[i];
+      for (int spins = 0; (unsigned)(x & 3) < need; spins++) {
+        if (spins == 1 << 26) __trap();  // fail, never hang
+        x = ld_word(p);
+      }
+      lb[d * 128] = (uint32_t)(x >> 32);
+      found = (x & 3) == ST_PRE;
+      d++;
+    }
   }
+  uint32_t run = lb[(d - 1) * 128];
+  for (int j = d - 2; j >= 0; j--) run = comb<OP>(code, run, lb[j * 128]);
+  return run;
 }
 
-template <int DT>
-__global__ void __launch_bounds__(NT) scan_final_kernel(
+template <int OP>
+__global__ void __launch_bounds__(NT, 1) fused_scan_kernel(
     const int* __restrict__ pcr, const int* __restrict__ barrier,
-    const int* __restrict__ pae, const int* __restrict__ vals,
-    const uint32_t* __restrict__ last, const int* __restrict__ hasbar,
-    int* __restrict__ out, int mo, int packed) {
+    const int* __restrict__ pae, const uint32_t* __restrict__ vals,
+    uint32_t* __restrict__ out, unsigned* counter,
+    unsigned long long* words, int code) {
   extern __shared__ int4 smem4[];
-  int* buf = reinterpret_cast<int*>(smem4);
-  __shared__ uint32_t bm[4 * 128];
-  const int tile = blockIdx.x;
+  uint32_t* sx = reinterpret_cast<uint32_t*>(smem4);  // values, then scanned
+  uint16_t* sr = reinterpret_cast<uint16_t*>(sx + TILE_ELEMS);  // route A|B
+  uint16_t* se = sr + TILE_ELEMS;                               // extract A|B
+  __shared__ uint32_t sv[FS_CHUNKS][128];  // chunk folds
+  __shared__ uint8_t sf[FS_CHUNKS][128];   // chunk holds a barrier
+  __shared__ uint32_t lb[FS_WINDOW * 128];
+  __shared__ uint32_t carry[128];
+  __shared__ uint8_t cin[128];
+  __shared__ int s_tile;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const int tile = s_tile;
   const size_t base = (size_t)tile * TILE_ELEMS;
-  uint32_t v[EPT];
-  permuted_tile(buf, pcr + base, vals + base, v);
-  load_tile(buf, pae + base);
-  __syncthreads();
-  int src[EPT];
+  const int l = tid & 127, c = tid >> 7, r0 = c * FS_ROWS;
+  const size_t e0 = base + (size_t)r0 * 128 + l;
+
+  // 2. every input read once, all in flight together
 #pragma unroll
-  for (int k = 0; k < EPT; k++) {
-    const int e = threadIdx.x + k * NT;
-    src[k] = tile_perm_src(buf, e >> 7, e & 127);
+  for (int k = 0; k < TILE_ELEMS / 4 / NT; k++) {
+    const int i = tid + k * NT;
+    cp_async16(sx + 4 * i, vals + base + 4 * i);
   }
-  __syncthreads();
+  int pr[FS_ROWS], pe[FS_ROWS], bw[FS_ROWS];
 #pragma unroll
-  for (int k = 0; k < EPT; k++) buf[threadIdx.x + k * NT] = (int)v[k];
-  barrier_bits(bm, barrier + base);
-  if (threadIdx.x < 128) {
-    const int l = threadIdx.x;
-    // carry-in: fold of earlier tiles back to the nearest barrier
-    bool have = false;
-    uint32_t carry = 0;
-    for (int j = tile - 1; j >= 0; j--) {
-      const uint32_t x = last[(size_t)j * 128 + l];
-      carry = have ? combine_any<DT>(mo, packed, x, carry) : x;
+  for (int k = 0; k < FS_ROWS; k++) {
+    pr[k] = __ldg(pcr + e0 + k * 128);
+    pe[k] = __ldg(pae + e0 + k * 128);
+    bw[k] = __ldg(barrier + e0 + k * 128);
+  }
+  uint32_t mr[FS_ROWS / 4] = {}, me[FS_ROWS / 4] = {};  // C fields, 4 a word
+  unsigned bm = 0;  // bit k: row r0 + k holds a barrier
+#pragma unroll
+  for (int k = 0; k < FS_ROWS; k++) {
+    ab_store(sr, r0 + k, l, pr[k]);
+    ab_store(se, r0 + k, l, pe[k]);
+    mr[k / 4] |= (uint32_t)((pr[k] >> 14) & 127) << (8 * (k % 4));
+    me[k / 4] |= (uint32_t)((pe[k] >> 14) & 127) << (8 * (k % 4));
+    bm |= (unsigned)(bw[k] != 0) << k;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 3. route stage C and the chunk's scan in registers
+  uint32_t v[FS_ROWS];
+#pragma unroll
+  for (int k = 0; k < FS_ROWS; k++)
+    v[k] = sx[ab_src(sr, r0 + k, (mr[k / 4] >> (8 * (k % 4))) & 127)];
+#pragma unroll
+  for (int k = 1; k < FS_ROWS; k++)
+    if (!((bm >> k) & 1)) v[k] = comb<OP>(code, v[k - 1], v[k]);
+  sv[c][l] = v[FS_ROWS - 1];
+  sf[c][l] = bm != 0;
+  __syncthreads();  // every gather from sx is done; the chunk folds are in
+
+  // 4. the lane's aggregate, its publication and the carry (c = 0), while
+  //    the other chunks fold the chunks above them
+  bool have = false, closed = false;
+  uint32_t pre = 0;
+  if (c == 0) {
+    uint32_t agg = sv[0][l];
+    bool has = sf[0][l];
+#pragma unroll
+    for (int j = 1; j < FS_CHUNKS; j++) {
+      agg = sf[j][l] ? sv[j][l] : comb<OP>(code, agg, sv[j][l]);
+      has |= sf[j][l] != 0;
+    }
+    unsigned long long* w = words + (size_t)tile * 128 + l;
+    st_word(w, agg, tile == 0 || has ? ST_PRE : ST_AGG);
+    const bool in = tile > 0 && !(bm & 1);
+    uint32_t cy = 0;
+    if (in) {
+      cy = look_back<OP>(code, words, tile, l, lb + l);
+      if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
+    }
+    carry[l] = cy;
+    cin[l] = in;
+  } else {
+    for (int j = c - 1; j >= 0; j--) {
+      const uint32_t x = sv[j][l];
+      pre = have ? comb<OP>(code, x, pre) : x;
       have = true;
-      if (hasbar[(size_t)j * 128 + l]) break;
-    }
-    uint32_t acc = 0;
-    for (int r = 0; r < 128; r++) {
-      const uint32_t x = (uint32_t)buf[r * 128 + l];
-      const uint32_t b = (bm[(r >> 5) * 128 + l] >> (r & 31)) & 1u;
-      if (b) acc = x;
-      else if (r == 0) acc = have ? combine_any<DT>(mo, packed, carry, x) : x;
-      else acc = combine_any<DT>(mo, packed, acc, x);
-      buf[r * 128 + l] = (int)acc;
+      if (sf[j][l]) {
+        closed = true;
+        break;
+      }
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < EPT; k++) out[base + threadIdx.x + k * NT] = buf[src[k]];
-}
 
-template <int DT>
-static void launch(int ntiles, cudaStream_t st, const int* pcr, const int* bar,
-                   const int* pae, const int* vals, uint32_t* last, int* hasbar,
-                   int* out, int mo, int packed) {
-  const int smem = TILE_ELEMS * 4;
-  cudaFuncSetAttribute(scan_summary_kernel<DT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(scan_final_kernel<DT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  scan_summary_kernel<DT><<<ntiles, NT, smem, st>>>(pcr, bar, vals, last,
-                                                    hasbar, mo, packed);
-  scan_final_kernel<DT><<<ntiles, NT, smem, st>>>(pcr, bar, pae, vals, last,
-                                                  hasbar, out, mo, packed);
-}
-
-// Two launches: scan_summary then scan_final (the caller counts both).
-extern "C" int fused_scan(const void* pcr, const void* barrier, const void* pae,
-                          const void* vals, void* last, void* hasbar, void* out,
-                          int ntiles, int dt, int mo, int packed, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define ARGS                                                              \
-  ntiles, st, (const int*)pcr, (const int*)barrier, (const int*)pae,      \
-      (const int*)vals, (uint32_t*)last, (int*)hasbar, (int*)out, mo, packed
-  if (ntiles > 0) {
-    switch (dt) {
-      case DT_F32: launch<DT_F32>(ARGS); break;
-      case DT_I32: launch<DT_I32>(ARGS); break;
-      case DT_U32: launch<DT_U32>(ARGS); break;
-      case DT_BOOL: launch<DT_BOOL>(ARGS); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+  // 5. the carry into the rows before the chunk's first barrier; the
+  //    scanned tile into shared memory; extract stage A
+  if (!closed && cin[l]) {
+    pre = have ? comb<OP>(code, carry[l], pre) : carry[l];
+    have = true;
   }
-#undef ARGS
+  const int first = bm ? __ffs(bm) - 1 : FS_ROWS;
+#pragma unroll
+  for (int k = 0; k < FS_ROWS; k++) {
+    if (have && k < first) v[k] = comb<OP>(code, pre, v[k]);
+    sx[(r0 + k) * 128 + l] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < FS_ROWS; k++)
+    out[e0 + k * 128] = sx[ab_src(se, r0 + k, (me[k / 4] >> (8 * (k % 4))) & 127)];
+}
+
+template <int OP>
+static int launch(int ntiles, cudaStream_t st, const int* pcr, const int* bar,
+                  const int* pae, const uint32_t* vals, uint32_t* out,
+                  unsigned* counter, unsigned long long* words, int code) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_scan_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FS_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  fused_scan_kernel<OP><<<ntiles, NT, FS_SMEM, st>>>(pcr, bar, pae, vals, out,
+                                                     counter, words, code);
   return (int)cudaGetLastError();
+}
+
+// One launch (and one memset of its scratch).  scratch holds
+// 8 * 128 * ntiles + 8 bytes: per tile and lane a published word, then the
+// tile counter.
+extern "C" int fused_scan(const void* pcr, const void* barrier, const void* pae,
+                          const void* vals, void* scratch, void* out,
+                          int ntiles, int dt, int mo, int packed, void* stream) {
+  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BOR)
+    return (int)cudaErrorInvalidValue;
+  if (ntiles <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* words = (unsigned long long*)scratch;
+  unsigned* counter = (unsigned*)(words + (size_t)ntiles * 128);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * ((size_t)ntiles * 128 + 1), st);
+  if (err != cudaSuccess) return (int)err;
+  const int code = dt | mo << 4 | (packed ? 1 : 0) << 8;
+#define ARGS                                                               \
+  ntiles, st, (const int*)pcr, (const int*)barrier, (const int*)pae,       \
+      (const uint32_t*)vals, (uint32_t*)out, counter, words, code
+  int rc;
+  if (dt == DT_F32 && mo == MO_PLUS && !packed) rc = launch<FS_ADD_F>(ARGS);
+  else if (dt == DT_F32 && mo == MO_MIN && !packed) rc = launch<FS_MIN_F>(ARGS);
+  else if (dt == DT_BOOL && mo == MO_LOR && packed) rc = launch<FS_MAX_U>(ARGS);
+  else rc = launch<FS_DYN>(ARGS);
+#undef ARGS
+  return rc;
 }

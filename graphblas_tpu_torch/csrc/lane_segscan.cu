@@ -10,8 +10,9 @@
 // before the scan, but the kernel does not rely on it.
 //
 // The carry.  The Pallas kernel carries each lane's running fold through a
-// sequential grid; Hopper runs blocks in no fixed order.  As in
-// fused_scan.cu the carry takes two launches over (128,128) tiles:
+// sequential grid; Hopper runs blocks in no fixed order.  Here the carry
+// takes two launches over (128,128) tiles (fused_scan.cu, K4, takes it by
+// a look-back in one):
 //   1. lane_summary: per tile and lane, the fold of the tile's rows from
 //      its last barrier (or from its row 0) for each channel, and whether
 //      the lane has a barrier in the tile;

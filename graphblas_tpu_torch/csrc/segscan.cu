@@ -340,32 +340,15 @@ __device__ __forceinline__ void apply_store(const SegChans& ch, size_t e0,
 
 enum { ST_AGG = 1, ST_PRE = 2 };  // status of a tile; 0: nothing yet
 
-// A published value: the 32-bit value in the high half of a 64-bit word,
-// 1 in the low half.  The word is stored and loaded whole (a naturally
-// aligned 64-bit access is single-copy atomic), so a reader that sees the
-// 1 sees the value written with it, and no fence is needed.  Each tile has
-// one word per channel for its aggregate and one for its inclusive prefix.
-__device__ __forceinline__ void st_word(unsigned long long* p, uint32_t v) {
-  const unsigned long long w = (unsigned long long)v << 32 | 1ull;
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" :: "l"(p), "l"(w)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long ld_word(
-    const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p)
-               : "memory");
-  return w;
-}
-
 // Publish a tile's values (its aggregate or its inclusive prefix), one
-// word per channel.  One thread.
+// word per channel, each a word of st_word (common.cuh) with flag 1: each
+// tile has one word per channel for its aggregate and one for its
+// inclusive prefix.  One thread.
 template <int NV>
 __device__ __forceinline__ void publish(unsigned long long* dst, int ntiles,
                                         int tile, const uint32_t* v) {
 #pragma unroll
-  for (int c = 0; c < NV; c++) st_word(dst + (size_t)c * ntiles + tile, v[c]);
+  for (int c = 0; c < NV; c++) st_word(dst + (size_t)c * ntiles + tile, v[c], 1);
 }
 
 // One window of 32 predecessors of a tile, lane l taking tile base - l:

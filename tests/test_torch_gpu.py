@@ -13,6 +13,7 @@ import torch
 
 from graphblas_tpu_torch import monoid
 from graphblas_tpu_torch.core.engine import kernels as K
+from graphblas_tpu_torch.core.engine import lanepipe as lp
 from graphblas_tpu_torch.core.engine import permute as pm
 from graphblas_tpu_torch.core.engine import sortpipe as sp
 from graphblas_tpu_torch.core.engine import tropical as ttr
@@ -326,3 +327,109 @@ def test_logical_multiplies_in_their_type_on_the_card(cuda, dtype, ring, kind):
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     assert len(np.unique(out["cpu"][1])) > 1
+
+
+# --------------------------------------------------------------------- #
+# K4 fused_permC_scan_permA: one launch, a single pass with a look-back
+# (monoid, type, packed): the cases of test_torch_lanepipe.py's SCAN_CASES
+K4_CASES = [("plus", "FP32", False), ("plus", "INT32", False),
+            ("min", "FP32", False), ("max", "INT32", False),
+            ("min", "UINT32", False), ("lor", "BOOL", True),
+            ("land", "BOOL", True)]
+
+
+def k4_inputs(rng, tiles, kind, dtype, packed, exact=False):
+    """Route and extract indices, a barrier layout and values, on the CPU.
+    exact: FP32 values 0, 1 or 2, whose sums are exact in any order."""
+    shape = (tiles * 128, 128)
+    pc = rng.integers(0, 1 << 21, shape).astype(np.int32)
+    pa = rng.integers(0, 1 << 21, shape).astype(np.int32)
+    if kind == "every row":
+        bar = np.ones(shape, np.int32)
+    else:
+        p = {"row 0 only": 0, "random": 1 / 300, "long run": 1 / 300}[kind]
+        bar = (rng.random(shape) < p).astype(np.int32)
+        bar[0] = 1
+        if kind == "long run":
+            bar[1:, 5] = 0  # lane 5's run crosses every tile
+    if packed:
+        vals = rng.integers(0, 3, shape).astype(np.int32)
+    elif dtype == "FP32":
+        vals = (rng.integers(0, 3, shape) if exact
+                else rng.random(shape) + 0.5).astype(np.float32)
+    elif dtype == "UINT32":
+        vals = rng.integers(-2**31, 2**31, shape).astype(np.int32)
+    else:
+        vals = rng.integers(-1000, 1000, shape).astype(np.int32)
+    return [torch.from_numpy(a) for a in (pc, bar, pa, vals)]
+
+
+def k4_check(cuda, mono_name, dtype, packed, inputs, rel=None):
+    """K4 on the card against its plain version on the CPU, bitwise or to
+    rel; one launch a call."""
+    comb = lp.combines(getattr(monoid, mono_name)[dtype])[1 if packed else 0]
+    before = K.launches["fused_permC_scan_permA"]
+    got = lp.fused_permC_scan_permA(*(t.to(cuda) for t in inputs), comb)
+    assert K.launches["fused_permC_scan_permA"] - before == 1
+    want = lp.fused_permC_scan_permA_plain(*inputs, comb)
+    got = got.cpu()
+    if rel is None:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        assert bool(((got - want).abs() <= rel * want.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mono_name,dtype,packed", K4_CASES)
+def test_fused_scan_every_case(cuda, mono_name, dtype, packed):
+    """Each (monoid, type, packed) case, inline or through the run-time
+    combine, at 40 tiles: FP32 plus to rel 1e-5, the rest bitwise."""
+    rng = np.random.default_rng(31)
+    inputs = k4_inputs(rng, 40, "random", dtype, packed)
+    rel = 1e-5 if (mono_name, dtype) == ("plus", "FP32") else None
+    k4_check(cuda, mono_name, dtype, packed, inputs, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,tiles", [("row 0 only", 64), ("every row", 8),
+                                        ("random", 264), ("long run", 80)])
+@pytest.mark.parametrize("mono_name,dtype", [("plus", "FP32"),
+                                             ("plus", "INT32"),
+                                             ("min", "FP32")])
+def test_fused_scan_barrier_layouts(cuda, kind, tiles, mono_name, dtype):
+    """No barrier but row 0 (every lane one run), a barrier in every row,
+    barriers at 1/300, and one lane's run over more tiles than the
+    look-back window (32): bitwise, FP32 plus on exact values."""
+    rng = np.random.default_rng(32)
+    inputs = k4_inputs(rng, tiles, kind, dtype, False, exact=True)
+    k4_check(cuda, mono_name, dtype, False, inputs)
+
+
+@pytest.mark.gpu
+def test_fused_scan_repeated_launches_are_bitwise_stable(cuda):
+    """A look-back with a wrong fence fails now and then, not always: 200
+    launches of FP32 plus at the zipf plan's 264 tiles, each equal to the
+    first in every bit (the fold order is fixed by the tiles, not by the
+    timing)."""
+    rng = np.random.default_rng(33)
+    pc, bar, pa, vals = (t.to(cuda) for t in
+                         k4_inputs(rng, 264, "long run", "FP32", False))
+    comb = lp.combines(monoid.plus["FP32"])[0]
+    first = lp.fused_permC_scan_permA(pc, bar, pa, vals, comb).view(torch.int32)
+    for _ in range(200):
+        again = lp.fused_permC_scan_permA(pc, bar, pa, vals, comb)
+        assert torch.equal(again.view(torch.int32), first)
+
+
+@pytest.mark.gpu
+def test_fused_scan_is_one_launch_a_call(cuda):
+    """Each call adds exactly one launch to the count, also at one tile."""
+    rng = np.random.default_rng(34)
+    comb = lp.combines(monoid.plus["INT32"])[0]
+    for tiles in (1, 3):
+        inputs = [t.to(cuda) for t in k4_inputs(rng, tiles, "random", "INT32",
+                                                 False)]
+        before = K.launches["fused_permC_scan_permA"]
+        lp.fused_permC_scan_permA(*inputs, comb)
+        lp.fused_permC_scan_permA(*inputs, comb)
+        assert K.launches["fused_permC_scan_permA"] - before == 2

@@ -135,24 +135,22 @@ SCAN_CASES = [("plus", "FP32", False), ("plus", "INT32", False),
               ("land", "BOOL", True)]
 
 
-@pytest.mark.parametrize("mono_name,dtype,packed", SCAN_CASES)
-def test_fused_scan_matches_pallas(monkeypatch, mono_name, dtype, packed):
-    """Runs that cross 128-row tiles and 512-row grid steps."""
+def check_fused_scan(monkeypatch, mono_name, dtype, packed, R, layout, seed):
+    """K4's plain version against the Pallas kernel in interpret mode on
+    random route and extract indices and the barrier layout(rng, R):
+    FP32 plus to rel 1e-5, the rest bitwise."""
     monkeypatch.setattr(jlp, "_INTERPRET", True)
-    rng = np.random.default_rng(5)
-    R = 1024
-    pc = rng.integers(0, 1 << 21, (R, 128)).astype(np.int32)
-    pa = rng.integers(0, 1 << 21, (R, 128)).astype(np.int32)
-    barrier = (rng.random((R, 128)) < 1 / 300).astype(np.int32)
-    barrier[0] = 1
-    barrier[:, 5] = 0  # one lane's run crosses every tile
-    barrier[0, 5] = 1
+    rng = np.random.default_rng(seed)
+    shape = (R, 128)
+    pc = rng.integers(0, 1 << 21, shape).astype(np.int32)
+    pa = rng.integers(0, 1 << 21, shape).astype(np.int32)
+    barrier = layout(rng, R)
     if packed:
-        vals = rng.integers(0, 3, (R, 128)).astype(np.int32)
+        vals = rng.integers(0, 3, shape).astype(np.int32)
     elif dtype == "FP32":
-        vals = rng.random((R, 128)).astype(np.float32)
+        vals = rng.random(shape).astype(np.float32)
     else:
-        vals = rng.integers(-1000, 1000, (R, 128)).astype(CARRIER[dtype])
+        vals = rng.integers(-1000, 1000, shape).astype(CARRIER[dtype])
     z_c = CARRIER[dtype]
     comb = jsp.monoid_scan_fn(mono_name, z_c)
     if packed:
@@ -174,10 +172,47 @@ def test_fused_scan_matches_pallas(monkeypatch, mono_name, dtype, packed):
     got = tlp.fused_permC_scan_permA(
         torch.from_numpy(pc), torch.from_numpy(barrier), torch.from_numpy(pa),
         tvals, combine).numpy()
-    if dtype == "FP32":
+    if dtype == "FP32" and mono_name == "plus":
         assert np.allclose(got, want, rtol=1e-5, atol=0)
     else:
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("mono_name,dtype,packed", SCAN_CASES)
+def test_fused_scan_matches_pallas(monkeypatch, mono_name, dtype, packed):
+    """Runs that cross 128-row tiles and 512-row grid steps."""
+    check_fused_scan(monkeypatch, mono_name, dtype, packed, 1024,
+                     long_run_barrier, 5)
+
+
+def long_run_barrier(rng, R):
+    """Barriers at 1/300 and in row 0; lane 5's only barrier is row 0, so
+    its run crosses every tile."""
+    b = (rng.random((R, 128)) < 1 / 300).astype(np.int32)
+    b[0] = 1
+    b[:, 5] = 0
+    b[0, 5] = 1
+    return b
+
+
+def barrier_tile(rng, R):
+    """Barriers at 1/300 and in row 0; tile 1 has a barrier in every row
+    of every lane."""
+    b = long_run_barrier(rng, R)
+    b[128:256] = 1
+    return b
+
+
+@pytest.mark.parametrize("R,layout", [(24 * 128, long_run_barrier),
+                                      (512, barrier_tile)],
+                         ids=["run_over_24_tiles", "tile_of_barriers"])
+@pytest.mark.parametrize("mono_name,dtype,packed", [("plus", "FP32", False),
+                                                    ("max", "INT32", False)])
+def test_fused_scan_barrier_layouts_match_pallas(monkeypatch, R, layout,
+                                                 mono_name, dtype, packed):
+    """A lane's carry across 24 tiles (more than the 17 a plan's run can
+    span), and a tile whose every row restarts."""
+    check_fused_scan(monkeypatch, mono_name, dtype, packed, R, layout, 7)
 
 
 def lane_scan_inputs(dtype, with_ok, row0_barrier=True):
