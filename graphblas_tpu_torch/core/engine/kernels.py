@@ -29,9 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset, keyed by the kernel's name
-# (fused_permC_scan_permA one per call; lane_segscan both launches of its
-# source, summary and final; segscan one per group of channels;
-# tropical_matmul counts both entry points of tropical.cu)
+# (fused_permC_scan_permA one per call: its kernel, not the memset of its
+# scratch before it; lane_segscan both launches of its source, summary and
+# final; segscan one per group of channels; tropical_matmul counts both
+# entry points of tropical.cu)
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}

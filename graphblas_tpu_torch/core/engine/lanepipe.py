@@ -478,8 +478,9 @@ def fused_permC_scan_permA(pc_route, barrier, pa_ext, vals, combine):
     """Route stage C, per-lane segmented scan, extract stage A (kernel K4).
 
     All arrays (R,128), R a multiple of 128; the scan carry runs down each
-    lane across all tiles.  On CUDA this is one launch, a single pass whose
-    carry comes from a look-back; see csrc/fused_scan.cu."""
+    lane across all tiles.  On CUDA this is one kernel launch, a single
+    pass whose carry comes from a look-back, after one memset that clears
+    its scratch; see csrc/fused_scan.cu."""
     if vals.device.type == "cpu":
         return fused_permC_scan_permA_plain(pc_route, barrier, pa_ext, vals,
                                             combine)

@@ -62,13 +62,8 @@ __device__ __forceinline__ int tile_perm_src(const int* p, int r, int l) {
 // c ^ ((r & 31) << 1), so the lookup B[m, r] across a warp's 32 values of
 // m reads 32 distinct banks when the m are distinct mod 32 (a row-major
 // copy puts them all on one bank).  The caller keeps m = C[r, l] itself.
-// Built with -DAB_SWIZZLE=0 the copy is row-major (scripts/k4_probe.py
-// times what the swizzle saves).
-#ifndef AB_SWIZZLE
-#define AB_SWIZZLE 1
-#endif
 __device__ __forceinline__ int ab_col(int r, int c) {
-  return AB_SWIZZLE ? c ^ ((r & 31) << 1) : c;
+  return c ^ ((r & 31) << 1);
 }
 
 __device__ __forceinline__ void ab_store(uint16_t* s, int r, int c, int p) {

@@ -1,5 +1,5 @@
 // K4: route stage C + per-lane segmented monoid scan + extract stage A,
-// one launch, a single pass.
+// one kernel launch (after one memset of its scratch), a single pass.
 //
 // Replaces graphblas_tpu/core/engine/lanepipe.py:fused_permC_scan_permA.
 // On each (128,128) tile: apply the route's stage-C tile permutation, scan
@@ -45,8 +45,10 @@
 //      most SPLIT_DEG + 1 = 2049 rows, 17 tiles, but any barrier pattern
 //      is taken).  Value and status share one word, stored and loaded
 //      whole, so no fence orders them; the entry point clears the words
-//      and the counter with one memset a launch.  A spin that outlasts a
-//      claimed tile's publication by orders of magnitude traps.
+//      and the counter with one memset before the launch, so a call puts
+//      two operations on the stream: the memset and the kernel.  A spin
+//      that outlasts a claimed tile's publication by orders of magnitude
+//      traps.
 //   5. The carry is combined into the rows before each chunk's first
 //      barrier; the scanned tile goes back into the values' shared
 //      memory, and extract stage A writes each output once.
@@ -58,8 +60,8 @@
 //
 // Against the two-launch design this replaces (0.1854 ms on an H100,
 // PERF.md): it read the route index, the barrier and the values twice;
-// it looked the index up row-major, 32 lanes on one bank (built with
-// -DAB_SWIZZLE=0 this kernel takes 0.080 ms against 0.051); it scanned on
+// it looked the index up row-major, 32 lanes on one bank (with a
+// row-major copy this kernel took 0.080 ms against 0.051); it scanned on
 // 128 of 1024 threads through a run-time combine; and it loaded tile after
 // tile synchronously, building the barrier mask with shared-memory
 // atomics.  What holds this design at about half its bound: 150 KB of
@@ -271,7 +273,7 @@ static int launch(int ntiles, cudaStream_t st, const int* pcr, const int* bar,
   return (int)cudaGetLastError();
 }
 
-// One launch (and one memset of its scratch).  scratch holds
+// One kernel launch, after one memset of its scratch.  scratch holds
 // 8 * 128 * ntiles + 8 bytes: per tile and lane a published word, then the
 // tile counter.
 extern "C" int fused_scan(const void* pcr, const void* barrier, const void* pae,
