@@ -13,114 +13,253 @@
 // non-BOOL monoid) it also writes the validity ok of every slot as int32
 // 0/1, through the same stage A as the values.
 //
-// Bound: bytes.  Per slot it reads locidx, okg and avals (and the permA
-// index) once, writes one word (two with okp), and reads u through idx1
-// (and its validity table unless full_u); u is a few MB
-// and stays in L2.  Design: one block per 128-row tile; each thread
-// computes 16 slots into registers, then, with permA, the tile goes
-// through shared memory (64 KB, reused for the index tile) and is written
-// out in coalesced rows.  Blocks are independent.
+// Bound: bytes.  The function reads locidx, okg, avals and the permA index
+// once a slot, the G block's column map idx1 and the window of u once a
+// block, and writes one word a slot (two with okp): 95.1 MB at the zipf
+// plan, 0.0284 ms at 3.35 TB/s.
+//
+// The design, as the Pallas kernel's: the column map is gathered once into
+// a table z[a][l] = u2[(w*128 + a)*128 + idx1[blk*128 + a, l]] in shared
+// memory (64 KB; its validity, unless full_u, as 2 KB of bits), and each
+// slot then reads z[arow][l].  The lane is the column, so a warp's 32
+// reads hit 32 banks, and no slot waits on a chain of global loads.
+//   1. The block starts every read at once: idx1's 64 KB by cp.async into
+//      z's buffer; the permA, locidx and okg words of the thread's own
+//      slots into registers.  Thread (l, c) = (tid % 128, tid / 128) of a
+//      tile owns rows 32 c .. 32 c + 31 of lane l, so every warp load is
+//      one 128-byte row segment.  The A and B fields of each permA word go
+//      to K4's swizzled 16-bit copy (common.cuh, ab_store), the C field
+//      (the thread's own lookup) and arow | ok << 7 stay in registers, four
+//      to a word.
+//   2. z is built in place over idx1: thread (l, c) builds rows c*ZR ..
+//      c*ZR + ZR - 1 of lane l, so its validity bits form whole 32- or
+//      16-bit words, written without atomics.
+//   3. Each slot: avals (one coalesced load), z and its validity bit from
+//      shared memory, the multiply.
+//   4. With permA, the tile is staged in z's buffer (free once every slot
+//      has read it) and written out through stage A: each output slot's
+//      source is computed once, for the value and, with okp, for its
+//      validity, staged as one 32-bit word of bits a thread.
+//
+// K1_TPB tiles a block: 1, one 512-thread block a tile (z built twice a G
+// block; 100 KB of shared memory, two blocks an SM), or 2, one 1024-thread
+// block a G block (z built once; 198 KB, one block an SM).
+//
+// The multiplies of the main paths are template arguments: FP32 times
+// (PageRank), BOOL land (BFS), FP32 plus (SSSP's min_plus).  Every other
+// (type, op) pair goes through one out-of-line multiply, which keeps the
+// build to seconds (a run-time switch inlined at every unrolled site does
+// not).
 #include "common.cuh"
 
-template <int DT>
-__global__ void __launch_bounds__(NT) gather_mult_kernel(
+#define K1_THREADS 512                      // threads a 128-row tile
+#define K1_SLOTS (TILE_ELEMS / K1_THREADS)  // slots (rows of one lane) a thread
+#ifndef K1_TPB
+#define K1_TPB 1
+#endif
+#ifndef K1_LO_EARLY
+#define K1_LO_EARLY 1
+#endif
+#ifndef K1_ZU
+#define K1_ZU 4
+#endif
+
+enum MulOp { MU_TIMES_F, MU_PLUS_F, MU_LAND_B, MU_DYN };
+
+// code = dt | op << 4.  Not inlined: one shared body keeps the build short.
+__device__ __noinline__ uint32_t mult_dyn(int code, uint32_t x, uint32_t y) {
+  const int op = code >> 4;
+  switch (code & 15) {
+    case DT_F32: return mult_bits<DT_F32>(op, x, y);
+    case DT_I32: return mult_bits<DT_I32>(op, x, y);
+    case DT_U32: return mult_bits<DT_U32>(op, x, y);
+    default: return mult_bits<DT_BOOL>(op, x, y);
+  }
+}
+
+template <int OP>
+__device__ __forceinline__ uint32_t mul(int code, uint32_t x, uint32_t y) {
+  if constexpr (OP == MU_TIMES_F) return f_bits(as_f(x) * as_f(y));
+  else if constexpr (OP == MU_PLUS_F) return f_bits(as_f(x) + as_f(y));
+  else if constexpr (OP == MU_LAND_B) return (x != 0) & (y != 0);
+  else return mult_dyn(code, x, y);
+}
+
+// Byte k % 4 of word k / 4 of a register array of packed bytes.
+__device__ __forceinline__ uint32_t byte_at(const uint32_t* w, int k) {
+  return (w[k / 4] >> (8 * (k % 4))) & 255u;
+}
+
+template <int OP, int TPB>
+__global__ void __launch_bounds__(TPB * K1_THREADS, 2 / TPB) gather_mult_kernel(
     const int* __restrict__ meta, const uint32_t* __restrict__ u2,
     const int* __restrict__ u2ok, const int* __restrict__ idx1,
     const int* __restrict__ locidx, const int* __restrict__ okg,
     const uint32_t* __restrict__ avals, const int* __restrict__ permA,
-    uint32_t* __restrict__ out, int* __restrict__ okp, int op, int mxv,
+    uint32_t* __restrict__ out, int* __restrict__ okp, int code, int mxv,
     int packed, int full_u, uint32_t ident) {
+  constexpr int NTHR = TPB * K1_THREADS;
+  constexpr int ZR = TILE_ELEMS / NTHR;  // z rows a thread builds
   extern __shared__ int4 smem4[];
-  int* buf = reinterpret_cast<int*>(smem4);
-  const int tile = blockIdx.x;
-  const int blk = tile >> 1;  // 256-row G blocks hold two 128-row tiles
-  const size_t base = (size_t)tile * TILE_ELEMS;
-  const size_t wrow = (size_t)meta[blk * 3] * 128;
-  uint32_t val[EPT];
+  uint32_t* z = reinterpret_cast<uint32_t*>(smem4);  // z, then the tiles out
+  uint16_t* sab = reinterpret_cast<uint16_t*>(z + TPB * TILE_ELEMS);
+  uint32_t* zok = reinterpret_cast<uint32_t*>(sab + TPB * TILE_ELEMS);
+  uint32_t* sok = zok + TILE_ELEMS / 32;  // a word of ok bits a thread
+  const int tid = threadIdx.x;
+  const int tile0 = blockIdx.x * TPB;
+  const int blk = tile0 >> 1;  // 256-row G blocks hold two 128-row tiles
+  const int ti = tid / K1_THREADS, tt = tid % K1_THREADS;
+  const int l = tt & 127, r0 = (tt >> 7) * K1_SLOTS;
+  const size_t e0 = (size_t)(tile0 + ti) * TILE_ELEMS + (size_t)r0 * 128 + l;
+  uint32_t* st = z + ti * TILE_ELEMS;
+  uint16_t* sabt = sab + ti * TILE_ELEMS;
+
+  // 1. every read in flight at once
+  const int* col = idx1 + (size_t)blk * TILE_ELEMS;
+  for (int i = tid; i < TILE_ELEMS / 4; i += NTHR)
+    cp_async16(z + 4 * i, col + 4 * i);
+  uint32_t lo[K1_SLOTS / 4] = {}, mc[K1_SLOTS / 4] = {};
+#pragma unroll
+  for (int k = 0; k < K1_SLOTS; k++) {
+    if (!K1_LO_EARLY) break;
+    const size_t s = e0 + (size_t)k * 128;
+    const uint32_t b = ((uint32_t)__ldg(locidx + s) & 127u) |
+                       (uint32_t)(__ldg(okg + s) != 0) << 7;
+    lo[k / 4] |= b << (8 * (k % 4));
+  }
+  if (permA != nullptr) {
+#pragma unroll
+    for (int k = 0; k < K1_SLOTS; k++) {
+      const int p = __ldg(permA + e0 + (size_t)k * 128);
+      ab_store(sabt, r0 + k, l, p);
+      mc[k / 4] |= (uint32_t)((p >> 14) & 127) << (8 * (k % 4));
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. z over idx1 in place, and its validity bits
+  {
+    const size_t wrow = (size_t)meta[blk * 3] * 128;
+    const int a0 = (tid >> 7) * ZR, zl = tid & 127;
+    uint32_t bits = 0;
+#pragma unroll 1
+    for (int j0 = 0; j0 < ZR; j0 += K1_ZU) {
+#pragma unroll
+      for (int jj = 0; jj < K1_ZU; jj++) {
+        const int j = j0 + jj;
+        const int i = (a0 + j) * 128 + zl;
+        const size_t uo = (wrow + a0 + j) * 128 + z[i];
+        if (!full_u) bits |= (uint32_t)(__ldg(u2ok + uo) != 0) << j;
+        z[i] = __ldg(u2 + uo);
+      }
+    }
+    if (!full_u) {
+      // word (a >> 5)*128 + l, bit a & 31: row a of lane l
+      if (ZR == 32)
+        zok[(a0 >> 5) * 128 + zl] = bits;
+      else
+        reinterpret_cast<uint16_t*>(zok)[((a0 >> 5) * 128 + zl) * 2 +
+                                         ((a0 >> 4) & 1)] = (uint16_t)bits;
+    }
+  }
+  __syncthreads();
+
+  // 3. each slot from the table
+  uint32_t val[K1_SLOTS];
+#pragma unroll
+  for (int k = 0; k < K1_SLOTS; k++) val[k] = __ldg(avals + e0 + (size_t)k * 128);
   uint32_t okbits = 0;  // bit k: slot k of this thread is valid
 #pragma unroll
-  for (int k = 0; k < EPT; k++) {
-    const int e = threadIdx.x + k * NT;
-    const size_t s = base + e;
-    const int arow = locidx[s];
-    const int col = idx1[((size_t)blk * 128 + arow) * 128 + (e & 127)];
-    const size_t uo = (wrow + arow) * 128 + col;
-    bool ok = okg[s] != 0;
-    if (!full_u) ok = ok && u2ok[uo] != 0;
-    const uint32_t g = u2[uo];
-    const uint32_t a = avals[s];
-    const uint32_t z = mxv ? mult_bits<DT>(op, a, g) : mult_bits<DT>(op, g, a);
-    val[k] = packed ? (ok ? z + 1u : 0u) : (ok ? z : ident);
-    okbits |= (uint32_t)ok << k;
+  for (int k = 0; k < K1_SLOTS; k++) {
+    const size_t s = e0 + (size_t)k * 128;
+    const uint32_t b = K1_LO_EARLY ? byte_at(lo, k)
+                                   : ((uint32_t)__ldg(locidx + s) & 127u) |
+                                         (uint32_t)(__ldg(okg + s) != 0) << 7;
+    const int arow = b & 127;
+    const uint32_t g = z[arow * 128 + l];
+    uint32_t ok = b >> 7;
+    if (!full_u) ok &= zok[(arow >> 5) * 128 + l] >> (arow & 31);
+    const uint32_t x = mxv ? val[k] : g, y = mxv ? g : val[k];
+    const uint32_t p = mul<OP>(code, x, y);
+    val[k] = packed ? (ok ? p + 1u : 0u) : (ok ? p : ident);
+    okbits |= ok << k;
   }
+
+  // 4. out, through stage A
   if (permA == nullptr) {
 #pragma unroll
-    for (int k = 0; k < EPT; k++) {
-      out[base + threadIdx.x + k * NT] = val[k];
-      if (okp != nullptr) okp[base + threadIdx.x + k * NT] = (okbits >> k) & 1u;
+    for (int k = 0; k < K1_SLOTS; k++) {
+      out[e0 + (size_t)k * 128] = val[k];
+      if (okp != nullptr) okp[e0 + (size_t)k * 128] = (okbits >> k) & 1u;
     }
     return;
   }
-  load_tile(buf, permA + base);
-  __syncthreads();
-  int src[EPT];
+  __syncthreads();  // every slot has read z
 #pragma unroll
-  for (int k = 0; k < EPT; k++) {
-    const int e = threadIdx.x + k * NT;
-    src[k] = tile_perm_src(buf, e >> 7, e & 127);
+  for (int k = 0; k < K1_SLOTS; k++) st[(r0 + k) * 128 + l] = val[k];
+  uint32_t* sokt = sok + ti * K1_THREADS;
+  if (okp != nullptr) sokt[tt] = okbits;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K1_SLOTS; k++) {
+    const int src = ab_src(sabt, r0 + k, (int)byte_at(mc, k));
+    out[e0 + (size_t)k * 128] = st[src];
+    if (okp != nullptr) {
+      const int rs = src >> 7;  // slot (rs, src & 127): thread rs / 32, bit rs % 32
+      okp[e0 + (size_t)k * 128] =
+          (sokt[(rs >> 5) * 128 + (src & 127)] >> (rs & 31)) & 1u;
+    }
   }
-  __syncthreads();
-  uint32_t* tb = reinterpret_cast<uint32_t*>(buf);
-#pragma unroll
-  for (int k = 0; k < EPT; k++) tb[threadIdx.x + k * NT] = val[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < EPT; k++) out[base + threadIdx.x + k * NT] = tb[src[k]];
-  if (okp == nullptr) return;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < EPT; k++) tb[threadIdx.x + k * NT] = (okbits >> k) & 1u;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < EPT; k++)
-    okp[base + threadIdx.x + k * NT] = (int)tb[src[k]];
 }
 
-template <int DT>
-static void launch(int ntiles, cudaStream_t st, const int* meta,
-                   const uint32_t* u2, const int* u2ok, const int* idx1,
-                   const int* locidx, const int* okg, const uint32_t* avals,
-                   const int* permA, uint32_t* out, int* okp, int op, int mxv,
-                   int packed, int full_u, uint32_t ident) {
-  const int smem = TILE_ELEMS * 4;
-  cudaFuncSetAttribute(gather_mult_kernel<DT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  gather_mult_kernel<DT><<<ntiles, NT, smem, st>>>(
-      meta, u2, u2ok, idx1, locidx, okg, avals, permA, out, okp, op, mxv,
+template <int OP>
+static int launch(int ntiles, cudaStream_t st, const int* meta,
+                  const uint32_t* u2, const int* u2ok, const int* idx1,
+                  const int* locidx, const int* okg, const uint32_t* avals,
+                  const int* permA, uint32_t* out, int* okp, int code,
+                  int mxv, int packed, int full_u, uint32_t ident) {
+  constexpr int TPB = K1_TPB;
+  // z and the staged tiles, the A|B copies, z's validity, the ok words
+  const int smem = TPB * (TILE_ELEMS * 4 + TILE_ELEMS * 2 + TILE_ELEMS / 8) +
+                   TILE_ELEMS / 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_mult_kernel<OP, TPB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gather_mult_kernel<OP, TPB>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  gather_mult_kernel<OP, TPB><<<ntiles / TPB, TPB * K1_THREADS, smem, st>>>(
+      meta, u2, u2ok, idx1, locidx, okg, avals, permA, out, okp, code, mxv,
       packed, full_u, ident);
+  return (int)cudaGetLastError();
 }
 
+// One launch.  ntiles = R_g / 128, two tiles a G block.
 extern "C" int gather_mult(const void* meta, const void* u2, const void* u2ok,
                            const void* idx1, const void* locidx,
                            const void* okg, const void* avals,
                            const void* permA, void* out, void* okp,
                            int ntiles, int dt, int op, int mxv, int packed,
                            int full_u, int ident_bits, void* stream) {
+  if (dt < DT_F32 || dt > DT_BOOL || op < OP_TIMES || op > OP_BOR ||
+      ntiles % 2)
+    return (int)cudaErrorInvalidValue;
+  if (ntiles <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const int code = dt | op << 4;
 #define ARGS                                                                \
   ntiles, st, (const int*)meta, (const uint32_t*)u2, (const int*)u2ok,      \
       (const int*)idx1, (const int*)locidx, (const int*)okg,                \
       (const uint32_t*)avals, (const int*)permA, (uint32_t*)out, (int*)okp, \
-      op, mxv, packed, full_u, (uint32_t)ident_bits
-  if (ntiles > 0) {
-    switch (dt) {
-      case DT_F32: launch<DT_F32>(ARGS); break;
-      case DT_I32: launch<DT_I32>(ARGS); break;
-      case DT_U32: launch<DT_U32>(ARGS); break;
-      case DT_BOOL: launch<DT_BOOL>(ARGS); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
+      code, mxv, packed, full_u, (uint32_t)ident_bits
+  int rc;
+  if (dt == DT_F32 && op == OP_TIMES) rc = launch<MU_TIMES_F>(ARGS);
+  else if (dt == DT_F32 && op == OP_PLUS) rc = launch<MU_PLUS_F>(ARGS);
+  else if (dt == DT_BOOL && op == OP_LAND) rc = launch<MU_LAND_B>(ARGS);
+  else rc = launch<MU_DYN>(ARGS);
 #undef ARGS
-  return (int)cudaGetLastError();
+  return rc;
 }

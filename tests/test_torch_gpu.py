@@ -294,7 +294,115 @@ def test_segscan_fp32_times_across_tiles(cuda):
 
 
 # --------------------------------------------------------------------- #
-# K1 gather_mult with the logical multiplies in a type of their own
+# K1 gather_mult: bitwise against its plain version for every (type, op)
+# pair the kernel takes, templated (FP32 times and plus, BOOL land) or
+# through its out-of-line multiply; then the logical multiplies end to end
+K1_TYPES = ("FP32", "INT32", "UINT32", "BOOL")
+K1_PAIRS = [(op, dt) for op in K.MULT_OP for dt in K1_TYPES
+            if not (op in ("band", "bor") and dt in ("FP32", "BOOL"))]
+K1_N = 3 * lp.WINDOW_K  # three windows: the last one ends at the end of u2
+_k1_plans = {}
+
+
+def k1_plan(cuda, kind):
+    """The device plan of a random FP32 matrix for vxm or mxv (cached)."""
+    if kind not in _k1_plans:
+        import graphblas_tpu_torch as gb
+
+        rng = np.random.default_rng(27)
+        lin = np.unique(rng.integers(0, K1_N * K1_N, 2 * K1_N))
+        with gb.config.set(device=cuda, auto_sparse_limit=0):
+            A = gb.Matrix.from_coo(lin // K1_N, lin % K1_N,
+                                   np.ones(len(lin), np.float32),
+                                   dtype="FP32", nrows=K1_N, ncols=K1_N)
+        e = lp.get_plan(A._sparse, kind == "mxv", device=cuda)
+        assert e is not None
+        _k1_plans[kind] = e
+    return _k1_plans[kind]
+
+
+def k1_words(rng, shape, dt, cuda):
+    """Carrier words of type dt with the values that tell multiplies apart:
+    FP32 zeros of both signs, NaN, infinities, a subnormal; integers over
+    the full range, so that products and sums wrap."""
+    if dt == "FP32":
+        pool = np.float32([0, -0.0, 1.5, -2, np.nan, np.inf, -np.inf,
+                           3e-39, 1e30, 7])
+        x = np.where(rng.random(shape) < 0.5, rng.choice(pool, shape),
+                     rng.standard_normal(shape).astype(np.float32))
+        return torch.from_numpy(x.astype(np.float32)).to(cuda)
+    if dt == "BOOL":
+        return torch.from_numpy(rng.integers(0, 2, shape, dtype=np.int32)).to(cuda)
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+    small = rng.random(shape) < 0.3
+    x[small] = rng.integers(-3, 4, int(small.sum()))
+    return torch.from_numpy(x.astype(np.int32)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,dt", K1_PAIRS)
+def test_gather_mult_matches_plain(cuda, op, dt):
+    """vxm and mxv, a full and a sparse u (the okp output), with and
+    without the route's stage A, and for BOOL packed and not: every output
+    bitwise equal to gather_mult_plain, one launch a call."""
+    from graphblas_tpu_torch import binary
+
+    rng = np.random.default_rng(28)
+    mult = getattr(binary, op)[dt]
+    mono = (monoid.lor if dt == "BOOL" else monoid.min)[dt]
+    for kind in ("vxm", "mxv"):
+        e = k1_plan(cuda, kind)
+        d = e["dev"]
+        R_g, nb = e["R_g"], e["nblocks_g"]
+        assert int(d["meta"][:, 0].max()) * 128 + 128 == K1_N // 128
+        plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"],
+                  k1_words(rng, (R_g, 128), dt, cuda))
+        u2 = k1_words(rng, (K1_N // 128, 128), dt, cuda)
+        u2ok = torch.from_numpy(rng.integers(0, 2, u2.shape, dtype=np.int32)).to(cuda)
+        for full_u in (True, False):
+            for permA in (d["routeP"][0], None):
+                for packed in ((True, False) if dt == "BOOL" else (False,)):
+                    kw = dict(kind=kind, R_g=R_g, nblocks=nb, packed=packed,
+                              full_u=full_u, permA=permA)
+                    args = (plan_g, u2, u2ok, mult, mult.type, mult.type, mono)
+                    before = K.launches["gather_mult"]
+                    got = lp.gather_mult(*args, **kw)
+                    assert K.launches["gather_mult"] == before + 1
+                    want = lp.gather_mult_plain(*args, **kw)
+                    tag = (kind, full_u, permA is not None, packed)
+                    assert torch.equal(got[0].view(torch.int32),
+                                       want[0].view(torch.int32)), tag
+                    assert (got[1] is None) == (want[1] is None), tag
+                    if want[1] is not None:
+                        assert torch.equal(got[1], want[1]), tag
+
+
+@pytest.mark.gpu
+def test_gather_mult_repeats_bitwise(cuda):
+    """200 launches of the SSSP variant (FP32 plus, okp, stage A) give the
+    bits of the first."""
+    from graphblas_tpu_torch import semiring
+
+    rng = np.random.default_rng(29)
+    e = k1_plan(cuda, "vxm")
+    d = e["dev"]
+    ring = semiring.min_plus["FP32"]
+    u2 = k1_words(rng, (K1_N // 128, 128), "FP32", cuda)
+    u2ok = torch.from_numpy(rng.integers(0, 2, u2.shape, dtype=np.int32)).to(cuda)
+    plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"], d["avals_g"])
+
+    def run():
+        v, h = lp.gather_mult(plan_g, u2, u2ok, ring.binaryop, ring.monoid.type,
+                              ring.monoid.type, ring.monoid, kind="vxm",
+                              R_g=e["R_g"], nblocks=e["nblocks_g"],
+                              permA=d["routeP"][0])
+        return torch.cat([v.view(torch.int32).reshape(-1), h.reshape(-1)])
+
+    first = run()
+    for _ in range(200):
+        assert torch.equal(run(), first)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["vxm", "mxv"])
 @pytest.mark.parametrize("dtype,ring", [("FP32", "plus_land"),

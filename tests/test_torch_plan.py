@@ -16,6 +16,7 @@ from graphblas_tpu import native as jnative
 from graphblas_tpu.core.engine import lanepipe as jlp
 from graphblas_tpu.core.engine import permute as jpm
 from graphblas_tpu_torch import native as tnative
+from graphblas_tpu_torch.core import dtypes as tdt
 from graphblas_tpu_torch.core.engine import lanepipe as tlp
 from graphblas_tpu_torch.core.engine import permute as tpm
 
@@ -86,6 +87,65 @@ def test_build_plan_over_pack_limit_is_none_in_both():
     d = np.zeros(n - 1, np.int64)
     got, want = both_plans(d, k, np.ones(n - 1, np.float32), n)
     assert got is None and want is None
+
+
+def zipf_graph(rng, n=3000, e=12000):
+    """Columns from a power law (density ~ k^(-2/3)): node 0 takes about
+    7% of the edges, the first 10 nodes 15%."""
+    k = (n * rng.random(e) ** 3).astype(np.int64)
+    lin = np.unique(rng.integers(0, n, e) * n + k)
+    return lin // n, lin % n, rng.random(len(lin)).astype(np.float32)
+
+
+def hub_graph(rng, n=64, hub=5):
+    """Row `hub` and column 3 each hold an edge of every node, so at
+    SPLIT_DEG=16 the plan is two-level in both directions."""
+    r = np.concatenate([np.arange(n), np.full(n, hub)])
+    c = np.concatenate([np.full(n, 3), np.arange(n)])
+    lin = np.unique(r * n + c)
+    return lin // n, lin % n, rng.random(len(lin)).astype(np.float32)
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+@pytest.mark.parametrize("dest_is_row", [True, False])
+@pytest.mark.parametrize("kind", ["random", "zipf", "two_level"])
+def test_gather_plan_invariants(rng, monkeypatch, kind, dest_is_row, pkg):
+    """What K1 (csrc/gather_mult.cu) relies on, on the plans of both
+    packages: row and column indices of the G block's 128x128 table z,
+    each window's 128 rows of u inside the table pad_u makes, 7-bit fields
+    in the route's stage-A index, two 128-row tiles a G block."""
+    if kind == "random":
+        n = 200
+        r, c, v = random_graph(rng, n, 1500, "FP32")
+    elif kind == "zipf":
+        n = 3000
+        r, c, v = zipf_graph(rng, n)
+    else:
+        n = 64
+        monkeypatch.setattr(jlp, "SPLIT_DEG", 16)
+        monkeypatch.setattr(tlp, "SPLIT_DEG", 16)
+        r, c, v = hub_graph(rng, n)
+    d, k = (r, c) if dest_is_row else (c, r)
+    lp_, pm_ = (tlp, tpm) if pkg == "torch" else (jlp, jpm)
+    with jax.enable_x64(True):
+        plan = lp_.build_plan(d.astype(np.int64), k.astype(np.int64),
+                              np.asarray(v, np.float32), n, n)
+        assert plan is not None
+        permA = pm_.build_perm_plan(plan["route"])["packed_A"]
+    assert plan["two_level"] == (kind == "two_level")
+    R_g, nb = plan["R_g"], plan["nblocks_g"]
+    assert R_g == nb * tlp.BR_G
+    for name, rows in (("locidx_g", R_g), ("idx1_g", nb * 128)):
+        x = plan[name]
+        assert x.shape == (rows, 128), name
+        assert x.min() >= 0 and x.max() < 128, name
+    u_rows = tlp.pad_u(torch.zeros(n), torch.ones(n, dtype=torch.bool),
+                       tdt.FP32, n)[0].shape[0]
+    wins = plan["meta"][:, 0].astype(np.int64)
+    assert plan["meta"].shape == (nb, 3)
+    assert wins.min() >= 0 and (wins * 128 + 128).max() <= u_rows
+    assert permA.shape[0] >= R_g
+    assert permA.min() >= 0 and permA.max() < 1 << 21
 
 
 @pytest.mark.parametrize("T", [1, 4, 129])
