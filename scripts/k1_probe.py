@@ -66,17 +66,17 @@ def main():
     cs.log(f"gpu: {gpu}")
     src = os.path.join(ROOT, "graphblas_tpu_torch", "csrc", "gather_mult.cu")
     libs, logs = {}, {}
-    shapes = {"tpb1": ["-DK1_TPB=1"], "tpb2": ["-DK1_TPB=2"],
-              "t1late": ["-DK1_TPB=1", "-DK1_LO_EARLY=0", "-DK1_ZU=8"],
-              "t2late": ["-DK1_TPB=2", "-DK1_LO_EARLY=0", "-DK1_ZU=8"],
-              "t1zu8": ["-DK1_TPB=1", "-DK1_ZU=8"],
-              "t2zu8": ["-DK1_TPB=2", "-DK1_ZU=8"]}
+    shapes = {"v4": ["-DK1_V4=1"], "v5": ["-DK1_V4=1", "-DK1_V5=1"],
+              "v4_tr": ["-DK1_V4=1", "-DK1_TRACE"],
+              "v5_tr": ["-DK1_V4=1", "-DK1_V5=1", "-DK1_TRACE"]}
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(shapes)) as ex:
         futs = {t: ex.submit(build, K, src, t, d, bdir) for t, d in shapes.items()}
         for t, f in futs.items():
             libs[t], logs[t] = f.result()
-    order = list(shapes) + list(shapes)[::-1]
+    timed = [t for t in shapes if not t.endswith("_tr")]
+    traced = [t for t in shapes if t.endswith("_tr")]
+    order = timed + timed[::-1]
     if args.parent:
         psrc = os.path.join(args.parent, "graphblas_tpu_torch", "csrc",
                             "gather_mult.cu")
@@ -91,6 +91,15 @@ def main():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(cs.SEED)
+    # the card's practical rates: a copy and a read of 96 MB
+    x = torch.empty(24 << 20, dtype=torch.int32, device=dev)
+    y = torch.empty_like(x)
+    for name, f, nbytes in (("copy", lambda: y.copy_(x), 2 * x.numel() * 4),
+                            ("read (sum)", lambda: x.sum(), x.numel() * 4)):
+        ms = cs.cuda_ms(torch, f)
+        cs.log(f"  {name} of {x.numel() * 4 / 1e6:.1f} MB: {ms:.4f} ms, "
+               f"{nbytes / ms / 1e9:.3f} TB/s")
+    del x, y
     results = {"gpu": gpu, "order": order, "rows": []}
     with gb.config.set(device="cuda", auto_sparse_limit=0):
         graphs = [("zipf", *cs.build_graph(1 << 19, 8), 1 << 19)]
@@ -150,6 +159,31 @@ def main():
                     cs.log(f"  {gname} {vname:8s} {tag:6s}: warm {warm:.4f} ms, "
                            f"cold {cold:.4f} ms (bound {b_ms:.4f} ms, "
                            f"{nbytes / 1e6:.1f} MB), bitwise equal")
+                for tag in traced:
+                    K._libs["gather_mult"] = libs[tag]
+                    fn()
+                    torch.cuda.synchronize()
+                    buf = (ctypes.c_ulonglong * (1024 * 8))()
+                    if libs[tag].k1_trace_read(buf) != 0:
+                        cs.fail("k1_trace_read")
+                    t = np.frombuffer(buf, np.uint64).reshape(1024, 8)[:nb, :6]
+                    t = (t - t[:, 0].min()).astype(np.float64) / 1e3  # us
+                    ph = np.diff(t, axis=1)
+                    stat = {"start_max_us": float(t[:, 0].max()),
+                            "end_max_us": float(t[:, 5].max()),
+                            "phase_median_us": np.median(ph, 0).tolist(),
+                            "phase_max_us": ph.max(0).tolist(),
+                            "phase_end_median_us": np.median(t[:, 1:], 0).tolist()}
+                    row[tag] = stat
+                    cs.log(f"  {gname} {vname:8s} {tag}: starts within "
+                           f"{stat['start_max_us']:.2f} us, last end "
+                           f"{stat['end_max_us']:.2f} us; phases load/build/"
+                           f"slots/stage/out median "
+                           + " ".join(f"{x:.2f}" for x in stat["phase_median_us"])
+                           + " us, max "
+                           + " ".join(f"{x:.2f}" for x in stat["phase_max_us"])
+                           + "; median phase ends "
+                           + " ".join(f"{x:.2f}" for x in stat["phase_end_median_us"]))
                 results["rows"].append(row)
             del M, e, dv
     with open(os.path.join(args.out, "k1_probe.json"), "w") as f:
