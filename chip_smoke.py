@@ -19,8 +19,11 @@ engine) from the sources, then:
    exposed (no barrier, barriers only at tile starts or tile ends, at
    every element, one tile, every channel tuple, an FP32 product carried
    across tiles), 200 launches of the main path's scan bitwise equal, and
-   its achieved rate on the main path's two scans; K1 also with the
-   logical multiplies on FP32 and INT32 (plus_land, min_lor); K4 (one
+   its achieved rate on the main path's two scans; K1 (one launch a call)
+   at the PageRank, BFS and SSSP variants on the zipf and RMAT plans, each
+   timed warm and after an L2 flush, 200 launches of each bitwise equal on
+   the zipf plan, and with the logical multiplies on FP32 and INT32
+   (plus_land, min_lor); K4 (one
    launch a call) also with FP32 min, on the RMAT plan, over every
    (monoid, 32-bit type, packed) triple, on a lane whose run crosses 128
    tiles, 200 launches bitwise equal, and timed after an L2 flush;
@@ -253,7 +256,12 @@ def compare(name, got, want, rel=None, quiet=False):
     if g.shape != w.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if g.dtype.is_floating_point:
-        err = float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+        # equal bits are no error (inf - inf and NaN - NaN are NaN)
+        bits = {4: torch.int32, 8: torch.int64}.get(g.element_size())
+        diff = (g.double() - w.double()).abs()
+        if bits is not None:
+            diff = torch.where(g.view(bits) == w.view(bits), 0.0, diff)
+        err = float(diff.max()) if g.numel() else 0.0
     else:
         err = float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
     if rel is None:
@@ -276,7 +284,6 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
     """Each kernel against its plain version at the main path's shapes."""
     from graphblas_tpu_torch.core.engine import lanepipe as lp
     from graphblas_tpu_torch.core.engine import permute as pm
-    from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32
 
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -309,71 +316,29 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
             f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)"
             + ("" if library_ms is None else f", torch.take {library_ms:.4f} ms"))
 
-    ring = gb.semiring.plus_times["FP32"]
-    mono, mult = ring.monoid, ring.binaryop
+    mono = gb.semiring.plus_times["FP32"].monoid
     ringb = gb.semiring.lor_land["BOOL"]
     d, db = e["dev"], eb["dev"]
     routeP, extP = d["routeP"], d["extP"]
-    n = e["n_in"]
     R_g, L, nblocks = e["R_g"], e["L"], e["nblocks_g"]
 
-    # ---- K1 gather_mult, the PageRank variant (full_u, permA)
-    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
-    u2, u2ok = lp.pad_u(u, torch.ones(n, dtype=torch.bool, device=dev), FP32, n)
-    plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"], d["avals_g"])
-    kw = dict(kind="vxm", R_g=R_g, nblocks=nblocks, full_u=True,
-              permA=routeP[0])
-    k1 = lambda: lp.gather_mult(plan_g, u2, u2ok, mult, FP32, FP32, mono, **kw)[0]  # noqa: E731
-    p1 = lambda: lp.gather_mult_plain(plan_g, u2, u2ok, mult, FP32, FP32, mono, **kw)[0]  # noqa: E731
-    prods = k1()
-    err = compare("K1 gather_mult FP32 full_u+permA", prods, p1())
-    # the BFS variant: BOOL packed codes with a sparse u
-    ub = torch.from_numpy(rng.random(n) < 0.3).to(dev)
-    ub2, ub2ok = lp.pad_u(ub, ub, BOOL, n)
-    plan_gb = (db["meta"], db["idx1_g"], db["locidx_g"], db["okg"], db["avals_g"])
-    kwb = dict(kind="vxm", R_g=eb["R_g"], nblocks=eb["nblocks_g"], packed=True,
-               permA=db["routeP"][0])
-    codes = lp.gather_mult(plan_gb, ub2, ub2ok, ringb.binaryop, BOOL, BOOL,
-                           ringb.monoid, **kwb)[0]
-    compare("K1 gather_mult BOOL packed+permA", codes, lp.gather_mult_plain(
-        plan_gb, ub2, ub2ok, ringb.binaryop, BOOL, BOOL, ringb.monoid, **kwb)[0])
-    # the logical multiplies in a type of their own: the operands' truth
-    # values as 1 or 0 (a NaN is true, -0.0 false), through the plan of A
-    # with values of that type; plus_land with a full u, min_lor with a
-    # sparse one
-    zero = torch.from_numpy(rng.random((R_g, 128)) < 0.3).to(dev)
-    af = torch.where(zero, 0.0, d["avals_g"])
-    af[0, :4] = torch.tensor([float("nan"), -0.0, 2.0, 0.0])
-    uf = torch.from_numpy(rng.choice(np.float32([0, -0.0, 1.5, np.nan]), n)).to(dev)
-    ai = torch.from_numpy(rng.integers(-2, 3, (R_g, 128)).astype(np.int32)).to(dev)
-    ui = torch.from_numpy(rng.integers(-2, 3, n).astype(np.int32)).to(dev)
-    uiok = torch.from_numpy(rng.random(n) < 0.5).to(dev)
-    for ring_l, a_l, u_l, u_ok, dt, full in (
-            (gb.semiring.plus_land["FP32"], af, uf, None, FP32, True),
-            (gb.semiring.min_lor["INT32"], ai, ui, uiok, INT32, False)):
-        ul2, ul2ok = lp.pad_u(u_l, torch.ones(n, dtype=torch.bool, device=dev)
-                              if u_ok is None else u_ok, dt, n)
-        kwl = dict(kind="vxm", R_g=R_g, nblocks=nblocks, full_u=full,
-                   permA=routeP[0])
-        args = (plan_g[:4] + (a_l,), ul2, ul2ok, ring_l.binaryop, dt, dt,
-                ring_l.monoid)
-        (gv, gh), (pv, ph) = lp.gather_mult(*args, **kwl), \
-            lp.gather_mult_plain(*args, **kwl)
-        compare(f"K1 gather_mult {ring_l.name}[{dt.name}], values", gv, pv)
-        if not full:
-            compare(f"K1 gather_mult {ring_l.name}[{dt.name}], okp", gh, ph)
-        if not bool((pv != 0).any() & (pv == 0).any()):
-            fail(f"K1 {ring_l.name}: the check saw one truth value only")
-    # the timed variant is full_u: u2ok is never read
-    nbytes = 4 * (5 * R_g * 128 + nblocks * 128 * 128 + u2.numel()
-                  + 3 * nblocks)
+    # ---- K1 gather_mult at the main paths' variants, zipf and RMAT plans
+    rs, rd, rn = build_rmat(17)
+    R = gb.Matrix.from_coo(rs, rd, np.ones(len(rs), np.float32), dtype="FP32",
+                           nrows=rn, ncols=rn)
+    er = lp.get_plan(R._sparse, False, device=dev)
+    if er is None:
+        fail("RMAT plan exceeds PACK_LIMIT")
+    del R
+    variants = {}
+    prods, err, k1_ms, k1_pms, k1_bytes = k1_checks(
+        gb, torch, {"zipf": (e, eb), "rmat": (er, None)}, rng, variants)
     add("gather_mult", "graphblas_tpu_torch/csrc/gather_mult.cu",
-        "graphblas_tpu/core/engine/lanepipe.py:363", err,
-        cuda_ms(torch, k1), cuda_ms(torch, p1), nbytes, nops=R_g * 128)
+        "graphblas_tpu/core/engine/lanepipe.py:363", err, k1_ms, k1_pms,
+        k1_bytes, nops=R_g * 128)
 
     # ---- K3 mid_perm_tiles: at the route with one and two channels and at
     # the extract trimmed to TV
-    variants = {}
 
     def ints(shape):
         return torch.from_numpy(rng.integers(-2**31, 2**31, shape,
@@ -477,7 +442,8 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
                                       db["extP"][0], preCb, lp.combines(ringb.monoid)[1]),
             lp.fused_permC_scan_permA_plain(db["routeP"][2], db["barrier"],
                                             db["extP"][0], preCb, lp.combines(ringb.monoid)[1]))
-    k4_checks(gb, torch, dev, rng, k4)
+    k4_checks(gb, torch, dev, rng, k4, er)
+    del er
     R_scan = e["R_scan"]
     k4_bytes = 4 * 5 * R_scan * 128
     add("fused_permC_scan_permA", "graphblas_tpu_torch/csrc/fused_scan.cu",
@@ -533,7 +499,7 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
     add("tile_perm", "graphblas_tpu_torch/csrc/tile_perm.cu",
         "graphblas_tpu/core/engine/permute.py:223", err2, ms2, pms2,
         4 * 3 * fin.numel(), library_ms=lib2)
-    new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants)
+    new_kernels_phase(gb, torch, dev, A, e, rng, add, variants)
     results["kernel_variants"] = variants
     results.setdefault("kernels", {}).update(rows)
     results["plan"] = {"L": e["L"], "R_g": R_g, "nblocks_g": nblocks,
@@ -542,7 +508,113 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
                        "plan_bool_s": secs_b}
 
 
-def k4_checks(gb, torch, dev, rng, k4):
+def k1_checks(gb, torch, plans, rng, variants):
+    """K1 at the main paths' three variants on each plan: PageRank (FP32
+    times, a full u), BFS (BOOL land, packed codes, a u of 30% density)
+    and SSSP (FP32 plus with the okp output, a u of 10% density), each
+    through the route's stage A; bitwise against the plain version, one
+    launch a call, timed warm and after an L2 flush; 200 launches of each
+    zipf variant bitwise equal to the first; the logical multiplies in a
+    type of their own.  plans: name -> (FP32 plan, BOOL twin's plan or
+    None: the FP32 plan with avals != 0).  Returns the zipf PageRank
+    variant's output, error, ms, plain ms and bytes for the kernels line."""
+    from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32
+    from graphblas_tpu_torch.core.engine import kernels as K
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+
+    def words(v2, ok2):
+        return torch.cat([v2.reshape(-1).view(torch.int32)]
+                         + ([] if ok2 is None else [ok2.reshape(-1)]))
+
+    row = None
+    for pname, (e, eb) in plans.items():
+        d = e["dev"]
+        dev = d["meta"].device
+        n, R_g, nb = e["n_in"], e["R_g"], e["nblocks_g"]
+        plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"], d["avals_g"])
+        plan_b = plan_g[:4] + ((d["avals_g"] != 0).to(torch.int32),) if eb is None \
+            else tuple(eb["dev"][k] for k in ("meta", "idx1_g", "locidx_g", "okg",
+                                              "avals_g"))
+        u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+        full = lp.pad_u(u, torch.ones(n, dtype=torch.bool, device=dev), FP32, n)
+        ub = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+        sparse = lp.pad_u(u, torch.from_numpy(rng.random(n) < 0.1).to(dev), FP32, n)
+        # bytes: locidx, okg, avals, permA and the output a slot (okp one
+        # more), idx1, u (and its validity unless full), meta
+        S, W, U = 4 * R_g * 128, 4 * nb * 128 * 128, 4 * full[0].numel()
+        cases = (("pagerank", gb.semiring.plus_times["FP32"], plan_g, full, FP32,
+                  dict(full_u=True), 5 * S + W + U + 12 * nb),
+                 ("bfs", gb.semiring.lor_land["BOOL"], plan_b,
+                  lp.pad_u(ub, ub, BOOL, n), BOOL, dict(packed=True),
+                  5 * S + W + 2 * U + 12 * nb),
+                 ("sssp", gb.semiring.min_plus["FP32"], plan_g, sparse, FP32, {},
+                  6 * S + W + 2 * U + 12 * nb))
+        for vname, ring, pg, (u2, u2ok), dt, extra, nbytes in cases:
+            args = (pg, u2, u2ok, ring.binaryop, dt, dt, ring.monoid)
+            kw = dict(kind="vxm", R_g=R_g, nblocks=nb, permA=d["routeP"][0], **extra)
+            k1 = lambda: lp.gather_mult(*args, **kw)  # noqa: E731
+            p1 = lambda: lp.gather_mult_plain(*args, **kw)  # noqa: E731
+            tag = f"K1 gather_mult {pname} {vname}"
+            before = K.launches["gather_mult"]
+            got = k1()
+            if K.launches["gather_mult"] - before != 1:
+                fail(f"{tag}: not one launch a call")
+            want = p1()
+            err = compare(f"{tag}, values", got[0], want[0])
+            if (got[1] is None) != (want[1] is None):
+                fail(f"{tag}: the okp output came back from one side only")
+            if want[1] is not None:
+                compare(f"{tag}, okp", got[1], want[1])
+            if pname == "zipf":
+                first = words(*got)
+                for r in range(200):
+                    if not bool(torch.equal(words(*k1()), first)):
+                        fail(f"{tag}: launch {r + 1} of 200 differs from the first")
+            ms, cold, pms = (cuda_ms(torch, k1), cuda_ms(torch, k1, cold=True),
+                             cuda_ms(torch, p1))
+            b_ms, _ = bound(nbytes)
+            variants[f"gather_mult {pname} {vname}"] = {
+                "ms": ms, "cold_ms": cold, "plain_ms": pms, "bound_ms": b_ms,
+                "bytes": nbytes}
+            log(f"  gather_mult {pname} {vname}: kernel {ms:.4f} ms, after an L2 "
+                f"flush {cold:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB)")
+            if pname == "zipf" and vname == "pagerank":
+                row = (got[0], err, ms, pms, nbytes)
+        if pname != "zipf":
+            continue
+        log("  K1 zipf variants: one launch a call, 200 launches bitwise equal: ok")
+        # the logical multiplies in a type of their own: the operands' truth
+        # values as 1 or 0 (a NaN is true, -0.0 false), through the plan of
+        # A with values of that type; plus_land with a full u, min_lor with
+        # a sparse one
+        zero = torch.from_numpy(rng.random((R_g, 128)) < 0.3).to(dev)
+        af = torch.where(zero, 0.0, d["avals_g"])
+        af[0, :4] = torch.tensor([float("nan"), -0.0, 2.0, 0.0])
+        uf = torch.from_numpy(rng.choice(np.float32([0, -0.0, 1.5, np.nan]), n)).to(dev)
+        ai = torch.from_numpy(rng.integers(-2, 3, (R_g, 128)).astype(np.int32)).to(dev)
+        ui = torch.from_numpy(rng.integers(-2, 3, n).astype(np.int32)).to(dev)
+        uiok = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+        for ring_l, a_l, u_l, u_ok, dt, full_u in (
+                (gb.semiring.plus_land["FP32"], af, uf, None, FP32, True),
+                (gb.semiring.min_lor["INT32"], ai, ui, uiok, INT32, False)):
+            ul2, ul2ok = lp.pad_u(u_l, torch.ones(n, dtype=torch.bool, device=dev)
+                                  if u_ok is None else u_ok, dt, n)
+            kwl = dict(kind="vxm", R_g=R_g, nblocks=nb, full_u=full_u,
+                       permA=d["routeP"][0])
+            args = (plan_g[:4] + (a_l,), ul2, ul2ok, ring_l.binaryop, dt, dt,
+                    ring_l.monoid)
+            (gv, gh), (pv, ph) = lp.gather_mult(*args, **kwl), \
+                lp.gather_mult_plain(*args, **kwl)
+            compare(f"K1 gather_mult {ring_l.name}[{dt.name}], values", gv, pv)
+            if not full_u:
+                compare(f"K1 gather_mult {ring_l.name}[{dt.name}], okp", gh, ph)
+            if not bool((pv != 0).any() & (pv == 0).any()):
+                fail(f"K1 {ring_l.name}: the check saw one truth value only")
+    return row
+
+
+def k4_checks(gb, torch, dev, rng, k4, er):
     """K4 against its plain version beyond the zipf plan: the RMAT plan
     (FP32 plus and min); every (monoid, 32-bit type, packed) triple the
     kernel takes, at 3 and 40 tiles, which runs the run-time combine; a
@@ -580,12 +652,6 @@ def k4_checks(gb, torch, dev, rng, k4):
         return ints(shape, -2**31, 2**31) if dt is UINT32 else ints(shape, -1000, 1000)
 
     # the RMAT plan's route, barrier and extract, random values
-    rs, rd, rn = build_rmat(17)
-    R = gb.Matrix.from_coo(rs, rd, np.ones(len(rs), np.float32), dtype="FP32",
-                           nrows=rn, ncols=rn)
-    er = lp.get_plan(R._sparse, False, device=dev)
-    if er is None:
-        fail("RMAT plan exceeds PACK_LIMIT")
     rdv = er["dev"]
     shape = tuple(rdv["barrier"].shape)
     x = values(shape, FP32, False)
@@ -593,7 +659,7 @@ def k4_checks(gb, torch, dev, rng, k4):
         check(f"RMAT plan FP32 {name} ({shape[0] // 128} tiles)",
               getattr(gb.monoid, name)["FP32"], False, rdv["routeP"][2],
               rdv["barrier"], rdv["extP"][0], x, rel)
-    del R, er, rdv
+    del rdv
     # every triple at small sizes
     monos = [m[dt] for m in BUILTINS.values() for dt in (BOOL, INT32, UINT32, FP32)
              if dt in m._domains and sp.eligible_reduce(m[dt], dt)
@@ -633,16 +699,14 @@ def k4_checks(gb, torch, dev, rng, k4):
         f"200 launches bitwise equal: ok")
 
 
-def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
-    """K1's validity output, K5 and K6 against their plain versions."""
+def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
+    """K5 and K6 against their plain versions."""
     from graphblas_tpu_torch.core.engine import lanepipe as lp
     from graphblas_tpu_torch.core.engine import sortpipe as sp
-    from graphblas_tpu_torch.core.dtypes import FP32
 
     d = e["dev"]
-    n, R_g, R_scan = e["n_in"], e["R_g"], e["R_scan"]
-    ring = gb.semiring.plus_times["FP32"]
-    mono, mult = ring.monoid, ring.binaryop
+    n, R_scan = e["n_in"], e["R_scan"]
+    mono = gb.monoid.plus["FP32"]
 
     def timed(name, kfn, pfn, nbytes):
         """A variant that has no row of its own in the kernels line."""
@@ -652,23 +716,6 @@ def new_kernels_phase(gb, torch, dev, A, e, plan_g, rng, add, variants):
                           "bytes": nbytes}
         log(f"  {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
-
-    # ---- K1 with the validity output: a u of about 10% density
-    uok = torch.from_numpy(rng.random(n) < 0.1).to(dev)
-    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
-    u2, u2ok = lp.pad_u(u, uok, FP32, n)
-    kw = dict(kind="vxm", R_g=R_g, nblocks=e["nblocks_g"],
-              permA=d["routeP"][0])
-    k1 = lambda: lp.gather_mult(plan_g, u2, u2ok, mult, FP32, FP32, mono, **kw)  # noqa: E731
-    p1 = lambda: lp.gather_mult_plain(plan_g, u2, u2ok, mult, FP32, FP32, mono, **kw)  # noqa: E731
-    (gv, gh), (pv, ph) = k1(), p1()
-    compare("K1 gather_mult FP32 sparse u, values", gv, pv)
-    compare("K1 gather_mult FP32 sparse u, okp", gh, ph)
-    # reads 4 plan words and the permA index per slot, idx1, both u tables;
-    # writes 2 words per slot
-    timed("gather_mult_okp", k1, p1,
-          4 * (6 * R_g * 128 + e["nblocks_g"] * 128 * 128 + 2 * u2.numel()
-               + 3 * e["nblocks_g"]))
 
     # ---- K5 lane_segscan on the S layout of the zipf plan
     barrier, oks = d["barrier"], d["oks"]

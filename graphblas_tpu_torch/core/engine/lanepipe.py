@@ -397,6 +397,9 @@ def gather_mult(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
     if permA is not None:
         tensors.append(permA)
     K.require_cuda("gather_mult", tensors)
+    # the kernel moves the slot arrays 16 bytes at a time
+    pm._require_aligned("gather_mult", [idx1, locidx, okg, avals]
+                        + ([] if permA is None else [permA]))
     if (locidx.shape != (R_g, 128) or okg.shape != (R_g, 128)
             or avals.shape != (R_g, 128) or R_g != nblocks * BR_G
             or idx1.shape != (nblocks * 128, 128) or u2.shape != u2ok.shape

@@ -20,30 +20,28 @@
 //
 // The design, as the Pallas kernel's: the column map is gathered once into
 // a table z[a][l] = u2[(w*128 + a)*128 + idx1[blk*128 + a, l]] in shared
-// memory (64 KB; its validity, unless full_u, as 2 KB of bits), and each
-// slot then reads z[arow][l].  The lane is the column, so a warp's 32
-// reads hit 32 banks, and no slot waits on a chain of global loads.
-//   1. The block starts every read at once: idx1's 64 KB by cp.async into
-//      z's buffer; the permA, locidx and okg words of the thread's own
-//      slots into registers.  Thread (l, c) = (tid % 128, tid / 128) of a
-//      tile owns rows 32 c .. 32 c + 31 of lane l, so every warp load is
-//      one 128-byte row segment.  The A and B fields of each permA word go
-//      to K4's swizzled 16-bit copy (common.cuh, ab_store), the C field
-//      (the thread's own lookup) and arow | ok << 7 stay in registers, four
-//      to a word.
-//   2. z is built in place over idx1: thread (l, c) builds rows c*ZR ..
-//      c*ZR + ZR - 1 of lane l, so its validity bits form whole 32- or
-//      16-bit words, written without atomics.
-//   3. Each slot: avals (one coalesced load), z and its validity bit from
-//      shared memory, the multiply.
-//   4. With permA, the tile is staged in z's buffer (free once every slot
-//      has read it) and written out through stage A: each output slot's
-//      source is computed once, for the value and, with okp, for its
-//      validity, staged as one 32-bit word of bits a thread.
-//
-// K1_TPB tiles a block: 1, one 512-thread block a tile (z built twice a G
-// block; 100 KB of shared memory, two blocks an SM), or 2, one 1024-thread
-// block a G block (z built once; 198 KB, one block an SM).
+// memory, and each slot then reads z[arow][l]: no slot waits on a chain of
+// global loads.  One 1024-thread block a G block (two 128-row tiles), so z
+// is built once; 212 KB of shared memory, one block an SM, and the zipf
+// plan's 129 G blocks run in one wave.  Thread (q, c) of a tile owns lanes
+// 4q .. 4q + 3 of rows 8c .. 8c + 7, so every global access is 16 bytes
+// and a warp's covers one 512-byte row.
+//   1. Every read starts at once: idx1's 64 KB by cp.async into tile 1's
+//      output buffer; the thread's permA, locidx and okg words.  The A and
+//      B fields of permA go to K4's swizzled 16-bit copy (common.cuh), the
+//      C fields (the thread's own lookups) and arow | ok << 7 stay in
+//      registers, a byte a slot.
+//   2. z: thread (q, w) builds lanes 4q .. 4q + 3 of rows w + 32 i.  Lane l
+//      sits at column (l % 4) * 32 + l / 4 (zpos), so the 32 lookups of a
+//      warp for one row and one j = l % 4 hit 32 banks whatever the rows.
+//      Its validity (unless full_u) is a byte table in the plain layout,
+//      where the 32 lanes 4q + j of a warp's lookups hit 32 banks too.
+//   3. Each slot: avals, z and its validity from shared memory, the
+//      multiply.
+//   4. With permA, tile 0 is staged in z's buffer and tile 1 in idx1's,
+//      and written out through stage A: each output slot's source is
+//      computed once, for the value and, with okp, for its validity
+//      (staged as one 32-bit word of bits a thread).
 //
 // The multiplies of the main paths are template arguments: FP32 times
 // (PageRank), BOOL land (BFS), FP32 plus (SSSP's min_plus).  Every other
@@ -52,37 +50,11 @@
 // not).
 #include "common.cuh"
 
-#define K1_NT 1024                  // threads a block: one G block, two tiles
-#define K1_SLOTS (TILE_ELEMS / 512)  // slots (rows of one lane) a thread
-#define K1_ZR (TILE_ELEMS / K1_NT)   // rows of z a thread builds
-// dynamic shared memory: z (then tile 0 out), tile 1 out, the two tiles'
-// A|B copies, z's validity bits, the ok words of the 1024 threads
-#define K1_SMEM (2 * TILE_ELEMS * 4 + 2 * TILE_ELEMS * 2 + TILE_ELEMS / 8 + K1_NT * 4)
-#ifndef K1_V4
-#define K1_V4 0
-#endif
-#ifndef K1_V5
-#define K1_V5 0
-#endif
-// V4: z, tile 1 out (idx1 before), the A|B copies, z's validity as bytes,
-// the ok words
-#define K1_SMEM4 (2 * TILE_ELEMS * 4 + 2 * TILE_ELEMS * 2 + TILE_ELEMS + K1_NT * 4)
-
-#ifdef K1_TRACE
-__device__ unsigned long long k1_trace[1024 * 8];
-extern "C" int k1_trace_read(void* dst) {
-  return (int)cudaMemcpyFromSymbol(dst, k1_trace, sizeof(k1_trace));
-}
-__device__ __forceinline__ void trace(int i) {
-  if (threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    k1_trace[blockIdx.x * 8 + i] = t;
-  }
-}
-#else
-__device__ __forceinline__ void trace(int) {}
-#endif
+#define K1_NT 1024  // threads a block: one G block, two tiles
+// dynamic shared memory: z (then tile 0 out), idx1 (then tile 1 out), the
+// two tiles' A|B copies, z's validity bytes, the ok words of the threads
+#define K1_SMEM \
+  (2 * TILE_ELEMS * 4 + 2 * TILE_ELEMS * 2 + TILE_ELEMS + K1_NT * 4)
 
 enum MulOp { MU_TIMES_F, MU_PLUS_F, MU_LAND_B, MU_DYN };
 
@@ -105,144 +77,20 @@ __device__ __forceinline__ uint32_t mul(int code, uint32_t x, uint32_t y) {
   else return mult_dyn(code, x, y);
 }
 
-// Byte k % 4 of word k / 4 of a register array of packed bytes.
-__device__ __forceinline__ uint32_t byte_at(const uint32_t* w, int k) {
-  return (w[k / 4] >> (8 * (k % 4))) & 255u;
-}
-
-template <int OP>
-__global__ void __launch_bounds__(K1_NT, 1) gather_mult_kernel(
-    const int* __restrict__ meta, const uint32_t* __restrict__ u2,
-    const int* __restrict__ u2ok, const int* __restrict__ idx1,
-    const int* __restrict__ locidx, const int* __restrict__ okg,
-    const uint32_t* __restrict__ avals, const int* __restrict__ permA,
-    uint32_t* __restrict__ out, int* __restrict__ okp, int code, int mxv,
-    int packed, int full_u, uint32_t ident) {
-  extern __shared__ int4 smem4[];
-  uint32_t* z = reinterpret_cast<uint32_t*>(smem4);
-  uint16_t* sab = reinterpret_cast<uint16_t*>(z + 2 * TILE_ELEMS);
-  uint32_t* zok = reinterpret_cast<uint32_t*>(sab + 2 * TILE_ELEMS);
-  uint32_t* sok = zok + TILE_ELEMS / 32;
-  trace(0);
-  const int tid = threadIdx.x, blk = blockIdx.x;
-  const int ti = tid >> 9, tt = tid & 511;  // the thread's tile, and its place in it
-  const int l = tt & 127, r0 = (tt >> 7) * K1_SLOTS;
-  const size_t e0 = ((size_t)blk * 2 + ti) * TILE_ELEMS + (size_t)r0 * 128 + l;
-  uint16_t* sabt = sab + ti * TILE_ELEMS;
-  uint32_t* st = z + ti * TILE_ELEMS;  // the tile out, staged
-
-  // 1. every read in flight at once
-  const int* col = idx1 + (size_t)blk * TILE_ELEMS;
-  for (int i = tid; i < TILE_ELEMS / 4; i += K1_NT)
-    cp_async16(z + 4 * i, col + 4 * i);
-  uint32_t lo[K1_SLOTS / 4] = {}, mc[K1_SLOTS / 4] = {};
-  if (permA != nullptr) {
-#pragma unroll
-    for (int k = 0; k < K1_SLOTS; k++) {
-      const int p = __ldg(permA + e0 + (size_t)k * 128);
-      ab_store(sabt, r0 + k, l, p);
-      mc[k / 4] |= (uint32_t)((p >> 14) & 127) << (8 * (k % 4));
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < K1_SLOTS; k++) {
-    const size_t s = e0 + (size_t)k * 128;
-    const uint32_t b = ((uint32_t)__ldg(locidx + s) & 127u) |
-                       (uint32_t)(__ldg(okg + s) != 0) << 7;
-    lo[k / 4] |= b << (8 * (k % 4));
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  trace(1);
-
-  // 2. z over idx1 in place, and its validity bits: thread (l, g) builds
-  //    rows 16 g .. 16 g + 15 of lane l, half a word of bits
-  {
-    const size_t wrow = (size_t)meta[blk * 3] * 128;
-    const int a0 = (tid >> 7) * K1_ZR, zl = tid & 127;
-    uint32_t bits = 0;
-#pragma unroll 4
-    for (int j = 0; j < K1_ZR; j++) {
-      const int i = (a0 + j) * 128 + zl;
-      const size_t uo = (wrow + a0 + j) * 128 + z[i];
-      if (!full_u) bits |= (uint32_t)(__ldg(u2ok + uo) != 0) << j;
-      z[i] = __ldg(u2 + uo);
-    }
-    // row a of lane l: bit a % 32 of word (a / 32) * 128 + l
-    if (!full_u)
-      reinterpret_cast<uint16_t*>(zok)[((a0 >> 5) * 128 + zl) * 2 +
-                                       ((a0 >> 4) & 1)] = (uint16_t)bits;
-  }
-  __syncthreads();
-  trace(2);
-
-  // 3. each slot from the table
-  uint32_t val[K1_SLOTS];
-#pragma unroll
-  for (int k = 0; k < K1_SLOTS; k++) val[k] = __ldg(avals + e0 + (size_t)k * 128);
-  uint32_t okbits = 0;  // bit k: slot k of this thread is valid
-#pragma unroll
-  for (int k = 0; k < K1_SLOTS; k++) {
-    const uint32_t b = byte_at(lo, k);
-    const int arow = b & 127;
-    const uint32_t g = z[arow * 128 + l];
-    uint32_t ok = b >> 7;
-    if (!full_u) ok &= zok[(arow >> 5) * 128 + l] >> (arow & 31);
-    const uint32_t x = mxv ? val[k] : g, y = mxv ? g : val[k];
-    const uint32_t p = mul<OP>(code, x, y);
-    val[k] = packed ? (ok ? p + 1u : 0u) : (ok ? p : ident);
-    okbits |= ok << k;
-  }
-  trace(3);
-
-  // 4. out, through stage A
-  if (permA == nullptr) {
-#pragma unroll
-    for (int k = 0; k < K1_SLOTS; k++) {
-      out[e0 + (size_t)k * 128] = val[k];
-      if (okp != nullptr) okp[e0 + (size_t)k * 128] = (okbits >> k) & 1u;
-    }
-    return;
-  }
-  __syncthreads();  // every slot has read z
-#pragma unroll
-  for (int k = 0; k < K1_SLOTS; k++) st[(r0 + k) * 128 + l] = val[k];
-  sok[tid] = okbits;
-  __syncthreads();
-  trace(4);
-  uint32_t* sokt = sok + ti * 512;
-#pragma unroll
-  for (int k = 0; k < K1_SLOTS; k++) {
-    const int src = ab_src(sabt, r0 + k, (int)byte_at(mc, k));
-    out[e0 + (size_t)k * 128] = st[src];
-    if (okp != nullptr) {
-      const int rs = src >> 7;  // slot (rs, src % 128): thread rs / 32, bit rs % 32
-      okp[e0 + (size_t)k * 128] =
-          (sokt[(rs >> 5) * 128 + (src & 127)] >> (rs & 31)) & 1u;
-    }
-  }
-#ifdef K1_TRACE
-  __syncthreads();
-  trace(5);
-#endif
-}
-
-// V4: thread (q, c) of a tile owns lanes 4q .. 4q + 3 of rows 8c .. 8c + 7,
-// so every global access is 16 bytes; z keeps lane l at column
-// (l % 4) * 32 + l / 4, so a warp's 32 lookups of one (row, j) hit 32 banks.
-__device__ __forceinline__ int zpos(int a, int l) {
-  return a * 128 + (l & 3) * 32 + (l >> 2);
-}
-
-__device__ __forceinline__ uint32_t c_field(int p) { return (p >> 14) & 127; }
-
 // arow | ok << 7 of a slot
 __device__ __forceinline__ uint32_t slot_byte(int arow, int ok) {
   return ((uint32_t)arow & 127u) | (uint32_t)(ok != 0) << 7;
 }
 
+__device__ __forceinline__ uint32_t c_field(int p) { return (p >> 14) & 127; }
+
+// z's index of row a, lane l
+__device__ __forceinline__ int zpos(int a, int l) {
+  return a * 128 + (l & 3) * 32 + (l >> 2);
+}
+
 template <int OP>
-__global__ void __launch_bounds__(K1_NT, 1) gather_mult_v4(
+__global__ void __launch_bounds__(K1_NT, 1) gather_mult_kernel(
     const int* __restrict__ meta, const uint32_t* __restrict__ u2,
     const int* __restrict__ u2ok, const int* __restrict__ idx1,
     const int* __restrict__ locidx, const int* __restrict__ okg,
@@ -255,48 +103,32 @@ __global__ void __launch_bounds__(K1_NT, 1) gather_mult_v4(
   uint16_t* sab = reinterpret_cast<uint16_t*>(s1 + TILE_ELEMS);
   uint8_t* zok = reinterpret_cast<uint8_t*>(sab + 2 * TILE_ELEMS);
   uint32_t* sok = reinterpret_cast<uint32_t*>(zok + TILE_ELEMS);
-  trace(0);
   const int tid = threadIdx.x, blk = blockIdx.x;
-  const int ti = tid >> 9, tt = tid & 511;
+  const int ti = tid >> 9, tt = tid & 511;  // the thread's tile, its place in it
   const int q = tt & 31, r0 = (tt >> 5) * 8;
   const size_t e0 = ((size_t)blk * 2 + ti) * TILE_ELEMS + (size_t)r0 * 128 + 4 * q;
   uint16_t* sabt = sab + ti * TILE_ELEMS;
-  uint32_t* st = ti ? s1 : z;
+  uint32_t* st = ti ? s1 : z;  // the tile out, staged
 
   // 1. every read in flight at once
-#if K1_V5
-  // permA's two tiles by cp.async into z's buffer and tile 1's; idx1 rows
-  // w, w + 32, w + 64, w + 96 (lanes 4q .. 4q + 3) into registers
-  if (permA != nullptr) {
-    const int* pa = permA + (size_t)blk * 2 * TILE_ELEMS;
-    for (int i = tid; i < TILE_ELEMS / 2; i += K1_NT)
-      cp_async16(z + 4 * i, pa + 4 * i);
-  }
-  const int zq = tid & 31, w = tid >> 5;
-  int4 c4[4];
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-    c4[i] = __ldg(reinterpret_cast<const int4*>(
-                      idx1 + ((size_t)blk * 128 + w + 32 * i) * 128) + zq);
-#else
   const int* col = idx1 + (size_t)blk * TILE_ELEMS;
   for (int i = tid; i < TILE_ELEMS / 4; i += K1_NT)
     cp_async16(s1 + 4 * i, col + 4 * i);
-#endif
-  uint32_t lo[8], mc[8] = {};
-#if !K1_V5
+  uint32_t lo[8], mc[8] = {};  // byte j of word k: slot (r0 + k, 4q + j)
   if (permA != nullptr) {
 #pragma unroll
     for (int k = 0; k < 8; k++) {
       const int4 p = __ldg(reinterpret_cast<const int4*>(permA + e0 + k * 128));
+      // ab_store of four lanes: ab_col keeps the pairs (4q, 4q + 1) and
+      // (4q + 2, 4q + 3) adjacent, one 32-bit store each
       const int r = r0 + k, c0 = ab_col(r, 4 * q), c2 = ab_col(r, 4 * q + 2);
       uint32_t* row = reinterpret_cast<uint32_t*>(sabt + r * 128);
       row[c0 >> 1] = (uint32_t)(p.x & 0x3fff) | (uint32_t)(p.y & 0x3fff) << 16;
       row[c2 >> 1] = (uint32_t)(p.z & 0x3fff) | (uint32_t)(p.w & 0x3fff) << 16;
-      mc[k] = c_field(p.x) | c_field(p.y) << 8 | c_field(p.z) << 16 | c_field(p.w) << 24;
+      mc[k] = c_field(p.x) | c_field(p.y) << 8 | c_field(p.z) << 16 |
+              c_field(p.w) << 24;
     }
   }
-#endif
 #pragma unroll
   for (int k = 0; k < 8; k++) {
     const int4 a = __ldg(reinterpret_cast<const int4*>(locidx + e0 + k * 128));
@@ -306,71 +138,52 @@ __global__ void __launch_bounds__(K1_NT, 1) gather_mult_v4(
   }
   cp_async_wait_all();
   __syncthreads();
-#if K1_V5
-  if (permA != nullptr) {
-    const uint32_t* praw = ti ? s1 : z;
-#pragma unroll
-    for (int k = 0; k < 8; k++) {
-      const int4 p = *reinterpret_cast<const int4*>(praw + (r0 + k) * 128 + 4 * q);
-      const int r = r0 + k, c0 = ab_col(r, 4 * q), c2 = ab_col(r, 4 * q + 2);
-      uint32_t* row = reinterpret_cast<uint32_t*>(sabt + r * 128);
-      row[c0 >> 1] = (uint32_t)(p.x & 0x3fff) | (uint32_t)(p.y & 0x3fff) << 16;
-      row[c2 >> 1] = (uint32_t)(p.z & 0x3fff) | (uint32_t)(p.w & 0x3fff) << 16;
-      mc[k] = c_field(p.x) | c_field(p.y) << 8 | c_field(p.z) << 16 | c_field(p.w) << 24;
-    }
-    __syncthreads();  // z's buffer is free
-  }
-#endif
-  trace(1);
 
   // 2. z from idx1: thread (q, w) builds lanes 4q .. 4q + 3 of rows
   //    w, w + 32, w + 64, w + 96
   {
     const size_t wrow = (size_t)meta[blk * 3] * 128;
-#if !K1_V5
     const int zq = tid & 31, w = tid >> 5;
-#endif
 #pragma unroll
     for (int i = 0; i < 4; i++) {
       const int a = w + 32 * i;
-#if K1_V5
-      const int4 cv = c4[i];
-#else
       const int4 cv = reinterpret_cast<const int4*>(s1 + a * 128)[zq];
-#endif
       const size_t ub = (wrow + a) * 128;
       const int cc[4] = {cv.x, cv.y, cv.z, cv.w};
+      uint32_t okw = 0;  // the four lanes' validity bytes
 #pragma unroll
       for (int j = 0; j < 4; j++) {
-        z[a * 128 + j * 32 + zq] = __ldg(u2 + ub + cc[j]);
-        if (!full_u) zok[a * 128 + j * 32 + zq] = __ldg(u2ok + ub + cc[j]) != 0;
+        z[zpos(a, 4 * zq + j)] = __ldg(u2 + ub + cc[j]);
+        if (!full_u) okw |= (uint32_t)(__ldg(u2ok + ub + cc[j]) != 0) << (8 * j);
       }
+      if (!full_u) reinterpret_cast<uint32_t*>(zok)[a * 32 + zq] = okw;
     }
   }
   __syncthreads();
-  trace(2);
 
   // 3. each slot from the table
-  uint32_t val[32];
+  uint32_t val[32];  // slot k: row r0 + k / 4, lane 4q + k % 4
 #pragma unroll
   for (int k = 0; k < 8; k++) {
     const uint4 a = __ldg(reinterpret_cast<const uint4*>(avals + e0 + k * 128));
-    val[4 * k] = a.x; val[4 * k + 1] = a.y; val[4 * k + 2] = a.z; val[4 * k + 3] = a.w;
+    val[4 * k] = a.x;
+    val[4 * k + 1] = a.y;
+    val[4 * k + 2] = a.z;
+    val[4 * k + 3] = a.w;
   }
-  uint32_t okbits = 0;  // bit 4k + j: row r0 + k, lane 4q + j
+  uint32_t okbits = 0;  // bit k: slot k is valid
 #pragma unroll
   for (int k = 0; k < 32; k++) {
-    const uint32_t b = byte_at(lo, k);
-    const int arow = b & 127, zp = arow * 128 + (k & 3) * 32 + q;
-    const uint32_t g = z[zp];
+    const uint32_t b = (lo[k / 4] >> (8 * (k % 4))) & 255u;
+    const int arow = b & 127, l = 4 * q + k % 4;
+    const uint32_t g = z[zpos(arow, l)];
     uint32_t ok = b >> 7;
-    if (!full_u) ok &= zok[zp];
+    if (!full_u) ok &= zok[arow * 128 + l];
     const uint32_t x = mxv ? val[k] : g, y = mxv ? g : val[k];
     const uint32_t p = mul<OP>(code, x, y);
     val[k] = packed ? (ok ? p + 1u : 0u) : (ok ? p : ident);
     okbits |= ok << k;
   }
-  trace(3);
 
   // 4. out, through stage A
   if (permA == nullptr) {
@@ -379,20 +192,19 @@ __global__ void __launch_bounds__(K1_NT, 1) gather_mult_v4(
       *reinterpret_cast<uint4*>(out + e0 + k * 128) =
           make_uint4(val[4 * k], val[4 * k + 1], val[4 * k + 2], val[4 * k + 3]);
       if (okp != nullptr)
-        *reinterpret_cast<int4*>(okp + e0 + k * 128) =
-            make_int4((okbits >> (4 * k)) & 1, (okbits >> (4 * k + 1)) & 1,
-                      (okbits >> (4 * k + 2)) & 1, (okbits >> (4 * k + 3)) & 1);
+        *reinterpret_cast<uint4*>(okp + e0 + k * 128) =
+            make_uint4((okbits >> (4 * k)) & 1u, (okbits >> (4 * k + 1)) & 1u,
+                       (okbits >> (4 * k + 2)) & 1u, (okbits >> (4 * k + 3)) & 1u);
     }
     return;
   }
-  __syncthreads();  // every slot has read z
+  __syncthreads();  // every slot has read z, every thread idx1
 #pragma unroll
   for (int k = 0; k < 8; k++)
     *reinterpret_cast<uint4*>(st + (r0 + k) * 128 + 4 * q) =
         make_uint4(val[4 * k], val[4 * k + 1], val[4 * k + 2], val[4 * k + 3]);
   sok[tid] = okbits;
   __syncthreads();
-  trace(4);
   const uint32_t* sokt = sok + ti * 512;
 #pragma unroll
   for (int k = 0; k < 8; k++) {
@@ -401,17 +213,14 @@ __global__ void __launch_bounds__(K1_NT, 1) gather_mult_v4(
     for (int j = 0; j < 4; j++) {
       const int src = ab_src(sabt, r0 + k, (int)((mc[k] >> (8 * j)) & 127));
       o[j] = st[src];
-      const int rs = src >> 7, ls = src & 127;  // thread (ls / 4, rs / 8)
+      // slot (rs, ls) is bit (rs % 8) * 4 + ls % 4 of thread (ls / 4, rs / 8)
+      const int rs = src >> 7, ls = src & 127;
       h[j] = (sokt[(rs >> 3) * 32 + (ls >> 2)] >> ((rs & 7) * 4 + (ls & 3))) & 1u;
     }
     *reinterpret_cast<uint4*>(out + e0 + k * 128) = make_uint4(o[0], o[1], o[2], o[3]);
     if (okp != nullptr)
       *reinterpret_cast<uint4*>(okp + e0 + k * 128) = make_uint4(h[0], h[1], h[2], h[3]);
   }
-#ifdef K1_TRACE
-  __syncthreads();
-  trace(5);
-#endif
 }
 
 template <int OP>
@@ -420,23 +229,18 @@ static int launch(int nblocks, cudaStream_t st, const int* meta,
                   const int* locidx, const int* okg, const uint32_t* avals,
                   const int* permA, uint32_t* out, int* okp, int code,
                   int mxv, int packed, int full_u, uint32_t ident) {
-#if K1_V4
-  auto kern = gather_mult_v4<OP>;
-  const int smem = K1_SMEM4;
-#else
-  auto kern = gather_mult_kernel<OP>;
-  const int smem = K1_SMEM;
-#endif
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gather_mult_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K1_SMEM);
   if (err != cudaSuccess) return (int)err;
-  kern<<<nblocks, K1_NT, smem, st>>>(
+  gather_mult_kernel<OP><<<nblocks, K1_NT, K1_SMEM, st>>>(
       meta, u2, u2ok, idx1, locidx, okg, avals, permA, out, okp, code, mxv,
       packed, full_u, ident);
   return (int)cudaGetLastError();
 }
 
-// One launch.  ntiles = R_g / 128, two tiles a G block.
+// One launch.  ntiles = R_g / 128, two tiles a G block.  Every pointer but
+// meta, u2 and u2ok is 16-byte aligned.
 extern "C" int gather_mult(const void* meta, const void* u2, const void* u2ok,
                            const void* idx1, const void* locidx,
                            const void* okg, const void* avals,
@@ -450,7 +254,7 @@ extern "C" int gather_mult(const void* meta, const void* u2, const void* u2ok,
   cudaStream_t st = (cudaStream_t)stream;
   const int code = dt | op << 4;
 #define ARGS                                                                \
-  ntiles / 2, st, (const int*)meta, (const uint32_t*)u2, (const int*)u2ok,      \
+  ntiles / 2, st, (const int*)meta, (const uint32_t*)u2, (const int*)u2ok,  \
       (const int*)idx1, (const int*)locidx, (const int*)okg,                \
       (const uint32_t*)avals, (const int*)permA, (uint32_t*)out, (int*)okp, \
       code, mxv, packed, full_u, (uint32_t)ident_bits

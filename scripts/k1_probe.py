@@ -1,17 +1,16 @@
 #!/usr/bin/env python3
-"""K1 gather_mult at its two block shapes, and a parent tree's K1, on one card.
+"""K1 gather_mult of this tree beside a parent tree's, on one card.
 
-    python3 scripts/k1_probe.py [--parent DIR] [--out DIR]
+    python3 scripts/k1_probe.py --parent DIR [--out DIR]
 
-Run from the repository root.  Builds csrc/gather_mult.cu twice, with
--DK1_TPB=1 (one 512-thread block a 128-row tile) and -DK1_TPB=2 (one
-1024-thread block a 256-row G block), and DIR's csrc/gather_mult.cu where
---parent is given (same C entry point).  On the zipf and RMAT plans of
+Run from the repository root.  Builds this tree's csrc/gather_mult.cu and
+DIR's (the same C entry point).  On the zipf and RMAT plans of
 chip_smoke.py it runs the three main-path variants (PageRank: FP32 times,
 full u, permA; BFS: BOOL land, packed, sparse u; SSSP: FP32 plus with the
 okp output) through lanepipe.gather_mult with each library in turn, holds
 each bitwise against gather_mult_plain, and times each warm and after an
-L2 flush, in the order parent, tpb1, tpb2, tpb2, tpb1, parent.
+L2 flush, in the order parent, change, change, parent.  It also times a
+device copy of 100.7 MB, the card's practical memory rate.
 """
 
 import argparse
@@ -47,7 +46,7 @@ def build(K, src, tag, defs, outdir):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="root of the parent tree")
+    ap.add_argument("--parent", required=True, help="root of the parent tree")
     ap.add_argument("--out", default="chiprun_out/k1_probe")
     args = ap.parse_args()
     import torch
@@ -66,22 +65,11 @@ def main():
     cs.log(f"gpu: {gpu}")
     src = os.path.join(ROOT, "graphblas_tpu_torch", "csrc", "gather_mult.cu")
     libs, logs = {}, {}
-    shapes = {"v4": ["-DK1_V4=1"], "v5": ["-DK1_V4=1", "-DK1_V5=1"],
-              "v4_tr": ["-DK1_V4=1", "-DK1_TRACE"],
-              "v5_tr": ["-DK1_V4=1", "-DK1_V5=1", "-DK1_TRACE"]}
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(len(shapes)) as ex:
-        futs = {t: ex.submit(build, K, src, t, d, bdir) for t, d in shapes.items()}
-        for t, f in futs.items():
-            libs[t], logs[t] = f.result()
-    timed = [t for t in shapes if not t.endswith("_tr")]
-    traced = [t for t in shapes if t.endswith("_tr")]
-    order = timed + timed[::-1]
-    if args.parent:
-        psrc = os.path.join(args.parent, "graphblas_tpu_torch", "csrc",
-                            "gather_mult.cu")
-        libs["parent"], logs["parent"] = build(K, psrc, "parent", [], bdir)
-        order = ["parent"] + order + ["parent"]
+    libs["change"], logs["change"] = build(K, src, "change", [], bdir)
+    psrc = os.path.join(args.parent, "graphblas_tpu_torch", "csrc",
+                        "gather_mult.cu")
+    libs["parent"], logs["parent"] = build(K, psrc, "parent", [], bdir)
+    order = ["parent", "change", "change", "parent"]
     with open(os.path.join(args.out, "ptxas.txt"), "w") as f:
         for tag, text in logs.items():
             f.write(f"==== {tag}\n{text}\n")
@@ -159,31 +147,6 @@ def main():
                     cs.log(f"  {gname} {vname:8s} {tag:6s}: warm {warm:.4f} ms, "
                            f"cold {cold:.4f} ms (bound {b_ms:.4f} ms, "
                            f"{nbytes / 1e6:.1f} MB), bitwise equal")
-                for tag in traced:
-                    K._libs["gather_mult"] = libs[tag]
-                    fn()
-                    torch.cuda.synchronize()
-                    buf = (ctypes.c_ulonglong * (1024 * 8))()
-                    if libs[tag].k1_trace_read(buf) != 0:
-                        cs.fail("k1_trace_read")
-                    t = np.frombuffer(buf, np.uint64).reshape(1024, 8)[:nb, :6]
-                    t = (t - t[:, 0].min()).astype(np.float64) / 1e3  # us
-                    ph = np.diff(t, axis=1)
-                    stat = {"start_max_us": float(t[:, 0].max()),
-                            "end_max_us": float(t[:, 5].max()),
-                            "phase_median_us": np.median(ph, 0).tolist(),
-                            "phase_max_us": ph.max(0).tolist(),
-                            "phase_end_median_us": np.median(t[:, 1:], 0).tolist()}
-                    row[tag] = stat
-                    cs.log(f"  {gname} {vname:8s} {tag}: starts within "
-                           f"{stat['start_max_us']:.2f} us, last end "
-                           f"{stat['end_max_us']:.2f} us; phases load/build/"
-                           f"slots/stage/out median "
-                           + " ".join(f"{x:.2f}" for x in stat["phase_median_us"])
-                           + " us, max "
-                           + " ".join(f"{x:.2f}" for x in stat["phase_max_us"])
-                           + "; median phase ends "
-                           + " ".join(f"{x:.2f}" for x in stat["phase_end_median_us"]))
                 results["rows"].append(row)
             del M, e, dv
     with open(os.path.join(args.out, "k1_probe.json"), "w") as f:
