@@ -331,8 +331,9 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
         fail("RMAT plan exceeds PACK_LIMIT")
     del R
     variants = {}
-    prods, err, k1_ms, k1_pms, k1_bytes = k1_checks(
+    (err, k1_ms, k1_pms, k1_bytes), k1_out = k1_checks(
         gb, torch, {"zipf": (e, eb), "rmat": (er, None)}, rng, variants)
+    prods, codes = k1_out["pagerank"], k1_out["bfs"]
     add("gather_mult", "graphblas_tpu_torch/csrc/gather_mult.cu",
         "graphblas_tpu/core/engine/lanepipe.py:363", err, k1_ms, k1_pms,
         k1_bytes, nops=R_g * 128)
@@ -517,7 +518,8 @@ def k1_checks(gb, torch, plans, rng, variants):
     zipf variant bitwise equal to the first; the logical multiplies in a
     type of their own.  plans: name -> (FP32 plan, BOOL twin's plan or
     None: the FP32 plan with avals != 0).  Returns the zipf PageRank
-    variant's output, error, ms, plain ms and bytes for the kernels line."""
+    variant's error, ms, plain ms and bytes for the kernels line, and the
+    zipf variants' outputs by name."""
     from graphblas_tpu_torch.core.dtypes import BOOL, FP32, INT32
     from graphblas_tpu_torch.core.engine import kernels as K
     from graphblas_tpu_torch.core.engine import lanepipe as lp
@@ -526,7 +528,7 @@ def k1_checks(gb, torch, plans, rng, variants):
         return torch.cat([v2.reshape(-1).view(torch.int32)]
                          + ([] if ok2 is None else [ok2.reshape(-1)]))
 
-    row = None
+    row, outs = None, {}
     for pname, (e, eb) in plans.items():
         d = e["dev"]
         dev = d["meta"].device
@@ -579,8 +581,10 @@ def k1_checks(gb, torch, plans, rng, variants):
             log(f"  gather_mult {pname} {vname}: kernel {ms:.4f} ms, after an L2 "
                 f"flush {cold:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({nbytes / 1e6:.1f} MB)")
-            if pname == "zipf" and vname == "pagerank":
-                row = (got[0], err, ms, pms, nbytes)
+            if pname == "zipf":
+                outs[vname] = got[0]
+                if vname == "pagerank":
+                    row = (err, ms, pms, nbytes)
         if pname != "zipf":
             continue
         log("  K1 zipf variants: one launch a call, 200 launches bitwise equal: ok")
@@ -611,7 +615,7 @@ def k1_checks(gb, torch, plans, rng, variants):
                 compare(f"K1 gather_mult {ring_l.name}[{dt.name}], okp", gh, ph)
             if not bool((pv != 0).any() & (pv == 0).any()):
                 fail(f"K1 {ring_l.name}: the check saw one truth value only")
-    return row
+    return row, outs
 
 
 def k4_checks(gb, torch, dev, rng, k4, er):
@@ -764,6 +768,7 @@ def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
         f"{plan_bytes / 1e6:.1f} MB on the card")
     variants["sortpipe_plan"] = {"L": L, "bytes": plan_bytes}
     src_m, barrier_m, src_back, barrier_i, _, vals_m, ok_m = sp.plan_dyn_tuple(se)
+    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
     zpad = torch.zeros(L - n, dtype=torch.float32, device=dev)
     uok9 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
     m_v, m_h = sp.sort_apply(src_m, [torch.cat([u, zpad]),

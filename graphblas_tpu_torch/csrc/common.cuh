@@ -44,24 +44,17 @@
 #define MO_BAND 6
 #define MO_BOR 7
 
-// Source offset, within one tile, of output element (r, l) of the packed
-// three-phase tile permutation p (A = bits 0-6, B = 7-13, C = 14-20):
+// The tile-permutation closed form: output element (r, l) of the packed
+// three-phase tile permutation p (A = bits 0-6, B = 7-13, C = 14-20) is
 //   out[r, l] = x[B[m, r], A[B[m, r], m]],  m = C[r, l]
 // which is the lane gather / transpose / lane gather / transpose / lane
 // gather of graphblas_tpu/core/engine/permute.py:_tile_perm_body written as
-// one index.  p may live in shared or global memory.
-__device__ __forceinline__ int tile_perm_src(const int* p, int r, int l) {
-  int m = (p[r * 128 + l] >> 14) & 127;
-  int b = (p[m * 128 + r] >> 7) & 127;
-  int a = p[b * 128 + m] & 127;
-  return b * 128 + a;
-}
-
-// The same index on a swizzled 16-bit copy of the tile in shared memory:
-// ab_store keeps the A and B fields of word p at (r, c) in column
-// c ^ ((r & 31) << 1), so the lookup B[m, r] across a warp's 32 values of
-// m reads 32 distinct banks when the m are distinct mod 32 (a row-major
-// copy puts them all on one bank).  The caller keeps m = C[r, l] itself.
+// one index.  ab_src computes it on a swizzled 16-bit copy of the tile in
+// shared memory: ab_store keeps the A and B fields of word p at (r, c) in
+// column c ^ ((r & 31) << 1), so the lookup B[m, r] across a warp's 32
+// values of m reads 32 distinct banks when the m are distinct mod 32 (a
+// row-major copy puts them all on one bank).  The caller keeps m = C[r, l]
+// itself.
 __device__ __forceinline__ int ab_col(int r, int c) {
   return c ^ ((r & 31) << 1);
 }
@@ -243,9 +236,3 @@ static cudaError_t device_attr(int* value) {
   return cudaSuccess;
 }
 
-// Coalesced copy of one tile from global memory to shared memory.
-__device__ __forceinline__ void load_tile(int* dst, const int* src) {
-  const int4* s4 = reinterpret_cast<const int4*>(src);
-  int4* d4 = reinterpret_cast<int4*>(dst);
-  for (int i = threadIdx.x; i < TILE_ELEMS / 4; i += blockDim.x) d4[i] = s4[i];
-}

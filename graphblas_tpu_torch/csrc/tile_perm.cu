@@ -3,8 +3,9 @@
 // Replaces graphblas_tpu/core/engine/permute.py:_tile_perm_pallas (body
 // _tile_perm_body), stages A and C of every Clos permutation.  The Pallas
 // kernel composes three lane gathers and two transposes because a TPU has
-// no sublane gather; here the composition is one closed-form index, that
-// of tile_perm_src in common.cuh, on a swizzled copy of the index tile.
+// no sublane gather; here the composition is one closed-form index (the
+// tile-permutation closed form of common.cuh), on a swizzled copy of the
+// index tile.
 //
 // Bound: bytes.  Each element is read once and written once, plus one read
 // of the packed index: 4 * (1 + 2 * nch) bytes per element.
@@ -20,8 +21,8 @@
 // Here:
 //   1. each channel's tile goes to its own buffer by cp.async, and the
 //      index tile, loaded 16 bytes a thread four at a time, is stored with
-//      word c of row r at column c ^ (r & 31): every lookup of
-//      tile_perm_src then reads a warp's words from distinct banks, up to
+//      word c of row r at column c ^ (r & 31): every lookup of the closed
+//      form then reads a warp's words from distinct banks, up to
 //      collisions of the data;
 //   2. each thread resolves the sources of its outputs while the channel
 //      tiles are still in flight, then, after one wait, moves them for
