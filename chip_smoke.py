@@ -26,7 +26,11 @@ engine) from the sources, then:
    (plus_land, min_lor); K4 (one
    launch a call) also with FP32 min, on the RMAT plan, over every
    (monoid, 32-bit type, packed) triple, on a lane whose run crosses 128
-   tiles, 200 launches bitwise equal, and timed after an L2 flush;
+   tiles, 200 launches bitwise equal, and timed after an L2 flush; K5
+   (one launch a call) at the main path's FP32 min with validity, FP32
+   and INT32 plus, with ok 0/1 and in [-1000, 1000], with and without a
+   barrier in row 0, 200 launches of FP32 min and plus bitwise equal,
+   timed warm and after an L2 flush with validity and values only;
 2. PageRank (bench.py's pr_body, 20 iterations of ss.iterate) on the zipf
    graph, checked against a float64 scipy power iteration;
 3. level BFS (bench.py's bfs_body with the lor-reduce cond) on the BOOL
@@ -315,6 +319,7 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)"
             + ("" if library_ms is None else f", torch.take {library_ms:.4f} ms"))
+        return rows[name]
 
     mono = gb.semiring.plus_times["FP32"].monoid
     ringb = gb.semiring.lor_land["BOOL"]
@@ -705,6 +710,7 @@ def k4_checks(gb, torch, dev, rng, k4, er):
 
 def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
     """K5 and K6 against their plain versions."""
+    from graphblas_tpu_torch.core.engine import kernels as K
     from graphblas_tpu_torch.core.engine import lanepipe as lp
     from graphblas_tpu_torch.core.engine import sortpipe as sp
 
@@ -712,34 +718,32 @@ def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
     n, R_scan = e["n_in"], e["R_scan"]
     mono = gb.monoid.plus["FP32"]
 
-    def timed(name, kfn, pfn, nbytes):
-        """A variant that has no row of its own in the kernels line."""
-        ms, pms = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
-        b_ms, _ = bound(nbytes)
-        variants[name] = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-                          "bytes": nbytes}
-        log(f"  {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
-
-    # ---- K5 lane_segscan on the S layout of the zipf plan
+    # ---- K5 lane_segscan on the S layout of the zipf plan: the main
+    # path's combine (FP32 min with validity, SSSP's sparse-vector branch)
+    # beside FP32 and INT32 plus; ok in [-1000, 1000] as well as the 0/1
+    # the main path makes
     barrier, oks = d["barrier"], d["oks"]
     shape = (R_scan, 128)
     vf = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
     vi = torch.from_numpy(rng.integers(-1000, 1000, shape).astype(np.int32)).to(dev)
     hh = (torch.from_numpy(rng.random(shape) < 0.5).to(dev) & (oks != 0)).to(torch.int32)
+    hw = torch.from_numpy(rng.integers(-1000, 1001, shape).astype(np.int32)).to(dev)
     bar0 = barrier.clone()
     bar0[0] = 0  # row 0 starts a run whether or not its barrier is set
     err5 = None
+    per_call = set()
     for label, mono_k, vals, rel in (
-            ("FP32 plus", gb.monoid.plus["FP32"], vf, 1e-5),
             ("FP32 min", gb.monoid.min["FP32"], vf, None),
+            ("FP32 plus", gb.monoid.plus["FP32"], vf, 1e-5),
             ("INT32 plus", gb.monoid.plus["INT32"], vi, None)):
         cmb = lp.combines(mono_k)[0]
         for bar, btag in ((barrier, ""), (bar0, ", no barrier in row 0")):
-            for ok in (hh, None):
-                tag = f"K5 lane_segscan {label}" + \
-                    (" + validity" if ok is not None else "") + btag
+            for ok, otag in ((hh, " + validity"), (hw, " + ok in [-1000, 1000]"),
+                             (None, "")):
+                tag = f"K5 lane_segscan {label}{otag}{btag}"
+                before = K.launches["lane_segscan"]
                 gv, gh = lp.lane_segscan(bar, vals, ok, cmb)
+                per_call.add(K.launches["lane_segscan"] - before)
                 pv, ph = lp.lane_segscan_plain(bar, vals, ok, cmb)
                 err = compare(tag, gv, pv, rel=rel)
                 if ok is not None:
@@ -748,15 +752,47 @@ def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
                     fail(f"{tag}: a validity channel came back")
                 if err5 is None:
                     err5 = err
-    cmb = lp.combines(mono)[0]
-    k5 = lambda: lp.lane_segscan(barrier, vf, hh, cmb)  # noqa: E731
-    p5 = lambda: lp.lane_segscan_plain(barrier, vf, hh, cmb)  # noqa: E731
-    add("lane_segscan", "graphblas_tpu_torch/csrc/lane_segscan.cu",
-        "graphblas_tpu/core/engine/lanepipe.py:476", err5, cuda_ms(torch, k5),
-        cuda_ms(torch, p5), 4 * 5 * R_scan * 128, nops=2 * R_scan * 128)
-    k5v = lambda: lp.lane_segscan(barrier, vf, None, cmb)  # noqa: E731
-    p5v = lambda: lp.lane_segscan_plain(barrier, vf, None, cmb)  # noqa: E731
-    timed("lane_segscan_values_only", k5v, p5v, 4 * 3 * R_scan * 128)
+    if per_call != {1}:
+        fail(f"K5: launches a call {sorted(per_call)}, not one")
+    cmin = lp.combines(gb.monoid.min["FP32"])[0]
+    cplus = lp.combines(mono)[0]
+    # the race check on the main path's scan, and on FP32 plus, whose bits
+    # depend on the fold order
+    for label, cmb in (("FP32 min", cmin), ("FP32 plus", cplus)):
+        fv, fh = lp.lane_segscan(barrier, vf, hh, cmb)
+        fv = fv.view(torch.int32).clone()
+        for r in range(200):
+            gv, gh = lp.lane_segscan(barrier, vf, hh, cmb)
+            if not (bool(torch.equal(gv.view(torch.int32), fv))
+                    and bool(torch.equal(gh, fh))):
+                fail(f"K5 race check {label}: launch {r + 1} of 200 differs "
+                     f"from the first")
+    log("  K5: one launch a call, 200 launches of FP32 min and plus with "
+        "validity bitwise equal: ok")
+    k5 = lambda: lp.lane_segscan(barrier, vf, hh, cmin)  # noqa: E731
+    p5 = lambda: lp.lane_segscan_plain(barrier, vf, hh, cmin)  # noqa: E731
+    k5_bytes, k5v_bytes = 4 * 5 * R_scan * 128, 4 * 3 * R_scan * 128
+    row = add("lane_segscan", "graphblas_tpu_torch/csrc/lane_segscan.cu",
+              "graphblas_tpu/core/engine/lanepipe.py:476", err5,
+              cuda_ms(torch, k5), cuda_ms(torch, p5), k5_bytes,
+              nops=2 * R_scan * 128)
+    row["launches_per_call"] = per_call.pop()
+    for tag, cmb, ok, nbytes in (
+            ("FP32 min + validity", cmin, hh, k5_bytes),
+            ("FP32 plus + validity", cplus, hh, k5_bytes),
+            ("FP32 min values only", cmin, None, k5v_bytes),
+            ("FP32 plus values only", cplus, None, k5v_bytes)):
+        kfn = lambda: lp.lane_segscan(barrier, vf, ok, cmb)  # noqa: E731
+        pfn = lambda: lp.lane_segscan_plain(barrier, vf, ok, cmb)  # noqa: E731
+        ms, cold, pms = (cuda_ms(torch, kfn), cuda_ms(torch, kfn, cold=True),
+                         cuda_ms(torch, pfn))
+        b_ms, _ = bound(nbytes)
+        variants[f"lane_segscan {tag}"] = {
+            "ms": ms, "cold_ms": cold, "plain_ms": pms, "bound_ms": b_ms,
+            "bytes": nbytes}
+        log(f"  lane_segscan {tag}: kernel {ms:.4f} ms, after an L2 flush "
+            f"{cold:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
 
     # ---- K6 segscan on the zipf matrix's sort-pipeline plan (vxm side)
     t0 = time.perf_counter()
@@ -1346,7 +1382,7 @@ def sssp_phase(gb, torch, K, src, dst, w, n, A, results, totals):
     got = check_launches(K, "sssp", totals,
                          need=("gather_mult", "mid_perm", "tile_perm",
                                "lane_segscan"))
-    slow = got["lane_segscan"] // 2  # two launches a call
+    slow = got["lane_segscan"]  # one launch a call
     fast = got["fused_permC_scan_permA"]  # one launch a call
     iters = slow + fast
     secs = float(np.median(runs))

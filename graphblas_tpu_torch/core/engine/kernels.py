@@ -29,10 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset, keyed by the kernel's name
-# (fused_permC_scan_permA one per call: its kernel, not the memset of its
-# scratch before it; lane_segscan both launches of its source, summary and
-# final; segscan one per group of channels; tropical_matmul counts both
-# entry points of tropical.cu)
+# (fused_permC_scan_permA and lane_segscan one per call: the kernel, not
+# the memset of its scratch before it; segscan one per group of channels;
+# tropical_matmul counts both entry points of tropical.cu)
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
@@ -52,7 +51,8 @@ _ARGTYPES = {
     "mid_perm_channels": [_I, _I, _I],
     "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
     "fused_scan": [_P] * 6 + [_I] * 4 + [_P],
-    "lane_segscan": [_P] * 8 + [_I] * 4 + [_P],
+    "lane_segscan": [_P] * 6 + [_I] * 4 + [_P],
+    "lane_segscan_scratch": [_I, _I],
     "segscan": [_P] * 4 + [_I, _P, _I, _P],
     "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
@@ -60,7 +60,8 @@ _ARGTYPES = {
 # C entry points of a source, where they are not the one named after it
 _ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked"),
                  "tile_perm": ("tile_perm", "tile_perm_channels"),
-                 "mid_perm": ("mid_perm_tiles", "mid_perm_channels")}
+                 "mid_perm": ("mid_perm_tiles", "mid_perm_channels"),
+                 "lane_segscan": ("lane_segscan", "lane_segscan_scratch")}
 
 _libs = {}
 _lock = threading.Lock()

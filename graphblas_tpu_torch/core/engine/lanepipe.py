@@ -432,12 +432,14 @@ def lane_segscan_plain(barrier, vals, ok, combine):
 
 def lane_segscan(barrier, vals, ok, combine):
     """Per-lane segmented scan down the rows (kernel K5): vals by the
-    combine, and a validity channel ok (int32) by max.  Returns
+    combine, and a validity channel ok (any int32) by max.  Returns
     (scanned_vals, scanned_ok), or (scanned_vals, None) with ok=None.
 
     All arrays (R,128), R a multiple of 128; runs restart where barrier is
-    set, and row 0 starts one either way.  On CUDA this is two launches
-    (tile summaries, then the carried scan); see csrc/lane_segscan.cu."""
+    set, and row 0 starts one either way.  On CUDA this is one kernel
+    launch, a single pass whose carry comes from a look-back per lane,
+    after one memset that clears its scratch; the arrays must be 16-byte
+    aligned.  See csrc/lane_segscan.cu."""
     if vals.device.type == "cpu":
         return lane_segscan_plain(barrier, vals, ok, combine)
     if combine.monoid not in K.MONOID_OP:
@@ -451,22 +453,22 @@ def lane_segscan(barrier, vals, ok, combine):
         raise ValueError("lane_segscan: arrays must be (R,128), R % 128 == 0")
     if ok is not None and ok.dtype != torch.int32:
         raise TypeError("lane_segscan: ok must be int32")
-    ntiles = R // 128
-    nch = 1 if ok is None else 2
-    scratch = torch.empty((nch + 1, ntiles * 128), dtype=torch.int32,
-                          device=v.device)
+    # the kernel moves 16 bytes a thread
+    pm._require_aligned("lane_segscan", tensors)
+    lib = K.lib("lane_segscan")
+    # per tile, channel and lane a 64-bit published word, then the counter
+    scratch = torch.empty(lib.lane_segscan_scratch(R, 1 if ok is None else 2),
+                          dtype=torch.uint8, device=v.device)
     out = torch.empty_like(v)
     outh = None if ok is None else torch.empty_like(ok)
-    rc = K.lib("lane_segscan").lane_segscan(
+    rc = lib.lane_segscan(
         barrier.data_ptr(), v.data_ptr(),
-        None if ok is None else ok.data_ptr(), scratch[0].data_ptr(),
-        None if ok is None else scratch[1].data_ptr(),
-        scratch[nch].data_ptr(), out.data_ptr(),
-        None if ok is None else outh.data_ptr(), ntiles,
+        None if ok is None else ok.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), None if ok is None else outh.data_ptr(), R,
         K.DT[sp.kernel_dtype(combine.dt)], K.MONOID_OP[combine.monoid],
         int(combine.packed), K.stream_ptr(v))
     K.check("lane_segscan", rc)
-    K.launches["lane_segscan"] += 2
+    K.launches["lane_segscan"] += 1
     return out.view(vals.dtype), outh
 
 

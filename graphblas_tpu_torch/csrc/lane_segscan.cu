@@ -1,207 +1,377 @@
 // K5: per-lane segmented monoid scan down the rows, with an optional
-// validity channel.
+// validity channel; one kernel launch (after one memset of its scratch), a
+// single pass.
 //
 // Replaces graphblas_tpu/core/engine/lanepipe.py:lane_segscan.  All arrays
 // are (R,128), R a multiple of 128.  Every lane (column) is scanned down
 // the rows with the monoid, restarting where `barrier` is set; row 0 of a
 // lane starts a run whether or not its barrier is set.  With `ok` given, a
-// second int32 channel is scanned over the same runs with max.  The values
-// may be anything: the sparse-vector branch masks them to the identity
-// before the scan, but the kernel does not rely on it.
-//
-// The carry.  The Pallas kernel carries each lane's running fold through a
-// sequential grid; Hopper runs blocks in no fixed order.  Here the carry
-// takes two launches over (128,128) tiles (fused_scan.cu, K4, takes it by
-// a look-back in one):
-//   1. lane_summary: per tile and lane, the fold of the tile's rows from
-//      its last barrier (or from its row 0) for each channel, and whether
-//      the lane has a barrier in the tile;
-//   2. lane_final: per tile and lane, the carry-in is found by walking back
-//      over earlier tiles' summaries to the nearest one with a barrier (in
-//      the lanepipe's S layout a run is at most SPLIT_DEG + 1 rows, so the
-//      walk is at most 17 tiles), then the tile is scanned with it.
-// Each launch reads only what the previous one wrote.
-//
-// Within a tile the 1024 threads split each lane into 8 chunks of 16 rows:
-// a thread scans its chunk in registers (a warp reads 32 neighbouring
-// lanes of one row: coalesced), the 8 chunk folds of a lane meet in shared
-// memory, and a thread picks up the fold of the chunks above it back to
-// the nearest barrier.  The fold order differs from the Pallas kernel's
-// roll tree: FP32 plus/times agree to rounding, everything else exactly.
+// second int32 channel is scanned over the same runs with max, for any
+// int32 values.  The values may be anything: the sparse-vector branch
+// masks them to the identity before the scan, but the kernel does not rely
+// on it.
 //
 // Bound: bytes.  The function reads barrier, values (and ok) once and
-// writes values (and ok) once: 5 words per slot with the validity channel,
-// 3 without.  The two launches read the inputs twice: 8 (5) words moved.
+// writes values (and ok) once: 5 words a slot with the validity channel, 3
+// without; at the zipf plan's R = 33,792, 86.5 MB (0.0258 ms at 3.35 TB/s)
+// and 51.9 MB (0.0155 ms).
+//
+// The design.  A block scans one tile of LS_ROWS rows and all 128 lanes.
+// Nothing is permuted, so no tile goes into shared memory: the data stay
+// in registers from their load to their store, and shared memory holds
+// only the chunk folds and the look-back buffer.  Warp c of the block owns
+// chunk c, rows LS_RPT c .. LS_RPT c + LS_RPT - 1 of the tile; its thread
+// g owns lanes 4g .. 4g + 3, so every global access is 16 bytes a thread
+// and one 512-byte row a warp (K1's layout).
+//   1. Thread 0 claims the next tile from an atomic counter, so a block
+//      only ever waits on tiles that running blocks have claimed.
+//   2. Every input is read once, all of a thread's loads in flight
+//      together; the barrier becomes a mask of LS_RPT bits a lane.
+//   3. A thread scans its chunk in registers, 4 lanes by LS_RPT rows on
+//      each channel.  The chunk folds meet in shared memory, where a
+//      segmented Hillis-Steele scan over the block's chunks (log2 of their
+//      number steps, every thread busy) gives each chunk the fold of the
+//      chunks above it back to the nearest barrier, and the tile's
+//      aggregate per lane.
+//   4. The carry, by a look-back per lane and per channel (as K4's,
+//      csrc/fused_scan.cu): per tile, channel and lane one 64-bit word
+//      holds a value and its status, stored and loaded whole, so no fence
+//      orders them.  Thread (channel, lane) publishes the lane's aggregate,
+//      as the inclusive prefix where the lane holds a barrier in the tile
+//      or the tile is tile 0; a lane whose row 0 has no barrier walks back,
+//      8 words loaded at a time, to the nearest published prefix and folds
+//      it and the aggregates after it one at a time from the oldest: the
+//      chain prefix(t) = prefix(t - 1) + aggregate(t) in its own order, so
+//      FP32 sums come out the same bits on every run.  It then publishes
+//      the lane's prefix where the lane had none.  A lane reads at most
+//      LS_WINDOW words; past that it waits for the prefix of the tile at
+//      the window's edge, so any barrier pattern is taken (the lanepipe's
+//      runs are at most SPLIT_DEG + 1 = 2049 rows).  The validity channel
+//      has its own words: its values are any int32, so it cannot ride in
+//      the status half of the value's word.  A spin that outlasts a
+//      claimed tile's publication by orders of magnitude traps.
+//   5. The carry is combined into the rows before each chunk's first
+//      barrier, and each output is written once.
+// The entry point clears the words and the counter with one memset before
+// the launch, so a call puts two operations on the stream.
+//
+// The combines are template arguments for FP32 min (SSSP's sparse-vector
+// branch, the main path) and FP32 plus; every other (type, monoid, packed)
+// triple goes through one out-of-line combine, which keeps the build to
+// seconds.  The validity channel's max is inline.
+//
+// What limits it: a tile's values stay in registers from load to store,
+// 2 words a slot with validity, so the 264 tiles of the zipf plan take
+// about two tiles an SM in turn, and a block's loads, look-back and stores
+// run in series; other blocks on the SM overlap them only as far as the
+// registers leave room.
+//
+// The fold order differs from the Pallas kernel's roll tree: FP32 plus and
+// times agree to rounding, everything else exactly.
 #include "common.cuh"
 
-#define CH_ROWS 16               // rows per thread
-#define NCH (128 / CH_ROWS)      // chunks per lane and tile
+#ifndef LS_ROWS
+#define LS_ROWS 128  // rows of a tile: one block, one look-back word a lane
+#endif
+#ifndef LS_RPT
+#define LS_RPT 8     // rows a thread scans, 4 lanes each
+#endif
+#ifndef LS_MINB
+#define LS_MINB 1    // blocks an SM the registers are sized for
+#endif
+#define LS_C (LS_ROWS / LS_RPT)  // chunks of a tile: the warps of a block
+#define LS_NT (32 * LS_C)        // threads of a block
+#define LS_BATCH 8               // predecessor words loaded at a time
+#define LS_WINDOW 32             // words a lane reads before it waits
 
-__device__ __forceinline__ uint32_t imax_bits(uint32_t x, uint32_t y) {
-  return (int)x > (int)y ? x : y;
+static_assert(128 % LS_ROWS == 0 && LS_ROWS % LS_RPT == 0, "tile shape");
+static_assert(LS_RPT <= 32 && LS_NT <= 1024 && LS_NT >= 256, "block shape");
+
+enum { ST_AGG = 1, ST_PRE = 2 };  // status of a published word; 0: none yet
+
+// The combine of a launch, known when the kernel is compiled, or read at
+// run time (LS_DYN); LS_MAX_I is the validity channel's signed max.
+enum LsOp { LS_ADD_F, LS_MIN_F, LS_MAX_I, LS_DYN };
+
+// code = dt | mo << 4 | packed << 8.  Not inlined: one shared body keeps
+// the build short (see ROADMAP, traps).
+__device__ __noinline__ uint32_t comb_dyn(int code, uint32_t x, uint32_t y) {
+  const int mo = (code >> 4) & 15;
+  const bool packed = (code >> 8) & 1;
+  switch (code & 15) {
+    case DT_F32: return combine_any<DT_F32>(mo, packed, x, y);
+    case DT_I32: return combine_any<DT_I32>(mo, packed, x, y);
+    case DT_U32: return combine_any<DT_U32>(mo, packed, x, y);
+    default: return combine_any<DT_BOOL>(mo, packed, x, y);
+  }
 }
 
-template <int DT, bool WITH_H>
-__global__ void __launch_bounds__(NT) lane_summary_kernel(
-    const int* __restrict__ barrier, const uint32_t* __restrict__ vals,
-    const uint32_t* __restrict__ ok, uint32_t* __restrict__ last,
-    uint32_t* __restrict__ lasth, int* __restrict__ hasbar, int mo,
-    int packed) {
-  __shared__ uint32_t sv[NCH][128];
-  __shared__ uint32_t sh[NCH][128];
-  __shared__ int sf[NCH][128];
-  const int l = threadIdx.x & 127;
-  const int c = threadIdx.x >> 7;
-  const size_t base = (size_t)blockIdx.x * TILE_ELEMS + (size_t)c * CH_ROWS * 128 + l;
-  uint32_t acc = 0, hacc = 0;
-  int any = 0;
+// combine(left, right)
+template <int OP>
+__device__ __forceinline__ uint32_t comb(int code, uint32_t x, uint32_t y) {
+  if constexpr (OP == LS_ADD_F) return f_bits(as_f(x) + as_f(y));
+  else if constexpr (OP == LS_MIN_F) return f_bits(fmin_nan(as_f(x), as_f(y)));
+  else if constexpr (OP == LS_MAX_I) return (int)x > (int)y ? x : y;
+  else return comb_dyn(code, x, y);
+}
+
+// Lane j of a thread's four (j known when the loops are unrolled).
+__device__ __forceinline__ uint32_t& at(uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// Inclusive prefix of tile - 1 for one lane and channel: the nearest
+// predecessor's published prefix, then the aggregates after it, folded from
+// the oldest.  w: the tile's own word; a predecessor's lies `stride` words
+// back per tile.  lb: this thread's column of the look-back buffer (stride
+// lbs).
+template <int OP>
+__device__ __forceinline__ uint32_t look_back(int code,
+                                              const unsigned long long* w,
+                                              size_t stride, int tile,
+                                              uint32_t* lb, int lbs) {
+  int d = 0;  // predecessors read
+  bool found = false;
+  while (!found) {
+    unsigned long long x[LS_BATCH];
 #pragma unroll
-  for (int k = 0; k < CH_ROWS; k++) {
-    const size_t s = base + (size_t)k * 128;
-    const bool b = barrier[s] != 0;
-    const uint32_t x = vals[s];
-    acc = (k == 0 || b) ? x : combine_any<DT>(mo, packed, acc, x);
-    if (WITH_H) {
-      const uint32_t h = ok[s];
-      hacc = (k == 0 || b) ? h : imax_bits(hacc, h);
+    for (int i = 0; i < LS_BATCH; i++)
+      x[i] = tile - 1 - d - i >= 0 && d + i < LS_WINDOW
+                 ? ld_word(w - (size_t)(d + i + 1) * stride) : 0ull;
+#pragma unroll
+    for (int i = 0; i < LS_BATCH; i++) {
+      if (found) break;
+      const unsigned long long* p = w - (size_t)(d + 1) * stride;
+      // at the window's edge only a prefix will do
+      const unsigned need = d == LS_WINDOW - 1 ? ST_PRE : ST_AGG;
+      unsigned long long y = x[i];
+      for (int spins = 0; (unsigned)(y & 3) < need; spins++) {
+        if (spins == 1 << 26) __trap();  // fail, never hang
+        y = ld_word(p);
+      }
+      lb[d * lbs] = (uint32_t)(y >> 32);
+      found = (y & 3) == ST_PRE;
+      d++;
     }
-    any |= b;
   }
-  sv[c][l] = acc;
-  if (WITH_H) sh[c][l] = hacc;
-  sf[c][l] = any;
+  uint32_t run = lb[(d - 1) * lbs];
+  for (int j = d - 2; j >= 0; j--) run = comb<OP>(code, run, lb[j * lbs]);
+  return run;
+}
+
+template <int OP, bool WITH_H>
+__global__ void __launch_bounds__(LS_NT, LS_MINB) lane_segscan_kernel(
+    const uint4* __restrict__ barrier, const uint4* __restrict__ vals,
+    const uint4* __restrict__ ok, uint4* __restrict__ out,
+    uint4* __restrict__ outh, unsigned* counter, unsigned long long* words,
+    int code) {
+  constexpr int NCH = WITH_H ? 2 : 1;
+  constexpr int NLB = 128 * NCH;  // look-back threads: one a lane and channel
+  constexpr int SCAN_WORDS = LS_C * 128 * NCH + LS_C * 32;
+  constexpr int LB_WORDS = LS_WINDOW * NLB;
+  // the chunk folds, then (once they are read) the look-back buffer
+  __shared__ __align__(16) uint32_t sm[SCAN_WORDS > LB_WORDS ? SCAN_WORDS
+                                                              : LB_WORDS];
+  uint4* sv = reinterpret_cast<uint4*>(sm);  // [chunk][lane group] values
+  uint4* sh = sv + LS_C * 32;                // ok
+  uint32_t* sf = sm + LS_C * 128 * NCH;      // barrier bits, lane 4g + j: bit j
+  __shared__ uint32_t s_carry[NLB];
+  __shared__ uint32_t s_r0[32];  // row 0 of the tile holds a barrier, per lane
+  __shared__ int s_tile;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_tile = atomicAdd(counter, 1);
   __syncthreads();
-  if (c == 0) {
-    for (int j = 1; j < NCH; j++) {
-      const bool f = sf[j][l] != 0;
-      acc = f ? sv[j][l] : combine_any<DT>(mo, packed, acc, sv[j][l]);
-      if (WITH_H) hacc = f ? sh[j][l] : imax_bits(hacc, sh[j][l]);
-      any |= f;
-    }
-    const size_t o = (size_t)blockIdx.x * 128 + l;
-    last[o] = acc;
-    if (WITH_H) lasth[o] = hacc;
-    hasbar[o] = any;
-  }
-}
+  const int tile = s_tile;
+  const int g = tid & 31, c = tid >> 5;
+  const size_t q0 = ((size_t)tile * LS_ROWS + c * LS_RPT) * 32 + g;
 
-template <int DT, bool WITH_H>
-__global__ void __launch_bounds__(NT) lane_final_kernel(
-    const int* __restrict__ barrier, const uint32_t* __restrict__ vals,
-    const uint32_t* __restrict__ ok, const uint32_t* __restrict__ last,
-    const uint32_t* __restrict__ lasth, const int* __restrict__ hasbar,
-    uint32_t* __restrict__ out, uint32_t* __restrict__ outh, int mo,
-    int packed) {
-  __shared__ uint32_t sv[NCH][128];
-  __shared__ uint32_t sh[NCH][128];
-  __shared__ int sf[NCH][128];
-  __shared__ uint32_t cv[128];   // carry into the tile, per lane
-  __shared__ uint32_t chh[128];
-  __shared__ int chave[128];
-  const int l = threadIdx.x & 127;
-  const int c = threadIdx.x >> 7;
-  const int tile = blockIdx.x;
-  const size_t base = (size_t)tile * TILE_ELEMS + (size_t)c * CH_ROWS * 128 + l;
-  uint32_t v[CH_ROWS], h[CH_ROWS];
-  uint32_t acc = 0, hacc = 0;
-  int first = CH_ROWS;  // first row of the chunk with a barrier
+  // 2. every input read once, all in flight together
+  uint4 v[LS_RPT], h[LS_RPT];
+  uint4 b[LS_RPT];
 #pragma unroll
-  for (int k = 0; k < CH_ROWS; k++) {
-    const size_t s = base + (size_t)k * 128;
-    const bool b = barrier[s] != 0;
-    const uint32_t x = vals[s];
-    acc = (k == 0 || b) ? x : combine_any<DT>(mo, packed, acc, x);
-    v[k] = acc;
-    if (WITH_H) {
-      const uint32_t y = ok[s];
-      hacc = (k == 0 || b) ? y : imax_bits(hacc, y);
-      h[k] = hacc;
-    }
-    if (b && first == CH_ROWS) first = k;
+  for (int k = 0; k < LS_RPT; k++) {
+    b[k] = __ldg(barrier + q0 + k * 32);
+    v[k] = __ldg(vals + q0 + k * 32);
+    if (WITH_H) h[k] = __ldg(ok + q0 + k * 32);
   }
-  sv[c][l] = acc;
-  if (WITH_H) sh[c][l] = hacc;
-  sf[c][l] = first < CH_ROWS;
-  if (c == 0) {
-    // carry into the tile: fold of earlier tiles back to the nearest barrier
-    bool have = false;
-    uint32_t carry = 0, hcarry = 0;
-    for (int j = tile - 1; j >= 0; j--) {
-      const size_t o = (size_t)j * 128 + l;
-      const uint32_t x = last[o];
-      carry = have ? combine_any<DT>(mo, packed, x, carry) : x;
+  uint32_t bm[4] = {0, 0, 0, 0};  // bit k: row k of the chunk holds a barrier
+#pragma unroll
+  for (int k = 0; k < LS_RPT; k++)
+#pragma unroll
+    for (int j = 0; j < 4; j++)
+      bm[j] |= (uint32_t)(at(b[k], j) != 0) << k;
+
+  // 3. the chunk's scan in registers
+  uint32_t f = 0, r0 = 0;  // bit j: lane 4g + j has a barrier in the chunk, in row 0
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+#pragma unroll
+    for (int k = 1; k < LS_RPT; k++) {
+      if (!((bm[j] >> k) & 1)) {
+        at(v[k], j) = comb<OP>(code, at(v[k - 1], j), at(v[k], j));
+        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
+      }
+    }
+    f |= (uint32_t)(bm[j] != 0) << j;
+    r0 |= (bm[j] & 1) << j;
+  }
+  uint4 a = v[LS_RPT - 1], ah = WITH_H ? h[LS_RPT - 1] : make_uint4(0, 0, 0, 0);
+  sv[c * 32 + g] = a;
+  if (WITH_H) sh[c * 32 + g] = ah;
+  sf[c * 32 + g] = f;
+  if (c == 0) s_r0[g] = r0;
+  __syncthreads();
+
+  //    the chunk folds' segmented scan: chunk c ends up holding the fold of
+  //    chunks 0..c back to the nearest barrier, and whether there is one
+#pragma unroll
+  for (int s = 1; s < LS_C; s <<= 1) {
+    uint4 pv = a, ph = ah;
+    uint32_t pf = 0;
+    const bool use = c >= s;
+    if (use) {
+      pv = sv[(c - s) * 32 + g];
+      if (WITH_H) ph = sh[(c - s) * 32 + g];
+      pf = sf[(c - s) * 32 + g];
+    }
+    __syncthreads();
+    if (use) {
+#pragma unroll
+      for (int j = 0; j < 4; j++) {
+        if (!((f >> j) & 1)) {
+          at(a, j) = comb<OP>(code, at(pv, j), at(a, j));
+          if (WITH_H) at(ah, j) = comb<LS_MAX_I>(code, at(ph, j), at(ah, j));
+        }
+      }
+      f |= pf;
+      sv[c * 32 + g] = a;
+      if (WITH_H) sh[c * 32 + g] = ah;
+      sf[c * 32 + g] = f;
+    }
+    __syncthreads();
+  }
+  // the fold of the chunks above this one (none for chunk 0)
+  uint4 e = make_uint4(0, 0, 0, 0), eh = e;
+  uint32_t ef = 0;
+  if (c > 0) {
+    e = sv[(c - 1) * 32 + g];
+    if (WITH_H) eh = sh[(c - 1) * 32 + g];
+    ef = sf[(c - 1) * 32 + g];
+  }
+  // the tile's aggregate of the look-back thread's lane and channel
+  const int ll = tid & 127, ch = tid >> 7;
+  uint32_t agg = 0;
+  bool has = false;
+  if (tid < NLB) {
+    agg = sm[(ch * LS_C + LS_C - 1) * 128 + ll];
+    has = (sf[(LS_C - 1) * 32 + (ll >> 2)] >> (ll & 3)) & 1;
+  }
+  __syncthreads();  // the chunk folds are read: the look-back buffer is free
+
+  // 4. publication and look-back, a thread a lane and channel
+  if (tid < NLB) {
+    const size_t stride = (size_t)NCH * 128;
+    unsigned long long* w = words + (size_t)tile * stride + ch * 128 + ll;
+    st_word(w, agg, tile == 0 || has ? ST_PRE : ST_AGG);
+    const bool in = tile > 0 && !((s_r0[ll >> 2] >> (ll & 3)) & 1);
+    uint32_t cy = 0;
+    if (in) {
+      if (ch == 0) {
+        cy = look_back<OP>(code, w, stride, tile, sm + tid, NLB);
+        if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
+      } else {
+        cy = look_back<LS_MAX_I>(code, w, stride, tile, sm + tid, NLB);
+        if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
+      }
+    }
+    s_carry[tid] = cy;
+  }
+  __syncthreads();
+
+  // 5. the carry into the rows before the chunk's first barrier; one store
+  //    of each output
+  r0 = s_r0[g];
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    bool have = c > 0;  // the fold of the chunks above
+    uint32_t pre = at(e, j), hpre = at(eh, j);
+    if (!((ef >> j) & 1) && tile > 0 && !((r0 >> j) & 1)) {
+      const uint32_t cy = s_carry[4 * g + j];
+      pre = have ? comb<OP>(code, cy, pre) : cy;
       if (WITH_H) {
-        const uint32_t y = lasth[o];
-        hcarry = have ? imax_bits(y, hcarry) : y;
+        const uint32_t hy = s_carry[128 + 4 * g + j];
+        hpre = have ? comb<LS_MAX_I>(code, hy, hpre) : hy;
       }
       have = true;
-      if (hasbar[o]) break;
     }
-    cv[l] = carry;
-    if (WITH_H) chh[l] = hcarry;
-    chave[l] = have;
-  }
-  __syncthreads();
-  // prefix of this chunk: chunks above it in the tile, then the tile carry
-  bool have = false, closed = false;
-  uint32_t pre = 0, hpre = 0;
-  for (int j = c - 1; j >= 0; j--) {
-    const uint32_t x = sv[j][l];
-    pre = have ? combine_any<DT>(mo, packed, x, pre) : x;
-    if (WITH_H) hpre = have ? imax_bits(sh[j][l], hpre) : sh[j][l];
-    have = true;
-    if (sf[j][l]) { closed = true; break; }
-  }
-  if (!closed && chave[l]) {
-    pre = have ? combine_any<DT>(mo, packed, cv[l], pre) : cv[l];
-    if (WITH_H) hpre = have ? imax_bits(chh[l], hpre) : chh[l];
-    have = true;
+    const uint32_t first = bm[j] ? __ffs(bm[j]) - 1 : LS_RPT;
+#pragma unroll
+    for (int k = 0; k < LS_RPT; k++) {
+      if (have && k < first) {
+        at(v[k], j) = comb<OP>(code, pre, at(v[k], j));
+        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, hpre, at(h[k], j));
+      }
+    }
   }
 #pragma unroll
-  for (int k = 0; k < CH_ROWS; k++) {
-    const size_t s = base + (size_t)k * 128;
-    const bool open = have && k < first;
-    out[s] = open ? combine_any<DT>(mo, packed, pre, v[k]) : v[k];
-    if (WITH_H) outh[s] = open ? imax_bits(hpre, h[k]) : h[k];
+  for (int k = 0; k < LS_RPT; k++) {
+    out[q0 + k * 32] = v[k];
+    if (WITH_H) outh[q0 + k * 32] = h[k];
   }
 }
 
-template <int DT, bool WITH_H>
-static void launch(int ntiles, cudaStream_t st, const int* bar,
-                   const uint32_t* vals, const uint32_t* ok, uint32_t* last,
-                   uint32_t* lasth, int* hasbar, uint32_t* out, uint32_t* outh,
-                   int mo, int packed) {
-  lane_summary_kernel<DT, WITH_H><<<ntiles, NT, 0, st>>>(
-      bar, vals, ok, last, lasth, hasbar, mo, packed);
-  lane_final_kernel<DT, WITH_H><<<ntiles, NT, 0, st>>>(
-      bar, vals, ok, last, lasth, hasbar, out, outh, mo, packed);
+// Words a call's scratch holds: per tile, channel and lane a published
+// word, then the tile counter; 8 bytes each.
+static size_t scratch_words(int rows, int nch) {
+  return (size_t)(rows / LS_ROWS) * nch * 128 + 1;
 }
 
-// Two launches: lane_summary then lane_final (the caller counts both).
-// ok, lasth and outh are null when the validity channel is not scanned.
-extern "C" int lane_segscan(const void* barrier, const void* vals,
-                            const void* ok, void* last, void* lasth,
-                            void* hasbar, void* out, void* outh, int ntiles,
-                            int dt, int mo, int packed, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define ARGS                                                                \
-  ntiles, st, (const int*)barrier, (const uint32_t*)vals,                   \
-      (const uint32_t*)ok, (uint32_t*)last, (uint32_t*)lasth, (int*)hasbar, \
-      (uint32_t*)out, (uint32_t*)outh, mo, packed
-#define BOTH(DT)                                 \
-  if (ok != nullptr) launch<DT, true>(ARGS);     \
-  else launch<DT, false>(ARGS);                  \
-  break;
-  if (ntiles > 0) {
-    switch (dt) {
-      case DT_F32: BOTH(DT_F32)
-      case DT_I32: BOTH(DT_I32)
-      case DT_U32: BOTH(DT_U32)
-      case DT_BOOL: BOTH(DT_BOOL)
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-#undef BOTH
-#undef ARGS
+extern "C" int lane_segscan_scratch(int rows, int nch) {
+  return (int)(8 * scratch_words(rows, nch));
+}
+
+template <int OP, bool WITH_H>
+static int launch(int rows, cudaStream_t st, const void* bar, const void* vals,
+                  const void* ok, void* out, void* outh, unsigned* counter,
+                  unsigned long long* words, int code) {
+  lane_segscan_kernel<OP, WITH_H><<<rows / LS_ROWS, LS_NT, 0, st>>>(
+      (const uint4*)bar, (const uint4*)vals, (const uint4*)ok, (uint4*)out,
+      (uint4*)outh, counter, words, code);
   return (int)cudaGetLastError();
+}
+
+template <int OP>
+static int launch_h(bool with_h, int rows, cudaStream_t st, const void* bar,
+                    const void* vals, const void* ok, void* out, void* outh,
+                    unsigned* counter, unsigned long long* words, int code) {
+  return with_h ? launch<OP, true>(rows, st, bar, vals, ok, out, outh,
+                                   counter, words, code)
+                : launch<OP, false>(rows, st, bar, vals, ok, out, outh,
+                                    counter, words, code);
+}
+
+// One kernel launch, after one memset of its scratch (lane_segscan_scratch
+// bytes, 8-byte aligned).  rows: R, a multiple of 128; every array 16-byte
+// aligned.  ok and outh are null when the validity channel is not scanned.
+extern "C" int lane_segscan(const void* barrier, const void* vals,
+                            const void* ok, void* scratch, void* out,
+                            void* outh, int rows, int dt, int mo, int packed,
+                            void* stream) {
+  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BOR ||
+      rows % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool with_h = ok != nullptr;
+  const size_t nw = scratch_words(rows, with_h ? 2 : 1);
+  unsigned long long* words = (unsigned long long*)scratch;
+  unsigned* counter = (unsigned*)(words + nw - 1);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * nw, st);
+  if (err != cudaSuccess) return (int)err;
+  const int code = dt | mo << 4 | (packed ? 1 : 0) << 8;
+#define ARGS with_h, rows, st, barrier, vals, ok, out, outh, counter, words, code
+  if (dt == DT_F32 && mo == MO_MIN && !packed) return launch_h<LS_MIN_F>(ARGS);
+  if (dt == DT_F32 && mo == MO_PLUS && !packed) return launch_h<LS_ADD_F>(ARGS);
+  return launch_h<LS_DYN>(ARGS);
+#undef ARGS
 }

@@ -541,3 +541,163 @@ def test_fused_scan_is_one_launch_a_call(cuda):
         lp.fused_permC_scan_permA(*inputs, comb)
         lp.fused_permC_scan_permA(*inputs, comb)
         assert K.launches["fused_permC_scan_permA"] - before == 2
+
+
+# --------------------------------------------------------------------- #
+# K5 lane_segscan: one launch, a single pass with a look-back per lane
+# every (monoid, type) the port's scan combines take, and the packed BOOL
+# codes
+K5_CASES = [(m, dt, False) for m in ("plus", "times", "min", "max")
+            for dt in ("FP32", "INT32", "UINT32")] + [
+    ("band", "UINT32", False), ("bor", "UINT32", False),
+    ("lor", "BOOL", False), ("land", "BOOL", False),
+    ("lor", "BOOL", True), ("land", "BOOL", True)]
+_k5_plan = []
+
+
+def k5_zipf_barrier(cuda):
+    """The scan-layout barrier of a zipf-like graph's vxm plan (n = 2**15,
+    degree 8, destinations zipf(1.5): a hub's run spans several tiles)."""
+    if not _k5_plan:
+        import graphblas_tpu_torch as gb
+
+        rng = np.random.default_rng(41)
+        n = 1 << 15
+        src = rng.integers(0, n, 8 * n)
+        dst = (rng.zipf(1.5, 8 * n) - 1) % n
+        lin = np.unique(src * n + dst)
+        with gb.config.set(device=cuda, auto_sparse_limit=0):
+            A = gb.Matrix.from_coo(lin // n, lin % n,
+                                   np.ones(len(lin), np.float32),
+                                   dtype="FP32", nrows=n, ncols=n)
+        e = lp.get_plan(A._sparse, False, device=cuda)
+        assert e is not None
+        _k5_plan.append(e["dev"]["barrier"].cpu())
+    return _k5_plan[0]
+
+
+def k5_barrier(rng, kind, tiles):
+    """(tiles * 128, 128) barrier words of one layout, on the CPU."""
+    shape = (tiles * 128, 128)
+    if kind == "every row":
+        return torch.ones(shape, dtype=torch.int32)
+    if kind == "none":
+        return torch.zeros(shape, dtype=torch.int32)
+    bar = (rng.random(shape) < 1 / 40).astype(np.int32)
+    if kind == "no barrier in row 0":
+        bar[0] = 0
+    else:
+        bar[0] = 1
+    return torch.from_numpy(bar)
+
+
+def k5_values(rng, shape, dtype, packed, exact=False):
+    """Carrier words: FP32 in [0.5, 1.5) (or 0, 1, 2 with exact, whose sums
+    are exact in any order), integers over the full range for UINT32 and
+    in [-1000, 1000) for INT32, 0/1 for BOOL, codes 0-2 packed."""
+    if packed:
+        v = rng.integers(0, 3, shape).astype(np.int32)
+    elif dtype == "FP32":
+        v = (rng.integers(0, 3, shape) if exact
+             else rng.random(shape) + 0.5).astype(np.float32)
+    elif dtype == "UINT32":
+        v = rng.integers(-2**31, 2**31, shape).astype(np.int32)
+    elif dtype == "BOOL":
+        v = rng.integers(0, 2, shape).astype(np.int32)
+    else:
+        v = rng.integers(-1000, 1000, shape).astype(np.int32)
+    return torch.from_numpy(v)
+
+
+def k5_ok(rng, shape):
+    """Validity words in [-1000, 1000], not only 0 and 1."""
+    return torch.from_numpy(rng.integers(-1000, 1001, shape).astype(np.int32))
+
+
+def k5_check(cuda, mono_name, dtype, packed, bar, vals, ok, rel=None):
+    """K5 on the card against its plain version on the CPU, bitwise or to
+    rel; one launch a call."""
+    comb = lp.combines(getattr(monoid, mono_name)[dtype])[1 if packed else 0]
+    before = K.launches["lane_segscan"]
+    gv, gh = lp.lane_segscan(bar.to(cuda), vals.to(cuda),
+                             None if ok is None else ok.to(cuda), comb)
+    assert K.launches["lane_segscan"] - before == 1
+    pv, ph = lp.lane_segscan_plain(bar, vals, ok, comb)
+    gv = gv.cpu()
+    if rel is None:
+        assert torch.equal(gv.view(torch.int32), pv.view(torch.int32))
+    else:
+        assert bool(((gv - pv).abs() <= rel * pv.abs()).all())
+    assert (gh is None) == (ok is None)
+    if ok is not None:
+        assert torch.equal(gh.cpu(), ph)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_ok", [True, False])
+@pytest.mark.parametrize("mono_name,dtype,packed", K5_CASES)
+def test_lane_segscan_every_case(cuda, mono_name, dtype, packed, with_ok):
+    """Each (monoid, type, packed) case, inline or through the run-time
+    combine, at 40 tiles, with and without the validity channel: FP32
+    plus and times to rel 1e-5, the rest bitwise."""
+    rng = np.random.default_rng(42)
+    bar = k5_barrier(rng, "random", 40)
+    vals = k5_values(rng, bar.shape, dtype, packed)
+    ok = k5_ok(rng, bar.shape) if with_ok else None
+    rel = 1e-5 if dtype == "FP32" and mono_name in ("plus", "times") else None
+    k5_check(cuda, mono_name, dtype, packed, bar, vals, ok, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,tiles", [("zipf plan", 0),
+                                        ("no barrier in row 0", 24),
+                                        ("none", 80), ("every row", 8),
+                                        ("random", 1)])
+@pytest.mark.parametrize("mono_name,dtype", [("min", "FP32"), ("plus", "FP32"),
+                                             ("plus", "INT32")])
+def test_lane_segscan_barrier_layouts(cuda, kind, tiles, mono_name, dtype):
+    """The zipf-like plan's barrier, no barrier in row 0 (row 0 starts a
+    run either way), no barrier at all over 80 tiles (every lane one run,
+    longer than the look-back window of 32), a barrier in every row, and a
+    single tile; with ok in [-1000, 1000]: bitwise, FP32 plus on exact
+    values."""
+    rng = np.random.default_rng(43)
+    bar = (k5_zipf_barrier(cuda) if kind == "zipf plan"
+           else k5_barrier(rng, kind, tiles))
+    vals = k5_values(rng, bar.shape, dtype, False, exact=True)
+    k5_check(cuda, mono_name, dtype, False, bar, vals, k5_ok(rng, bar.shape))
+
+
+@pytest.mark.gpu
+def test_lane_segscan_repeated_launches_are_bitwise_stable(cuda):
+    """200 launches of FP32 plus with validity over 264 tiles with no
+    barrier but row 0, each equal to the first in every bit (the fold
+    order is fixed by the tiles, not by the timing)."""
+    rng = np.random.default_rng(44)
+    bar = k5_barrier(rng, "none", 264).to(cuda)
+    bar[0] = 1
+    vals = k5_values(rng, bar.shape, "FP32", False).to(cuda)
+    ok = k5_ok(rng, bar.shape).to(cuda)
+    comb = lp.combines(monoid.plus["FP32"])[0]
+    fv, fh = lp.lane_segscan(bar, vals, ok, comb)
+    fv = fv.view(torch.int32).clone()
+    for _ in range(200):
+        gv, gh = lp.lane_segscan(bar, vals, ok, comb)
+        assert torch.equal(gv.view(torch.int32), fv)
+        assert torch.equal(gh, fh)
+
+
+@pytest.mark.gpu
+def test_lane_segscan_is_one_launch_a_call(cuda):
+    """Each call adds exactly one launch to the count, with and without
+    the validity channel, also at one tile."""
+    rng = np.random.default_rng(45)
+    comb = lp.combines(monoid.min["FP32"])[0]
+    for tiles in (1, 3):
+        bar = k5_barrier(rng, "random", tiles).to(cuda)
+        vals = k5_values(rng, bar.shape, "FP32", False).to(cuda)
+        ok = k5_ok(rng, bar.shape).to(cuda)
+        before = K.launches["lane_segscan"]
+        lp.lane_segscan(bar, vals, ok, comb)
+        lp.lane_segscan(bar, vals, None, comb)
+        assert K.launches["lane_segscan"] - before == 2

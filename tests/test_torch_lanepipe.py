@@ -335,3 +335,31 @@ def test_mxv_parity(rng, ring_name, dtype, lane_on, cpu):
     assert lane_on, "the JAX lanepipe was not used"
     assert got.dtype.name == want.dtype.name
     assert_values_match(got.to_coo(), want.to_coo(), dtype)
+
+
+@pytest.mark.parametrize("mono_name,dtype", [("min", "FP32"), ("plus", "INT32")])
+def test_lane_segscan_ok_beyond_0_1_matches_pallas(monkeypatch, mono_name,
+                                                   dtype):
+    """The validity channel is any int32, scanned by max: ok in
+    [-1000, 1000], negatives included, against the Pallas kernel in
+    interpret mode over three tiles (the contract K5 keeps on the card)."""
+    monkeypatch.setattr(jlp, "_INTERPRET", True)
+    rng = np.random.default_rng(12)
+    R = 384
+    barrier = (rng.random((R, 128)) < 1 / 60).astype(np.int32)
+    barrier[0] = 1
+    barrier[:, 3] = 0
+    barrier[0, 3] = 1  # lane 3's run crosses every tile
+    if dtype == "FP32":
+        vals = rng.random((R, 128)).astype(np.float32)
+    else:
+        vals = rng.integers(-1000, 1000, (R, 128)).astype(np.int32)
+    ok = rng.integers(-1000, 1001, (R, 128)).astype(np.int32)
+    with jax.enable_x64(False):
+        want, want_ok = jlp.lane_segscan(
+            jnp.asarray(barrier), jnp.asarray(vals), jnp.asarray(ok),
+            jax_scan_combine(mono_name, dtype))
+    got, got_ok = port_lane_segscan(barrier, vals, ok, mono_name, dtype)
+    assert_scan_match(got, np.asarray(want), mono_name, dtype)
+    assert np.array_equal(got_ok, np.asarray(want_ok))
+    assert (got_ok < 0).any() and (got_ok > 1).any()
