@@ -71,13 +71,10 @@
 #include "common.cuh"
 
 #ifndef LS_ROWS
-#define LS_ROWS 128  // rows of a tile: one block, one look-back word a lane
+#define LS_ROWS 64   // rows of a tile: one look-back word a lane and channel
 #endif
 #ifndef LS_RPT
 #define LS_RPT 8     // rows a thread scans, 4 lanes each
-#endif
-#ifndef LS_MINB
-#define LS_MINB 1    // blocks an SM the registers are sized for
 #endif
 #define LS_C (LS_ROWS / LS_RPT)  // chunks of a tile: the warps of a block
 #define LS_NT (32 * LS_C)        // threads of a block
@@ -160,15 +157,21 @@ __device__ __forceinline__ uint32_t look_back(int code,
 }
 
 template <int OP, bool WITH_H>
-__global__ void __launch_bounds__(LS_NT, LS_MINB) lane_segscan_kernel(
-    const uint4* __restrict__ barrier, const uint4* __restrict__ vals,
-    const uint4* __restrict__ ok, uint4* __restrict__ out,
+__global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
+    const uint32_t* __restrict__ barrier, const uint32_t* __restrict__ vals,
+    const uint32_t* __restrict__ ok, uint4* __restrict__ out,
     uint4* __restrict__ outh, unsigned* counter, unsigned long long* words,
-    int code) {
+    int code, int ntiles) {
   constexpr int NCH = WITH_H ? 2 : 1;
   constexpr int NLB = 128 * NCH;  // look-back threads: one a lane and channel
+  constexpr int TW = LS_ROWS * 128;  // words of a tile
   constexpr int SCAN_WORDS = LS_C * 128 * NCH + LS_C * 32;
   constexpr int LB_WORDS = LS_WINDOW * NLB;
+  // the next tile's inputs, arriving while this one is scanned
+  extern __shared__ int4 stage4[];
+  uint32_t* sbar = reinterpret_cast<uint32_t*>(stage4);
+  uint32_t* sval = sbar + TW;
+  uint32_t* sok = sval + TW;
   // the chunk folds, then (once they are read) the look-back buffer
   __shared__ __align__(16) uint32_t sm[SCAN_WORDS > LB_WORDS ? SCAN_WORDS
                                                               : LB_WORDS];
@@ -177,146 +180,169 @@ __global__ void __launch_bounds__(LS_NT, LS_MINB) lane_segscan_kernel(
   uint32_t* sf = sm + LS_C * 128 * NCH;      // barrier bits, lane 4g + j: bit j
   __shared__ uint32_t s_carry[NLB];
   __shared__ uint32_t s_r0[32];  // row 0 of the tile holds a barrier, per lane
-  __shared__ int s_tile;
+  __shared__ int s_next;
   const int tid = threadIdx.x;
-  if (tid == 0) s_tile = atomicAdd(counter, 1);
-  __syncthreads();
-  const int tile = s_tile;
   const int g = tid & 31, c = tid >> 5;
-  const size_t q0 = ((size_t)tile * LS_ROWS + c * LS_RPT) * 32 + g;
-
-  // 2. every input read once, all in flight together
-  uint4 v[LS_RPT], h[LS_RPT];
-  uint4 b[LS_RPT];
-#pragma unroll
-  for (int k = 0; k < LS_RPT; k++) {
-    b[k] = __ldg(barrier + q0 + k * 32);
-    v[k] = __ldg(vals + q0 + k * 32);
-    if (WITH_H) h[k] = __ldg(ok + q0 + k * 32);
-  }
-  uint32_t bm[4] = {0, 0, 0, 0};  // bit k: row k of the chunk holds a barrier
-#pragma unroll
-  for (int k = 0; k < LS_RPT; k++)
-#pragma unroll
-    for (int j = 0; j < 4; j++)
-      bm[j] |= (uint32_t)(at(b[k], j) != 0) << k;
-
-  // 3. the chunk's scan in registers
-  uint32_t f = 0, r0 = 0;  // bit j: lane 4g + j has a barrier in the chunk, in row 0
-#pragma unroll
-  for (int j = 0; j < 4; j++) {
-#pragma unroll
-    for (int k = 1; k < LS_RPT; k++) {
-      if (!((bm[j] >> k) & 1)) {
-        at(v[k], j) = comb<OP>(code, at(v[k - 1], j), at(v[k], j));
-        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
-      }
-    }
-    f |= (uint32_t)(bm[j] != 0) << j;
-    r0 |= (bm[j] & 1) << j;
-  }
-  uint4 a = v[LS_RPT - 1], ah = WITH_H ? h[LS_RPT - 1] : make_uint4(0, 0, 0, 0);
-  sv[c * 32 + g] = a;
-  if (WITH_H) sh[c * 32 + g] = ah;
-  sf[c * 32 + g] = f;
-  if (c == 0) s_r0[g] = r0;
-  __syncthreads();
-
-  //    the chunk folds' segmented scan: chunk c ends up holding the fold of
-  //    chunks 0..c back to the nearest barrier, and whether there is one
-#pragma unroll
-  for (int s = 1; s < LS_C; s <<= 1) {
-    uint4 pv = a, ph = ah;
-    uint32_t pf = 0;
-    const bool use = c >= s;
-    if (use) {
-      pv = sv[(c - s) * 32 + g];
-      if (WITH_H) ph = sh[(c - s) * 32 + g];
-      pf = sf[(c - s) * 32 + g];
-    }
-    __syncthreads();
-    if (use) {
-#pragma unroll
-      for (int j = 0; j < 4; j++) {
-        if (!((f >> j) & 1)) {
-          at(a, j) = comb<OP>(code, at(pv, j), at(a, j));
-          if (WITH_H) at(ah, j) = comb<LS_MAX_I>(code, at(ph, j), at(ah, j));
-        }
-      }
-      f |= pf;
-      sv[c * 32 + g] = a;
-      if (WITH_H) sh[c * 32 + g] = ah;
-      sf[c * 32 + g] = f;
-    }
-    __syncthreads();
-  }
-  // the fold of the chunks above this one (none for chunk 0)
-  uint4 e = make_uint4(0, 0, 0, 0), eh = e;
-  uint32_t ef = 0;
-  if (c > 0) {
-    e = sv[(c - 1) * 32 + g];
-    if (WITH_H) eh = sh[(c - 1) * 32 + g];
-    ef = sf[(c - 1) * 32 + g];
-  }
-  // the tile's aggregate of the look-back thread's lane and channel
   const int ll = tid & 127, ch = tid >> 7;
-  uint32_t agg = 0;
-  bool has = false;
-  if (tid < NLB) {
-    agg = sm[(ch * LS_C + LS_C - 1) * 128 + ll];
-    has = (sf[(LS_C - 1) * 32 + (ll >> 2)] >> (ll & 3)) & 1;
-  }
-  __syncthreads();  // the chunk folds are read: the look-back buffer is free
 
-  // 4. publication and look-back, a thread a lane and channel
-  if (tid < NLB) {
-    const size_t stride = (size_t)NCH * 128;
-    unsigned long long* w = words + (size_t)tile * stride + ch * 128 + ll;
-    st_word(w, agg, tile == 0 || has ? ST_PRE : ST_AGG);
-    const bool in = tile > 0 && !((s_r0[ll >> 2] >> (ll & 3)) & 1);
-    uint32_t cy = 0;
-    if (in) {
-      if (ch == 0) {
-        cy = look_back<OP>(code, w, stride, tile, sm + tid, NLB);
-        if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
-      } else {
-        cy = look_back<LS_MAX_I>(code, w, stride, tile, sm + tid, NLB);
-        if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
-      }
-    }
-    s_carry[tid] = cy;
-  }
-  __syncthreads();
-
-  // 5. the carry into the rows before the chunk's first barrier; one store
-  //    of each output
-  r0 = s_r0[g];
+  // every thread copies 16-byte pieces of the three arrays' tile t
+  auto fetch = [&](int t) {
+    const size_t base = (size_t)t * TW;
 #pragma unroll
-  for (int j = 0; j < 4; j++) {
-    bool have = c > 0;  // the fold of the chunks above
-    uint32_t pre = at(e, j), hpre = at(eh, j);
-    if (!((ef >> j) & 1) && tile > 0 && !((r0 >> j) & 1)) {
-      const uint32_t cy = s_carry[4 * g + j];
-      pre = have ? comb<OP>(code, cy, pre) : cy;
-      if (WITH_H) {
-        const uint32_t hy = s_carry[128 + 4 * g + j];
-        hpre = have ? comb<LS_MAX_I>(code, hy, hpre) : hy;
-      }
-      have = true;
+    for (int k = 0; k < TW / 4 / LS_NT; k++) {
+      const int i = 4 * (tid + k * LS_NT);
+      cp_async16(sbar + i, barrier + base + i);
+      cp_async16(sval + i, vals + base + i);
+      if (WITH_H) cp_async16(sok + i, ok + base + i);
     }
-    const uint32_t first = bm[j] ? __ffs(bm[j]) - 1 : LS_RPT;
+  };
+
+  if (tid == 0) s_next = atomicAdd(counter, 1);
+  __syncthreads();
+  int tile = s_next;
+  if (tile >= ntiles) return;
+  fetch(tile);
+  for (;;) {
+    cp_async_wait_all();
+    __syncthreads();
+    // 2. this tile's inputs from the stage into registers
+    uint4 v[LS_RPT], h[LS_RPT];
+    uint32_t bm[4] = {0, 0, 0, 0};  // bit k: row k of the chunk holds a barrier
 #pragma unroll
     for (int k = 0; k < LS_RPT; k++) {
-      if (have && k < first) {
-        at(v[k], j) = comb<OP>(code, pre, at(v[k], j));
-        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, hpre, at(h[k], j));
+      const int q = (c * LS_RPT + k) * 32 + g;
+      uint4 b = reinterpret_cast<const uint4*>(sbar)[q];
+      v[k] = reinterpret_cast<const uint4*>(sval)[q];
+      if (WITH_H) h[k] = reinterpret_cast<const uint4*>(sok)[q];
+#pragma unroll
+      for (int j = 0; j < 4; j++) bm[j] |= (uint32_t)(at(b, j) != 0) << k;
+    }
+    if (tid == 0) s_next = atomicAdd(counter, 1);
+    __syncthreads();  // the stage is free; the next tile is claimed
+    const int next = s_next;
+    if (next < ntiles) fetch(next);
+
+    // 3. the chunk's scan in registers
+    uint32_t f = 0, r0 = 0;  // bit j: lane 4g + j has a barrier in the chunk, in row 0
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+#pragma unroll
+      for (int k = 1; k < LS_RPT; k++) {
+        if (!((bm[j] >> k) & 1)) {
+          at(v[k], j) = comb<OP>(code, at(v[k - 1], j), at(v[k], j));
+          if (WITH_H)
+            at(h[k], j) = comb<LS_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
+        }
+      }
+      f |= (uint32_t)(bm[j] != 0) << j;
+      r0 |= (bm[j] & 1) << j;
+    }
+    uint4 a = v[LS_RPT - 1];
+    uint4 ah = WITH_H ? h[LS_RPT - 1] : make_uint4(0, 0, 0, 0);
+    sv[c * 32 + g] = a;
+    if (WITH_H) sh[c * 32 + g] = ah;
+    sf[c * 32 + g] = f;
+    if (c == 0) s_r0[g] = r0;
+    __syncthreads();
+
+    //    the chunk folds' segmented scan: chunk c ends up holding the fold
+    //    of chunks 0..c back to the nearest barrier, and whether there is one
+#pragma unroll
+    for (int s = 1; s < LS_C; s <<= 1) {
+      uint4 pv = a, ph = ah;
+      uint32_t pf = 0;
+      const bool use = c >= s;
+      if (use) {
+        pv = sv[(c - s) * 32 + g];
+        if (WITH_H) ph = sh[(c - s) * 32 + g];
+        pf = sf[(c - s) * 32 + g];
+      }
+      __syncthreads();
+      if (use) {
+#pragma unroll
+        for (int j = 0; j < 4; j++) {
+          if (!((f >> j) & 1)) {
+            at(a, j) = comb<OP>(code, at(pv, j), at(a, j));
+            if (WITH_H) at(ah, j) = comb<LS_MAX_I>(code, at(ph, j), at(ah, j));
+          }
+        }
+        f |= pf;
+        sv[c * 32 + g] = a;
+        if (WITH_H) sh[c * 32 + g] = ah;
+        sf[c * 32 + g] = f;
+      }
+      __syncthreads();
+    }
+    // the fold of the chunks above this one (none for chunk 0)
+    uint4 e = make_uint4(0, 0, 0, 0), eh = e;
+    uint32_t ef = 0;
+    if (c > 0) {
+      e = sv[(c - 1) * 32 + g];
+      if (WITH_H) eh = sh[(c - 1) * 32 + g];
+      ef = sf[(c - 1) * 32 + g];
+    }
+    // the tile's aggregate of the look-back thread's lane and channel
+    uint32_t agg = 0;
+    bool has = false;
+    if (tid < NLB) {
+      agg = sm[(ch * LS_C + LS_C - 1) * 128 + ll];
+      has = (sf[(LS_C - 1) * 32 + (ll >> 2)] >> (ll & 3)) & 1;
+    }
+    __syncthreads();  // the chunk folds are read: the look-back buffer is free
+
+    // 4. publication and look-back, a thread a lane and channel
+    if (tid < NLB) {
+      const size_t stride = (size_t)NCH * 128;
+      unsigned long long* w = words + (size_t)tile * stride + ch * 128 + ll;
+      st_word(w, agg, tile == 0 || has ? ST_PRE : ST_AGG);
+      const bool in = tile > 0 && !((s_r0[ll >> 2] >> (ll & 3)) & 1);
+      uint32_t cy = 0;
+      if (in) {
+        if (ch == 0) {
+          cy = look_back<OP>(code, w, stride, tile, sm + tid, NLB);
+          if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
+        } else {
+          cy = look_back<LS_MAX_I>(code, w, stride, tile, sm + tid, NLB);
+          if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
+        }
+      }
+      s_carry[tid] = cy;
+    }
+    __syncthreads();
+
+    // 5. the carry into the rows before the chunk's first barrier; one
+    //    store of each output
+    r0 = s_r0[g];
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      bool have = c > 0;  // the fold of the chunks above
+      uint32_t pre = at(e, j), hpre = at(eh, j);
+      if (!((ef >> j) & 1) && tile > 0 && !((r0 >> j) & 1)) {
+        const uint32_t cy = s_carry[4 * g + j];
+        pre = have ? comb<OP>(code, cy, pre) : cy;
+        if (WITH_H) {
+          const uint32_t hy = s_carry[128 + 4 * g + j];
+          hpre = have ? comb<LS_MAX_I>(code, hy, hpre) : hy;
+        }
+        have = true;
+      }
+      const uint32_t first = bm[j] ? __ffs(bm[j]) - 1 : LS_RPT;
+#pragma unroll
+      for (int k = 0; k < LS_RPT; k++) {
+        if (have && k < first) {
+          at(v[k], j) = comb<OP>(code, pre, at(v[k], j));
+          if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, hpre, at(h[k], j));
+        }
       }
     }
-  }
+    const size_t q0 = ((size_t)tile * LS_ROWS + c * LS_RPT) * 32 + g;
 #pragma unroll
-  for (int k = 0; k < LS_RPT; k++) {
-    out[q0 + k * 32] = v[k];
-    if (WITH_H) outh[q0 + k * 32] = h[k];
+    for (int k = 0; k < LS_RPT; k++) {
+      out[q0 + k * 32] = v[k];
+      if (WITH_H) outh[q0 + k * 32] = h[k];
+    }
+    if (next >= ntiles) return;
+    tile = next;
   }
 }
 
@@ -330,13 +356,43 @@ extern "C" int lane_segscan_scratch(int rows, int nch) {
   return (int)(8 * scratch_words(rows, nch));
 }
 
+// Bytes of the stage in dynamic shared memory: one tile of each input.
+static constexpr int stage_bytes(bool with_h) {
+  return LS_ROWS * 128 * 4 * (with_h ? 3 : 2);
+}
+
 template <int OP, bool WITH_H>
 static int launch(int rows, cudaStream_t st, const void* bar, const void* vals,
                   const void* ok, void* out, void* outh, unsigned* counter,
                   unsigned long long* words, int code) {
-  lane_segscan_kernel<OP, WITH_H><<<rows / LS_ROWS, LS_NT, 0, st>>>(
-      (const uint4*)bar, (const uint4*)vals, (const uint4*)ok, (uint4*)out,
-      (uint4*)outh, counter, words, code);
+  auto kernel = lane_segscan_kernel<OP, WITH_H>;
+  constexpr int smem = stage_bytes(WITH_H);
+  // blocks a launch: as many as the card holds at once (they are
+  // persistent), found once per instance and device
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = device_attr<cudaDevAttrMultiProcessorCount>(&sms);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          LS_NT, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  const int ntiles = rows / LS_ROWS;
+  const int grid = ntiles < resident[dev] ? ntiles : resident[dev];
+  kernel<<<grid, LS_NT, smem, st>>>(
+      (const uint32_t*)bar, (const uint32_t*)vals, (const uint32_t*)ok,
+      (uint4*)out, (uint4*)outh, counter, words, code, ntiles);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,8 @@
     python3 scripts/k5_probe.py [--parent DIR] [--out DIR]
 
 Run from the repository root.  It compiles lane_segscan.cu once for each
-block shape below (the LS_ROWS, LS_RPT and LS_MINB macros; one nvcc each,
-all started together) and, with --parent, the lane_segscan.cu of a parent
+block shape below (the LS_ROWS and LS_RPT macros; one nvcc each, all
+started together) and, with --parent, the lane_segscan.cu of a parent
 tree unpacked into DIR (the two-launch design: its own C interface).  On
 the scan layout of chip_smoke.py's zipf plan (n = 2**19, degree 8) it
 holds every build against lanepipe.lane_segscan_plain (bitwise; FP32 plus
@@ -31,9 +31,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-# (LS_ROWS, LS_RPT, LS_MINB): threads a block = 32 * LS_ROWS / LS_RPT
-SHAPES = [(128, 4, 1), (128, 8, 1), (128, 8, 2), (128, 16, 1), (64, 4, 2),
-          (64, 8, 2), (32, 4, 4)]
+# (LS_ROWS, LS_RPT): threads a block = 32 * LS_ROWS / LS_RPT
+SHAPES = [(128, 8), (128, 16), (64, 4), (64, 8), (32, 4)]
 
 
 def build_all(out, parent):
@@ -45,10 +44,9 @@ def build_all(out, parent):
     os.makedirs(out, exist_ok=True)
     src = os.path.join(K._CSRC, "lane_segscan.cu")
     jobs = {}
-    for rows, rpt, minb in SHAPES:
-        name = f"r{rows}_t{rpt}_b{minb}"
-        jobs[name] = [f"-DLS_ROWS={rows}", f"-DLS_RPT={rpt}",
-                      f"-DLS_MINB={minb}", src]
+    for rows, rpt in SHAPES:
+        name = f"r{rows}_t{rpt}"
+        jobs[name] = [f"-DLS_ROWS={rows}", f"-DLS_RPT={rpt}", src]
     if parent:
         jobs["parent"] = [os.path.join(parent, "graphblas_tpu_torch", "csrc",
                                        "lane_segscan.cu")]
@@ -61,7 +59,8 @@ def build_all(out, parent):
     for n, p in procs.items():
         log, _ = p.communicate(timeout=600)
         if p.returncode != 0:
-            cs.fail(f"nvcc {n}:\n{log}")
+            cs.log(f"build {n} failed:\n{log}")
+            continue
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         cs.log(f"build {n}: " + " | ".join(regs[:8]))
@@ -101,7 +100,7 @@ def caller(torch, K, name, so):
             rc = fn(bar.data_ptr(), v.data_ptr(), optr, s.data_ptr(),
                     out.data_ptr(), hptr, R, dt, mo, 0, st)
         if rc:
-            cs.fail(f"{name}: launch error {rc}")
+            raise RuntimeError(f"{name}: launch error {rc}")
         return out, outh
 
     return call
@@ -152,8 +151,13 @@ def main():
         pv, ph = lp.lane_segscan_plain(barrier, vf, ok, cmb)
         pms = cs.cuda_ms(torch, lambda: lp.lane_segscan_plain(barrier, vf, ok, cmb))
         cs.log(f"{label}: plain {pms:.4f} ms")
-        for name, call in calls.items():
-            gv, gh = call(barrier, vf, ok, 0, mo)
+        for name, call in list(calls.items()):
+            try:
+                gv, gh = call(barrier, vf, ok, 0, mo)
+            except RuntimeError as exc:
+                cs.log(f"  {exc}: dropped")
+                del calls[name]
+                continue
             cs.compare(f"  {name} {label}", gv, pv, rel=rel, quiet=True)
             if ok is not None:
                 cs.compare(f"  {name} {label} ok", gh, ph, quiet=True)
