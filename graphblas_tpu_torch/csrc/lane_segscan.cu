@@ -89,6 +89,7 @@ enum { ST_AGG = 1, ST_PRE = 2 };  // status of a published word; 0: none yet
 // The combine of a launch, known when the kernel is compiled, or read at
 // run time (LS_DYN); LS_MAX_I is the validity channel's signed max.
 enum LsOp { LS_ADD_F, LS_MIN_F, LS_MAX_I, LS_DYN };
+#define LS_EXACT (1 << 9)  // in the code: the combine's folds are exact
 
 // code = dt | mo << 4 | packed << 8.  Not inlined: one shared body keeps
 // the build short (see ROADMAP, traps).
@@ -116,6 +117,63 @@ __device__ __forceinline__ uint32_t comb(int code, uint32_t x, uint32_t y) {
 __device__ __forceinline__ uint32_t& at(uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
+
+// The tile's inputs arrive by the Tensor Memory Accelerator: one bulk copy
+// of contiguous bytes an array, whose completion an mbarrier in shared
+// memory counts.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// one arrival that also expects `bytes` of transfers in the current phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+               : "=l"(state) : "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+#ifdef LS_TRACE
+// per block and iteration, the global timer at six points of the loop
+#define LS_TRACE_IT 16
+__device__ unsigned long long ls_trace[1024][LS_TRACE_IT][6];
+#define TRACE(it, k)                                                      \
+  if (tid == 0 && blockIdx.x < 1024 && (it) < LS_TRACE_IT) {              \
+    unsigned long long t_;                                                \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                \
+    ls_trace[blockIdx.x][it][k] = t_;                                     \
+  }
+extern "C" int lane_segscan_trace(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, ls_trace, sizeof(ls_trace));
+}
+extern "C" int lane_segscan_trace_clear() {
+  static unsigned long long zero[1024][LS_TRACE_IT][6];
+  return (int)cudaMemcpyToSymbol(ls_trace, zero, sizeof(ls_trace));
+}
+#else
+#define TRACE(it, k)
+#endif
 
 // Inclusive prefix of tile - 1 for one lane and channel: the nearest
 // predecessor's published prefix, then the aggregates after it, folded from
@@ -156,6 +214,40 @@ __device__ __forceinline__ uint32_t look_back(int code,
   return run;
 }
 
+// The same for a combine whose folds do not depend on their grouping
+// (integers, min, max: every grouping gives the same bits, NaNs and signed
+// zeros included): it folds each word as it reads it, nearest first, and
+// needs no buffer, so it walks back as far as the nearest prefix is.
+template <int OP>
+__device__ __forceinline__ uint32_t look_back_exact(
+    int code, const unsigned long long* w, size_t stride, int tile) {
+  int d = 0;  // predecessors read
+  bool found = false;
+  uint32_t run = 0;
+  while (!found) {
+    unsigned long long x[LS_BATCH];
+#pragma unroll
+    for (int i = 0; i < LS_BATCH; i++)
+      x[i] = tile - 1 - d - i >= 0 ? ld_word(w - (size_t)(d + i + 1) * stride)
+                                   : 0ull;
+#pragma unroll
+    for (int i = 0; i < LS_BATCH; i++) {
+      if (found) break;
+      const unsigned long long* p = w - (size_t)(d + 1) * stride;
+      unsigned long long y = x[i];
+      for (int spins = 0; (y & 3) == 0; spins++) {
+        if (spins == 1 << 26) __trap();  // fail, never hang
+        y = ld_word(p);
+      }
+      const uint32_t val = (uint32_t)(y >> 32);
+      run = d == 0 ? val : comb<OP>(code, val, run);
+      found = (y & 3) == ST_PRE;
+      d++;
+    }
+  }
+  return run;
+}
+
 template <int OP, bool WITH_H>
 __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
     const uint32_t* __restrict__ barrier, const uint32_t* __restrict__ vals,
@@ -166,7 +258,9 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
   constexpr int NLB = 128 * NCH;  // look-back threads: one a lane and channel
   constexpr int TW = LS_ROWS * 128;  // words of a tile
   constexpr int SCAN_WORDS = LS_C * 128 * NCH + LS_C * 32;
-  constexpr int LB_WORDS = LS_WINDOW * NLB;
+  // the value channel's look-back buffer, where its folds depend on their
+  // grouping (FP32 plus and times)
+  constexpr int LB_WORDS = OP == LS_MIN_F ? 0 : LS_WINDOW * 128;
   // the next tile's inputs, arriving while this one is scanned
   extern __shared__ int4 stage4[];
   uint32_t* sbar = reinterpret_cast<uint32_t*>(stage4);
@@ -181,30 +275,32 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
   __shared__ uint32_t s_carry[NLB];
   __shared__ uint32_t s_r0[32];  // row 0 of the tile holds a barrier, per lane
   __shared__ int s_next;
+  __shared__ __align__(8) uint64_t s_full;  // the stage's transfers are done
   const int tid = threadIdx.x;
   const int g = tid & 31, c = tid >> 5;
   const int ll = tid & 127, ch = tid >> 7;
 
-  // every thread copies 16-byte pieces of the three arrays' tile t
+  // thread 0 asks for the three arrays' tile t, one bulk copy each
   auto fetch = [&](int t) {
     const size_t base = (size_t)t * TW;
-#pragma unroll
-    for (int k = 0; k < TW / 4 / LS_NT; k++) {
-      const int i = 4 * (tid + k * LS_NT);
-      cp_async16(sbar + i, barrier + base + i);
-      cp_async16(sval + i, vals + base + i);
-      if (WITH_H) cp_async16(sok + i, ok + base + i);
-    }
+    mbar_expect(&s_full, TW * 4 * (WITH_H ? 3 : 2));
+    bulk_load(sbar, barrier + base, TW * 4, &s_full);
+    bulk_load(sval, vals + base, TW * 4, &s_full);
+    if (WITH_H) bulk_load(sok, ok + base, TW * 4, &s_full);
   };
 
-  if (tid == 0) s_next = atomicAdd(counter, 1);
+  if (tid == 0) {
+    mbar_init(&s_full);
+    s_next = atomicAdd(counter, 1);
+  }
   __syncthreads();
   int tile = s_next;
   if (tile >= ntiles) return;
-  fetch(tile);
-  for (;;) {
-    cp_async_wait_all();
-    __syncthreads();
+  if (tid == 0) fetch(tile);
+  for (int it = 0;; it++) {
+    TRACE(it, 0)
+    mbar_wait(&s_full, it & 1);
+    TRACE(it, 1)
     // 2. this tile's inputs from the stage into registers
     uint4 v[LS_RPT], h[LS_RPT];
     uint32_t bm[4] = {0, 0, 0, 0};  // bit k: row k of the chunk holds a barrier
@@ -220,7 +316,10 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
     if (tid == 0) s_next = atomicAdd(counter, 1);
     __syncthreads();  // the stage is free; the next tile is claimed
     const int next = s_next;
-    if (next < ntiles) fetch(next);
+#ifndef LS_LATE_FETCH
+    if (tid == 0 && next < ntiles) fetch(next);
+#endif
+    TRACE(it, 2)
 
     // 3. the chunk's scan in registers
     uint32_t f = 0, r0 = 0;  // bit j: lane 4g + j has a barrier in the chunk, in row 0
@@ -289,6 +388,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
       has = (sf[(LS_C - 1) * 32 + (ll >> 2)] >> (ll & 3)) & 1;
     }
     __syncthreads();  // the chunk folds are read: the look-back buffer is free
+    TRACE(it, 3)
 
     // 4. publication and look-back, a thread a lane and channel
     if (tid < NLB) {
@@ -299,16 +399,23 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
       uint32_t cy = 0;
       if (in) {
         if (ch == 0) {
-          cy = look_back<OP>(code, w, stride, tile, sm + tid, NLB);
+          if (OP == LS_MIN_F || (OP == LS_DYN && (code & LS_EXACT)))
+            cy = look_back_exact<OP>(code, w, stride, tile);
+          else
+            cy = look_back<OP>(code, w, stride, tile, sm + ll, 128);
           if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
         } else {
-          cy = look_back<LS_MAX_I>(code, w, stride, tile, sm + tid, NLB);
+          cy = look_back_exact<LS_MAX_I>(code, w, stride, tile);
           if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
         }
       }
       s_carry[tid] = cy;
     }
     __syncthreads();
+#ifdef LS_LATE_FETCH
+    if (tid == 0 && next < ntiles) fetch(next);
+#endif
+    TRACE(it, 4)
 
     // 5. the carry into the rows before the chunk's first barrier; one
     //    store of each output
@@ -341,6 +448,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
       out[q0 + k * 32] = v[k];
       if (WITH_H) outh[q0 + k * 32] = h[k];
     }
+    TRACE(it, 5)
     if (next >= ntiles) return;
     tile = next;
   }
@@ -424,7 +532,8 @@ extern "C" int lane_segscan(const void* barrier, const void* vals,
   unsigned* counter = (unsigned*)(words + nw - 1);
   cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * nw, st);
   if (err != cudaSuccess) return (int)err;
-  const int code = dt | mo << 4 | (packed ? 1 : 0) << 8;
+  const bool exact = dt != DT_F32 || (mo != MO_PLUS && mo != MO_TIMES);
+  const int code = dt | mo << 4 | (packed ? 1 : 0) << 8 | (exact ? LS_EXACT : 0);
 #define ARGS with_h, rows, st, barrier, vals, ok, out, outh, counter, words, code
   if (dt == DT_F32 && mo == MO_MIN && !packed) return launch_h<LS_MIN_F>(ARGS);
   if (dt == DT_F32 && mo == MO_PLUS && !packed) return launch_h<LS_ADD_F>(ARGS);

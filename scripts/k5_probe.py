@@ -35,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 SHAPES = [(128, 8), (128, 16), (64, 4), (64, 8), (32, 4)]
 
 
-def build_all(out, parent):
+def build_all(out, parent, extra, trace, defines):
     from graphblas_tpu_torch.core.engine import kernels as K
 
     nvcc = K._nvcc()
@@ -47,6 +47,17 @@ def build_all(out, parent):
     for rows, rpt in SHAPES:
         name = f"r{rows}_t{rpt}"
         jobs[name] = [f"-DLS_ROWS={rows}", f"-DLS_RPT={rpt}", src]
+    for rows, rpt in trace:
+        jobs[f"r{rows}_t{rpt}_trace"] = [f"-DLS_ROWS={rows}", f"-DLS_RPT={rpt}",
+                                         "-DLS_TRACE", src]
+    for item in extra:
+        name, path = item.split("=", 1)
+        jobs[name] = [os.path.join(path, "lane_segscan.cu")]
+        if name.endswith("_trace"):
+            jobs[name].insert(0, "-DLS_TRACE")
+    for item in defines:
+        name, flags = item.split("=", 1)
+        jobs[name] = [f"-D{f}" for f in flags.split(",")] + [src]
     if parent:
         jobs["parent"] = [os.path.join(parent, "graphblas_tpu_torch", "csrc",
                                        "lane_segscan.cu")]
@@ -106,10 +117,49 @@ def caller(torch, K, name, so):
     return call
 
 
+def phase_trace(torch, name, so, call, barrier, vf, ok, mo):
+    """Per block and iteration of the persistent loop, the global timer at
+    its six points (-DLS_TRACE): the median of each phase in us, and the
+    kernel's span."""
+    so.lane_segscan_trace.argtypes = [ctypes.c_void_p]
+    T = np.zeros((1024, 16, 6), np.uint64)
+    for _ in range(3):
+        call(barrier, vf, ok, 0, mo)
+    torch.cuda.synchronize()
+    so.lane_segscan_trace_clear()
+    call(barrier, vf, ok, 0, mo)
+    torch.cuda.synchronize()
+    so.lane_segscan_trace(T.ctypes.data_as(ctypes.c_void_p))
+    T = T.astype(np.int64)
+    used = T[:, :, 0] > 0
+    t0 = T[used][:, 0].min()
+    span = (T[:, :, 5][used].max() - t0) / 1e3
+    iters = used.sum(1)
+    names = ["wait", "read+claim", "scan+HS", "look-back", "fix+store"]
+    cs.log(f"  trace {name} FP32 min + validity: span {span:.1f} us, blocks "
+           f"{int((iters > 0).sum())}, iterations a block {np.bincount(iters)[1:]}")
+    for it in range(int(iters.max())):
+        rows = T[:, it][used[:, it]]
+        d = np.diff(rows, axis=1) / 1e3
+        start = (rows[:, 0] - t0) / 1e3
+        cs.log(f"    it {it}: start {np.median(start):7.2f} us, " + ", ".join(
+            f"{n} {np.median(d[:, k]):.2f}" for k, n in enumerate(names))
+            + f" (max wait {d[:, 0].max():.2f})")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked parent tree")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "k5_probe"))
+    ap.add_argument("--extra", action="append", default=[], metavar="NAME=DIR",
+                    help="also build DIR/lane_segscan.cu (this C interface)")
+    ap.add_argument("--trace", action="append", default=[], metavar="ROWS,RPT",
+                    help="also build this shape with -DLS_TRACE and print its "
+                    "phase times")
+    ap.add_argument("--shapes", help="ROWS,RPT;... instead of SHAPES")
+    ap.add_argument("--define", action="append", default=[],
+                    metavar="NAME=MACRO,MACRO", help="also build this source "
+                    "with these macros (a name ending in _trace is traced)")
     args = ap.parse_args()
     import torch
 
@@ -120,7 +170,11 @@ def main():
     from graphblas_tpu_torch.core.engine import lanepipe as lp
 
     cs.log(f"gpu: {cs.gpu_line()}")
-    libs = build_all(args.out, args.parent)
+    global SHAPES
+    if args.shapes:
+        SHAPES = [tuple(int(x) for x in t.split(",")) for t in args.shapes.split(";")]
+    trace = [tuple(int(x) for x in t.split(",")) for t in args.trace]
+    libs = build_all(args.out, args.parent, args.extra, trace, args.define)
     dev = torch.device("cuda")
     with gb.config.set(device="cuda", auto_sparse_limit=0):
         n = 1 << 19
@@ -180,6 +234,10 @@ def main():
         cs.compare(f"  {name} ok in [-1000, 1000], values", gv, pv, quiet=True)
         cs.compare(f"  {name} ok in [-1000, 1000], ok", gh, ph, quiet=True)
     cs.log("every build equal to the plain version, 50 launches bitwise equal")
+    for name, so in libs.items():
+        if name.endswith("_trace") and name in calls:
+            phase_trace(torch, name, so, calls[name], barrier, vf, hh,
+                        K.MONOID_OP["min"])
     cs.log(f"gpu: {cs.gpu_line()}")
 
 
