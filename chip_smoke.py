@@ -769,19 +769,14 @@ def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
                      f"from the first")
     log("  K5: one launch a call, 200 launches of FP32 min and plus with "
         "validity bitwise equal: ok")
-    k5 = lambda: lp.lane_segscan(barrier, vf, hh, cmin)  # noqa: E731
-    p5 = lambda: lp.lane_segscan_plain(barrier, vf, hh, cmin)  # noqa: E731
+    # timed warm and after an L2 flush; the kernels line's row is the main
+    # path's variant, the first
     k5_bytes, k5v_bytes = 4 * 5 * R_scan * 128, 4 * 3 * R_scan * 128
-    row = add("lane_segscan", "graphblas_tpu_torch/csrc/lane_segscan.cu",
-              "graphblas_tpu/core/engine/lanepipe.py:476", err5,
-              cuda_ms(torch, k5), cuda_ms(torch, p5), k5_bytes,
-              nops=2 * R_scan * 128)
-    row["launches_per_call"] = per_call.pop()
-    for tag, cmb, ok, nbytes in (
+    for i, (tag, cmb, ok, nbytes) in enumerate((
             ("FP32 min + validity", cmin, hh, k5_bytes),
             ("FP32 plus + validity", cplus, hh, k5_bytes),
             ("FP32 min values only", cmin, None, k5v_bytes),
-            ("FP32 plus values only", cplus, None, k5v_bytes)):
+            ("FP32 plus values only", cplus, None, k5v_bytes))):
         kfn = lambda: lp.lane_segscan(barrier, vf, ok, cmb)  # noqa: E731
         pfn = lambda: lp.lane_segscan_plain(barrier, vf, ok, cmb)  # noqa: E731
         ms, cold, pms = (cuda_ms(torch, kfn), cuda_ms(torch, kfn, cold=True),
@@ -793,6 +788,11 @@ def new_kernels_phase(gb, torch, dev, A, e, rng, add, variants):
         log(f"  lane_segscan {tag}: kernel {ms:.4f} ms, after an L2 flush "
             f"{cold:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms "
             f"({nbytes / 1e6:.1f} MB)")
+        if i == 0:
+            row = add("lane_segscan", "graphblas_tpu_torch/csrc/lane_segscan.cu",
+                      "graphblas_tpu/core/engine/lanepipe.py:476", err5, ms,
+                      pms, nbytes, nops=2 * R_scan * 128)
+            row["launches_per_call"] = per_call.pop()
 
     # ---- K6 segscan on the zipf matrix's sort-pipeline plan (vxm side)
     t0 = time.perf_counter()

@@ -52,7 +52,6 @@ _ARGTYPES = {
     "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
     "fused_scan": [_P] * 6 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 6 + [_I] * 4 + [_P],
-    "lane_segscan_scratch": [_I, _I],
     "segscan": [_P] * 4 + [_I, _P, _I, _P],
     "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
@@ -60,8 +59,7 @@ _ARGTYPES = {
 # C entry points of a source, where they are not the one named after it
 _ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked"),
                  "tile_perm": ("tile_perm", "tile_perm_channels"),
-                 "mid_perm": ("mid_perm_tiles", "mid_perm_channels"),
-                 "lane_segscan": ("lane_segscan", "lane_segscan_scratch")}
+                 "mid_perm": ("mid_perm_tiles", "mid_perm_channels")}
 
 _libs = {}
 _lock = threading.Lock()

@@ -455,16 +455,17 @@ def lane_segscan(barrier, vals, ok, combine):
         raise TypeError("lane_segscan: ok must be int32")
     # the kernel moves 16 bytes a thread
     pm._require_aligned("lane_segscan", tensors)
-    lib = K.lib("lane_segscan")
+    ntiles = R // 128
+    nch = 1 if ok is None else 2
     # per tile, channel and lane a 64-bit published word, then the counter
-    scratch = torch.empty(lib.lane_segscan_scratch(R, 1 if ok is None else 2),
-                          dtype=torch.uint8, device=v.device)
+    scratch = torch.empty(2 * (nch * 128 * ntiles + 1), dtype=torch.int32,
+                          device=v.device)
     out = torch.empty_like(v)
     outh = None if ok is None else torch.empty_like(ok)
-    rc = lib.lane_segscan(
+    rc = K.lib("lane_segscan").lane_segscan(
         barrier.data_ptr(), v.data_ptr(),
         None if ok is None else ok.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), None if ok is None else outh.data_ptr(), R,
+        out.data_ptr(), None if ok is None else outh.data_ptr(), ntiles,
         K.DT[sp.kernel_dtype(combine.dt)], K.MONOID_OP[combine.monoid],
         int(combine.packed), K.stream_ptr(v))
     K.check("lane_segscan", rc)

@@ -16,23 +16,22 @@
 // without; at the zipf plan's R = 33,792, 86.5 MB (0.0258 ms at 3.35 TB/s)
 // and 51.9 MB (0.0155 ms).
 //
-// The design.  A block scans one tile of LS_ROWS rows and all 128 lanes.
-// Nothing is permuted, so no tile goes into shared memory: the data stay
-// in registers from their load to their store, and shared memory holds
-// only the chunk folds and the look-back buffer.  Warp c of the block owns
-// chunk c, rows LS_RPT c .. LS_RPT c + LS_RPT - 1 of the tile; its thread
-// g owns lanes 4g .. 4g + 3, so every global access is 16 bytes a thread
-// and one 512-byte row a warp (K1's layout).
+// The design.  One 512-thread block a (128,128) tile.  Nothing is
+// permuted, so no tile goes into shared memory: the data stay in registers
+// from their load to their store, and shared memory holds only the chunk
+// folds and the look-back buffer.  Warp c of the block owns chunk c, rows
+// 8c .. 8c + 7 of the tile; its thread g owns lanes 4g .. 4g + 3, so every
+// global access is 16 bytes a thread and one 512-byte row a warp (K1's
+// layout).
 //   1. Thread 0 claims the next tile from an atomic counter, so a block
 //      only ever waits on tiles that running blocks have claimed.
-//   2. Every input is read once, all of a thread's loads in flight
-//      together; the barrier becomes a mask of LS_RPT bits a lane.
-//   3. A thread scans its chunk in registers, 4 lanes by LS_RPT rows on
-//      each channel.  The chunk folds meet in shared memory, where a
-//      segmented Hillis-Steele scan over the block's chunks (log2 of their
-//      number steps, every thread busy) gives each chunk the fold of the
-//      chunks above it back to the nearest barrier, and the tile's
-//      aggregate per lane.
+//   2. Every input is read once, all of a thread's 24 loads in flight
+//      together; the barrier becomes a mask of 8 bits a lane.
+//   3. A thread scans its chunk in registers, 4 lanes by 8 rows on each
+//      channel.  The 16 chunk folds of a lane meet in shared memory, where
+//      a segmented Hillis-Steele scan (4 steps, every thread busy) gives
+//      each chunk the fold of the chunks above it back to the nearest
+//      barrier, and the tile's aggregate per lane.
 //   4. The carry, by a look-back per lane and per channel (as K4's,
 //      csrc/fused_scan.cu): per tile, channel and lane one 64-bit word
 //      holds a value and its status, stored and loaded whole, so no fence
@@ -46,9 +45,9 @@
 //      the lane's prefix where the lane had none.  A lane reads at most
 //      LS_WINDOW words; past that it waits for the prefix of the tile at
 //      the window's edge, so any barrier pattern is taken (the lanepipe's
-//      runs are at most SPLIT_DEG + 1 = 2049 rows).  The validity channel
-//      has its own words: its values are any int32, so it cannot ride in
-//      the status half of the value's word.  A spin that outlasts a
+//      runs are at most SPLIT_DEG + 1 = 2049 rows, 17 tiles).  The validity
+//      channel has its own words: its values are any int32, so it cannot
+//      ride in the status half of the value's word.  A spin that outlasts a
 //      claimed tile's publication by orders of magnitude traps.
 //   5. The carry is combined into the rows before each chunk's first
 //      barrier, and each output is written once.
@@ -60,36 +59,29 @@
 // triple goes through one out-of-line combine, which keeps the build to
 // seconds.  The validity channel's max is inline.
 //
-// What limits it: a tile's values stay in registers from load to store,
-// 2 words a slot with validity, so the 264 tiles of the zipf plan take
-// about two tiles an SM in turn, and a block's loads, look-back and stores
-// run in series; other blocks on the SM overlap them only as far as the
-// registers leave room.
+// What limits it (PERF.md, PR 9).  A tile's two channels fill 128
+// registers of 512 threads: one block an SM, so the zipf plan's 264 tiles
+// run in two waves, and a block's phases run in series (per block, median:
+// loads 8 us, scan 5 us, look-back 1 us, carry and stores 3 us).  Persistent
+// blocks fed by bulk copies (TMA) overlapped the next tile's loads with
+// the scan but came out slower: the look-back then waited behind the
+// copies in flight and on the slowest predecessor (10 us a tile).
 //
 // The fold order differs from the Pallas kernel's roll tree: FP32 plus and
 // times agree to rounding, everything else exactly.
 #include "common.cuh"
 
-#ifndef LS_ROWS
-#define LS_ROWS 64   // rows of a tile: one look-back word a lane and channel
-#endif
-#ifndef LS_RPT
-#define LS_RPT 8     // rows a thread scans, 4 lanes each
-#endif
-#define LS_C (LS_ROWS / LS_RPT)  // chunks of a tile: the warps of a block
-#define LS_NT (32 * LS_C)        // threads of a block
-#define LS_BATCH 8               // predecessor words loaded at a time
-#define LS_WINDOW 32             // words a lane reads before it waits
-
-static_assert(128 % LS_ROWS == 0 && LS_ROWS % LS_RPT == 0, "tile shape");
-static_assert(LS_RPT <= 32 && LS_NT <= 1024 && LS_NT >= 256, "block shape");
+#define LS_RPT 8                  // rows a thread scans, 4 lanes each
+#define LS_C (128 / LS_RPT)       // chunks of a tile: the warps of a block
+#define LS_NT (32 * LS_C)         // threads of a block
+#define LS_BATCH 8                // predecessor words loaded at a time
+#define LS_WINDOW 32              // words a lane reads before it waits
 
 enum { ST_AGG = 1, ST_PRE = 2 };  // status of a published word; 0: none yet
 
 // The combine of a launch, known when the kernel is compiled, or read at
 // run time (LS_DYN); LS_MAX_I is the validity channel's signed max.
 enum LsOp { LS_ADD_F, LS_MIN_F, LS_MAX_I, LS_DYN };
-#define LS_EXACT (1 << 9)  // in the code: the combine's folds are exact
 
 // code = dt | mo << 4 | packed << 8.  Not inlined: one shared body keeps
 // the build short (see ROADMAP, traps).
@@ -117,63 +109,6 @@ __device__ __forceinline__ uint32_t comb(int code, uint32_t x, uint32_t y) {
 __device__ __forceinline__ uint32_t& at(uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
-
-// The tile's inputs arrive by the Tensor Memory Accelerator: one bulk copy
-// of contiguous bytes an array, whose completion an mbarrier in shared
-// memory counts.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-// one arrival that also expects `bytes` of transfers in the current phase
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  uint64_t state;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
-               : "=l"(state) : "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-#ifdef LS_TRACE
-// per block and iteration, the global timer at six points of the loop
-#define LS_TRACE_IT 16
-__device__ unsigned long long ls_trace[1024][LS_TRACE_IT][6];
-#define TRACE(it, k)                                                      \
-  if (tid == 0 && blockIdx.x < 1024 && (it) < LS_TRACE_IT) {              \
-    unsigned long long t_;                                                \
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                \
-    ls_trace[blockIdx.x][it][k] = t_;                                     \
-  }
-extern "C" int lane_segscan_trace(void* dst) {
-  return (int)cudaMemcpyFromSymbol(dst, ls_trace, sizeof(ls_trace));
-}
-extern "C" int lane_segscan_trace_clear() {
-  static unsigned long long zero[1024][LS_TRACE_IT][6];
-  return (int)cudaMemcpyToSymbol(ls_trace, zero, sizeof(ls_trace));
-}
-#else
-#define TRACE(it, k)
-#endif
 
 // Inclusive prefix of tile - 1 for one lane and channel: the nearest
 // predecessor's published prefix, then the aggregates after it, folded from
@@ -214,58 +149,16 @@ __device__ __forceinline__ uint32_t look_back(int code,
   return run;
 }
 
-// The same for a combine whose folds do not depend on their grouping
-// (integers, min, max: every grouping gives the same bits, NaNs and signed
-// zeros included): it folds each word as it reads it, nearest first, and
-// needs no buffer, so it walks back as far as the nearest prefix is.
-template <int OP>
-__device__ __forceinline__ uint32_t look_back_exact(
-    int code, const unsigned long long* w, size_t stride, int tile) {
-  int d = 0;  // predecessors read
-  bool found = false;
-  uint32_t run = 0;
-  while (!found) {
-    unsigned long long x[LS_BATCH];
-#pragma unroll
-    for (int i = 0; i < LS_BATCH; i++)
-      x[i] = tile - 1 - d - i >= 0 ? ld_word(w - (size_t)(d + i + 1) * stride)
-                                   : 0ull;
-#pragma unroll
-    for (int i = 0; i < LS_BATCH; i++) {
-      if (found) break;
-      const unsigned long long* p = w - (size_t)(d + 1) * stride;
-      unsigned long long y = x[i];
-      for (int spins = 0; (y & 3) == 0; spins++) {
-        if (spins == 1 << 26) __trap();  // fail, never hang
-        y = ld_word(p);
-      }
-      const uint32_t val = (uint32_t)(y >> 32);
-      run = d == 0 ? val : comb<OP>(code, val, run);
-      found = (y & 3) == ST_PRE;
-      d++;
-    }
-  }
-  return run;
-}
-
 template <int OP, bool WITH_H>
 __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
-    const uint32_t* __restrict__ barrier, const uint32_t* __restrict__ vals,
-    const uint32_t* __restrict__ ok, uint4* __restrict__ out,
+    const uint4* __restrict__ barrier, const uint4* __restrict__ vals,
+    const uint4* __restrict__ ok, uint4* __restrict__ out,
     uint4* __restrict__ outh, unsigned* counter, unsigned long long* words,
-    int code, int ntiles) {
+    int code) {
   constexpr int NCH = WITH_H ? 2 : 1;
   constexpr int NLB = 128 * NCH;  // look-back threads: one a lane and channel
-  constexpr int TW = LS_ROWS * 128;  // words of a tile
   constexpr int SCAN_WORDS = LS_C * 128 * NCH + LS_C * 32;
-  // the value channel's look-back buffer, where its folds depend on their
-  // grouping (FP32 plus and times)
-  constexpr int LB_WORDS = OP == LS_MIN_F ? 0 : LS_WINDOW * 128;
-  // the next tile's inputs, arriving while this one is scanned
-  extern __shared__ int4 stage4[];
-  uint32_t* sbar = reinterpret_cast<uint32_t*>(stage4);
-  uint32_t* sval = sbar + TW;
-  uint32_t* sok = sval + TW;
+  constexpr int LB_WORDS = LS_WINDOW * NLB;
   // the chunk folds, then (once they are read) the look-back buffer
   __shared__ __align__(16) uint32_t sm[SCAN_WORDS > LB_WORDS ? SCAN_WORDS
                                                               : LB_WORDS];
@@ -274,267 +167,190 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
   uint32_t* sf = sm + LS_C * 128 * NCH;      // barrier bits, lane 4g + j: bit j
   __shared__ uint32_t s_carry[NLB];
   __shared__ uint32_t s_r0[32];  // row 0 of the tile holds a barrier, per lane
-  __shared__ int s_next;
-  __shared__ __align__(8) uint64_t s_full;  // the stage's transfers are done
+  __shared__ int s_tile;
   const int tid = threadIdx.x;
+  if (tid == 0) s_tile = atomicAdd(counter, 1);
+  __syncthreads();
+  const int tile = s_tile;
   const int g = tid & 31, c = tid >> 5;
+  const size_t q0 = ((size_t)tile * 128 + c * LS_RPT) * 32 + g;
+
+  // 2. every input read once, all in flight together
+  uint4 v[LS_RPT], h[LS_RPT];
+  uint4 b[LS_RPT];
+#pragma unroll
+  for (int k = 0; k < LS_RPT; k++) {
+    b[k] = __ldg(barrier + q0 + k * 32);
+    v[k] = __ldg(vals + q0 + k * 32);
+    if (WITH_H) h[k] = __ldg(ok + q0 + k * 32);
+  }
+  uint32_t bm[4] = {0, 0, 0, 0};  // bit k: row k of the chunk holds a barrier
+#pragma unroll
+  for (int k = 0; k < LS_RPT; k++)
+#pragma unroll
+    for (int j = 0; j < 4; j++)
+      bm[j] |= (uint32_t)(at(b[k], j) != 0) << k;
+
+  // 3. the chunk's scan in registers
+  uint32_t f = 0, r0 = 0;  // bit j: lane 4g + j has a barrier in the chunk, in row 0
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+#pragma unroll
+    for (int k = 1; k < LS_RPT; k++) {
+      if (!((bm[j] >> k) & 1)) {
+        at(v[k], j) = comb<OP>(code, at(v[k - 1], j), at(v[k], j));
+        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
+      }
+    }
+    f |= (uint32_t)(bm[j] != 0) << j;
+    r0 |= (bm[j] & 1) << j;
+  }
+  uint4 a = v[LS_RPT - 1], ah = WITH_H ? h[LS_RPT - 1] : make_uint4(0, 0, 0, 0);
+  sv[c * 32 + g] = a;
+  if (WITH_H) sh[c * 32 + g] = ah;
+  sf[c * 32 + g] = f;
+  if (c == 0) s_r0[g] = r0;
+  __syncthreads();
+
+  //    the chunk folds' segmented scan: chunk c ends up holding the fold of
+  //    chunks 0..c back to the nearest barrier, and whether there is one
+#pragma unroll
+  for (int s = 1; s < LS_C; s <<= 1) {
+    uint4 pv = a, ph = ah;
+    uint32_t pf = 0;
+    const bool use = c >= s;
+    if (use) {
+      pv = sv[(c - s) * 32 + g];
+      if (WITH_H) ph = sh[(c - s) * 32 + g];
+      pf = sf[(c - s) * 32 + g];
+    }
+    __syncthreads();
+    if (use) {
+#pragma unroll
+      for (int j = 0; j < 4; j++) {
+        if (!((f >> j) & 1)) {
+          at(a, j) = comb<OP>(code, at(pv, j), at(a, j));
+          if (WITH_H) at(ah, j) = comb<LS_MAX_I>(code, at(ph, j), at(ah, j));
+        }
+      }
+      f |= pf;
+      sv[c * 32 + g] = a;
+      if (WITH_H) sh[c * 32 + g] = ah;
+      sf[c * 32 + g] = f;
+    }
+    __syncthreads();
+  }
+  // the fold of the chunks above this one (none for chunk 0)
+  uint4 e = make_uint4(0, 0, 0, 0), eh = e;
+  uint32_t ef = 0;
+  if (c > 0) {
+    e = sv[(c - 1) * 32 + g];
+    if (WITH_H) eh = sh[(c - 1) * 32 + g];
+    ef = sf[(c - 1) * 32 + g];
+  }
+  // the tile's aggregate of the look-back thread's lane and channel
   const int ll = tid & 127, ch = tid >> 7;
+  uint32_t agg = 0;
+  bool has = false;
+  if (tid < NLB) {
+    agg = sm[(ch * LS_C + LS_C - 1) * 128 + ll];
+    has = (sf[(LS_C - 1) * 32 + (ll >> 2)] >> (ll & 3)) & 1;
+  }
+  __syncthreads();  // the chunk folds are read: the look-back buffer is free
 
-  // thread 0 asks for the three arrays' tile t, one bulk copy each
-  auto fetch = [&](int t) {
-    const size_t base = (size_t)t * TW;
-    mbar_expect(&s_full, TW * 4 * (WITH_H ? 3 : 2));
-    bulk_load(sbar, barrier + base, TW * 4, &s_full);
-    bulk_load(sval, vals + base, TW * 4, &s_full);
-    if (WITH_H) bulk_load(sok, ok + base, TW * 4, &s_full);
-  };
-
-  if (tid == 0) {
-    mbar_init(&s_full);
-    s_next = atomicAdd(counter, 1);
+  // 4. publication and look-back, a thread a lane and channel
+  if (tid < NLB) {
+    const size_t stride = (size_t)NCH * 128;
+    unsigned long long* w = words + (size_t)tile * stride + ch * 128 + ll;
+    st_word(w, agg, tile == 0 || has ? ST_PRE : ST_AGG);
+    const bool in = tile > 0 && !((s_r0[ll >> 2] >> (ll & 3)) & 1);
+    uint32_t cy = 0;
+    if (in) {
+      if (ch == 0) {
+        cy = look_back<OP>(code, w, stride, tile, sm + tid, NLB);
+        if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
+      } else {
+        cy = look_back<LS_MAX_I>(code, w, stride, tile, sm + tid, NLB);
+        if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
+      }
+    }
+    s_carry[tid] = cy;
   }
   __syncthreads();
-  int tile = s_next;
-  if (tile >= ntiles) return;
-  if (tid == 0) fetch(tile);
-  for (int it = 0;; it++) {
-    TRACE(it, 0)
-    mbar_wait(&s_full, it & 1);
-    TRACE(it, 1)
-    // 2. this tile's inputs from the stage into registers
-    uint4 v[LS_RPT], h[LS_RPT];
-    uint32_t bm[4] = {0, 0, 0, 0};  // bit k: row k of the chunk holds a barrier
+
+  // 5. the carry into the rows before the chunk's first barrier; one store
+  //    of each output
+  r0 = s_r0[g];
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    bool have = c > 0;  // the fold of the chunks above
+    uint32_t pre = at(e, j), hpre = at(eh, j);
+    if (!((ef >> j) & 1) && tile > 0 && !((r0 >> j) & 1)) {
+      const uint32_t cy = s_carry[4 * g + j];
+      pre = have ? comb<OP>(code, cy, pre) : cy;
+      if (WITH_H) {
+        const uint32_t hy = s_carry[128 + 4 * g + j];
+        hpre = have ? comb<LS_MAX_I>(code, hy, hpre) : hy;
+      }
+      have = true;
+    }
+    const uint32_t first = bm[j] ? __ffs(bm[j]) - 1 : LS_RPT;
 #pragma unroll
     for (int k = 0; k < LS_RPT; k++) {
-      const int q = (c * LS_RPT + k) * 32 + g;
-      uint4 b = reinterpret_cast<const uint4*>(sbar)[q];
-      v[k] = reinterpret_cast<const uint4*>(sval)[q];
-      if (WITH_H) h[k] = reinterpret_cast<const uint4*>(sok)[q];
-#pragma unroll
-      for (int j = 0; j < 4; j++) bm[j] |= (uint32_t)(at(b, j) != 0) << k;
-    }
-    if (tid == 0) s_next = atomicAdd(counter, 1);
-    __syncthreads();  // the stage is free; the next tile is claimed
-    const int next = s_next;
-#ifndef LS_LATE_FETCH
-    if (tid == 0 && next < ntiles) fetch(next);
-#endif
-    TRACE(it, 2)
-
-    // 3. the chunk's scan in registers
-    uint32_t f = 0, r0 = 0;  // bit j: lane 4g + j has a barrier in the chunk, in row 0
-#pragma unroll
-    for (int j = 0; j < 4; j++) {
-#pragma unroll
-      for (int k = 1; k < LS_RPT; k++) {
-        if (!((bm[j] >> k) & 1)) {
-          at(v[k], j) = comb<OP>(code, at(v[k - 1], j), at(v[k], j));
-          if (WITH_H)
-            at(h[k], j) = comb<LS_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
-        }
-      }
-      f |= (uint32_t)(bm[j] != 0) << j;
-      r0 |= (bm[j] & 1) << j;
-    }
-    uint4 a = v[LS_RPT - 1];
-    uint4 ah = WITH_H ? h[LS_RPT - 1] : make_uint4(0, 0, 0, 0);
-    sv[c * 32 + g] = a;
-    if (WITH_H) sh[c * 32 + g] = ah;
-    sf[c * 32 + g] = f;
-    if (c == 0) s_r0[g] = r0;
-    __syncthreads();
-
-    //    the chunk folds' segmented scan: chunk c ends up holding the fold
-    //    of chunks 0..c back to the nearest barrier, and whether there is one
-#pragma unroll
-    for (int s = 1; s < LS_C; s <<= 1) {
-      uint4 pv = a, ph = ah;
-      uint32_t pf = 0;
-      const bool use = c >= s;
-      if (use) {
-        pv = sv[(c - s) * 32 + g];
-        if (WITH_H) ph = sh[(c - s) * 32 + g];
-        pf = sf[(c - s) * 32 + g];
-      }
-      __syncthreads();
-      if (use) {
-#pragma unroll
-        for (int j = 0; j < 4; j++) {
-          if (!((f >> j) & 1)) {
-            at(a, j) = comb<OP>(code, at(pv, j), at(a, j));
-            if (WITH_H) at(ah, j) = comb<LS_MAX_I>(code, at(ph, j), at(ah, j));
-          }
-        }
-        f |= pf;
-        sv[c * 32 + g] = a;
-        if (WITH_H) sh[c * 32 + g] = ah;
-        sf[c * 32 + g] = f;
-      }
-      __syncthreads();
-    }
-    // the fold of the chunks above this one (none for chunk 0)
-    uint4 e = make_uint4(0, 0, 0, 0), eh = e;
-    uint32_t ef = 0;
-    if (c > 0) {
-      e = sv[(c - 1) * 32 + g];
-      if (WITH_H) eh = sh[(c - 1) * 32 + g];
-      ef = sf[(c - 1) * 32 + g];
-    }
-    // the tile's aggregate of the look-back thread's lane and channel
-    uint32_t agg = 0;
-    bool has = false;
-    if (tid < NLB) {
-      agg = sm[(ch * LS_C + LS_C - 1) * 128 + ll];
-      has = (sf[(LS_C - 1) * 32 + (ll >> 2)] >> (ll & 3)) & 1;
-    }
-    __syncthreads();  // the chunk folds are read: the look-back buffer is free
-    TRACE(it, 3)
-
-    // 4. publication and look-back, a thread a lane and channel
-    if (tid < NLB) {
-      const size_t stride = (size_t)NCH * 128;
-      unsigned long long* w = words + (size_t)tile * stride + ch * 128 + ll;
-      st_word(w, agg, tile == 0 || has ? ST_PRE : ST_AGG);
-      const bool in = tile > 0 && !((s_r0[ll >> 2] >> (ll & 3)) & 1);
-      uint32_t cy = 0;
-      if (in) {
-        if (ch == 0) {
-          if (OP == LS_MIN_F || (OP == LS_DYN && (code & LS_EXACT)))
-            cy = look_back_exact<OP>(code, w, stride, tile);
-          else
-            cy = look_back<OP>(code, w, stride, tile, sm + ll, 128);
-          if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
-        } else {
-          cy = look_back_exact<LS_MAX_I>(code, w, stride, tile);
-          if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
-        }
-      }
-      s_carry[tid] = cy;
-    }
-    __syncthreads();
-#ifdef LS_LATE_FETCH
-    if (tid == 0 && next < ntiles) fetch(next);
-#endif
-    TRACE(it, 4)
-
-    // 5. the carry into the rows before the chunk's first barrier; one
-    //    store of each output
-    r0 = s_r0[g];
-#pragma unroll
-    for (int j = 0; j < 4; j++) {
-      bool have = c > 0;  // the fold of the chunks above
-      uint32_t pre = at(e, j), hpre = at(eh, j);
-      if (!((ef >> j) & 1) && tile > 0 && !((r0 >> j) & 1)) {
-        const uint32_t cy = s_carry[4 * g + j];
-        pre = have ? comb<OP>(code, cy, pre) : cy;
-        if (WITH_H) {
-          const uint32_t hy = s_carry[128 + 4 * g + j];
-          hpre = have ? comb<LS_MAX_I>(code, hy, hpre) : hy;
-        }
-        have = true;
-      }
-      const uint32_t first = bm[j] ? __ffs(bm[j]) - 1 : LS_RPT;
-#pragma unroll
-      for (int k = 0; k < LS_RPT; k++) {
-        if (have && k < first) {
-          at(v[k], j) = comb<OP>(code, pre, at(v[k], j));
-          if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, hpre, at(h[k], j));
-        }
+      if (have && k < first) {
+        at(v[k], j) = comb<OP>(code, pre, at(v[k], j));
+        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, hpre, at(h[k], j));
       }
     }
-    const size_t q0 = ((size_t)tile * LS_ROWS + c * LS_RPT) * 32 + g;
-#pragma unroll
-    for (int k = 0; k < LS_RPT; k++) {
-      out[q0 + k * 32] = v[k];
-      if (WITH_H) outh[q0 + k * 32] = h[k];
-    }
-    TRACE(it, 5)
-    if (next >= ntiles) return;
-    tile = next;
   }
-}
-
-// Words a call's scratch holds: per tile, channel and lane a published
-// word, then the tile counter; 8 bytes each.
-static size_t scratch_words(int rows, int nch) {
-  return (size_t)(rows / LS_ROWS) * nch * 128 + 1;
-}
-
-extern "C" int lane_segscan_scratch(int rows, int nch) {
-  return (int)(8 * scratch_words(rows, nch));
-}
-
-// Bytes of the stage in dynamic shared memory: one tile of each input.
-static constexpr int stage_bytes(bool with_h) {
-  return LS_ROWS * 128 * 4 * (with_h ? 3 : 2);
+#pragma unroll
+  for (int k = 0; k < LS_RPT; k++) {
+    out[q0 + k * 32] = v[k];
+    if (WITH_H) outh[q0 + k * 32] = h[k];
+  }
 }
 
 template <int OP, bool WITH_H>
-static int launch(int rows, cudaStream_t st, const void* bar, const void* vals,
-                  const void* ok, void* out, void* outh, unsigned* counter,
-                  unsigned long long* words, int code) {
-  auto kernel = lane_segscan_kernel<OP, WITH_H>;
-  constexpr int smem = stage_bytes(WITH_H);
-  // blocks a launch: as many as the card holds at once (they are
-  // persistent), found once per instance and device
-  static int resident[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err == cudaSuccess)
-      err = device_attr<cudaDevAttrMultiProcessorCount>(&sms);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          LS_NT, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-    resident[dev] = sms * per_sm;
-  }
-  const int ntiles = rows / LS_ROWS;
-  const int grid = ntiles < resident[dev] ? ntiles : resident[dev];
-  kernel<<<grid, LS_NT, smem, st>>>(
-      (const uint32_t*)bar, (const uint32_t*)vals, (const uint32_t*)ok,
-      (uint4*)out, (uint4*)outh, counter, words, code, ntiles);
+static int launch(int ntiles, cudaStream_t st, const void* bar,
+                  const void* vals, const void* ok, void* out, void* outh,
+                  unsigned* counter, unsigned long long* words, int code) {
+  lane_segscan_kernel<OP, WITH_H><<<ntiles, LS_NT, 0, st>>>(
+      (const uint4*)bar, (const uint4*)vals, (const uint4*)ok, (uint4*)out,
+      (uint4*)outh, counter, words, code);
   return (int)cudaGetLastError();
 }
 
 template <int OP>
-static int launch_h(bool with_h, int rows, cudaStream_t st, const void* bar,
+static int launch_h(bool with_h, int ntiles, cudaStream_t st, const void* bar,
                     const void* vals, const void* ok, void* out, void* outh,
                     unsigned* counter, unsigned long long* words, int code) {
-  return with_h ? launch<OP, true>(rows, st, bar, vals, ok, out, outh,
+  return with_h ? launch<OP, true>(ntiles, st, bar, vals, ok, out, outh,
                                    counter, words, code)
-                : launch<OP, false>(rows, st, bar, vals, ok, out, outh,
+                : launch<OP, false>(ntiles, st, bar, vals, ok, out, outh,
                                     counter, words, code);
 }
 
-// One kernel launch, after one memset of its scratch (lane_segscan_scratch
-// bytes, 8-byte aligned).  rows: R, a multiple of 128; every array 16-byte
-// aligned.  ok and outh are null when the validity channel is not scanned.
+// One kernel launch, after one memset of its scratch.  scratch holds
+// 8 * (nch * 128 * ntiles + 1) bytes, nch = 2 with the validity channel
+// and 1 without: per tile, channel and lane a published word, then the
+// tile counter.  Every array 16-byte aligned; ok and outh are null when the
+// validity channel is not scanned.
 extern "C" int lane_segscan(const void* barrier, const void* vals,
                             const void* ok, void* scratch, void* out,
-                            void* outh, int rows, int dt, int mo, int packed,
+                            void* outh, int ntiles, int dt, int mo, int packed,
                             void* stream) {
-  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BOR ||
-      rows % 128 != 0)
+  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BOR)
     return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return 0;
+  if (ntiles <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const bool with_h = ok != nullptr;
-  const size_t nw = scratch_words(rows, with_h ? 2 : 1);
+  const size_t nw = (size_t)ntiles * (with_h ? 2 : 1) * 128;
   unsigned long long* words = (unsigned long long*)scratch;
-  unsigned* counter = (unsigned*)(words + nw - 1);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * nw, st);
+  unsigned* counter = (unsigned*)(words + nw);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * (nw + 1), st);
   if (err != cudaSuccess) return (int)err;
-  const bool exact = dt != DT_F32 || (mo != MO_PLUS && mo != MO_TIMES);
-  const int code = dt | mo << 4 | (packed ? 1 : 0) << 8 | (exact ? LS_EXACT : 0);
-#define ARGS with_h, rows, st, barrier, vals, ok, out, outh, counter, words, code
+  const int code = dt | mo << 4 | (packed ? 1 : 0) << 8;
+#define ARGS with_h, ntiles, st, barrier, vals, ok, out, outh, counter, words, code
   if (dt == DT_F32 && mo == MO_MIN && !packed) return launch_h<LS_MIN_F>(ARGS);
   if (dt == DT_F32 && mo == MO_PLUS && !packed) return launch_h<LS_ADD_F>(ARGS);
   return launch_h<LS_DYN>(ARGS);

@@ -1,20 +1,18 @@
 #!/usr/bin/env python3
-"""Block-shape probe of K5 (csrc/lane_segscan.cu) on one NVIDIA GPU.
+"""Parent/change A/B of K5 (csrc/lane_segscan.cu) on one NVIDIA GPU.
 
-    python3 scripts/k5_probe.py [--parent DIR] [--out DIR]
+    python3 scripts/k5_probe.py --parent DIR [--out DIR]
 
-Run from the repository root.  It compiles lane_segscan.cu once for each
-block shape below (the LS_ROWS and LS_RPT macros; one nvcc each, all
-started together) and, with --parent, the lane_segscan.cu of a parent
-tree unpacked into DIR (the two-launch design: its own C interface).  On
-the scan layout of chip_smoke.py's zipf plan (n = 2**19, degree 8) it
-holds every build against lanepipe.lane_segscan_plain (bitwise; FP32 plus
-to rel 1e-5), checks 50 launches of each bitwise equal, and times each
-with chip_smoke.cuda_ms, warm and after an L2 flush: FP32 min and FP32
-plus with the validity channel, FP32 min values only.  The times include
-what a call puts on the stream (the memset of the scratch and the
-kernel, or the parent's two kernels).  Prints the card, ptxas's register
-report and one line per build and variant.
+Run from the repository root, with the parent tree unpacked into DIR (its
+lane_segscan.cu is the two-launch design, with its own C interface).  It
+compiles both sources (one nvcc each, started together) and, on the scan
+layout of chip_smoke.py's zipf plan (n = 2**19, degree 8), holds both
+against lanepipe.lane_segscan_plain (bitwise; FP32 plus to rel 1e-5) and
+times them with chip_smoke.cuda_ms, warm and after an L2 flush, in the
+order parent, change, change, parent: FP32 min and FP32 plus, with the
+validity channel and values only.  A time covers what a call puts on the
+stream: the memset of the scratch and the kernel, or the parent's two
+kernels.  Prints the card, ptxas's register report and one line a variant.
 """
 
 import argparse
@@ -31,135 +29,71 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-# (LS_ROWS, LS_RPT): threads a block = 32 * LS_ROWS / LS_RPT
-SHAPES = [(128, 8), (128, 16), (64, 4), (64, 8), (32, 4)]
 
-
-def build_all(out, parent, extra, trace, defines):
+def build_both(out, parent):
     from graphblas_tpu_torch.core.engine import kernels as K
 
     nvcc = K._nvcc()
     if nvcc is None:
         cs.fail("nvcc not found")
     os.makedirs(out, exist_ok=True)
-    src = os.path.join(K._CSRC, "lane_segscan.cu")
-    jobs = {}
-    for rows, rpt in SHAPES:
-        name = f"r{rows}_t{rpt}"
-        jobs[name] = [f"-DLS_ROWS={rows}", f"-DLS_RPT={rpt}", src]
-    for rows, rpt in trace:
-        jobs[f"r{rows}_t{rpt}_trace"] = [f"-DLS_ROWS={rows}", f"-DLS_RPT={rpt}",
-                                         "-DLS_TRACE", src]
-    for item in extra:
-        name, path = item.split("=", 1)
-        jobs[name] = [os.path.join(path, "lane_segscan.cu")]
-        if name.endswith("_trace"):
-            jobs[name].insert(0, "-DLS_TRACE")
-    for item in defines:
-        name, flags = item.split("=", 1)
-        jobs[name] = [f"-D{f}" for f in flags.split(",")] + [src]
-    if parent:
-        jobs["parent"] = [os.path.join(parent, "graphblas_tpu_torch", "csrc",
-                                       "lane_segscan.cu")]
+    srcs = {"change": os.path.join(K._CSRC, "lane_segscan.cu"),
+            "parent": os.path.join(parent, "graphblas_tpu_torch", "csrc",
+                                   "lane_segscan.cu")}
     t0 = time.perf_counter()
     procs = {n: subprocess.Popen(
-        [nvcc, *K.NVCC_FLAGS, "-o", os.path.join(out, f"lib_{n}.so"), *args],
+        [nvcc, *K.NVCC_FLAGS, "-o", os.path.join(out, f"lib_{n}.so"), src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n, args in jobs.items()}
+        for n, src in srcs.items()}
     libs = {}
     for n, p in procs.items():
         log, _ = p.communicate(timeout=600)
         if p.returncode != 0:
-            cs.log(f"build {n} failed:\n{log}")
-            continue
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        cs.log(f"build {n}: " + " | ".join(regs[:8]))
+            cs.fail(f"nvcc {n}:\n{log}")
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        cs.log(f"build {n}: " + " | ".join(regs))
         libs[n] = ctypes.CDLL(os.path.join(out, f"lib_{n}.so"))
-    cs.log(f"built {len(libs)} in {time.perf_counter() - t0:.1f} s")
+    cs.log(f"built in {time.perf_counter() - t0:.1f} s")
     return libs
 
 
 def caller(torch, K, name, so):
-    """fn(barrier, vals, ok, code) -> (out, outh), as the wrapper calls it."""
+    """call(barrier, vals, ok, mo) -> (out, outh), as each wrapper calls it
+    (FP32, not packed)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = so.lane_segscan
     fn.restype = I
-    if name == "parent":
-        fn.argtypes = [P] * 8 + [I] * 4 + [P]
-    else:
-        fn.argtypes = [P] * 6 + [I] * 4 + [P]
-        so.lane_segscan_scratch.argtypes = [I, I]
-        so.lane_segscan_scratch.restype = I
+    fn.argtypes = [P] * (8 if name == "parent" else 6) + [I] * 4 + [P]
 
-    def call(bar, v, ok, dt, mo):
-        R = v.shape[0]
+    def call(bar, v, ok, mo):
+        ntiles = v.shape[0] // 128
+        nch = 1 if ok is None else 2
         out = torch.empty_like(v)
         outh = None if ok is None else torch.empty_like(ok)
-        st = K.stream_ptr(v)
         optr = None if ok is None else ok.data_ptr()
         hptr = None if ok is None else outh.data_ptr()
         if name == "parent":
-            nch = 1 if ok is None else 2
-            s = torch.empty((nch + 1, R), dtype=torch.int32, device=v.device)
+            s = torch.empty((nch + 1, ntiles * 128), dtype=torch.int32,
+                            device=v.device)
             rc = fn(bar.data_ptr(), v.data_ptr(), optr, s[0].data_ptr(),
                     None if ok is None else s[1].data_ptr(), s[nch].data_ptr(),
-                    out.data_ptr(), hptr, R // 128, dt, mo, 0, st)
+                    out.data_ptr(), hptr, ntiles, 0, mo, 0, K.stream_ptr(v))
         else:
-            s = torch.empty(so.lane_segscan_scratch(R, 1 if ok is None else 2),
-                            dtype=torch.uint8, device=v.device)
+            s = torch.empty(2 * (nch * 128 * ntiles + 1), dtype=torch.int32,
+                            device=v.device)
             rc = fn(bar.data_ptr(), v.data_ptr(), optr, s.data_ptr(),
-                    out.data_ptr(), hptr, R, dt, mo, 0, st)
+                    out.data_ptr(), hptr, ntiles, 0, mo, 0, K.stream_ptr(v))
         if rc:
-            raise RuntimeError(f"{name}: launch error {rc}")
+            cs.fail(f"{name}: launch error {rc}")
         return out, outh
 
     return call
 
 
-def phase_trace(torch, name, so, call, barrier, vf, ok, mo):
-    """Per block and iteration of the persistent loop, the global timer at
-    its six points (-DLS_TRACE): the median of each phase in us, and the
-    kernel's span."""
-    so.lane_segscan_trace.argtypes = [ctypes.c_void_p]
-    T = np.zeros((1024, 16, 6), np.uint64)
-    for _ in range(3):
-        call(barrier, vf, ok, 0, mo)
-    torch.cuda.synchronize()
-    so.lane_segscan_trace_clear()
-    call(barrier, vf, ok, 0, mo)
-    torch.cuda.synchronize()
-    so.lane_segscan_trace(T.ctypes.data_as(ctypes.c_void_p))
-    T = T.astype(np.int64)
-    used = T[:, :, 0] > 0
-    t0 = T[used][:, 0].min()
-    span = (T[:, :, 5][used].max() - t0) / 1e3
-    iters = used.sum(1)
-    names = ["wait", "read+claim", "scan+HS", "look-back", "fix+store"]
-    cs.log(f"  trace {name} FP32 min + validity: span {span:.1f} us, blocks "
-           f"{int((iters > 0).sum())}, iterations a block {np.bincount(iters)[1:]}")
-    for it in range(int(iters.max())):
-        rows = T[:, it][used[:, it]]
-        d = np.diff(rows, axis=1) / 1e3
-        start = (rows[:, 0] - t0) / 1e3
-        cs.log(f"    it {it}: start {np.median(start):7.2f} us, " + ", ".join(
-            f"{n} {np.median(d[:, k]):.2f}" for k, n in enumerate(names))
-            + f" (max wait {d[:, 0].max():.2f})")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="an unpacked parent tree")
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "k5_probe"))
-    ap.add_argument("--extra", action="append", default=[], metavar="NAME=DIR",
-                    help="also build DIR/lane_segscan.cu (this C interface)")
-    ap.add_argument("--trace", action="append", default=[], metavar="ROWS,RPT",
-                    help="also build this shape with -DLS_TRACE and print its "
-                    "phase times")
-    ap.add_argument("--shapes", help="ROWS,RPT;... instead of SHAPES")
-    ap.add_argument("--define", action="append", default=[],
-                    metavar="NAME=MACRO,MACRO", help="also build this source "
-                    "with these macros (a name ending in _trace is traced)")
+    ap.add_argument("--parent", required=True, help="the unpacked parent tree")
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "k5_ab"))
     args = ap.parse_args()
     import torch
 
@@ -170,11 +104,8 @@ def main():
     from graphblas_tpu_torch.core.engine import lanepipe as lp
 
     cs.log(f"gpu: {cs.gpu_line()}")
-    global SHAPES
-    if args.shapes:
-        SHAPES = [tuple(int(x) for x in t.split(",")) for t in args.shapes.split(";")]
-    trace = [tuple(int(x) for x in t.split(",")) for t in args.trace]
-    libs = build_all(args.out, args.parent, args.extra, trace, args.define)
+    calls = {n: caller(torch, K, n, so)
+             for n, so in build_both(args.out, args.parent).items()}
     dev = torch.device("cuda")
     with gb.config.set(device="cuda", auto_sparse_limit=0):
         n = 1 << 19
@@ -189,55 +120,29 @@ def main():
     vf = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
     hh = (torch.from_numpy(rng.random(shape) < 0.5).to(dev)
           & (oks != 0)).to(torch.int32)
-    hw = torch.from_numpy(rng.integers(-1000, 1001, shape).astype(np.int32)).to(dev)
-    nbytes = {True: 4 * 5 * R * 128, False: 4 * 3 * R * 128}
-    cs.log(f"zipf plan: R_scan={R} ({R // 128} tiles of 128 rows), "
-           f"{nbytes[True] / 1e6:.1f} MB with validity, bound "
-           f"{cs.bound(nbytes[True])[0]:.4f} ms; values only "
-           f"{nbytes[False] / 1e6:.1f} MB, {cs.bound(nbytes[False])[0]:.4f} ms")
-    variants = [("FP32 min + validity", gb.monoid.min["FP32"], hh, None),
-                ("FP32 plus + validity", gb.monoid.plus["FP32"], hh, 1e-5),
-                ("FP32 min values only", gb.monoid.min["FP32"], None, None)]
-    calls = {n: caller(torch, K, n, so) for n, so in libs.items()}
-    for label, mono, ok, rel in variants:
+    for label, mono, ok, rel in (
+            ("FP32 min + validity", gb.monoid.min["FP32"], hh, None),
+            ("FP32 plus + validity", gb.monoid.plus["FP32"], hh, 1e-5),
+            ("FP32 min values only", gb.monoid.min["FP32"], None, None),
+            ("FP32 plus values only", gb.monoid.plus["FP32"], None, 1e-5)):
         cmb = lp.combines(mono)[0]
         mo = K.MONOID_OP[mono.parent.name]
         pv, ph = lp.lane_segscan_plain(barrier, vf, ok, cmb)
-        pms = cs.cuda_ms(torch, lambda: lp.lane_segscan_plain(barrier, vf, ok, cmb))
-        cs.log(f"{label}: plain {pms:.4f} ms")
-        for name, call in list(calls.items()):
-            try:
-                gv, gh = call(barrier, vf, ok, 0, mo)
-            except RuntimeError as exc:
-                cs.log(f"  {exc}: dropped")
-                del calls[name]
-                continue
-            cs.compare(f"  {name} {label}", gv, pv, rel=rel, quiet=True)
+        for name, call in calls.items():
+            gv, gh = call(barrier, vf, ok, mo)
+            cs.compare(f"{name} {label}", gv, pv, rel=rel, quiet=True)
             if ok is not None:
-                cs.compare(f"  {name} {label} ok", gh, ph, quiet=True)
-            first = gv.view(torch.int32).clone()
-            for r in range(50):
-                if not bool(torch.equal(call(barrier, vf, ok, 0, mo)[0]
-                                        .view(torch.int32), first)):
-                    cs.fail(f"{name} {label}: launch {r + 1} differs")
-            fn = lambda: call(barrier, vf, ok, 0, mo)  # noqa: E731
-            ms, cold = cs.cuda_ms(torch, fn), cs.cuda_ms(torch, fn, cold=True)
-            cs.log(f"  {name:12s} {label}: {ms:.4f} ms, after an L2 flush "
-                   f"{cold:.4f} ms, {nbytes[ok is not None] / ms / 1e9:.3f} TB/s")
-    # the validity channel beyond 0/1, on the main path's combine
-    cmb = lp.combines(gb.monoid.min["FP32"])[0]
-    pv, ph = lp.lane_segscan_plain(barrier, vf, hw, cmb)
-    for name, call in calls.items():
-        if name == "parent":
-            continue
-        gv, gh = call(barrier, vf, hw, 0, K.MONOID_OP["min"])
-        cs.compare(f"  {name} ok in [-1000, 1000], values", gv, pv, quiet=True)
-        cs.compare(f"  {name} ok in [-1000, 1000], ok", gh, ph, quiet=True)
-    cs.log("every build equal to the plain version, 50 launches bitwise equal")
-    for name, so in libs.items():
-        if name.endswith("_trace") and name in calls:
-            phase_trace(torch, name, so, calls[name], barrier, vf, hh,
-                        K.MONOID_OP["min"])
+                cs.compare(f"{name} {label} ok", gh, ph, quiet=True)
+        nbytes = 4 * (5 if ok is not None else 3) * R * 128
+        times = []
+        for name in ("parent", "change", "change", "parent"):
+            fn = lambda: calls[name](barrier, vf, ok, mo)  # noqa: E731
+            times.append(f"{name} {cs.cuda_ms(torch, fn):.4f}, "
+                         f"{cs.cuda_ms(torch, fn, cold=True):.4f}")
+        cs.log(f"{label} (bound {cs.bound(nbytes)[0]:.4f} ms, "
+               f"{nbytes / 1e6:.1f} MB; warm, after an L2 flush): "
+               + "; ".join(times))
+    cs.log("both equal to the plain version")
     cs.log(f"gpu: {cs.gpu_line()}")
 
 
