@@ -80,7 +80,8 @@ def _stale(name):
     so = os.path.join(_BUILD, f"lib{name}.so")
     if not os.path.exists(so):
         return True
-    deps = [os.path.join(_CSRC, f"{name}.cu"), os.path.join(_CSRC, "common.cuh")]
+    deps = [os.path.join(_CSRC, f"{name}.cu")] + [
+        os.path.join(_CSRC, h) for h in os.listdir(_CSRC) if h.endswith(".cuh")]
     return any(os.path.getmtime(so) < os.path.getmtime(d) for d in deps)
 
 

@@ -40,7 +40,7 @@
 //      the oldest: the chain prefix(t) = prefix(t - 1) + aggregate(t), in
 //      its own order, so FP32 sums come out the same bits on every run.
 //      It then publishes the lane's prefix where the lane had none.  A
-//      lane reads at most FS_WINDOW words; past that it waits for the
+//      lane reads at most LB_WINDOW words; past that it waits for the
 //      prefix of the tile at the window's edge (the lanepipe's runs are at
 //      most SPLIT_DEG + 1 = 2049 rows, 17 tiles, but any barrier pattern
 //      is taken).  Value and status share one word, stored and loaded
@@ -70,80 +70,11 @@
 //
 // The fold order differs from the Pallas kernel's roll tree: FP32 plus and
 // times agree to rounding, the rest exactly.
-#include "common.cuh"
+#include "lane_scan.cuh"
 
 #define FS_ROWS 16                // rows a thread scans
 #define FS_CHUNKS (128 / FS_ROWS) // chunks of a lane in a tile
-#define FS_BATCH 8                // predecessor words loaded at a time
-#define FS_WINDOW 32              // words a lane reads before it waits
 #define FS_SMEM (TILE_ELEMS * 4 + 2 * TILE_ELEMS * 2)  // values, 2 indices
-
-enum { ST_AGG = 1, ST_PRE = 2 };  // status of a published word; 0: none yet
-
-// The combine of a launch, known when the kernel is compiled, or read at
-// run time (FS_DYN).
-enum FsOp { FS_ADD_F, FS_MIN_F, FS_MAX_U, FS_DYN };
-
-// code = dt | mo << 4 | packed << 8.  Not inlined: one shared body keeps
-// the build short (see ROADMAP, traps).
-__device__ __noinline__ uint32_t comb_dyn(int code, uint32_t x, uint32_t y) {
-  const int mo = (code >> 4) & 15;
-  const bool packed = (code >> 8) & 1;
-  switch (code & 15) {
-    case DT_F32: return combine_any<DT_F32>(mo, packed, x, y);
-    case DT_I32: return combine_any<DT_I32>(mo, packed, x, y);
-    case DT_U32: return combine_any<DT_U32>(mo, packed, x, y);
-    default: return combine_any<DT_BOOL>(mo, packed, x, y);
-  }
-}
-
-// combine(left, right); packed BOOL lor is the unsigned max of the codes
-// (0 = no value, 1 + v = value v).
-template <int OP>
-__device__ __forceinline__ uint32_t comb(int code, uint32_t x, uint32_t y) {
-  if constexpr (OP == FS_ADD_F) return f_bits(as_f(x) + as_f(y));
-  else if constexpr (OP == FS_MIN_F) return f_bits(fmin_nan(as_f(x), as_f(y)));
-  else if constexpr (OP == FS_MAX_U) return x > y ? x : y;
-  else return comb_dyn(code, x, y);
-}
-
-// Inclusive prefix of tile - 1 in lane l: the nearest predecessor's
-// published prefix, then the aggregates after it, folded from the oldest.
-// lb: this lane's column of the block's look-back buffer (stride 128).
-template <int OP>
-__device__ __forceinline__ uint32_t look_back(int code,
-                                              const unsigned long long* words,
-                                              int tile, int l, uint32_t* lb) {
-  int d = 0;  // predecessors read
-  bool found = false;
-  while (!found) {
-    unsigned long long w[FS_BATCH];
-#pragma unroll
-    for (int i = 0; i < FS_BATCH; i++) {
-      const int t = tile - 1 - d - i;
-      w[i] = t >= 0 && d + i < FS_WINDOW
-                 ? ld_word(words + (size_t)t * 128 + l) : 0ull;
-    }
-#pragma unroll
-    for (int i = 0; i < FS_BATCH; i++) {
-      if (found) break;
-      const unsigned long long* p = words + (size_t)(tile - 1 - d) * 128 + l;
-      // at the window's edge only a prefix will do
-      const unsigned need = d == FS_WINDOW - 1 ? ST_PRE : ST_AGG;
-      unsigned long long x = w[i];
-      for (int spins = 0; (unsigned)(x & 3) < need; spins++) {
-        if (spins == 1 << 26) __trap();  // fail, never hang
-        x = ld_word(p);
-      }
-      lb[d * 128] = (uint32_t)(x >> 32);
-      found = (x & 3) == ST_PRE;
-      d++;
-    }
-  }
-  uint32_t run = lb[(d - 1) * 128];
-  for (int j = d - 2; j >= 0; j--) run = comb<OP>(code, run, lb[j * 128]);
-  return run;
-}
 
 template <int OP>
 __global__ void __launch_bounds__(NT, 1) fused_scan_kernel(
@@ -157,7 +88,7 @@ __global__ void __launch_bounds__(NT, 1) fused_scan_kernel(
   uint16_t* se = sr + TILE_ELEMS;                               // extract A|B
   __shared__ uint32_t sv[FS_CHUNKS][128];  // chunk folds
   __shared__ uint8_t sf[FS_CHUNKS][128];   // chunk holds a barrier
-  __shared__ uint32_t lb[FS_WINDOW * 128];
+  __shared__ uint32_t lb[LB_WINDOW * 128];
   __shared__ uint32_t carry[128];
   __shared__ uint8_t cin[128];
   __shared__ int s_tile;
@@ -224,7 +155,7 @@ __global__ void __launch_bounds__(NT, 1) fused_scan_kernel(
     const bool in = tile > 0 && !(bm & 1);
     uint32_t cy = 0;
     if (in) {
-      cy = look_back<OP>(code, words, tile, l, lb + l);
+      cy = look_back<OP>(code, words + (size_t)tile * 128 + l, 128, tile, lb + l, 128);
       if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
     }
     carry[l] = cy;
@@ -292,10 +223,10 @@ extern "C" int fused_scan(const void* pcr, const void* barrier, const void* pae,
   ntiles, st, (const int*)pcr, (const int*)barrier, (const int*)pae,       \
       (const uint32_t*)vals, (uint32_t*)out, counter, words, code
   int rc;
-  if (dt == DT_F32 && mo == MO_PLUS && !packed) rc = launch<FS_ADD_F>(ARGS);
-  else if (dt == DT_F32 && mo == MO_MIN && !packed) rc = launch<FS_MIN_F>(ARGS);
-  else if (dt == DT_BOOL && mo == MO_LOR && packed) rc = launch<FS_MAX_U>(ARGS);
-  else rc = launch<FS_DYN>(ARGS);
+  if (dt == DT_F32 && mo == MO_PLUS && !packed) rc = launch<SC_ADD_F>(ARGS);
+  else if (dt == DT_F32 && mo == MO_MIN && !packed) rc = launch<SC_MIN_F>(ARGS);
+  else if (dt == DT_BOOL && mo == MO_LOR && packed) rc = launch<SC_MAX_U>(ARGS);
+  else rc = launch<SC_DYN>(ARGS);
 #undef ARGS
   return rc;
 }

@@ -32,8 +32,8 @@
 //      a segmented Hillis-Steele scan (4 steps, every thread busy) gives
 //      each chunk the fold of the chunks above it back to the nearest
 //      barrier, and the tile's aggregate per lane.
-//   4. The carry, by a look-back per lane and per channel (as K4's,
-//      csrc/fused_scan.cu): per tile, channel and lane one 64-bit word
+//   4. The carry, by a look-back per lane and per channel (K4's, shared
+//      in lane_scan.cuh): per tile, channel and lane one 64-bit word
 //      holds a value and its status, stored and loaded whole, so no fence
 //      orders them.  Thread (channel, lane) publishes the lane's aggregate,
 //      as the inclusive prefix where the lane holds a barrier in the tile
@@ -43,7 +43,7 @@
 //      chain prefix(t) = prefix(t - 1) + aggregate(t) in its own order, so
 //      FP32 sums come out the same bits on every run.  It then publishes
 //      the lane's prefix where the lane had none.  A lane reads at most
-//      LS_WINDOW words; past that it waits for the prefix of the tile at
+//      LB_WINDOW words; past that it waits for the prefix of the tile at
 //      the window's edge, so any barrier pattern is taken (the lanepipe's
 //      runs are at most SPLIT_DEG + 1 = 2049 rows, 17 tiles).  The validity
 //      channel has its own words: its values are any int32, so it cannot
@@ -59,94 +59,26 @@
 // triple goes through one out-of-line combine, which keeps the build to
 // seconds.  The validity channel's max is inline.
 //
-// What limits it (PERF.md, PR 9).  A tile's two channels fill 128
-// registers of 512 threads: one block an SM, so the zipf plan's 264 tiles
-// run in two waves, and a block's phases run in series (per block, median:
-// loads 8 us, scan 5 us, look-back 1 us, carry and stores 3 us).  Persistent
-// blocks fed by bulk copies (TMA) overlapped the next tile's loads with
-// the scan but came out slower: the look-back then waited behind the
-// copies in flight and on the slowest predecessor (10 us a tile).
+// What limits it (measured on an H100; PERF.md).  A tile's two channels
+// fill 128 registers of 512 threads: one block an SM, so the zipf plan's
+// 264 tiles run in two waves, and a block's phases run in series (per
+// block, median: loads 8 us, scan 5 us, look-back 1 us, carry and stores
+// 3 us).  Persistent blocks fed by bulk copies (TMA) overlapped the next
+// tile's loads with the scan but came out slower: the look-back then
+// waited behind the copies in flight and on the slowest predecessor (up
+// to 10 us a tile).
 //
 // The fold order differs from the Pallas kernel's roll tree: FP32 plus and
 // times agree to rounding, everything else exactly.
-#include "common.cuh"
+#include "lane_scan.cuh"
 
 #define LS_RPT 8                  // rows a thread scans, 4 lanes each
 #define LS_C (128 / LS_RPT)       // chunks of a tile: the warps of a block
 #define LS_NT (32 * LS_C)         // threads of a block
-#define LS_BATCH 8                // predecessor words loaded at a time
-#define LS_WINDOW 32              // words a lane reads before it waits
-
-enum { ST_AGG = 1, ST_PRE = 2 };  // status of a published word; 0: none yet
-
-// The combine of a launch, known when the kernel is compiled, or read at
-// run time (LS_DYN); LS_MAX_I is the validity channel's signed max.
-enum LsOp { LS_ADD_F, LS_MIN_F, LS_MAX_I, LS_DYN };
-
-// code = dt | mo << 4 | packed << 8.  Not inlined: one shared body keeps
-// the build short (see ROADMAP, traps).
-__device__ __noinline__ uint32_t comb_dyn(int code, uint32_t x, uint32_t y) {
-  const int mo = (code >> 4) & 15;
-  const bool packed = (code >> 8) & 1;
-  switch (code & 15) {
-    case DT_F32: return combine_any<DT_F32>(mo, packed, x, y);
-    case DT_I32: return combine_any<DT_I32>(mo, packed, x, y);
-    case DT_U32: return combine_any<DT_U32>(mo, packed, x, y);
-    default: return combine_any<DT_BOOL>(mo, packed, x, y);
-  }
-}
-
-// combine(left, right)
-template <int OP>
-__device__ __forceinline__ uint32_t comb(int code, uint32_t x, uint32_t y) {
-  if constexpr (OP == LS_ADD_F) return f_bits(as_f(x) + as_f(y));
-  else if constexpr (OP == LS_MIN_F) return f_bits(fmin_nan(as_f(x), as_f(y)));
-  else if constexpr (OP == LS_MAX_I) return (int)x > (int)y ? x : y;
-  else return comb_dyn(code, x, y);
-}
 
 // Lane j of a thread's four (j known when the loops are unrolled).
 __device__ __forceinline__ uint32_t& at(uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// Inclusive prefix of tile - 1 for one lane and channel: the nearest
-// predecessor's published prefix, then the aggregates after it, folded from
-// the oldest.  w: the tile's own word; a predecessor's lies `stride` words
-// back per tile.  lb: this thread's column of the look-back buffer (stride
-// lbs).
-template <int OP>
-__device__ __forceinline__ uint32_t look_back(int code,
-                                              const unsigned long long* w,
-                                              size_t stride, int tile,
-                                              uint32_t* lb, int lbs) {
-  int d = 0;  // predecessors read
-  bool found = false;
-  while (!found) {
-    unsigned long long x[LS_BATCH];
-#pragma unroll
-    for (int i = 0; i < LS_BATCH; i++)
-      x[i] = tile - 1 - d - i >= 0 && d + i < LS_WINDOW
-                 ? ld_word(w - (size_t)(d + i + 1) * stride) : 0ull;
-#pragma unroll
-    for (int i = 0; i < LS_BATCH; i++) {
-      if (found) break;
-      const unsigned long long* p = w - (size_t)(d + 1) * stride;
-      // at the window's edge only a prefix will do
-      const unsigned need = d == LS_WINDOW - 1 ? ST_PRE : ST_AGG;
-      unsigned long long y = x[i];
-      for (int spins = 0; (unsigned)(y & 3) < need; spins++) {
-        if (spins == 1 << 26) __trap();  // fail, never hang
-        y = ld_word(p);
-      }
-      lb[d * lbs] = (uint32_t)(y >> 32);
-      found = (y & 3) == ST_PRE;
-      d++;
-    }
-  }
-  uint32_t run = lb[(d - 1) * lbs];
-  for (int j = d - 2; j >= 0; j--) run = comb<OP>(code, run, lb[j * lbs]);
-  return run;
 }
 
 template <int OP, bool WITH_H>
@@ -158,7 +90,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
   constexpr int NCH = WITH_H ? 2 : 1;
   constexpr int NLB = 128 * NCH;  // look-back threads: one a lane and channel
   constexpr int SCAN_WORDS = LS_C * 128 * NCH + LS_C * 32;
-  constexpr int LB_WORDS = LS_WINDOW * NLB;
+  constexpr int LB_WORDS = LB_WINDOW * NLB;
   // the chunk folds, then (once they are read) the look-back buffer
   __shared__ __align__(16) uint32_t sm[SCAN_WORDS > LB_WORDS ? SCAN_WORDS
                                                               : LB_WORDS];
@@ -199,7 +131,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
     for (int k = 1; k < LS_RPT; k++) {
       if (!((bm[j] >> k) & 1)) {
         at(v[k], j) = comb<OP>(code, at(v[k - 1], j), at(v[k], j));
-        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
+        if (WITH_H) at(h[k], j) = comb<SC_MAX_I>(code, at(h[k - 1], j), at(h[k], j));
       }
     }
     f |= (uint32_t)(bm[j] != 0) << j;
@@ -230,7 +162,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
       for (int j = 0; j < 4; j++) {
         if (!((f >> j) & 1)) {
           at(a, j) = comb<OP>(code, at(pv, j), at(a, j));
-          if (WITH_H) at(ah, j) = comb<LS_MAX_I>(code, at(ph, j), at(ah, j));
+          if (WITH_H) at(ah, j) = comb<SC_MAX_I>(code, at(ph, j), at(ah, j));
         }
       }
       f |= pf;
@@ -270,8 +202,8 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
         cy = look_back<OP>(code, w, stride, tile, sm + tid, NLB);
         if (!has) st_word(w, comb<OP>(code, cy, agg), ST_PRE);
       } else {
-        cy = look_back<LS_MAX_I>(code, w, stride, tile, sm + tid, NLB);
-        if (!has) st_word(w, comb<LS_MAX_I>(code, cy, agg), ST_PRE);
+        cy = look_back<SC_MAX_I>(code, w, stride, tile, sm + tid, NLB);
+        if (!has) st_word(w, comb<SC_MAX_I>(code, cy, agg), ST_PRE);
       }
     }
     s_carry[tid] = cy;
@@ -290,7 +222,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
       pre = have ? comb<OP>(code, cy, pre) : cy;
       if (WITH_H) {
         const uint32_t hy = s_carry[128 + 4 * g + j];
-        hpre = have ? comb<LS_MAX_I>(code, hy, hpre) : hy;
+        hpre = have ? comb<SC_MAX_I>(code, hy, hpre) : hy;
       }
       have = true;
     }
@@ -299,7 +231,7 @@ __global__ void __launch_bounds__(LS_NT, 1) lane_segscan_kernel(
     for (int k = 0; k < LS_RPT; k++) {
       if (have && k < first) {
         at(v[k], j) = comb<OP>(code, pre, at(v[k], j));
-        if (WITH_H) at(h[k], j) = comb<LS_MAX_I>(code, hpre, at(h[k], j));
+        if (WITH_H) at(h[k], j) = comb<SC_MAX_I>(code, hpre, at(h[k], j));
       }
     }
   }
@@ -351,8 +283,8 @@ extern "C" int lane_segscan(const void* barrier, const void* vals,
   if (err != cudaSuccess) return (int)err;
   const int code = dt | mo << 4 | (packed ? 1 : 0) << 8;
 #define ARGS with_h, ntiles, st, barrier, vals, ok, out, outh, counter, words, code
-  if (dt == DT_F32 && mo == MO_MIN && !packed) return launch_h<LS_MIN_F>(ARGS);
-  if (dt == DT_F32 && mo == MO_PLUS && !packed) return launch_h<LS_ADD_F>(ARGS);
-  return launch_h<LS_DYN>(ARGS);
+  if (dt == DT_F32 && mo == MO_MIN && !packed) return launch_h<SC_MIN_F>(ARGS);
+  if (dt == DT_F32 && mo == MO_PLUS && !packed) return launch_h<SC_ADD_F>(ARGS);
+  return launch_h<SC_DYN>(ARGS);
 #undef ARGS
 }
