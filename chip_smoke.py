@@ -53,7 +53,15 @@ engine) from the sources, then:
    graph by `A.power(n, min_plus)` (13 products) and by the
    `D(accum=min) << D.mxm(D, min_plus)` loop under ss.iterate, checked
    against scipy's Dijkstra in float64 (rel 1e-5); the lor_land closure;
-   an FP32 plus_times mxm against the same call on the CPU.
+   an FP32 plus_times mxm against the same call on the CPU;
+9. the generic sparse engine (phase `sparse_algorithms`): triangle_count
+   on bench.py's RMAT graph (scale 17) through the masked dot, its count
+   exactly against scipy's L .* (L @ L), and pagerank (damping 0.85, tol
+   1e-8, at most 100 iterations) on the zipf graph with FP32 values of 1,
+   its FP64 ranks within 1e-9 of the largest against a float64 power
+   iteration of the same formula and stopping rule, the iteration counts
+   within one; each with its time (median of 3), the device's idle share
+   and the peak memory.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -146,6 +154,45 @@ def pagerank_ref(src, dst, w, n, iters):
     for _ in range(iters):
         r = 0.85 * (M @ r) + 0.15 / n
     return r
+
+
+def triangles_ref(src, dst, n):
+    """Triangles of the undirected graph: the sum of L .* (L @ L) for the
+    strict lower triangle L after numbering the nodes by degree (float64
+    free: int64 scipy products)."""
+    import scipy.sparse as sps
+
+    lin = np.unique(np.concatenate([src * n + dst, dst * n + src]))
+    r, c = lin // n, lin % n
+    keep = r != c
+    r, c = r[keep], c[keep]
+    rank = np.empty(n, np.int64)
+    rank[np.argsort(np.bincount(r, minlength=n), kind="stable")] = \
+        np.arange(n)
+    r, c = rank[r], rank[c]
+    low = r > c
+    L = sps.csr_matrix((np.ones(int(low.sum()), np.int64),
+                        (r[low], c[low])), shape=(n, n))
+    return int(L.multiply(L @ L).sum())
+
+
+def pagerank64_ref(src, dst, n, damping=0.85, tol=1e-8, max_iters=100):
+    """algorithms.pagerank's formula and stopping rule in float64: ranks
+    and the iteration count."""
+    import scipy.sparse as sps
+
+    outdeg = np.bincount(src, minlength=n).astype(np.float64)
+    WT = sps.csr_matrix((1.0 / outdeg[src], (dst, src)), shape=(n, n))
+    dangling = outdeg == 0
+    r = np.full(n, 1.0 / n)
+    it = 0
+    for it in range(1, max_iters + 1):
+        prev = r
+        base = (1.0 - damping) / n + damping * r[dangling].sum() / n
+        r = base + damping * (WT @ r)
+        if np.abs(r - prev).sum() < tol:
+            break
+    return r, it
 
 
 def bfs_ref(src, dst, n):
@@ -1343,15 +1390,15 @@ def check_vector(name, vec, ref_idx, ref_vals, rel=None):
     return err
 
 
-def timed_calls(torch, fn):
-    """Median host ms of RUNS calls of fn, each ending in a device sync
+def timed_calls(torch, fn, reps=RUNS):
+    """Median host ms of reps calls of fn, each ending in a device sync
     (after one warm-up call, which builds any plan)."""
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     runs = []
-    for _ in range(RUNS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -1720,8 +1767,88 @@ def apsp_phase(gb, torch, K, results, totals):
         "peak_memory_bytes": int(peak), "launches": got_l, "profile": prof}
 
 
+def sparse_algorithms_phase(gb, torch, K, src, dst, n, results, totals):
+    """The generic sparse engine at full size: triangle_count on bench.py's
+    RMAT graph (scale 17), exact against scipy, and pagerank (its defaults)
+    on the zipf graph with FP32 values of 1 against a float64 power
+    iteration.  Kernels: the FP32 outdegree reduce runs K6; the rest is
+    torch ops (the masked dot, the FP64 SpMV, merges)."""
+    from graphblas_tpu_torch.core import execute as ex
+
+    out = {}
+    rs, rd, rn = build_rmat(17)
+    t0 = time.perf_counter()
+    ref = triangles_ref(rs, rd, rn)
+    ref_s = time.perf_counter() - t0
+    G = gb.Matrix.from_coo(rs, rd, np.ones(len(rs), bool), dtype="BOOL",
+                           nrows=rn, ncols=rn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts(K)
+    count, ms, runs, first_s = timed_calls(
+        torch, lambda: gb.algorithms.triangle_count(G), reps=3)
+    peak = torch.cuda.max_memory_allocated() - before
+    rec = dict(ex.last_spgemm)
+    check_launches(K, "triangle_count", totals, need=())
+    if count != ref:
+        fail(f"triangle_count: {count} triangles, scipy {ref}")
+    log(f"  triangle_count rmat17: {count} triangles (scipy {ref}, "
+        f"{ref_s:.2f} s); {rec.get('formulation')} with "
+        f"{rec.get('terms')} terms (Gustavson {rec.get('gustavson_terms')},"
+        f" dot {rec.get('dot_terms')}); ms {runs} (median {ms:.4f}), first "
+        f"call {first_s:.2f} s; peak memory over the graph "
+        f"{peak / 1e9:.3f} GB")
+    prof = profile_breakdown(torch, lambda: gb.algorithms.triangle_count(G),
+                             "triangle_count", ms)
+    out["triangle_count"] = {
+        "n": rn, "nnz": int(len(rs)), "triangles": count, "scipy_s": ref_s,
+        "spgemm": rec, "ms": ms, "ms_runs": runs, "first_call_s": first_s,
+        "peak_memory_bytes": int(peak), "profile": prof}
+    del G
+
+    P = gb.Matrix.from_coo(src, dst, np.ones(len(src), np.float32),
+                           dtype="FP32", nrows=n, ncols=n)
+    ref_r, ref_it = pagerank64_ref(src, dst, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gb.algorithms.pagerank(P)  # builds the reduce's plan
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset_counts(K)
+    (rank, it), ms, runs, _ = timed_calls(
+        torch, lambda: gb.algorithms.pagerank(P), reps=3)
+    peak = torch.cuda.max_memory_allocated() - before
+    got_l = check_launches(K, "pagerank fp64", totals, need=("segscan",))
+    got = rank.to_dense(fill_value=np.nan)
+    if not np.isfinite(got).all():
+        fail("pagerank fp64: a rank is missing or not finite")
+    err = float(np.abs(got - ref_r).max())
+    lim = 1e-9 * float(np.abs(ref_r).max())
+    if err > lim:
+        fail(f"pagerank fp64: max|r - r_ref| {err} over 1e-9 max|r_ref|")
+    if abs(it - ref_it) > 1:
+        fail(f"pagerank fp64: {it} iterations, the float64 reference "
+             f"{ref_it}")
+    log(f"  pagerank fp64 zipf: {it} iterations (reference {ref_it}), ms "
+        f"{runs} (median {ms:.4f}), {ms / it:.4f} ms/iteration, max|r-ref| "
+        f"{err:.3g} (limit {lim:.3g}), first call {first_s:.2f} s, K6 "
+        f"launches {got_l['segscan']}; peak memory {peak / 1e9:.3f} GB")
+    prof = profile_breakdown(torch, lambda: gb.algorithms.pagerank(P),
+                             "pagerank fp64", ms)
+    out["pagerank_fp64"] = {
+        "n": n, "nnz": int(len(src)), "iterations": it,
+        "reference_iterations": ref_it, "ms": ms, "ms_runs": runs,
+        "ms_per_iteration": ms / it, "max_abs_err": err,
+        "first_call_s": first_s, "launches": got_l,
+        "peak_memory_bytes": int(peak), "profile": prof}
+    results["sparse_algorithms"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
-          "sssp", "reduce", "hypersparse", "apsp")
+          "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp")
 
 
 def main():
@@ -1816,6 +1943,10 @@ def main():
             log("phase: hypersparse")
             hypersparse_phase(gb, torch, K, torch.device("cuda"), results,
                               totals)
+        if "sparse_algorithms" in phases:
+            log("phase: sparse algorithms")
+            sparse_algorithms_phase(gb, torch, K, src, dst, n, results,
+                                    totals)
 
         if "apsp" in phases:
             log("phase: apsp")

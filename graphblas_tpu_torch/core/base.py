@@ -3,9 +3,10 @@
 
 A collection has one of two backings.  The dense one is a (values, valid)
 pair of tensors on its device.  A Matrix with more than
-``auto_sparse_limit`` elements is sparse-backed instead (host COO in a
-SparseStore); reading ``_vals``/``_valid`` of such a matrix densifies it,
-under the ``dense_limit`` guard."""
+``auto_sparse_limit`` elements is sparse-backed instead (a SparseStore of
+COO tensors on its device); reading ``_vals``/``_valid`` of such a matrix
+densifies it, under the ``dense_limit`` guard, which is what an operation
+without a sparse path does."""
 
 import torch
 
@@ -48,6 +49,7 @@ class BaseType:
         self._sparse = sp
         self._d_vals = None
         self._d_valid = None
+        self._device = sp.device
 
     @property
     def _vals(self):
@@ -65,6 +67,11 @@ class BaseType:
         """Convert the sparse backing to the bitmap store, guarded by the
         ``dense_limit`` config so that an O(nrows*ncols) allocation on a
         graph-scale matrix raises instead of exhausting device memory."""
+        self._set_store(*self._dense_planes())
+
+    def _dense_planes(self):
+        """The sparse backing as (values, valid) planes, under the
+        ``dense_limit`` guard; the backing itself is kept."""
         sp = self._sparse
         limit = int(_config.config.get("dense_limit", 1 << 26))
         total = sp.nrows * max(sp.ncols, 1)
@@ -77,7 +84,7 @@ class BaseType:
                 f"it on a small matrix.")
         from .engine import sparse as spx
 
-        self._set_store(*spx.densify(sp, self.dtype, self._device))
+        return spx.densify(sp, self.dtype, self._device)
 
     @property
     def device(self):
@@ -96,20 +103,22 @@ class BaseType:
         return (_dt.to_numpy(self._vals, self.dtype),
                 self._valid.cpu().numpy())
 
-    def __call__(self, *optional, mask=None, accum=None, replace=False):
+    def __call__(self, *optional, mask=None, accum=None, replace=False,
+                 **opts):
         from .expr import Updater
 
         mask, accum = _split_call_args(optional, mask, accum)
         if mask is not None and not isinstance(mask, Mask):
             raise TypeError(f"mask must be a Mask (v.S, v.V, ~v.S); got "
                             f"{type(mask).__name__}")
-        return Updater(self, mask=mask, accum=accum, replace=replace)
+        return Updater(self, mask=mask, accum=accum, replace=replace,
+                       opts=opts)
 
     def __lshift__(self, expr):
         return self.update(expr)
 
-    def update(self, expr):
-        execute.update_into(self, execute.as_expr(expr))
+    def update(self, expr, **opts):
+        execute.update_into(self, execute.as_expr(expr), opts=opts)
 
     def wait(self, how="materialize"):
         if how not in ("materialize", "complete"):
@@ -132,11 +141,23 @@ class BaseExpression:
         self.output_type = output_type
         self._statics = statics
 
-    def new(self, dtype=None, *, mask=None, name=None):
+    def new(self, dtype=None, *, mask=None, name=None, **opts):
         from .dtypes import lookup_dtype
 
         out_dtype = self.dtype if dtype is None else lookup_dtype(dtype)
-        return execute.materialize(self, out_dtype, mask=mask, name=name)
+        return execute.materialize(self, out_dtype, mask=mask, name=name,
+                                   opts=opts)
 
     def __repr__(self):
         return f"<{self.output_type.__name__} expression {self.method_name}>"
+
+    def __getattr__(self, attr):
+        """Autocompute: an attribute the expression lacks is read from its
+        computed value (``A.apply(op).reduce(...)``), computed once."""
+        if attr.startswith("_") or attr in ("method_name", "op", "args",
+                                            "dtype", "shape", "output_type"):
+            raise AttributeError(attr)
+        value = self.__dict__.get("_value")
+        if value is None:
+            value = self._value = self.new()
+        return getattr(value, attr)

@@ -51,6 +51,41 @@ def apply_op(a_vals, a_valid, op, a_dt):
     return apply_unop(op, a_vals, a_dt), a_valid
 
 
+def bound_vals(a_vals, op, a_dt, scalar_val, scalar_dt, left):
+    """op(s, a) (left) or op(a, s) for a 0-d scalar tensor s of scalar_dt."""
+    s = scalar_val.to(a_vals.device).expand(a_vals.shape)
+    if left:
+        return apply_binop(op, s, scalar_dt, a_vals, a_dt)
+    return apply_binop(op, a_vals, a_dt, s, scalar_dt)
+
+
+def apply_bound(a_vals, a_valid, op, a_dt, scalar_val, scalar_dt, left):
+    return bound_vals(a_vals, op, a_dt, scalar_val, scalar_dt, left), a_valid
+
+
+def indexunary_vals(a_vals, i, j, op, a_dt, thunk_val):
+    """op(value, row, col, thunk) elementwise; i and j are int64 tensors
+    broadcast against a_vals.  A positional op reads the raw values (it
+    ignores them)."""
+    x = a_vals if op._positional else st.cast_values(a_vals, a_dt, op.type)
+    return op(x, i, j, thunk_val.to(a_vals.device))
+
+
+def apply_indexunary(a_vals, a_valid, op, a_dt, thunk_val, is_matrix):
+    shape = a_valid.shape
+    dev = a_valid.device
+    i = _iota(shape, 0, dev).expand(shape)
+    j = _iota(shape, 1, dev).expand(shape) if is_matrix else \
+        torch.zeros_like(i)
+    return indexunary_vals(a_vals, i, j, op, a_dt, thunk_val), a_valid
+
+
+def select_op(a_vals, a_valid, op, a_dt, thunk_val, is_matrix, out_dt):
+    pred, _ = apply_indexunary(a_vals, a_valid, op, a_dt, thunk_val,
+                               is_matrix)
+    return st.cast_values(a_vals, a_dt, out_dt), a_valid & pred
+
+
 def ewise_mult(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
     return apply_binop(op, a_vals, a_dt, b_vals, b_dt), a_valid & b_valid
 

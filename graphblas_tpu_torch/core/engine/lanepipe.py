@@ -552,7 +552,7 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     plans = spstore._lanepipe_plans
     if key in plans:
         return plans[key]
-    rows, cols, vals = spstore.rows, spstore.cols, spstore.vals
+    rows, cols, vals = spstore.host_coo()
     if vals.dtype.itemsize > 4:
         plans[key] = None
         return None

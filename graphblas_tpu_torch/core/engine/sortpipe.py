@@ -398,14 +398,14 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     n_out = spstore.nrows if dest_is_row else spstore.ncols
     n_in = spstore.ncols if dest_is_row else spstore.nrows
     cap = spstore.nvals()
-    rows = torch.from_numpy(spstore.rows).to(device)
-    cols = torch.from_numpy(spstore.cols).to(device)
+    rows = spstore.rows.to(device)
+    cols = spstore.cols.to(device)
     ok = torch.ones(cap, dtype=torch.bool, device=device)
     plan = build_plan_device(rows, cols, ok, cap=cap, n_out=n_out, n_in=n_in,
                              dest_is_row=dest_is_row)
     L = plan["rank_m"].numel()
     slot = plan["merged_slot_of_d"].long()
-    vals = torch.from_numpy(np_carrier(spstore.vals, spstore.dtype)).to(device)
+    vals = to_carrier(spstore.vals.to(device), spstore.dtype)
     vals_m = torch.zeros(L, dtype=vals.dtype, device=device)
     vals_m[slot] = vals
     ok_m = torch.zeros(L, dtype=torch.int32, device=device)

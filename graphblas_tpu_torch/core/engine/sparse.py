@@ -1,12 +1,29 @@
-"""SparseStore: the storage of every Matrix over ``auto_sparse_limit``
-elements (graphblas_tpu/core/engine/sparse.py:54-200, reduced to what the
-SpMV slice and ``densify`` need).
+"""SparseStore and the generic sparse engine: the storage of every Matrix
+over ``auto_sparse_limit`` elements, and the operations that keep it
+sparse on its device (graphblas_tpu/core/engine/sparse.py).
 
-The store keeps the matrix as host COO arrays sorted by (row, col) with
-duplicates combined.  The lanepipe builds its plan from these arrays and
-caches the plan's device tensors on the store, once per direction and
-device (``_lanepipe_plans``), so no device-to-host read happens per call;
-the sort pipeline keeps its plans the same way (``_sortpipe_plans``).
+A store holds ``rows``, ``cols`` (int64) and ``vals`` (the dtype's storage
+type) as tensors on the matrix's device, sorted by (row, col), with no
+duplicates and exactly one slot per stored entry.  The JAX package pads
+its arrays to a power-of-two capacity and carries an ``ok`` plane,
+because ``jit`` needs static shapes; every operation here returns the
+compacted result instead, so what the two packages share is ``to_coo``.
+
+Stores are never mutated.  A result with the structure of its source
+(``apply``, a cast, ``mxm`` by a diagonal that drops nothing, an
+element-wise operation of two stores of one structure) shares the
+source's :class:`Structure`: its coordinates, its (col, row) permutation
+and its host copy.  Plans (``_lanepipe_plans``, ``_sortpipe_plans``, the
+BOOL twins) carry values, so every store has caches of its own.
+
+The work is plain torch ops on the store's device (``searchsorted``,
+``cumsum``, stable sorts, ``index_select``, ``index_add_`` and
+``scatter_reduce_``): the generic SpMV and reduces for every monoid and
+type the lanepipe and the sort pipeline decline, apply/select/transpose,
+element-wise merges, the masked write-back, and SpGEMM by Gustavson's
+expansion or by the masked dot.  Extract and assign by index lists and
+positional multiplies are not here yet (ROADMAP.md queue 1, items 10 and
+9).
 """
 
 import numpy as np
@@ -14,28 +31,89 @@ import torch
 
 from ... import native
 from .. import dtypes as _dt
+from . import dense
+from . import store as st
+
+_I64 = torch.int64
 
 _DUP_REDUCE = {"plus": np.add, "times": np.multiply, "min": np.minimum,
                "max": np.maximum}
 
 
-class SparseStore:
-    __slots__ = ("rows", "cols", "vals", "nrows", "ncols", "dtype",
-                 "_lanepipe_plans", "_sortpipe_plans", "_bool_twins")
+class Structure:
+    """The coordinates of one or more stores: rows and cols sorted by
+    (row, col), the permutation to (col, row) order and the host copy of
+    both, each made once when first needed.  Two stores share a structure
+    exactly when they are the same object."""
 
-    def __init__(self, rows, cols, vals, nrows, ncols, dtype):
+    __slots__ = ("rows", "cols", "nrows", "ncols", "_csc", "_host")
+
+    def __init__(self, rows, cols, nrows, ncols, *, host=None, csc=None):
         self.rows = rows
         self.cols = cols
-        self.vals = vals
         self.nrows = int(nrows)
         self.ncols = int(ncols)
+        self._csc = csc
+        self._host = host
+
+    def csc_perm(self):
+        """Permutation to (col, row) order, on the device (csc_perm_of)."""
+        if self._csc is None:
+            self._csc = csc_perm_of(self.cols)
+        return self._csc
+
+    def host(self):
+        if self._host is None:
+            self._host = (self.rows.cpu().numpy(), self.cols.cpu().numpy())
+        return self._host
+
+    def keys(self):
+        return self.rows * max(self.ncols, 1) + self.cols
+
+
+class SparseStore:
+    __slots__ = ("struct", "vals", "dtype", "is_diag", "_host_vals",
+                 "_lanepipe_plans", "_sortpipe_plans", "_bool_twins")
+
+    def __init__(self, struct, vals, dtype, *, is_diag=False, host_vals=None):
+        self.struct = struct
+        self.vals = vals
         self.dtype = dtype
+        self.is_diag = bool(is_diag)
+        self._host_vals = host_vals
         self._lanepipe_plans = {}
         self._sortpipe_plans = {}
         self._bool_twins = {}
 
+    rows = property(lambda self: self.struct.rows)
+    cols = property(lambda self: self.struct.cols)
+    nrows = property(lambda self: self.struct.nrows)
+    ncols = property(lambda self: self.struct.ncols)
+    device = property(lambda self: self.vals.device)
+
     def nvals(self):
-        return len(self.rows)
+        return int(self.struct.rows.numel())
+
+    def csc_perm(self):
+        return self.struct.csc_perm()
+
+    def with_values(self, vals, dtype, *, is_diag=None):
+        """A store of the same structure with other values (plans and
+        twins start empty: they carry values)."""
+        return SparseStore(self.struct, vals, dtype,
+                           is_diag=self.is_diag if is_diag is None else is_diag)
+
+    def host_coo(self):
+        """(rows, cols, values) numpy arrays of the stored entries, read
+        from the device once and cached; the native plan builders and
+        ``to_coo`` read these."""
+        if self._host_vals is None:
+            self._host_vals = _dt.to_numpy(self.vals, self.dtype)
+        r, c = self.struct.host()
+        return r, c, self._host_vals
+
+    def has_host_copy(self):
+        return self.struct._host is not None
 
     def bool_twin(self, dtype):
         """The store of this matrix's truth values after a cast to dtype,
@@ -43,13 +121,17 @@ class SparseStore:
         no pipeline takes itself; see execute._plan)."""
         twin = self._bool_twins.get(dtype)
         if twin is None:
-            vals = self.vals.astype(dtype.np_type) != 0
-            twin = SparseStore(self.rows, self.cols, vals, self.nrows,
-                               self.ncols, _dt.BOOL)
+            truth = dense.truthy(st.cast_values(self.vals, self.dtype, dtype),
+                                 dtype)
+            twin = self.with_values(truth, _dt.BOOL)
+            if self._host_vals is not None:
+                twin._host_vals = self._host_vals.astype(dtype.np_type) != 0
             self._bool_twins[dtype] = twin
         return twin
 
 
+# --------------------------------------------------------------------- #
+# construction
 def sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op):
     """Sort COO by (row, col) with the native radix argsort and combine
     duplicates with dup_op (plus, times, min, max, first, second, any)."""
@@ -78,11 +160,50 @@ def sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op):
     return r, c, v
 
 
-def build_sparse_store(rows, cols, values, nrows, ncols, dtype, dup_op=None):
-    """Matrix COO (host arrays) -> SparseStore."""
+def build_sparse_store(rows, cols, values, nrows, ncols, dtype, device,
+                       dup_op=None):
+    """Host COO -> SparseStore on device: sorted and deduplicated on the
+    host (native), uploaded once; the host arrays stay as its host copy."""
     r, c, v = sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op)
     v = np.asarray(v).astype(dtype.np_type, copy=False)
-    return SparseStore(r, c, v, nrows, ncols, dtype)
+    struct = Structure(torch.from_numpy(r).to(device),
+                       torch.from_numpy(c).to(device), nrows, ncols,
+                       host=(r, c))
+    return SparseStore(struct, _dt.to_tensor(v, dtype, device), dtype,
+                       host_vals=v)
+
+
+def empty_store(nrows, ncols, dtype, device):
+    e = torch.zeros(0, dtype=_I64, device=device)
+    return SparseStore(Structure(e, e, nrows, ncols),
+                       torch.zeros(0, dtype=dtype.torch_type, device=device),
+                       dtype)
+
+
+def store_from_parts(rows, cols, vals, nrows, ncols, dtype):
+    """Device tensors already sorted by (row, col) without duplicates."""
+    return SparseStore(Structure(rows, cols, nrows, ncols), vals, dtype)
+
+
+def _filtered(sp, keep, vals, dtype):
+    """sp's entries where keep, with vals; sp's structure when keep holds
+    everywhere (one device read of the count)."""
+    idx = keep.nonzero().reshape(-1)
+    if idx.numel() == sp.nvals():
+        return sp.with_values(vals, dtype)
+    return SparseStore(Structure(sp.rows[idx], sp.cols[idx], sp.nrows,
+                                 sp.ncols), vals[idx], dtype,
+                       is_diag=sp.is_diag)
+
+
+def diag_sparse_store(v_vals, v_valid, dtype, k, n):
+    """Sparse k-offset diagonal (n x n) of a dense vector store; is_diag
+    for k == 0, which is what the mxm scaling path keys on."""
+    idx = v_valid.nonzero().reshape(-1)
+    rows = idx + (0 if k >= 0 else -k)
+    cols = idx + (k if k >= 0 else 0)
+    return SparseStore(Structure(rows, cols, n, n), v_vals[idx], dtype,
+                       is_diag=k == 0)
 
 
 def densify(sp, dtype, device):
@@ -92,7 +213,543 @@ def densify(sp, dtype, device):
                        device=device)
     valid = torch.zeros((sp.nrows, sp.ncols), dtype=torch.bool, device=device)
     if sp.nvals():
-        lin = torch.from_numpy(sp.rows * sp.ncols + sp.cols).to(device)
-        vals.view(-1)[lin] = _dt.to_tensor(sp.vals, dtype, device)
+        lin = sp.struct.keys().to(device)
+        vals.view(-1)[lin] = st.cast_values(sp.vals, sp.dtype, dtype).to(device)
         valid.view(-1)[lin] = True
     return vals, valid
+
+
+def from_dense(vals, valid, dtype):
+    """Bitmap store -> SparseStore on the same device."""
+    nrows, ncols = valid.shape
+    r, c = valid.nonzero(as_tuple=True)
+    return store_from_parts(r, c, vals[r, c], nrows, ncols, dtype)
+
+
+def csc_perm_of(cols):
+    """Permutation of (row, col)-sorted entries to (col, row) order: a
+    stable sort by column."""
+    return torch.sort(cols, stable=True)[1]
+
+
+# --------------------------------------------------------------------- #
+# segmented monoid reduction
+def _wide_acc(dt):
+    """Accumulator of the plus reduce (the JAX package's exact cumsum
+    type): float64 for floats, int64 for the integers."""
+    return torch.float64 if dt.is_float else torch.int64
+
+
+def _iota(n, device):
+    return torch.arange(n, dtype=_I64, device=device)
+
+
+def _before(cs, i):
+    """The running sum before position i, from the inclusive running sum
+    cs (0 before the first)."""
+    return torch.where(i > 0, _take(cs, i - 1), 0)
+
+
+def _segment_sums(x, start, end):
+    """x's sum over [start, end) of every segment: a difference of one
+    running sum."""
+    cs = torch.cumsum(x, 0)
+    return _before(cs, end) - _before(cs, start)
+
+
+def _segment_fold(seg, x, combine, n, ident, start, end):
+    """Fold x (sorted by seg) per segment with combine, by a segmented
+    Hillis-Steele scan: log2(len) passes of torch ops.  Empty segments get
+    ident."""
+    v = x
+    m = x.numel()
+    d = 1
+    while d < m:
+        same = seg[d:] == seg[:-d]
+        v = torch.cat([v[:d], torch.where(same, combine(v[:-d], v[d:]),
+                                          v[d:])])
+        d <<= 1
+    return torch.where(end > start, _take(v, end - 1), ident)
+
+
+def _minmax(seg, x, name, n, ident, mono, start, end):
+    """min/max per segment with the fmin/fmax semantics of the JAX
+    package's combine: a NaN loses to any number and survives only where
+    every slot of its segment is NaN."""
+    red = "amin" if name == "min" else "amax"
+    out = ident.expand(n).clone()
+    if not mono.type.is_float:
+        return out.scatter_reduce_(0, seg, x, red)
+    nan = torch.isnan(x)
+    out.scatter_reduce_(0, seg, torch.where(nan, ident, x), red)
+    all_nan = (_segment_sums((~nan).to(_I64), start, end) == 0) & \
+        (end > start)
+    return torch.where(all_nan, torch.full_like(out, float("nan")), out)
+
+
+def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
+    """Monoid-reduce ``vals[ok]`` grouped by the sorted ``seg`` into n dense
+    slots: (values in mono.type, valid).  As in the JAX package, the
+    segments' bounds come from a binary search and sums from a running sum
+    (exact in int64; in float64 for the floats), with no scatter where
+    many entries meet one destination; slots where ``ok`` is False take
+    the identity, and ``any`` keeps the first valid element.  min and max
+    scatter; times, band and bor fold by a segmented scan."""
+    dev = vals.device
+    x = st.cast_values(vals, in_dt, mono.type)
+    name = mono.parent.name
+    bounds = torch.searchsorted(seg, _iota(n + 1, dev))
+    start, end = bounds[:-1], bounds[1:]
+    okc = torch.cumsum(ok.to(_I64), 0)
+    ok_before = _before(okc, start)
+    out_valid = _before(okc, end) > ok_before
+    if name == "any":
+        # the first slot whose running count of valid slots passes start's
+        got = _take(x, torch.searchsorted(okc, ok_before + 1))
+        return torch.where(out_valid, got, torch.zeros_like(got)), out_valid
+    ident = st.identity_value_array(mono, mono.type, dev)
+    xi = torch.where(ok, x, ident)
+    if name == "plus":
+        sums = _segment_sums(xi.to(_wide_acc(mono.type)), start, end)
+        return _dt.normalize(sums, mono.type), out_valid
+    if name in ("lor", "land"):
+        t = _segment_sums(xi.to(_I64), start, end)
+        out = t > 0 if name == "lor" else t == end - start
+        return out, out_valid
+    if name in ("min", "max"):
+        return _minmax(seg, xi, name, n, ident, mono, start, end), out_valid
+    out = _segment_fold(seg, xi, mono.binaryop, n, ident, start, end)
+    return _dt.normalize(out, mono.type), out_valid
+
+
+def _no_positional(op, where):
+    if op._positional is not None:
+        raise NotImplementedError(
+            f"{op!r} in {where} on a sparse matrix needs the positional "
+            f"multiplies, which are not in the PyTorch port yet (ROADMAP.md "
+            f"queue 1, item 9)")
+
+
+# --------------------------------------------------------------------- #
+# semiring matvec and reduces
+def spmv(sp, at, kind, u_vals, u_valid, ring, a_dt, u_dt):
+    """w = A u (kind 'mxv') or w = u A ('vxm') over any semiring and type:
+    gather u at the contraction index, multiply entry by entry, and
+    reduce by destination.  `at` swaps the coordinate roles (A.T).
+    Returns a dense vector store of the output size."""
+    mult, mono = ring.binaryop, ring.monoid
+    _no_positional(mult, kind)
+    rows, cols = sp.rows, sp.cols
+    eff_rows, eff_cols = (cols, rows) if at else (rows, cols)
+    if kind == "mxv":
+        k_ids, dest = eff_cols, eff_rows
+    else:
+        k_ids, dest = eff_rows, eff_cols
+    out_size = (sp.ncols if at else sp.nrows) if kind == "mxv" else \
+        (sp.nrows if at else sp.ncols)
+    x = u_vals[k_ids]
+    x_ok = u_valid[k_ids]
+    if kind == "vxm":
+        prods = dense.apply_binop(mult, x, u_dt, sp.vals, a_dt)
+    else:
+        prods = dense.apply_binop(mult, sp.vals, a_dt, x, u_dt)
+    seg = dest
+    if dest is not rows:
+        perm = sp.csc_perm()  # destination-sorted order, k ascending
+        seg, prods, x_ok = seg[perm], prods[perm], x_ok[perm]
+    return segment_reduce_sorted(seg, prods, x_ok, mono, out_size,
+                                 mult.return_type)
+
+
+def reduce_axis(sp, at, axis, mono, in_dt):
+    """Monoid-reduce rows (axis=1) or columns (axis=0) -> dense vector
+    store."""
+    rows, cols = sp.rows, sp.cols
+    eff_rows, eff_cols = (cols, rows) if at else (rows, cols)
+    n_r, n_c = (sp.ncols, sp.nrows) if at else (sp.nrows, sp.ncols)
+    dest, out_size = (eff_rows, n_r) if axis == 1 else (eff_cols, n_c)
+    vals = sp.vals
+    if dest is not rows:
+        perm = sp.csc_perm()
+        dest, vals = dest[perm], vals[perm]
+    ok = torch.ones(dest.numel(), dtype=torch.bool, device=vals.device)
+    return segment_reduce_sorted(dest, vals, ok, mono, out_size, in_dt)
+
+
+def extract_element(sp, at, i, j):
+    """A[i, j] by a binary search over the (row, col) keys; no device
+    read."""
+    if at:
+        i, j = j, i
+    dev = sp.device
+    if sp.nvals() == 0:
+        return (torch.zeros((), dtype=sp.vals.dtype, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    key = sp.struct.keys()
+    target = torch.tensor([i * max(sp.ncols, 1) + j], dtype=_I64, device=dev)
+    pos = torch.searchsorted(key, target).clamp(max=key.numel() - 1)
+    return sp.vals[pos][0], (key[pos] == target)[0]
+
+
+# --------------------------------------------------------------------- #
+# structure-preserving operations (sparse in -> sparse out)
+def apply_unary(sp, op, a_dt):
+    return sp.with_values(dense.apply_unop(op, sp.vals, a_dt), op.return_type)
+
+
+def apply_bound(sp, op, a_dt, scalar_val, scalar_dt, left):
+    vals = dense.bound_vals(sp.vals, op, a_dt, scalar_val, scalar_dt, left)
+    return sp.with_values(vals, op.return_type)
+
+
+def _indexunary_vals(sp, op, a_dt, thunk_val):
+    return dense.indexunary_vals(sp.vals, sp.rows, sp.cols, op, a_dt,
+                                 thunk_val)
+
+
+def apply_indexunary(sp, op, a_dt, thunk_val):
+    return sp.with_values(_indexunary_vals(sp, op, a_dt, thunk_val),
+                          op.return_type)
+
+
+def select_op(sp, op, a_dt, thunk_val, out_dt):
+    pred = _indexunary_vals(sp, op, a_dt, thunk_val)
+    return _filtered(sp, pred, st.cast_values(sp.vals, a_dt, out_dt), out_dt)
+
+
+def cast_copy(sp, in_dt, out_dt):
+    if in_dt == out_dt:
+        return sp
+    return sp.with_values(st.cast_values(sp.vals, in_dt, out_dt), out_dt)
+
+
+def transpose(sp):
+    """Materialized transpose: entries in (col, row) order; its own (col,
+    row) permutation is the inverse of the source's."""
+    perm = sp.csc_perm()
+    inv = torch.empty_like(perm)
+    inv[perm] = _iota(perm.numel(), perm.device)
+    struct = Structure(sp.cols[perm], sp.rows[perm], sp.ncols, sp.nrows,
+                       csc=inv)
+    return SparseStore(struct, sp.vals[perm], sp.dtype, is_diag=sp.is_diag)
+
+
+def mxm_diag(sp, d, left_diag, ring, a_dt, d_dt):
+    """D @ A (left_diag) or A @ D for a diagonal D: each entry scaled by the
+    semiring's multiply; the monoid never fires (one k term an output).
+    An entry whose diagonal element is missing is dropped."""
+    mult = ring.binaryop
+    _no_positional(mult, "mxm")
+    n = d.nrows
+    dev = sp.device
+    dv = torch.zeros(n, dtype=d.vals.dtype, device=dev)
+    dok = torch.zeros(n, dtype=torch.bool, device=dev)
+    dv[d.rows] = d.vals
+    dok[d.rows] = True
+    ids = sp.rows if left_diag else sp.cols
+    x = dv[ids]
+    if left_diag:
+        out = dense.apply_binop(mult, x, d_dt, sp.vals, a_dt)
+    else:
+        out = dense.apply_binop(mult, sp.vals, a_dt, x, d_dt)
+    out = st.cast_values(out, mult.return_type, ring.monoid.type)
+    return _filtered(sp, dok[ids], out, ring.monoid.type)
+
+
+def ewise_mult_vector_bcast(sp, op, a_dt, v_vals, v_valid, v_dt, *,
+                            vector_left=False):
+    """A .* broadcast(v along rows): out[i, j] = op(A[i, j], v[j]) (or
+    with the vector as the left operand), where v[j] is stored."""
+    x = v_vals[sp.cols]
+    if vector_left:
+        out = dense.apply_binop(op, x, v_dt, sp.vals, a_dt)
+    else:
+        out = dense.apply_binop(op, sp.vals, a_dt, x, v_dt)
+    return _filtered(sp, v_valid[sp.cols], out, op.return_type)
+
+
+def ewise_same_structure(a, b, op, a_dt, b_dt, out_dt):
+    """Element-wise op (mult, add or union alike) over two stores of one
+    structure: every entry is in both, so the op applies everywhere and the
+    structure is kept."""
+    z = dense.apply_binop(op, a.vals, a_dt, b.vals, b_dt)
+    return a.with_values(st.cast_values(z, op.return_type, out_dt), out_dt,
+                         is_diag=a.is_diag and b.is_diag)
+
+
+def ewise_mult_sparse_dense(sp, op, sp_dt, d_vals, d_valid, d_dt,
+                            sparse_left=True):
+    """Sparse .* dense bitmap: the dense plane gathered at the sparse
+    coordinates (the result's structure is a subset of the sparse one)."""
+    lin = sp.rows * d_valid.shape[1] + sp.cols
+    dv = d_vals.reshape(-1)[lin]
+    if sparse_left:
+        out = dense.apply_binop(op, sp.vals, sp_dt, dv, d_dt)
+    else:
+        out = dense.apply_binop(op, dv, d_dt, sp.vals, sp_dt)
+    return _filtered(sp, d_valid.reshape(-1)[lin], out, op.return_type)
+
+
+# --------------------------------------------------------------------- #
+# merges of two stores of one shape
+def _take(vals, idx):
+    """vals[idx] with idx clamped into range; zeros where vals is empty."""
+    if vals.numel() == 0:
+        return torch.zeros(idx.shape, dtype=vals.dtype, device=idx.device)
+    return vals[idx.clamp(0, vals.numel() - 1)]
+
+
+def _find(keys, targets):
+    """(position, found) of each target in the sorted unique keys."""
+    q = torch.searchsorted(keys, targets)
+    return q, (q < keys.numel()) & (_take(keys, q) == targets)
+
+
+def merge_slots(a, b):
+    """Align two stores on the union of their coordinates, in (row, col)
+    order, without a sort: each side's rank in the other comes from a
+    binary search.  Returns (rows, cols, a_idx, b_idx, has_a, has_b) over
+    the union's slots (one device read: the union's size)."""
+    ka, kb = a.struct.keys(), b.struct.keys()
+    dev = ka.device
+    na, nb = ka.numel(), kb.numel()
+    qa, a_in_b = _find(kb, ka)
+    qb, b_in_a = _find(ka, kb)
+    matched = a_in_b.to(_I64)
+    before_a = torch.cumsum(matched, 0) - matched  # matches before a's slot
+    pos_a = _iota(na, dev) + qa - before_a
+    b_only = (~b_in_a).to(_I64)
+    pos_b_only = qb + torch.cumsum(b_only, 0) - b_only
+    pos_b = torch.where(b_in_a, _take(pos_a, qb), pos_b_only)
+    u = na + nb - int(matched.sum())
+    a_idx = torch.full((u,), -1, dtype=_I64, device=dev)
+    b_idx = torch.full((u,), -1, dtype=_I64, device=dev)
+    a_idx[pos_a] = _iota(na, dev)
+    b_idx[pos_b] = _iota(nb, dev)
+    has_a, has_b = a_idx >= 0, b_idx >= 0
+    rows = torch.where(has_a, _take(a.rows, a_idx), _take(b.rows, b_idx))
+    cols = torch.where(has_a, _take(a.cols, a_idx), _take(b.cols, b_idx))
+    return rows, cols, a_idx, b_idx, has_a, has_b
+
+
+def merge_ewise(a, b, variant, op, a_dt, b_dt, out_dt, lr=None):
+    """ewise mult/add/union of two sparse stores with different
+    structures.  lr = (ldef, rdef): 0-d tensors of op.type and op.type2
+    (union)."""
+    if variant == "mult":
+        qa, a_in_b = _find(b.struct.keys(), a.struct.keys())
+        z = dense.apply_binop(op, a.vals, a_dt, _take(b.vals, qa), b_dt)
+        return _filtered(a, a_in_b, st.cast_values(z, op.return_type, out_dt),
+                         out_dt)
+    rows, cols, a_idx, b_idx, has_a, has_b = merge_slots(a, b)
+    av, bv = _take(a.vals, a_idx), _take(b.vals, b_idx)
+    both = has_a & has_b
+    comb = st.cast_values(dense.apply_binop(op, av, a_dt, bv, b_dt),
+                          op.return_type, out_dt)
+    if variant == "add":
+        a_pass = st.cast_values(av, a_dt, out_dt)
+        b_pass = st.cast_values(bv, b_dt, out_dt)
+    else:
+        ldef, rdef = lr
+        a_pass = st.cast_values(
+            dense.apply_binop(op, av, a_dt, rdef.expand(av.shape), op.type2),
+            op.return_type, out_dt)
+        b_pass = st.cast_values(
+            dense.apply_binop(op, ldef.expand(bv.shape), op.type, bv, b_dt),
+            op.return_type, out_dt)
+    vals = torch.where(both, comb, torch.where(has_a, a_pass, b_pass))
+    return store_from_parts(rows, cols, vals, a.nrows, a.ncols, out_dt)
+
+
+# --------------------------------------------------------------------- #
+# masks at sparse coordinates
+def mask_at(msp, m_dt, structure, complement, rows, cols):
+    """A mask whose parent is sparse-backed, evaluated at the given
+    coordinates by a binary search over its keys."""
+    q, hit = _find(msp.struct.keys(), rows * max(msp.ncols, 1) + cols)
+    if not structure:
+        hit = hit & dense.truthy(_take(msp.vals, q), m_dt)
+    return ~hit if complement else hit
+
+
+def dense_mask_at(mask_arr, rows, cols):
+    """A dense (complement-resolved) mask plane gathered at coordinates."""
+    return mask_arr.reshape(-1)[rows * mask_arr.shape[1] + cols]
+
+
+def write_back_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn):
+    """The GraphBLAS update of sparse C by sparse Z under (mask, accum,
+    replace), on the union of their coordinates.  mask_fn(rows, cols) ->
+    bool per slot, or None."""
+    rows, cols, c_idx, z_idx, has_c, has_z = merge_slots(c, z)
+    c_val, z_val = _take(c.vals, c_idx), _take(z.vals, z_idx)
+    msk = torch.ones_like(has_c) if mask_fn is None else mask_fn(rows, cols)
+    z_cast = st.cast_values(z_val, z_dt, c_dt)
+    keep_c = has_c & (not replace)
+    if accum is None:
+        out_ok = torch.where(msk, has_z, keep_c)
+        vals = torch.where(msk & has_z, z_cast, c_val)
+    else:
+        both = st.cast_values(dense.apply_binop(accum, c_val, c_dt, z_val,
+                                                z_dt),
+                              accum.return_type, c_dt)
+        out_ok = torch.where(msk, has_c | has_z, keep_c)
+        vals = torch.where(msk & has_c & has_z, both,
+                           torch.where(msk & has_z & ~has_c, z_cast, c_val))
+    idx = out_ok.nonzero().reshape(-1)
+    return store_from_parts(rows[idx], cols[idx], vals[idx], c.nrows,
+                            c.ncols, c_dt)
+
+
+# --------------------------------------------------------------------- #
+# SpGEMM by Gustavson's expansion (the JAX package's two-phase SpGEMM:
+# a total, then expand, a stable sort by output coordinate, and combine)
+def _b_ksorted(b, bt):
+    """B's entries in contraction-index (effective-row) order:
+    (k, j, vals)."""
+    if not bt:
+        return b.rows, b.cols, b.vals
+    perm = b.csc_perm()
+    return b.cols[perm], b.rows[perm], b.vals[perm]
+
+
+def _a_sides(a, at):
+    """(i, k) of A's entries: output row and contraction index."""
+    return (a.cols, a.rows) if at else (a.rows, a.cols)
+
+
+def spgemm_total(a, b, at, bt, k_dim):
+    """Number of products Gustavson's expansion makes (a device scalar)."""
+    _, a_k = _a_sides(a, at)
+    b_k = b.cols if bt else b.rows
+    rowlen = torch.bincount(b_k, minlength=k_dim)
+    return rowlen[a_k].sum()
+
+
+def _expand(counts, total):
+    """(owner, rank) of each of `total` expanded terms: the term's
+    position in the owner's run of counts[owner] terms."""
+    dev = counts.device
+    owner = torch.repeat_interleave(_iota(counts.numel(), dev), counts,
+                                    output_size=total)
+    start = torch.cumsum(counts, 0) - counts
+    return owner, _iota(total, dev) - start[owner]
+
+
+def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
+           total, mask_fn=None):
+    """C = A (ring) B: each A entry times B's row at its contraction index,
+    the products filtered by mask_fn(i, j) (mask pushdown), sorted by
+    output coordinate (stable) and combined with the monoid."""
+    mult, mono = ring.binaryop, ring.monoid
+    _no_positional(mult, "mxm")
+    dev = a.device
+    a_i, a_k = _a_sides(a, at)
+    b_k, b_j, b_vals = _b_ksorted(b, bt)
+    indptr_b = torch.searchsorted(b_k, _iota(k_dim + 1, dev))
+    counts = (indptr_b[1:] - indptr_b[:-1])[a_k]
+    e, t = _expand(counts, total)
+    b_slot = indptr_b[a_k[e]] + t
+    i, j = a_i[e], b_j[b_slot]
+    if mask_fn is not None:
+        keep = mask_fn(i, j).nonzero().reshape(-1)
+        e, b_slot, i, j = e[keep], b_slot[keep], i[keep], j[keep]
+    prods = dense.apply_binop(mult, a.vals[e], a_dt, b_vals[b_slot], b_dt)
+    prods = st.cast_values(prods, mult.return_type, mono.type)
+    key, order = torch.sort(i * max(out_ncols, 1) + j, stable=True)
+    uniq, seg = torch.unique_consecutive(key, return_inverse=True)
+    ok = torch.ones(key.numel(), dtype=torch.bool, device=dev)
+    vals, _ = segment_reduce_sorted(seg, prods[order], ok, mono, uniq.numel(),
+                                    mono.type)
+    ncols = max(out_ncols, 1)
+    return store_from_parts(uniq // ncols, uniq % ncols, vals, out_nrows,
+                            out_ncols, mono.type)
+
+
+# --------------------------------------------------------------------- #
+# the masked dot: C(M) << A @ B for a mask M that is sparse and not
+# complemented.  For each mask entry (i, j) the shorter of A(i, :) and
+# B(:, j) is expanded and each of its contraction indices k is looked up
+# by a binary search in the other side's (major, k)-sorted keys.  Work and
+# memory: one term per expanded index, sum over M of min(deg_A(i),
+# deg_B(j)), against Gustavson's sum over k of deg_A(k) * deg_B(k).
+def _dot_side(sp, use_csc):
+    """(major, k, vals) of one side, sorted by (major, k)."""
+    if use_csc:
+        perm = sp.csc_perm()
+        return sp.cols[perm], sp.rows[perm], sp.vals[perm]
+    return sp.rows, sp.cols, sp.vals
+
+
+def _dot_mask_ok(msp, m_dt, structure):
+    if structure:
+        return torch.ones(msp.nvals(), dtype=torch.bool, device=msp.device)
+    return dense.truthy(msp.vals, m_dt)
+
+
+def _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows, out_ncols):
+    a_side = _dot_side(a, at)
+    b_side = _dot_side(b, not bt)
+    dev = a.device
+    indptr_a = torch.searchsorted(a_side[0], _iota(out_nrows + 1, dev))
+    indptr_b = torch.searchsorted(b_side[0], _iota(out_ncols + 1, dev))
+    deg_a = indptr_a[1:] - indptr_a[:-1]
+    deg_b = indptr_b[1:] - indptr_b[:-1]
+    ok_m = _dot_mask_ok(msp, m_dt, structure)
+    da, db = deg_a[msp.rows], deg_b[msp.cols]
+    cnt = torch.where(ok_m, torch.minimum(da, db), 0)
+    return a_side, b_side, indptr_a, indptr_b, ok_m, da, db, cnt
+
+
+def spgemm_dot_total(a, b, msp, m_dt, structure, at, bt, out_nrows,
+                     out_ncols, k_dim):
+    """[gustavson_total, dot_total] as one int64 device tensor, so the
+    host picks the formulation with one device read."""
+    gus = spgemm_total(a, b, at, bt, k_dim)
+    cnt = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
+                       out_ncols)[-1]
+    return torch.stack([gus, cnt.sum()])
+
+
+def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
+                      out_nrows, out_ncols, k_dim, total):
+    """The masked dot.  An output entry sits at a mask entry (that passes a
+    value mask) with at least one term whose index both sides store."""
+    mult, mono = ring.binaryop, ring.monoid
+    _no_positional(mult, "mxm")
+    (a_side, b_side, indptr_a, indptr_b, ok_m, da, db,
+     cnt) = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
+                         out_ncols)
+    a_major, a_k, a_vals = a_side
+    b_major, b_k, b_vals = b_side
+    na, nb = a_k.numel(), b_k.numel()
+    dev = a.device
+    kd1 = k_dim + 1
+    mr, mc = msp.rows, msp.cols
+    # X: the k of both sides (A first); Y: both sides' composite keys (B
+    # first, A's above every key of B), so one search serves either side
+    x_k = torch.cat([a_k, b_k])
+    y = torch.cat([b_major * kd1 + b_k,
+                   a_major * kd1 + a_k + (out_ncols + 1) * kd1])
+    ua = da <= db  # expand A's row where it is the shorter side
+    start = torch.where(ua, indptr_a[:-1][mr], na + indptr_b[:-1][mc])
+    base = torch.where(ua, mc * kd1, mr * kd1 + (out_ncols + 1) * kd1)
+    mo, t = _expand(cnt, total)
+    src = start[mo] + t
+    del t
+    tgt = base[mo] + x_k[src]
+    q, found = _find(y, tgt)
+    del tgt
+    if mult.parent.name == "pair":
+        prods = torch.ones(found.shape, dtype=mult.return_type.torch_type,
+                           device=dev)
+    else:
+        ua_t = ua[mo]
+        av = _take(a_vals, torch.where(ua_t, src, q - nb))
+        bv = _take(b_vals, torch.where(ua_t, q, src - na))
+        prods = dense.apply_binop(mult, av, a_dt, bv, b_dt)
+    out_vals, out_valid = segment_reduce_sorted(
+        mo, prods, found, mono, msp.nvals(), mult.return_type)
+    keep = (out_valid & ok_m).nonzero().reshape(-1)
+    return store_from_parts(mr[keep], mc[keep], out_vals[keep], out_nrows,
+                            out_ncols, mono.type)

@@ -1,13 +1,19 @@
-"""The funnel every operation goes through: compute an expression's
-(values, valid), then write it back into its target under mask, accum and
-replace (graphblas_tpu/core/execute.py ``materialize``/``update_into``,
-``_format_plan`` and the trace implementations ``T_*``).  PyTorch runs
-eagerly, so there is no jit cache and no recorder."""
+"""The funnel every operation goes through: compute an expression, then
+write it back into its target under mask, accum and replace
+(graphblas_tpu/core/execute.py ``materialize``/``update_into``,
+``_format_plan``, ``_sparse_out_run``, ``_spgemm_run`` and the trace
+implementations ``T_*``).  A dense result is a (values, valid) pair; a
+sparse one, of an operation on sparse-backed matrices, is a SparseStore,
+merged into a sparse target at coordinates (``sparse.write_back_sparse``).
+PyTorch runs eagerly, so there is no jit cache and no recorder; the
+distributed branches of the JAX package are ROADMAP.md queue 1, item 13."""
 
+import numpy as np
 import torch
 
 from . import dtypes as _dt
 from .engine import dense, lanepipe, sortpipe
+from .engine import sparse as spx
 from .engine import store as st
 from .operator.base import typed
 
@@ -29,13 +35,38 @@ def as_expr(obj):
     raise TypeError(f"cannot assign {type(obj).__name__} with <<")
 
 
-def materialize(expr, out_dtype, *, mask=None, name=None):
+def _check_opts(opts):
+    """Per-call options: ``axb_method`` (an mxm formulation: ``dot`` or
+    ``gustavson``; the others choose as ``default`` does, by the smaller
+    expansion).  Any other option is not in the port yet."""
+    for key, val in (opts or {}).items():
+        if key != "axb_method":
+            raise NotImplementedError(
+                f"descriptor option {key!r} is not in the PyTorch port yet "
+                f"(ROADMAP.md queue 1, item 12)")
+        if val is not None and (not isinstance(val, str)
+                                or val.lower() not in _AXB_METHODS):
+            raise ValueError(
+                f"Invalid value for 'axb_method' descriptor option: {val!r}. "
+                f"Must be one of {', '.join(sorted(_AXB_METHODS))}")
+    return opts or {}
+
+
+_AXB_METHODS = {"gustavson", "dot", "hash", "saxpy", "default"}
+
+
+def materialize(expr, out_dtype, *, mask=None, name=None, opts=None):
+    opts = _check_opts(opts)
+    if mask is None and _format_plan(expr) == "sparse":
+        sp = _sparse_out_run(expr, out_dtype, opts=opts)
+        return expr.output_type._from_sparse(out_dtype, sp, name=name)
     out = expr.output_type._empty(out_dtype, expr.shape, name=name)
-    update_into(out, expr, mask=mask)
+    update_into(out, expr, mask=mask, opts=opts)
     return out
 
 
-def update_into(target, expr, *, mask=None, accum=None, replace=False):
+def update_into(target, expr, *, mask=None, accum=None, replace=False,
+                opts=None):
     if tuple(target.shape) != tuple(expr.shape):
         from ..exceptions import DimensionMismatch
 
@@ -47,13 +78,41 @@ def update_into(target, expr, *, mask=None, accum=None, replace=False):
         raise DimensionMismatch(
             f"mask shape {mask.parent.shape} does not match output shape "
             f"{target.shape}")
-    z_vals, z_valid = compute(expr)
-    mask_arr = None if mask is None else mask._as_array()
+    opts = _check_opts(opts)
+    plan = _format_plan(expr)
     typed_accum = None if accum is None else typed(accum, target.dtype,
                                                    "BinaryOp")
+    if plan == "sparse":
+        _update_sparse(target, expr, mask, typed_accum, replace, opts)
+        return
+    z_vals, z_valid = compute(expr, plan)
+    mask_arr = None if mask is None else mask._as_array()
     vals, valid = dense.write_back(target._vals, target._valid, target.dtype,
                                    z_vals, z_valid, expr.dtype, mask_arr,
                                    typed_accum, replace)
+    target._set_store(vals, valid)
+
+
+def _update_sparse(target, expr, mask, accum, replace, opts):
+    """Write a sparse result into its target (graphblas_tpu/core/
+    execute.py update_into, the "sparse" plan): a sparse target is merged
+    at the union of the coordinates, with the mask evaluated there; a
+    dense-backed target takes the densified result."""
+    c_dt = target.dtype
+    if mask is None and accum is None:
+        target._set_sparse_store(_sparse_out_run(expr, c_dt, opts=opts))
+        return
+    z_dt = c_dt if accum is None else expr.dtype
+    z_sp = _sparse_out_run(expr, z_dt, mask=mask, opts=opts)
+    if target._sparse is not None:
+        target._set_sparse_store(spx.write_back_sparse(
+            target._sparse, z_sp, c_dt, z_dt, accum, replace,
+            _coord_mask_fn(mask)))
+        return
+    z_vals, z_valid = spx.densify(z_sp, z_dt, target.device)
+    mask_arr = None if mask is None else mask._as_array()
+    vals, valid = dense.write_back(target._vals, target._valid, c_dt, z_vals,
+                                   z_valid, z_dt, mask_arr, accum, replace)
     target._set_store(vals, valid)
 
 
@@ -82,21 +141,27 @@ def assign_scalar(target, value, *, mask=None, accum=None, replace=False):
 
 
 # --------------------------------------------------------------------- #
-# sparse-format planning.  Sparse-backed operands take the SpMV engines
-# for mxv, vxm and the row/column reduces; everything else densifies them
-# first, guarded by the dense_limit config in BaseType._densify.
+# sparse-format planning (graphblas_tpu/core/execute.py _format_plan)
 def _sp_args(expr):
     return [a for a in expr.args if getattr(a, "_sparse", None) is not None]
+
+
+_INLINE = ("mxv", "vxm", "reduce_rowwise", "reduce_columnwise", "reduce",
+           "extract_element")
+_SPARSE_OUT = ("identity", "transpose", "apply", "apply_bound",
+               "apply_indexunary", "select", "mxm")
 
 
 def _format_plan(expr):
     """How to execute given the operands' current backings.
 
     None      -- all dense, the normal path.
-    "inline"  -- a sparse matrix operand, dense result: the lanepipe or the
-                 sort pipeline.
-    "sparse"  -- the result is itself sparse: SpGEMM, not ported.
-    "densify" -- no sparse path; densify the sparse operands and go dense.
+    "inline"  -- a sparse matrix operand, dense result: the lanepipe, the
+                 sort pipeline or the generic sparse engine.
+    "sparse"  -- the result is itself a sparse store.
+    "densify" -- no sparse path (``power``, ``diag``, an element-wise add
+                 or union with a dense operand, whose result is dense-sized
+                 anyway); densify the sparse operands and go dense.
 
     The JAX package also sends ``mxm`` with a traced dense operand (loop
     state inside its ``ss.iterate``) to "densify"; nothing is traced here,
@@ -105,27 +170,28 @@ def _format_plan(expr):
     if not _sp_args(expr):
         return None
     m = expr.method_name
-    if m in ("mxv", "vxm", "reduce_rowwise", "reduce_columnwise"):
+    if m in _INLINE:
         return "inline"
-    if m == "mxm":
+    if m in _SPARSE_OUT:
         return "sparse"
+    if m in ("ewise_mult", "ewise_add", "ewise_union"):
+        a_bc, b_bc = expr._statics[3:5]
+        if m == "ewise_mult":
+            return "sparse"  # broadcast, sparse .* dense, or a merge
+        if a_bc or b_bc:
+            return "densify"
+        if all(a._sparse is not None for a in expr.args):
+            return "sparse"
     return "densify"
 
 
-def compute(expr):
-    """(values, valid) of an expression, in expr.dtype."""
-    plan = _format_plan(expr)
+def compute(expr, plan=None):
+    """(values, valid) of an expression whose result is dense, in
+    expr.dtype."""
+    plan = _format_plan(expr) if plan is None else plan
     m = expr.method_name
-    if plan == "sparse":
-        raise NotImplementedError(
-            "mxm with a sparse-backed operand is SpGEMM, which is not in "
-            "the PyTorch port yet (ROADMAP.md queue 1, item 10); a Matrix "
-            "of at most auto_sparse_limit elements is dense-backed and "
-            "multiplies through the dense engine")
     if plan == "inline":
-        if m in ("mxv", "vxm"):
-            return _inline_sparse_impl(expr)
-        return _reduce_axis_impl(expr)
+        return _INLINE_IMPL[m](expr)
     if plan == "densify":
         for a in _sp_args(expr):
             a._densify()
@@ -149,18 +215,47 @@ def T_copy(expr):
 
 def T_apply(expr):
     a = expr.args[0]
-    return dense.apply_op(a._vals, a._valid, expr.op, a.dtype)
+    vals, valid = _store(a, expr._statics[-1])
+    return dense.apply_op(vals, valid, expr.op, a.dtype)
 
 
-def T_reduce_scalar(expr):
+def T_apply_bound(expr):
     a = expr.args[0]
-    vals, valid = dense.reduce_monoid(a._vals, a._valid, expr.op, a.dtype)
+    s_val, left, tflag = expr._statics
+    vals, valid = _store(a, tflag)
+    s_dt = expr.op.type if left else expr.op.type2
+    return dense.apply_bound(vals, valid, expr.op, a.dtype, s_val, s_dt, left)
+
+
+def T_apply_indexunary(expr):
+    a = expr.args[0]
+    thunk, _, is_matrix, tflag = expr._statics
+    vals, valid = _store(a, tflag)
+    return dense.apply_indexunary(vals, valid, expr.op, a.dtype, thunk,
+                                  is_matrix)
+
+
+def T_select(expr):
+    a = expr.args[0]
+    thunk, _, is_matrix, tflag = expr._statics
+    vals, valid = _store(a, tflag)
+    return dense.select_op(vals, valid, expr.op, a.dtype, thunk, is_matrix,
+                           expr.dtype)
+
+
+def _allow_empty(expr, vals, valid):
     if not expr._statics[0]:  # allow_empty=False: identity when empty
         ident = st.identity_value_array(expr.op, expr.op.type, vals.device)
         if ident is not None:
             vals = torch.where(valid, vals, ident)
         valid = torch.ones((), dtype=torch.bool, device=valid.device)
     return vals, valid
+
+
+def T_reduce_scalar(expr):
+    a = expr.args[0]
+    return _allow_empty(expr, *dense.reduce_monoid(a._vals, a._valid,
+                                                   expr.op, a.dtype))
 
 
 def T_reduce_axis(expr):
@@ -224,17 +319,22 @@ def T_power(expr):
 
 
 def T_ewise(expr):
-    variant, at, bt = expr._statics[:3]
+    variant, at, bt, a_bc, b_bc, ldef, rdef = expr._statics
     a, b = expr.args
     a_vals, a_valid = _store(a, at)
     b_vals, b_valid = _store(b, bt)
+    if b_bc:  # a vector broadcast along the rows of the matrix operand
+        b_vals, b_valid = b_vals.expand(a_valid.shape), \
+            b_valid.expand(a_valid.shape)
+    elif a_bc:
+        a_vals, a_valid = a_vals.expand(b_valid.shape), \
+            a_valid.expand(b_valid.shape)
     if variant == "mult":
         return dense.ewise_mult(a_vals, a_valid, b_vals, b_valid, expr.op,
                                 a.dtype, b.dtype)
     if variant == "add":
         return dense.ewise_add(a_vals, a_valid, b_vals, b_valid, expr.op,
                                a.dtype, b.dtype, expr.dtype)
-    ldef, rdef = expr._statics[3:]
     dev = a_valid.device
     return dense.ewise_union(a_vals, a_valid, b_vals, b_valid, expr.op,
                              a.dtype, b.dtype, ldef._vals.to(dev),
@@ -256,6 +356,8 @@ def T_diag_build(expr):
 
 _DENSE_IMPL = {
     "identity": T_copy, "transpose": T_copy, "apply": T_apply,
+    "apply_bound": T_apply_bound, "apply_indexunary": T_apply_indexunary,
+    "select": T_select,
     "reduce": T_reduce_scalar, "reduce_rowwise": T_reduce_axis,
     "reduce_columnwise": T_reduce_axis,
     "extract_element": T_extract_element, "mxm": T_matmul, "mxv": T_matmul,
@@ -274,7 +376,8 @@ def _empty_result(expr, dev):
 def _inline_sparse_impl(expr):
     """mxv/vxm of a sparse matrix and a dense vector: through the lanepipe,
     or through the sort pipeline when the matrix packs over
-    ``lanepipe.PACK_LIMIT``."""
+    ``lanepipe.PACK_LIMIT``; the generic sparse engine takes every ring and
+    type those two decline (FP64, INT64, monoids without a scan)."""
     m = expr.method_name
     tflag = expr._statics[0]
     mat, vec = (expr.args[0], expr.args[1]) if m == "mxv" else \
@@ -294,10 +397,8 @@ def _inline_sparse_impl(expr):
         ring, u_dt = twin, _dt.BOOL
     k_dt = a_dt if truth_of is None else _dt.BOOL  # the matrix's, as computed
     if not lanepipe.eligible(ring, k_dt, u_dt):
-        raise NotImplementedError(
-            f"{m} with {ring!r} on {k_dt}/{u_dt} needs the generic "
-            f"SpMV engine (FP64, UDT and other monoids): ROADMAP.md queue 1, "
-            f"item 9")
+        return spx.spmv(sp, bool(tflag), m, vec._vals, vec._valid, expr.op,
+                        a_dt, vec.dtype)
     where = dict(dest_is_row=m == "mxv", at=bool(tflag), device=vec.device)
     entry, dyn = _plan(lanepipe, sp, a_dt, truth_of, **where)
     if entry is None:
@@ -343,7 +444,8 @@ def _plan(pipe, sp, a_dt, truth_of, *, dest_is_row, at, device):
 
 def _reduce_axis_impl(expr):
     """Row/column monoid reduce of a sparse matrix through the sort
-    pipeline's destination side."""
+    pipeline's destination side, or the generic sparse engine where that
+    declines."""
     mat = expr.args[0]
     axis, tflag = expr._statics
     sp = mat._sparse
@@ -356,11 +458,216 @@ def _reduce_axis_impl(expr):
     truth_of = in_dt if mono.type is _dt.BOOL and not in_dt.is_bool else None
     k_dt = in_dt if truth_of is None else _dt.BOOL
     if not sortpipe.eligible_reduce(mono, k_dt):
-        raise NotImplementedError(
-            f"{expr.method_name} with {mono!r} on {in_dt} needs the "
-            f"generic sparse.reduce_axis (FP64, UDT and other monoids): "
-            f"ROADMAP.md queue 1, item 9")
+        return spx.reduce_axis(sp, bool(tflag), axis, mono, in_dt)
     # axis=1 reduces rows (dest=row); axis=0 reduces columns
     _, dyn = _plan(sortpipe, sp, in_dt, truth_of, dest_is_row=axis == 1,
                    at=bool(tflag), device=dev)
     return sortpipe.reduce_pipeline(dyn, mono, k_dt)
+
+
+def _reduce_scalar_impl(expr):
+    """reduce_scalar of a sparse matrix: the monoid over its values."""
+    mat = expr.args[0]
+    vals = mat._sparse.vals
+    ok = torch.ones(vals.shape, dtype=torch.bool, device=vals.device)
+    return _allow_empty(expr, *dense.reduce_monoid(vals, ok, expr.op,
+                                                   mat.dtype))
+
+
+def _extract_element_impl(expr):
+    mat = expr.args[0]
+    return spx.extract_element(mat._sparse, False, *expr._statics[0])
+
+
+_INLINE_IMPL = {"mxv": _inline_sparse_impl, "vxm": _inline_sparse_impl,
+                "reduce_rowwise": _reduce_axis_impl,
+                "reduce_columnwise": _reduce_axis_impl,
+                "reduce": _reduce_scalar_impl,
+                "extract_element": _extract_element_impl}
+
+
+# --------------------------------------------------------------------- #
+# sparse results (graphblas_tpu/core/execute.py _sparse_out_run,
+# _spgemm_run; the distributed branches are ROADMAP.md queue 1, item 13)
+def _sparsify(mat):
+    """Give a dense-backed matrix a sparse backing (to meet a sparse
+    operand of mxm)."""
+    mat._set_sparse_store(spx.from_dense(mat._vals, mat._valid, mat.dtype))
+
+
+def _coord_mask_fn(mask):
+    """mask_fn(rows, cols) -> bool for evaluating a mask at sparse
+    coordinates, or None.  A sparse parent is searched at the coordinates,
+    never densified."""
+    if mask is None:
+        return None
+    parent = mask.parent
+    structure, complement, m_dt = mask.structure, mask.complement, \
+        parent.dtype
+    if parent._sparse is not None:
+        msp = parent._sparse
+
+        def fn(rows, cols):
+            return spx.mask_at(msp, m_dt, structure, complement, rows, cols)
+
+        return fn
+    arr = mask._as_array()
+
+    def fn(rows, cols):
+        return spx.dense_mask_at(arr, rows, cols)
+
+    return fn
+
+
+def _sparse_out_run(expr, out_dtype, mask=None, opts=None):
+    """Execute a "sparse"-plan expression; returns its SparseStore in
+    out_dtype.  Only mxm reads the mask (it filters products before they
+    are combined); the write-back applies it."""
+    m = expr.method_name
+    z_dt = expr.dtype
+
+    def cast(sp):
+        return spx.cast_copy(sp, z_dt, out_dtype)
+
+    if m == "mxm":
+        return _mxm_run(expr, cast, mask, opts)
+    if m.startswith("ewise_"):
+        return cast(_ewise_run(expr))
+    src = expr.args[0]
+    sp = src._sparse
+    tflag = m == "transpose" or (m != "identity" and expr._statics[-1])
+    a = spx.transpose(sp) if tflag else sp
+    if m in ("identity", "transpose"):
+        return spx.cast_copy(a, src.dtype, out_dtype)
+    if m == "apply":
+        return cast(spx.apply_unary(a, expr.op, src.dtype))
+    if m == "apply_bound":
+        s_val, left, _ = expr._statics
+        s_dt = expr.op.type if left else expr.op.type2
+        return cast(spx.apply_bound(a, expr.op, src.dtype, s_val, s_dt, left))
+    thunk = expr._statics[0]
+    if m == "apply_indexunary":
+        return cast(spx.apply_indexunary(a, expr.op, src.dtype, thunk))
+    return spx.select_op(a, expr.op, src.dtype, thunk, out_dtype)
+
+
+def _ewise_run(expr):
+    """Element-wise operations with a sparse result, in expr.dtype."""
+    variant, at, bt, a_bc, b_bc, ldef, rdef = expr._statics
+    a, b = expr.args
+    op, z_dt = expr.op, expr.dtype
+    if a_bc or b_bc:  # a sparse matrix .* a vector broadcast along its rows
+        mat, vec, mt = (a, b, at) if b_bc else (b, a, bt)
+        m_sp = spx.transpose(mat._sparse) if mt else mat._sparse
+        return spx.ewise_mult_vector_bcast(m_sp, op, mat.dtype, vec._vals,
+                                           vec._valid, vec.dtype,
+                                           vector_left=a_bc)
+    a_sp, b_sp = a._sparse, b._sparse
+    if a_sp is None or b_sp is None:  # sparse .* dense
+        sparse_left = a_sp is not None
+        s, d, st_, dt_ = (a, b, at, bt) if sparse_left else (b, a, bt, at)
+        s_sp = spx.transpose(s._sparse) if st_ else s._sparse
+        d_vals, d_valid = _store(d, dt_)
+        return spx.ewise_mult_sparse_dense(s_sp, op, s.dtype, d_vals, d_valid,
+                                           d.dtype, sparse_left=sparse_left)
+    if a_sp.struct is b_sp.struct and at == bt:
+        # one structure: element by element, the structure kept
+        out = spx.ewise_same_structure(a_sp, b_sp, op, a.dtype, b.dtype,
+                                       z_dt)
+        return spx.transpose(out) if at else out
+    ax = spx.transpose(a_sp) if at else a_sp
+    bx = spx.transpose(b_sp) if bt else b_sp
+    lr = None
+    if variant == "union":
+        lr = (ldef._vals.to(ax.device), rdef._vals.to(ax.device))
+    return spx.merge_ewise(ax, bx, variant, op, a.dtype, b.dtype, z_dt, lr)
+
+
+def _mxm_run(expr, cast, mask, opts):
+    at, bt = expr._statics
+    a, b = expr.args
+    a_sp, b_sp = a._sparse, b._sparse
+    left_diag = a_sp is not None and a_sp.is_diag
+    if left_diag or (b_sp is not None and b_sp.is_diag):
+        # row or column scaling by a diagonal
+        other = b if left_diag else a
+        if other._sparse is None:
+            _sparsify(other)
+        o_sp = other._sparse
+        if bt if left_diag else at:
+            o_sp = spx.transpose(o_sp)
+        d_sp, d_dt = (a_sp, a.dtype) if left_diag else (b_sp, b.dtype)
+        return cast(spx.mxm_diag(o_sp, d_sp, left_diag, expr.op, other.dtype,
+                                 d_dt))
+    return cast(_spgemm_run(expr, mask, opts))
+
+
+# what the last SpGEMM chose: "dot" or "gustavson", its expanded terms and
+# both totals (read by chip_smoke.py and the tests)
+last_spgemm = {}
+
+
+def _host_spgemm_totals(a_sp, b_sp, msp, m_dt, structure, at, bt, k_dim):
+    """(gustavson_total, dot_total) from the host copies, when all three
+    stores have one (no device read); else None.  The dot total counts
+    the mask entries a value mask lets through, as the device's does."""
+    if not all(s.has_host_copy() for s in (a_sp, b_sp, msp)):
+        return None
+    (ra, ca, _), (rb, cb, _) = a_sp.host_coo(), b_sp.host_coo()
+    rm, cm, vm = msp.host_coo()
+    out_nrows, out_ncols = msp.nrows, msp.ncols
+    deg_a_k = np.bincount(ra if at else ca, minlength=k_dim)
+    deg_b_k = np.bincount(cb if bt else rb, minlength=k_dim)
+    gus = int((deg_a_k.astype(np.int64) * deg_b_k).sum())
+    deg_a = np.bincount(ca if at else ra, minlength=out_nrows)
+    deg_b = np.bincount(rb if bt else cb, minlength=out_ncols)
+    keep = np.ones(len(rm), bool) if structure else vm.astype(bool)
+    dot = int(np.minimum(deg_a[rm[keep]], deg_b[cm[keep]]).astype(
+        np.int64).sum())
+    return gus, dot
+
+
+def _spgemm_run(expr, mask, opts):
+    """Sparse x sparse mxm with the mask pushed down, in expr.dtype.  A
+    mask that is sparse and not complemented can take the masked dot,
+    whose work is bounded by the mask: the host reads both expansion
+    totals at once (from the host copies, else one device read) and picks
+    the smaller, unless ``axb_method`` forces one."""
+    at, bt = expr._statics
+    a, b = expr.args
+    for x in (a, b):
+        if x._sparse is None:
+            _sparsify(x)
+    a_sp, b_sp = a._sparse, b._sparse
+    out_nrows = a_sp.ncols if at else a_sp.nrows
+    out_ncols = b_sp.nrows if bt else b_sp.ncols
+    k_dim = a_sp.nrows if at else a_sp.ncols
+    ring, z_dt = expr.op, expr.dtype
+    if 0 in (a_sp.nvals(), b_sp.nvals(), out_nrows, out_ncols):
+        last_spgemm.clear()
+        return spx.empty_store(out_nrows, out_ncols, z_dt, a_sp.device)
+    method = ((opts or {}).get("axb_method") or "default").lower()
+    if (mask is not None and not mask.complement
+            and mask.parent._sparse is not None
+            and method in ("default", "dot")):
+        msp, m_dt = mask.parent._sparse, mask.parent.dtype
+        totals = _host_spgemm_totals(a_sp, b_sp, msp, m_dt, mask.structure,
+                                     at, bt, k_dim)
+        if totals is None:
+            totals = spx.spgemm_dot_total(
+                a_sp, b_sp, msp, m_dt, mask.structure, at, bt, out_nrows,
+                out_ncols, k_dim).tolist()
+        gus, dot = totals
+        last_spgemm.update(gustavson_terms=gus, dot_terms=dot)
+        if method == "dot" or dot <= gus:
+            last_spgemm.update(formulation="dot", terms=dot)
+            return spx.spgemm_masked_dot(
+                a_sp, b_sp, msp, at, bt, ring, a.dtype, b.dtype, m_dt,
+                mask.structure, out_nrows, out_ncols, k_dim, dot)
+        total = gus
+    else:
+        total = int(spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
+        last_spgemm.update(gustavson_terms=total, dot_terms=None)
+    last_spgemm.update(formulation="gustavson", terms=total)
+    return spx.spgemm(a_sp, b_sp, at, bt, ring, a.dtype, b.dtype, out_nrows,
+                      out_ncols, k_dim, total, _coord_mask_fn(mask))

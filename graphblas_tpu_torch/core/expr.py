@@ -5,13 +5,15 @@ from . import execute
 
 
 class Updater:
-    def __init__(self, parent, *, mask=None, accum=None, replace=False):
+    def __init__(self, parent, *, mask=None, accum=None, replace=False,
+                 opts=None):
         if replace and mask is None:
             raise ValueError("replace=True requires a mask")
         self.parent = parent
         self.mask = mask
         self.accum = accum
         self.replace = replace
+        self.opts = opts
 
     def __lshift__(self, expr):
         return self.update(expr)
@@ -19,7 +21,7 @@ class Updater:
     def update(self, expr):
         execute.update_into(self.parent, execute.as_expr(expr),
                             mask=self.mask, accum=self.accum,
-                            replace=self.replace)
+                            replace=self.replace, opts=self.opts)
 
     def __setitem__(self, keys, value):
         if not (isinstance(keys, slice) and keys == slice(None)):

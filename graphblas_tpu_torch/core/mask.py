@@ -1,6 +1,9 @@
 """Masks: ``v.S``, ``v.V`` and their complements ``~v.S``, ``~v.V``, of a
-Vector or a Matrix (graphblas_tpu/core/mask.py).  A mask of a sparse-backed
-Matrix densifies it, under the ``dense_limit`` guard."""
+Vector or a Matrix (graphblas_tpu/core/mask.py).  A mask whose parent is
+sparse-backed is evaluated at the coordinates a sparse result writes
+(``execute._coord_mask_fn``); only a dense-backed target needs its plane,
+which is made under the ``dense_limit`` guard and leaves the parent
+sparse."""
 
 from .engine import dense
 
@@ -19,8 +22,11 @@ class Mask:
         return f"{type(self).__name__}({self.parent!r})"
 
     def _as_array(self):
+        """The dense write-permission plane."""
         p = self.parent
-        return dense.mask_array(p._vals, p._valid, p.dtype, self.structure,
+        vals, valid = (p._dense_planes() if p._sparse is not None
+                       else (p._vals, p._valid))
+        return dense.mask_array(vals, valid, p.dtype, self.structure,
                                 self.complement)
 
 

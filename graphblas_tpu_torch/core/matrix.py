@@ -2,12 +2,14 @@
 
 Two backings, as in the JAX package: a Matrix with at most
 ``auto_sparse_limit`` elements is a dense (values, valid) store on its
-device; a larger one is sparse-backed (host COO; the lanepipe or
-sort-pipeline plan and its device tensors are built at the first mxv/vxm
-or reduce of each direction).  An operation without a sparse path
-(``power``, element-wise operations, ``diag``, masks) densifies a sparse
-operand under the ``dense_limit`` guard; ``mxm`` with a sparse operand is
-SpGEMM and raises until that is ported."""
+device; a larger one is sparse-backed (a SparseStore of COO tensors on its
+device; a lanepipe or sort-pipeline plan is built at the first mxv/vxm or
+reduce of each direction that takes one).  ``apply``, ``select``, ``A.T``,
+casts, element-wise operations of two sparse operands (and ``ewise_mult``
+with any), reduces, ``mxm`` (SpGEMM, or a scaling by a diagonal) and the
+masked write-back keep a sparse matrix sparse; ``power``, ``diag`` and an
+element-wise add or union with a dense operand densify it under the
+``dense_limit`` guard."""
 
 import numpy as np
 import torch
@@ -16,18 +18,13 @@ from . import config as _config
 from . import dtypes as _dt
 from ..exceptions import DimensionMismatch, EmptyObject
 from .base import BaseExpression, BaseType
-from .engine.sparse import build_sparse_store
+from .collection import apply_expr, ewise_expr, select_expr
+from .collection import untranspose as _untranspose
+from .engine import sparse as spx
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 from .scalar import Scalar
 from .vector import Vector, _unify, _values_dtype
-
-
-def _untranspose(x):
-    """(matrix, transposed?) of a Matrix or a TransposedMatrix."""
-    if isinstance(x, TransposedMatrix):
-        return x._matrix, True
-    return x, False
 
 
 def _shape_of(mat, transposed):
@@ -47,10 +44,8 @@ class Matrix(BaseType):
         self._device = _config.device()
         if nrows * ncols > int(_config.config.get("auto_sparse_limit",
                                                   1 << 22)):
-            e = np.zeros(0, np.int64)
-            self._set_sparse_store(build_sparse_store(
-                e, e, np.zeros(0, self.dtype.np_type), nrows, ncols,
-                self.dtype))
+            self._set_sparse_store(spx.empty_store(nrows, ncols, self.dtype,
+                                                   self._device))
         else:
             self._set_store(
                 torch.zeros((nrows, ncols), dtype=self.dtype.torch_type,
@@ -61,6 +56,14 @@ class Matrix(BaseType):
     @classmethod
     def _empty(cls, dtype, shape, name=None):
         return cls(dtype, shape[0], shape[1], name=name)
+
+    @classmethod
+    def _from_sparse(cls, dtype, sp, name=None):
+        m = cls.__new__(cls)
+        m.dtype, m.name = _dt.lookup_dtype(dtype), name
+        m._nrows, m._ncols = sp.nrows, sp.ncols
+        m._set_sparse_store(sp)
+        return m
 
     # ------------------------------------------------------------------ #
     # constructors and exports
@@ -81,7 +84,8 @@ class Matrix(BaseType):
                           or columns.min() < 0 or columns.max() >= ncols):
             raise IndexError("index out of bounds")
         m = cls(dt, nrows, ncols, name=name)
-        sp = build_sparse_store(rows, columns, values, nrows, ncols, dt, dup_op)
+        sp = spx.build_sparse_store(rows, columns, values, nrows, ncols, dt,
+                                    m._device, dup_op)
         dense = m._sparse is None
         m._set_sparse_store(sp)
         if dense:
@@ -119,8 +123,7 @@ class Matrix(BaseType):
     def to_coo(self, dtype=None, *, rows=True, columns=True, values=True,
                sort=True):
         if self._sparse is not None:
-            sp = self._sparse
-            r, c, v = sp.rows, sp.cols, sp.vals
+            r, c, v = self._sparse.host_coo()
         else:
             host_vals, host_ok = self._host_arrays()
             r, c = np.nonzero(host_ok)
@@ -178,11 +181,8 @@ class Matrix(BaseType):
         dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
         if self._sparse is not None and not clear and mask is None \
                 and dt == self.dtype:
-            out = Matrix.__new__(Matrix)
-            out.dtype, out.name, out._device = dt, name, self._device
-            out._nrows, out._ncols = self.shape
-            out._set_sparse_store(self._sparse)  # stores are never mutated
-            return out
+            # stores are never mutated
+            return Matrix._from_sparse(dt, self._sparse, name=name)
         out = Matrix(dt, self._nrows, self._ncols, name=name)
         if not clear:
             execute.update_into(out, execute.as_expr(self), mask=mask)
@@ -197,6 +197,8 @@ class Matrix(BaseType):
         if self.shape != other.shape:
             return False
         common = self.dtype if check_dtype else _unify(self.dtype, other.dtype)
+        if self._sparse is not None or other._sparse is not None:
+            return _coo_equal(self, other, common)
         ok = self._valid
         av = _dt.normalize(self._vals, common)
         bv = _dt.normalize(other._vals.to(self.device), common)
@@ -284,33 +286,25 @@ class Matrix(BaseType):
         return BaseExpression("power", ring, [self], ring.return_type,
                               self.shape, Matrix, (n,))
 
-    def _ewise_expr(self, other, op, variant, ldef=None, rdef=None):
-        a, at = _untranspose(self)
-        b, bt = _untranspose(other)
-        if not isinstance(b, Matrix):
-            raise TypeError(f"Bad type for argument `other` in "
-                            f"ewise_{variant}: {type(other).__name__}")
-        sa, sb = _shape_of(a, at), _shape_of(b, bt)
-        if sa != sb:
-            raise DimensionMismatch(
-                f"Shapes do not match in ewise_{variant}: {sa} != {sb}")
-        bop = typed(op, _unify(a.dtype, b.dtype), "BinaryOp")
-        statics = (variant, at, bt)
-        if variant == "union":
-            statics += (Scalar.from_value(_scalar_value(ldef), bop.type),
-                        Scalar.from_value(_scalar_value(rdef), bop.type2))
-        return BaseExpression(f"ewise_{variant}", bop, [a, b],
-                              bop.return_type, sa, Matrix, statics)
-
     def ewise_add(self, other, op="plus"):
-        return self._ewise_expr(other, op, "add")
+        return ewise_expr(self, other, op, "add")
 
     def ewise_mult(self, other, op="times"):
-        return self._ewise_expr(other, op, "mult")
+        return ewise_expr(self, other, op, "mult")
 
     def ewise_union(self, other, op, left_default, right_default):
-        return self._ewise_expr(other, op, "union", left_default,
-                                right_default)
+        return ewise_expr(self, other, op, "union", left_default,
+                          right_default)
+
+    def apply(self, op, right=None, *, left=None):
+        """A unary op, a binary op with a bound scalar, or an index-unary
+        op with its thunk (``right=``)."""
+        return apply_expr(self, op, right, left)
+
+    def select(self, op, thunk=None):
+        """The entries where a select operator holds (``A.select("tril",
+        -1)``, ``A.select(select.valuegt, 0)``)."""
+        return select_expr(self, op, thunk)
 
     def _reduce_axis_expr(self, op, axis, method):
         """Monoid reduce along an axis of the stored matrix (axis 1 folds
@@ -344,11 +338,16 @@ class Matrix(BaseType):
     def reposition(self, row_offset, column_offset, *, nrows=None, ncols=None):
         self._not_ported("reposition", 11)
 
-    def select(self, op, thunk=None):
-        self._not_ported("select", 12)
 
-    def apply(self, op, right=None, *, left=None):
-        self._not_ported("Matrix.apply", 12)
+
+def _coo_equal(a, b, common):
+    """Structure and values equal, compared through the COO export (the
+    sparse path: no dense plane)."""
+    ar, ac, av = a.to_coo()
+    br, bc, bv = b.to_coo()
+    return (np.array_equal(ar, br) and np.array_equal(ac, bc)
+            and np.array_equal(av.astype(common.np_type),
+                               bv.astype(common.np_type)))
 
 
 def _as_matrix(other, within):
@@ -358,14 +357,6 @@ def _as_matrix(other, within):
         raise TypeError(f"{within} expects a Matrix; got "
                         f"{type(other).__name__}")
     return other
-
-
-def _scalar_value(x):
-    if isinstance(x, Scalar):
-        if x.is_empty:
-            raise EmptyObject("a default of ewise_union is an empty Scalar")
-        return x.value
-    return x
 
 
 class TransposedMatrix:
@@ -414,7 +405,8 @@ class TransposedMatrix:
     ewise_add = Matrix.ewise_add
     ewise_mult = Matrix.ewise_mult
     ewise_union = Matrix.ewise_union
-    _ewise_expr = Matrix._ewise_expr
+    apply = Matrix.apply
+    select = Matrix.select
     _reduce_axis_expr = Matrix._reduce_axis_expr
     reduce_scalar = Matrix.reduce_scalar
 

@@ -32,6 +32,7 @@ _BUILTIN = {
     "second": (_NUM, lambda x, y: y),
     "pair": (_NUM, lambda x, y: torch.ones_like(x)),
     "plus": (_NUM, lambda x, y: x + y),
+    "minus": (_NUM, lambda x, y: x ^ y if x.dtype == torch.bool else x - y),
     "times": (_NUM, lambda x, y: x * y),
     "any": (_NUM, lambda x, y: x),  # either operand will do: the first
     "min": (_NUM, lambda x, y: torch.fmin(x, y) if x.dtype.is_floating_point

@@ -1,7 +1,12 @@
-"""Unary operators: the ``identity`` builtin and user functions registered
-with :meth:`UnaryOp.register_anonymous`, which take a Python callable over
-tensors (the JAX package takes one over jnp arrays)."""
+"""Unary operators: the builtins ``identity``, ``one``, ``abs`` and
+``minv`` (graphblas_tpu/core/operator/unary.py), and user functions
+registered with :meth:`UnaryOp.register_anonymous`, which take a Python
+callable over tensors (the JAX package takes one over jnp arrays).
 
+``minv`` follows SuiteSparse on the integers: C-truncated 1/x, and 1/0 is
+the type's maximum."""
+
+import numpy as np
 import torch
 
 from .. import dtypes as _dt
@@ -44,4 +49,37 @@ class UnaryOp(OpBase):
                    else getattr(func, "__name__", "unary_op"), func)
 
 
-BUILTINS = {"identity": UnaryOp("identity", lambda x: x)}
+class BuiltinUnaryOp(UnaryOp):
+    """A builtin whose function depends on the operand's DataType (UINT32
+    and INT64 share a storage type), returning that type."""
+
+    def __init__(self, name, make):
+        super().__init__(name, None)
+        self._make = make
+
+    def _build_typed(self, dt):
+        return TypedUnaryOp(self, self.name, dt, dt, self._make(dt))
+
+
+def _minv(dt):
+    if dt.is_bool:
+        return torch.ones_like
+    if dt.is_float:
+        return lambda x: 1.0 / x
+    top = int(np.iinfo(dt.np_type).max)
+
+    def minv(x):
+        # 1 // x truncated toward zero: 1 for 1, -1 for -1, else 0
+        q = torch.where(x == 1, 1, 0) - torch.where(x == -1, 1, 0)
+        return torch.where(x == 0, top, q).to(x.dtype)
+
+    return minv
+
+
+BUILTINS = {
+    "identity": UnaryOp("identity", lambda x: x),
+    "one": BuiltinUnaryOp("one", lambda dt: torch.ones_like),
+    "abs": BuiltinUnaryOp("abs", lambda dt: (lambda x: x) if dt.is_bool
+                          or dt is _dt.UINT32 else torch.abs),
+    "minv": BuiltinUnaryOp("minv", _minv),
+}

@@ -1,14 +1,15 @@
 """Vector: a dense (values, valid) store on the configured device
-(graphblas_tpu/core/vector.py, the methods PageRank, BFS and SSSP
-call)."""
+(graphblas_tpu/core/vector.py, the methods PageRank, BFS, SSSP and
+triangle counting call)."""
 
 import numpy as np
 import torch
 
 from . import config as _config
 from . import dtypes as _dt
-from ..exceptions import DimensionMismatch
+from ..exceptions import DimensionMismatch, EmptyObject
 from .base import BaseExpression, BaseType
+from .collection import apply_expr, ewise_expr, select_expr
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 
@@ -100,6 +101,25 @@ class Vector(BaseType):
         t_idx = torch.from_numpy(idx).to(dev)
         v._vals[t_idx] = _dt.to_tensor(vals, dt, dev)
         v._valid[t_idx] = True
+        return v
+
+    @classmethod
+    def from_scalar(cls, value, size, dtype=None, *, name=None):
+        """Every element stored and equal to value."""
+        from .scalar import Scalar
+
+        if isinstance(value, Scalar):
+            if value.is_empty:
+                raise EmptyObject("Scalar is empty; cannot create Vector "
+                                  "from it")
+            dtype = value.dtype if dtype is None else dtype
+            value = value.value
+        dt = _values_dtype(value, dtype)[1]
+        v = cls(dt, size, name=name)
+        dev = v.device
+        v._set_store(_dt.to_tensor(np.asarray(value), dt, dev).expand(
+            int(size)).clone(), torch.ones(int(size), dtype=torch.bool,
+                                           device=dev))
         return v
 
     @classmethod
@@ -246,10 +266,38 @@ class Vector(BaseType):
         return BaseExpression("inner", ring, [self, other], ring.return_type,
                               (), Scalar)
 
-    def apply(self, op):
-        unop = typed(op, self.dtype, "UnaryOp")
-        return BaseExpression("apply", unop, [self], unop.return_type,
-                              self.shape, Vector)
+    def apply(self, op, right=None, *, left=None):
+        """A unary op, a binary op with a bound scalar, or an index-unary
+        op with its thunk (``right=``)."""
+        return apply_expr(self, op, right, left)
+
+    def select(self, op, thunk=None):
+        return select_expr(self, op, thunk)
+
+    def ewise_add(self, other, op="plus"):
+        return ewise_expr(self, other, op, "add")
+
+    def ewise_mult(self, other, op="times"):
+        return ewise_expr(self, other, op, "mult")
+
+    def ewise_union(self, other, op, left_default, right_default):
+        return ewise_expr(self, other, op, "union", left_default,
+                          right_default)
+
+    def diag(self, k=0, *, name=None):
+        """The diagonal Matrix with this vector on diagonal k: sparse-backed
+        over ``auto_sparse_limit`` elements (only the stored entries), else
+        dense."""
+        from .engine import sparse as spx
+        from .matrix import Matrix
+
+        k = int(k)
+        n = self.size + abs(k)
+        if n * n > int(_config.config.get("auto_sparse_limit", 1 << 22)):
+            return Matrix._from_sparse(self.dtype, spx.diag_sparse_store(
+                self._vals, self._valid, self.dtype, k, n), name=name)
+        return BaseExpression("diag_build", None, [self], self.dtype, (n, n),
+                              Matrix, (k, n)).new(name=name)
 
     def reduce(self, op="plus", *, allow_empty=True):
         from .scalar import Scalar

@@ -111,8 +111,131 @@ def test_bfs_level_unreachable(cpu, rng):
 
 
 def test_what_waits_is_not_stubbed():
-    assert talg.__all__ == ["bfs_level", "bfs_parent", "sssp"]
-    for name in ("pagerank", "connected_components", "triangle_count"):
-        assert not hasattr(talg, name)
+    """What still waits is absent or raises naming its ROADMAP.md item:
+    ``connected_components`` (extract by index lists) and ``bfs_parent``
+    (the positional multiplies)."""
+    assert talg.__all__ == ["bfs_level", "bfs_parent", "pagerank", "sssp",
+                            "triangle_count"]
+    assert not hasattr(talg, "connected_components")
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         talg.bfs_parent(None)
+
+
+# --------------------------------------------------------------------- #
+# pagerank and triangle_count, sparse-backed and dense-backed
+# Zachary's karate club (the networkx edge list, 0-based, each edge once):
+# 34 nodes, 78 edges, 45 triangles
+KARATE = {0: [1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 17, 19, 21, 31],
+          1: [2, 3, 7, 13, 17, 19, 21, 30], 2: [3, 7, 8, 9, 13, 27, 28, 32],
+          3: [7, 12, 13], 4: [6, 10], 5: [6, 10, 16], 6: [16], 8: [30, 32, 33],
+          9: [33], 13: [33], 14: [32, 33], 15: [32, 33], 18: [32, 33],
+          19: [33], 20: [32, 33], 22: [32, 33], 23: [25, 27, 29, 32, 33],
+          24: [25, 27, 31], 25: [31], 26: [29, 33], 27: [33], 28: [31, 33],
+          29: [32, 33], 30: [32, 33], 31: [32, 33], 32: [33]}
+
+
+def graph_of(name):
+    """(src, dst, n) of the karate club or a small zipf graph."""
+    if name == "karate":
+        src = np.array([a for a, bs in KARATE.items() for _ in bs])
+        dst = np.array([b for bs in KARATE.values() for b in bs])
+        return src, dst, 34
+    src, dst = bench.build_graph(300, 4)
+    return src, dst, 300
+
+
+def triangles_ref(src, dst, n):
+    A = np.zeros((n, n))
+    A[src, dst] = A[dst, src] = 1
+    np.fill_diagonal(A, 0)
+    return int(round(np.trace(A @ A @ A) / 6))
+
+
+def both_graphs(name, dtype, sparse):
+    src, dst, n = graph_of(name)
+    limit = 0 if sparse else 1 << 22
+    out = []
+    for gb in (gbj, gbt):
+        with gb.config.set(auto_sparse_limit=limit):
+            out.append(gb.Matrix.from_coo(src, dst, 1, dtype=dtype, nrows=n,
+                                          ncols=n))
+    assert (out[1]._sparse is not None) == sparse
+    return out, (src, dst, n)
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("name", ["karate", "zipf"])
+def test_triangle_count(name, sparse):
+    with gbt.config.set(device="cpu"):
+        (jA, tA), (src, dst, n) = both_graphs(name, "BOOL", sparse)
+        got = talg.triangle_count(tA)
+    assert got == jalg.triangle_count(jA) == triangles_ref(src, dst, n)
+    if name == "karate":
+        assert got == 45
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("name", ["karate", "zipf"])
+def test_pagerank(name, sparse):
+    """FP64 ranks to rel 1e-12 of the largest, the same iteration count."""
+    with gbt.config.set(device="cpu"):
+        (jA, tA), _ = both_graphs(name, "FP32", sparse)
+        got, it = talg.pagerank(tA)
+    want, jit = jalg.pagerank(jA)
+    assert got.dtype.name == want.dtype.name == "FP64"
+    assert it == jit and 2 < it < 100
+    gi, gv = got.to_coo()
+    wi, wv = want.to_coo()
+    assert np.array_equal(gi, wi)
+    assert np.abs(gv - wv).max() <= 1e-12 * np.abs(wv).max()
+    assert abs(gv.sum() - 1.0) < 1e-9
+
+
+def test_nothing_densifies():
+    """With dense_limit=0 any densify of a matrix raises OutOfMemory: every
+    operation of pagerank and triangle_count runs on sparse-backed
+    matrices and matches the JAX package."""
+    src, dst, n = graph_of("karate")
+    res = {}
+    for gb in (gbj, gbt):
+        with gb.config.set(auto_sparse_limit=0), \
+                gbt.config.set(device="cpu", dense_limit=0):
+            A = gb.Matrix.from_coo(src, dst, 2.5, dtype="FP32", nrows=n,
+                                   ncols=n)
+            A64 = A.dup(dtype="FP64")
+            I64 = A.apply(gb.unary.one).new(dtype="INT64")
+            S = I64.dup()
+            S(accum=gb.binary.max) << A.T.new(dtype="INT64").apply(
+                gb.unary.one)
+            L = S.select(gb.select.tril, -1).new()
+            C = gb.Matrix("INT64", n, n)
+            C(L.S) << L.mxm(L.T, gb.semiring.plus_pair)
+            x = gb.Vector.from_dense(np.arange(n, dtype=np.float64))
+            inv = A64.reduce_rowwise(gb.monoid.plus).new().apply(
+                gb.unary.minv).new()
+            res[gb] = [
+                A.apply(gb.binary.times, right=2.0).new(),
+                L, A.T.new(), S, C,
+                A.ewise_add(A.T, gb.binary.plus).new(),
+                A.ewise_mult(A.T, gb.binary.times).new(),
+                A.ewise_union(A.T, gb.binary.minus, 0.0, 0.0).new(),
+                x.vxm(A64, gb.semiring.plus_times).new(),
+                A64.mxv(x, gb.semiring.plus_times).new(),
+                I64.reduce_rowwise(gb.monoid.plus).new(),
+                inv.diag().mxm(A64, gb.semiring.plus_times).new(),
+                S.mxm(S, gb.semiring.plus_times).new(),
+            ]
+            res[gb].append(C.reduce_scalar(gb.monoid.plus,
+                                           allow_empty=False).new().value)
+            if gb is gbt:
+                assert all(m._sparse is not None for m in res[gb][:8])
+                assert talg.triangle_count(A) == 45
+                rank, _ = talg.pagerank(A)
+                assert abs(rank.reduce().new().value - 1.0) < 1e-9
+    assert res[gbt][-1] == res[gbj][-1] == 45
+    for got, want in zip(res[gbt][:-1], res[gbj][:-1]):
+        assert got.dtype.name == want.dtype.name
+        g, w = got.to_coo(), want.to_coo()
+        for a, b in zip(g[:-1], w[:-1]):
+            assert np.array_equal(a, b)
+        assert np.allclose(g[-1], w[-1], rtol=1e-12, atol=0)

@@ -509,11 +509,20 @@ def test_limits_and_not_ported(cpu):
                                 dtype="FP32", nrows=3, ncols=3)
         D = gbt.Matrix.from_dense(np.ones((3, 3), np.float32))
     assert S._sparse is not None and D._sparse is None
-    # mxm with a sparse operand is SpGEMM: never densified quietly
-    for expr in (S.mxm(S), S.mxm(D), D.mxm(S.T, gbt.semiring.min_plus)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            expr.new()
-    assert S._sparse is not None
+    # mxm with a sparse operand is SpGEMM: the result stays sparse, and the
+    # dense operand takes a sparse backing (as in the JAX package)
+    with gbj.config.set(auto_sparse_limit=0):
+        jS = gbj.Matrix.from_coo([0, 1, 2], [1, 2, 0], [1.0, 2.0, 3.0],
+                                 dtype="FP32", nrows=3, ncols=3)
+        jD = gbj.Matrix.from_dense(np.ones((3, 3), np.float32))
+    for got, want in ((S.mxm(S), jS.mxm(jS)), (S.mxm(D), jS.mxm(jD)),
+                      (D.mxm(S.T, gbt.semiring.min_plus),
+                       jD.mxm(jS.T, gbj.semiring.min_plus))):
+        got = got.new()
+        assert got._sparse is not None
+        assert_same_collection(got, want.new())
+    assert S._sparse is not None and D._sparse is not None
+    D = gbt.Matrix.from_dense(np.ones((3, 3), np.float32))
     with gbt.config.set(dense_limit=8):
         with pytest.raises(gbt.exceptions.OutOfMemory, match="dense_limit=8"):
             S.power(2).new()
@@ -523,9 +532,16 @@ def test_limits_and_not_ported(cpu):
     got = S.power(3, gbt.semiring.min_plus).new()   # densifies under the limit
     assert got.to_coo()[2].tolist() == [6.0, 6.0, 6.0]
     assert S._sparse is None
-    for call in (lambda: D.kronecker(D), lambda: D.reposition(1, 1),
-                 lambda: D.select("tril"), lambda: D.apply("abs")):
+    for call in (lambda: D.kronecker(D), lambda: D.reposition(1, 1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # select and apply on a dense-backed matrix: the dense engine's twins
+    jD = gbj.Matrix.from_dense(-np.arange(9, dtype=np.float32).reshape(3, 3))
+    D = gbt.Matrix.from_dense(-np.arange(9, dtype=np.float32).reshape(3, 3))
+    for name, call in (("tril", lambda A: A.select("tril")),
+                       ("abs", lambda A: A.apply("abs"))):
+        got = call(D).new()
+        assert got._sparse is None, name
+        assert_same_collection(got, call(jD).new())
     assert gbt.config["dense_limit"] == 1 << 26 == gbj.config["dense_limit"]
     assert gbt.config["auto_sparse_limit"] == 1 << 22

@@ -294,16 +294,26 @@ def test_skewed_dest_two_level(rng, monkeypatch, lane_on, cpu, sparse_u):
 
 
 def test_not_ported_raises(cpu):
+    """What the port lacks raises; FP64 products and reduces and a sparse
+    mxm, which raised before the generic sparse engine, match the JAX
+    package."""
     A = gbt.Matrix.from_coo([0, 1], [1, 0], [1.0, 2.0], dtype="FP64")
     x = gbt.Vector.from_dense(np.ones(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.mxv(x, gbt.semiring.plus_times["FP64"]).new()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.mxm(A).new()
+    with gbj.config.set(auto_sparse_limit=0):
+        jA = gbj.Matrix.from_coo([0, 1], [1, 0], [1.0, 2.0], dtype="FP64")
+    jx = gbj.Vector.from_dense(np.ones(2))
+    for got, want in (
+            (A.mxv(x, gbt.semiring.plus_times["FP64"]),
+             jA.mxv(jx, gbj.semiring.plus_times["FP64"])),
+            (A.mxm(A), jA.mxm(jA)),
+            (A.reduce_rowwise("plus"), jA.reduce_rowwise(gbj.monoid.plus))):
+        got, want = got.new(), want.new()
+        assert got.dtype.name == want.dtype.name == "FP64"
+        assert all(np.array_equal(g, w) for g, w in zip(got.to_coo(),
+                                                         want.to_coo()))
+    assert A.mxm(A).new()._sparse is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gbt.dtypes.lookup_dtype("FC64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.reduce_rowwise("plus").new()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gbt.algorithms.bfs_parent(A)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

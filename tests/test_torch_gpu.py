@@ -701,3 +701,58 @@ def test_lane_segscan_is_one_launch_a_call(cuda):
         lp.lane_segscan(bar, vals, ok, comb)
         lp.lane_segscan(bar, vals, None, comb)
         assert K.launches["lane_segscan"] - before == 2
+
+
+# --------------------------------------------------------------------- #
+# the generic sparse engine (torch ops, no kernel of its own) on the card
+# against the same calls on the CPU, which the CPU tests hold against the
+# JAX package
+def _sparse_engine_results(device):
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(12)
+    n = 300
+    r = rng.integers(0, n, 3000)
+    c = (rng.zipf(1.6, 3000) - 1) % n
+    with gb.config.set(device=device, auto_sparse_limit=0):
+        A = gb.Matrix.from_coo(r, c, rng.random(3000), dtype="FP64",
+                               nrows=n, ncols=n, dup_op=gb.binary.plus)
+        B = A.apply(gb.unary.one).new(dtype="INT64")
+        L = B.select(gb.select.tril, -1).new()
+        x = gb.Vector.from_dense(rng.random(n))
+        C = gb.Matrix("INT64", n, n)
+        C(L.S) << L.mxm(L.T, gb.semiring.plus_pair)
+        G = L.mxm(L.T, gb.semiring.plus_pair).new(mask=L.S,
+                                                  axb_method="gustavson")
+        out = [A.T.new(), L, C, G, A.mxm(A).new(),
+               A.ewise_union(A.T, gb.binary.minus, 0.0, 0.0).new(),
+               A.ewise_mult(A.T).new(),
+               x.diag().mxm(A, gb.semiring.plus_times).new(),
+               x.vxm(A, gb.semiring.plus_times).new(),
+               A.mxv(x, gb.semiring.min_plus).new(),
+               B.reduce_columnwise(gb.monoid.max).new(),
+               B.reduce_rowwise(gb.monoid.any).new()]
+        out.append(gb.algorithms.triangle_count(A))
+        out.append(gb.algorithms.pagerank(A)[0])
+    return out
+
+
+@pytest.mark.gpu
+def test_sparse_engine_matches_cpu(cuda):
+    """Structure and integers exact.  An FP64 sum is a difference of two
+    running sums, as in the JAX package, whose rounding depends on the
+    scan's order: held to 1e-13 of the result's total mass."""
+    got, want = _sparse_engine_results("cuda"), _sparse_engine_results("cpu")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, int):
+            assert g == w, i
+            continue
+        assert g.dtype == w.dtype, i
+        gc, wc = g.to_coo(), w.to_coo()
+        for a, b in zip(gc[:-1], wc[:-1]):
+            assert np.array_equal(a, b), i
+        if wc[-1].dtype.kind != "f":
+            assert np.array_equal(gc[-1], wc[-1]), i
+            continue
+        tol = 1e-13 * np.abs(wc[-1]).sum()
+        assert np.abs(gc[-1] - wc[-1]).max(initial=0) <= tol, i

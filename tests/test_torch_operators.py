@@ -48,8 +48,12 @@ def _typed_names(ns, opclass):
 BINARY = _typed_names(gbt.binary, "BinaryOp")
 MONOID = _typed_names(gbt.monoid, "Monoid")
 UNARY = _typed_names(gbt.unary, "UnaryOp")
+INDEXUNARY = _typed_names(gbt.indexunary, "IndexUnaryOp")
+SELECT = _typed_names(gbt.select, "SelectOp")
 LOOKUPS = ([("binary", n) for n in BINARY] + [("monoid", n) for n in MONOID]
            + [("unary", n) for n in UNARY]
+           + [("indexunary", n) for n in INDEXUNARY]
+           + [("select", n) for n in SELECT]
            + [("semiring", f"{m}_{b}") for m in MONOID for b in BINARY])
 
 
@@ -110,9 +114,9 @@ def test_renamed_and_cast_lookups(lookup, want):
 
 
 @pytest.mark.parametrize("path", [
-    "binary.minus", "binary.lxor", "binary.numpy", "binary.ss.firsti1",
-    "monoid.lxor", "monoid.eq", "unary.abs", "unary.ss",
-    "semiring.plus_minus", "semiring.lxor_land", "semiring.min_div",
+    "binary.rminus", "binary.lxor", "binary.numpy", "binary.ss.firsti1",
+    "monoid.lxor", "monoid.eq", "unary.ainv", "unary.ss",
+    "semiring.plus_rminus", "semiring.lxor_land", "semiring.min_div",
     "semiring.ss.min_firsti1"])
 def test_missing_operator_names_item_12(path):
     def walk(gb):

@@ -346,10 +346,13 @@ def test_reduce_new_dtype_and_ineligible(rng, cpu):
     got = tA.reduce_rowwise("plus").new(dtype="FP32")
     assert got.dtype.name == "FP32"
     assert_values_match(got.to_coo(), want.to_coo(), "INT32")
-    A64 = gbt.Matrix.from_coo(r, c, v.astype(np.float64), dtype="FP64",
-                              nrows=n, ncols=n)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        A64.reduce_rowwise("plus").new()
+    # FP64, which the sort pipeline declines, takes the generic reduce
+    jA64, A64 = both_matrices(r, c, v.astype(np.float64), "FP64", n)
+    got = A64.reduce_rowwise("plus").new()
+    want = jA64.reduce_rowwise(gbj.monoid.plus).new()
+    assert got.dtype.name == want.dtype.name == "FP64"
+    assert not A64._sparse._sortpipe_plans
+    assert_values_match(got.to_coo(), want.to_coo(), "INT32")
     empty = gbt.Matrix("FP32", 5, 7)
     assert empty.reduce_columnwise("plus").new().nvals == 0
     assert empty.reduce_columnwise("plus").new().size == 7
