@@ -252,11 +252,13 @@ def cuda_ms(torch, fn, reps=20, warm=3, cold=False):
     return float(np.median(times))
 
 
-def profile_breakdown(torch, fn, label, wall_unprofiled_ms):
+def profile_breakdown(torch, fn, label, wall_unprofiled_ms, ranges=None):
     """Device time by kernel over one fn() run, from torch.profiler, and the
     card's idle share: 1 - device busy / wall_unprofiled_ms, the wall time
     of the same work measured without the profiler (which slows the host).
-    The idle share over the profiled wall is kept beside it."""
+    The idle share over the profiled wall is kept beside it.  ``ranges``,
+    where given, reads a record from a host range's name (None for others):
+    the records of the run come back under "ranges"."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -268,8 +270,10 @@ def profile_breakdown(torch, fn, label, wall_unprofiled_ms):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
+        # a host range (record_function) shows on the device too: skip it
         if getattr(ev, "device_type", None) is None or \
-                "CUDA" not in str(ev.device_type):
+                "CUDA" not in str(ev.device_type) or \
+                getattr(ev, "is_user_annotation", False):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -277,6 +281,9 @@ def profile_breakdown(torch, fn, label, wall_unprofiled_ms):
         if us > 0:
             rows.append((ev.key, us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
+    recs = [] if ranges is None else [
+        r for r in (ranges(ev.name) for ev in prof.events()
+                    if "CPU" in str(ev.device_type)) if r is not None]
     busy = sum(r[1] for r in rows)
     idle = 1 - busy / wall_unprofiled_ms
     log(f"  profile {label}: device busy {busy:.4f} ms; wall unprofiled "
@@ -287,7 +294,8 @@ def profile_breakdown(torch, fn, label, wall_unprofiled_ms):
     return {"wall_unprofiled_ms": wall_unprofiled_ms, "device_busy_ms": busy,
             "idle_share": idle, "wall_profiled_ms": wall_ms,
             "idle_share_profiled": 1 - busy / wall_ms,
-            "kernels": [{"name": k, "ms": m, "count": c} for k, m, c in rows]}
+            "kernels": [{"name": k, "ms": m, "count": c} for k, m, c in rows],
+            "ranges": recs}
 
 
 def bound(nbytes, nops=0, rate=FP32_OPS_PER_S):
@@ -1789,18 +1797,19 @@ def sparse_algorithms_phase(gb, torch, K, src, dst, n, results, totals):
     count, ms, runs, first_s = timed_calls(
         torch, lambda: gb.algorithms.triangle_count(G), reps=3)
     peak = torch.cuda.max_memory_allocated() - before
-    rec = dict(ex.last_spgemm)
     check_launches(K, "triangle_count", totals, need=())
     if count != ref:
         fail(f"triangle_count: {count} triangles, scipy {ref}")
     log(f"  triangle_count rmat17: {count} triangles (scipy {ref}, "
-        f"{ref_s:.2f} s); {rec.get('formulation')} with "
-        f"{rec.get('terms')} terms (Gustavson {rec.get('gustavson_terms')},"
-        f" dot {rec.get('dot_terms')}); ms {runs} (median {ms:.4f}), first "
-        f"call {first_s:.2f} s; peak memory over the graph "
-        f"{peak / 1e9:.3f} GB")
+        f"{ref_s:.2f} s); ms {runs} (median {ms:.4f}), first call "
+        f"{first_s:.2f} s; peak memory over the graph {peak / 1e9:.3f} GB")
     prof = profile_breakdown(torch, lambda: gb.algorithms.triangle_count(G),
-                             "triangle_count", ms)
+                             "triangle_count", ms, ranges=ex.spgemm_record)
+    if len(prof["ranges"]) != 1:
+        fail(f"triangle_count: {len(prof['ranges'])} SpGEMM ranges, not 1")
+    rec = prof["ranges"][0]
+    log(f"  triangle_count's mxm: {rec['formulation']} with {rec['terms']} "
+        f"terms (Gustavson {rec['gustavson_terms']}, dot {rec['dot_terms']})")
     out["triangle_count"] = {
         "n": rn, "nnz": int(len(rs)), "triangles": count, "scipy_s": ref_s,
         "spgemm": rec, "ms": ms, "ms_runs": runs, "first_call_s": first_s,

@@ -17,7 +17,7 @@ and its host copy.  Plans (``_lanepipe_plans``, ``_sortpipe_plans``, the
 BOOL twins) carry values, so every store has caches of its own.
 
 The work is plain torch ops on the store's device (``searchsorted``,
-``cumsum``, stable sorts, ``index_select``, ``index_add_`` and
+``cumsum``, stable sorts, ``index_select``, ``segment_reduce`` and
 ``scatter_reduce_``): the generic SpMV and reduces for every monoid and
 type the lanepipe and the sort pipeline decline, apply/select/transpose,
 element-wise merges, the masked write-back, and SpGEMM by Gustavson's
@@ -111,9 +111,6 @@ class SparseStore:
             self._host_vals = _dt.to_numpy(self.vals, self.dtype)
         r, c = self.struct.host()
         return r, c, self._host_vals
-
-    def has_host_copy(self):
-        return self.struct._host is not None
 
     def bool_twin(self, dtype):
         """The store of this matrix's truth values after a cast to dtype,
@@ -252,7 +249,8 @@ def _before(cs, i):
 
 def _segment_sums(x, start, end):
     """x's sum over [start, end) of every segment: a difference of one
-    running sum."""
+    running sum (exact for integers; a float's error would follow the
+    running total)."""
     cs = torch.cumsum(x, 0)
     return _before(cs, end) - _before(cs, start)
 
@@ -290,10 +288,12 @@ def _minmax(seg, x, name, n, ident, mono, start, end):
 def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
     """Monoid-reduce ``vals[ok]`` grouped by the sorted ``seg`` into n dense
     slots: (values in mono.type, valid).  As in the JAX package, the
-    segments' bounds come from a binary search and sums from a running sum
-    (exact in int64; in float64 for the floats), with no scatter where
-    many entries meet one destination; slots where ``ok`` is False take
-    the identity, and ``any`` keeps the first valid element.  min and max
+    segments' bounds come from a binary search, with no scatter where many
+    entries meet one destination; slots where ``ok`` is False take the
+    identity, and ``any`` keeps the first valid element.  Integer sums are
+    differences of one running sum (exact in int64); float sums add each
+    segment on its own in float64, since a difference of running sums
+    would carry the rounding of every earlier segment.  min and max
     scatter; times, band and bor fold by a segmented scan."""
     dev = vals.device
     x = st.cast_values(vals, in_dt, mono.type)
@@ -310,7 +310,12 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
     ident = st.identity_value_array(mono, mono.type, dev)
     xi = torch.where(ok, x, ident)
     if name == "plus":
-        sums = _segment_sums(xi.to(_wide_acc(mono.type)), start, end)
+        acc = _wide_acc(mono.type)
+        if acc.is_floating_point:
+            sums = torch.segment_reduce(xi.to(acc), "sum", offsets=bounds,
+                                        unsafe=True, initial=0.0)
+        else:
+            sums = _segment_sums(xi.to(acc), start, end)
         return _dt.normalize(sums, mono.type), out_valid
     if name in ("lor", "land"):
         t = _segment_sums(xi.to(_I64), start, end)

@@ -8,7 +8,6 @@ merged into a sparse target at coordinates (``sparse.write_back_sparse``).
 PyTorch runs eagerly, so there is no jit cache and no recorder; the
 distributed branches of the JAX package are ROADMAP.md queue 1, item 13."""
 
-import numpy as np
 import torch
 
 from . import dtypes as _dt
@@ -602,37 +601,29 @@ def _mxm_run(expr, cast, mask, opts):
     return cast(_spgemm_run(expr, mask, opts))
 
 
-# what the last SpGEMM chose: "dot" or "gustavson", its expanded terms and
-# both totals (read by chip_smoke.py and the tests)
-last_spgemm = {}
+_SPGEMM_RANGE = "spgemm:{}:terms={}:gustavson={}:dot={}"
 
 
-def _host_spgemm_totals(a_sp, b_sp, msp, m_dt, structure, at, bt, k_dim):
-    """(gustavson_total, dot_total) from the host copies, when all three
-    stores have one (no device read); else None.  The dot total counts
-    the mask entries a value mask lets through, as the device's does."""
-    if not all(s.has_host_copy() for s in (a_sp, b_sp, msp)):
+def spgemm_record(name):
+    """The choice that one of _spgemm_run's profiler ranges names, as a
+    dict (formulation, terms, gustavson_terms, dot_terms; dot_terms is
+    None where the dot was not a candidate); None for any other range."""
+    parts = name.split(":")
+    if len(parts) != 5 or parts[0] != "spgemm":
         return None
-    (ra, ca, _), (rb, cb, _) = a_sp.host_coo(), b_sp.host_coo()
-    rm, cm, vm = msp.host_coo()
-    out_nrows, out_ncols = msp.nrows, msp.ncols
-    deg_a_k = np.bincount(ra if at else ca, minlength=k_dim)
-    deg_b_k = np.bincount(cb if bt else rb, minlength=k_dim)
-    gus = int((deg_a_k.astype(np.int64) * deg_b_k).sum())
-    deg_a = np.bincount(ca if at else ra, minlength=out_nrows)
-    deg_b = np.bincount(rb if bt else cb, minlength=out_ncols)
-    keep = np.ones(len(rm), bool) if structure else vm.astype(bool)
-    dot = int(np.minimum(deg_a[rm[keep]], deg_b[cm[keep]]).astype(
-        np.int64).sum())
-    return gus, dot
+    nums = [None if v == "None" else int(v)
+            for v in (p.split("=")[1] for p in parts[2:])]
+    return dict(formulation=parts[1], terms=nums[0], gustavson_terms=nums[1],
+                dot_terms=nums[2])
 
 
 def _spgemm_run(expr, mask, opts):
     """Sparse x sparse mxm with the mask pushed down, in expr.dtype.  A
     mask that is sparse and not complemented can take the masked dot,
-    whose work is bounded by the mask: the host reads both expansion
-    totals at once (from the host copies, else one device read) and picks
-    the smaller, unless ``axb_method`` forces one."""
+    whose work is bounded by the mask: one device read brings both
+    expansion totals and the smaller wins, unless ``axb_method`` forces
+    one.  The product runs inside a profiler range that names the choice
+    (see spgemm_record)."""
     at, bt = expr._statics
     a, b = expr.args
     for x in (a, b):
@@ -644,30 +635,26 @@ def _spgemm_run(expr, mask, opts):
     k_dim = a_sp.nrows if at else a_sp.ncols
     ring, z_dt = expr.op, expr.dtype
     if 0 in (a_sp.nvals(), b_sp.nvals(), out_nrows, out_ncols):
-        last_spgemm.clear()
         return spx.empty_store(out_nrows, out_ncols, z_dt, a_sp.device)
     method = ((opts or {}).get("axb_method") or "default").lower()
+    dot = None
     if (mask is not None and not mask.complement
             and mask.parent._sparse is not None
             and method in ("default", "dot")):
         msp, m_dt = mask.parent._sparse, mask.parent.dtype
-        totals = _host_spgemm_totals(a_sp, b_sp, msp, m_dt, mask.structure,
-                                     at, bt, k_dim)
-        if totals is None:
-            totals = spx.spgemm_dot_total(
-                a_sp, b_sp, msp, m_dt, mask.structure, at, bt, out_nrows,
-                out_ncols, k_dim).tolist()
-        gus, dot = totals
-        last_spgemm.update(gustavson_terms=gus, dot_terms=dot)
+        gus, dot = spx.spgemm_dot_total(
+            a_sp, b_sp, msp, m_dt, mask.structure, at, bt, out_nrows,
+            out_ncols, k_dim).tolist()
         if method == "dot" or dot <= gus:
-            last_spgemm.update(formulation="dot", terms=dot)
-            return spx.spgemm_masked_dot(
-                a_sp, b_sp, msp, at, bt, ring, a.dtype, b.dtype, m_dt,
-                mask.structure, out_nrows, out_ncols, k_dim, dot)
-        total = gus
+            with torch.profiler.record_function(
+                    _SPGEMM_RANGE.format("dot", dot, gus, dot)):
+                return spx.spgemm_masked_dot(
+                    a_sp, b_sp, msp, at, bt, ring, a.dtype, b.dtype, m_dt,
+                    mask.structure, out_nrows, out_ncols, k_dim, dot)
     else:
-        total = int(spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
-        last_spgemm.update(gustavson_terms=total, dot_terms=None)
-    last_spgemm.update(formulation="gustavson", terms=total)
-    return spx.spgemm(a_sp, b_sp, at, bt, ring, a.dtype, b.dtype, out_nrows,
-                      out_ncols, k_dim, total, _coord_mask_fn(mask))
+        gus = int(spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
+    with torch.profiler.record_function(
+            _SPGEMM_RANGE.format("gustavson", gus, gus, dot)):
+        return spx.spgemm(a_sp, b_sp, at, bt, ring, a.dtype, b.dtype,
+                          out_nrows, out_ncols, k_dim, gus,
+                          _coord_mask_fn(mask))

@@ -732,6 +732,9 @@ def _sparse_engine_results(device):
                A.mxv(x, gb.semiring.min_plus).new(),
                B.reduce_columnwise(gb.monoid.max).new(),
                B.reduce_rowwise(gb.monoid.any).new()]
+        E = gb.Matrix("FP64", n, n)
+        out += [E.reduce_rowwise(gb.monoid.plus).new(),
+                x.vxm(E, gb.semiring.plus_times).new()]
         out.append(gb.algorithms.triangle_count(A))
         out.append(gb.algorithms.pagerank(A)[0])
     return out
@@ -739,9 +742,8 @@ def _sparse_engine_results(device):
 
 @pytest.mark.gpu
 def test_sparse_engine_matches_cpu(cuda):
-    """Structure and integers exact.  An FP64 sum is a difference of two
-    running sums, as in the JAX package, whose rounding depends on the
-    scan's order: held to 1e-13 of the result's total mass."""
+    """Structure and integers exact; floats per entry to rel 1e-12 (each
+    output's sum runs in another order on the card)."""
     got, want = _sparse_engine_results("cuda"), _sparse_engine_results("cpu")
     for i, (g, w) in enumerate(zip(got, want)):
         if isinstance(g, int):
@@ -754,5 +756,5 @@ def test_sparse_engine_matches_cpu(cuda):
         if wc[-1].dtype.kind != "f":
             assert np.array_equal(gc[-1], wc[-1]), i
             continue
-        tol = 1e-13 * np.abs(wc[-1]).sum()
-        assert np.abs(gc[-1] - wc[-1]).max(initial=0) <= tol, i
+        np.testing.assert_allclose(gc[-1], wc[-1], rtol=1e-12, atol=0,
+                                   err_msg=str(i))

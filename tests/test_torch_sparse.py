@@ -261,6 +261,16 @@ SPGEMM = [("plus_times", "S"), ("plus_times", "V"), ("min_plus", "S"),
           ("plus_pair", "~S"), ("max_first", None), ("plus_times", "emptyS")]
 
 
+def spgemm_choices(fn):
+    """fn() and the choices of the SpGEMMs it ran, read from the profiler
+    ranges that execute._spgemm_run opens (execute.spgemm_record)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+    recs = [tex.spgemm_record(e.name) for e in prof.events()]
+    return out, [r for r in recs if r is not None]
+
+
 @pytest.mark.parametrize("ring,mask", SPGEMM,
                          ids=[f"{r}-{m}" for r, m in SPGEMM])
 def test_spgemm_both_formulations(ring, mask):
@@ -277,35 +287,81 @@ def test_spgemm_both_formulations(ring, mask):
                 out[tr] = expr.new(mask=m)
                 continue
             for f in ("dot", "gustavson"):
-                same(expr.new(mask=m, axb_method=f), out[tr])
-                if mask != "emptyS":
-                    assert tex.last_spgemm["formulation"] == (
-                        f if mask in ("S", "V") else "gustavson")
+                got, recs = spgemm_choices(
+                    lambda: expr.new(mask=m, axb_method=f))
+                same(got, out[tr])
+                # an empty operand makes no product at all
+                want = [] if mask == "emptyS" else [
+                    f if mask in ("S", "V") else "gustavson"]
+                assert [r["formulation"] for r in recs] == want
 
 
 def test_masked_dot_counts_terms():
-    """The dot's term count is sum over the mask of min(deg_A, deg_B); the
-    default picks the smaller of the two totals, read once."""
+    """The dot's term count is sum over the mask of min(deg_A, deg_B),
+    Gustavson's sum over k of deg_A(k) deg_B(k); the default takes the
+    smaller, from one device read of both.  A mask made on the device
+    gives the JAX package's result too."""
     A, B, M = _spgemm_operands(gbt, "")
-    A.mxm(B.T, gbt.semiring.plus_pair).new(mask=M.S)
-    rec = dict(tex.last_spgemm)
-    ar, ac, _ = A.to_coo()
-    br, bc, _ = B.to_coo()
-    mr, mc, _ = M.to_coo()
-    da = np.bincount(ar.astype(np.int64), minlength=N)
-    db = np.bincount(br.astype(np.int64), minlength=N)
-    assert rec["dot_terms"] == int(np.minimum(da[mr.astype(np.int64)],
-                                              db[mc.astype(np.int64)]).sum())
-    assert rec["formulation"] == ("dot" if rec["dot_terms"] <=
-                                  rec["gustavson_terms"] else "gustavson")
-    # a derived mask has no host copy: the totals come from one device read
+    _, recs = spgemm_choices(
+        lambda: A.mxm(B.T, gbt.semiring.plus_pair).new(mask=M.S))
+    (rec,) = recs
+    ar, ac, _ = (x.astype(np.int64) for x in A.to_coo())
+    br, bc, _ = (x.astype(np.int64) for x in B.to_coo())
+    mr, mc, _ = (x.astype(np.int64) for x in M.to_coo())
+    da, db = np.bincount(ar, minlength=N), np.bincount(br, minlength=N)
+    assert rec["dot_terms"] == int(np.minimum(da[mr], db[mc]).sum())
+    assert rec["gustavson_terms"] == int(
+        (np.bincount(ac, minlength=N) * np.bincount(bc, minlength=N)).sum())
+    dot_wins = rec["dot_terms"] <= rec["gustavson_terms"]
+    assert rec["formulation"] == ("dot" if dot_wins else "gustavson")
+    assert rec["terms"] == rec[rec["formulation"] + "_terms"]
     L = M.select(gbt.select.tril, 0).new()
-    assert not L._sparse.has_host_copy()
     got = A.mxm(B.T, gbt.semiring.plus_pair).new(mask=L.S)
-    assert not L._sparse.has_host_copy()
     jA, jB, jM = _spgemm_operands(gbj, "")
     jL = jM.select(gbj.select.tril, 0).new()
     same(got, jA.mxm(jB.T, gbj.semiring.plus_pair).new(mask=jL.S))
+
+
+def test_float_sums_are_per_segment():
+    """An FP64 plus reduce adds each output's terms on their own: values
+    from 1e-3 to 1e20 in one matrix leave every small sum intact (a
+    difference of running sums over the whole array would lose them).
+    Held per entry at rel 1e-12 against math.fsum; the JAX package sums by
+    running sums, so it is no reference here."""
+    import math
+
+    rng = np.random.default_rng(8)
+    pres = rng.random((N, N)) < 0.3
+    d = np.where(pres, rng.random((N, N)) * 10.0 ** rng.integers(
+        -3, 21, (N, N)), 0.0)
+    r, c = np.nonzero(pres)
+    A = gbt.Matrix.from_coo(r, c, d[r, c], dtype="FP64", nrows=N, ncols=N)
+    ones = gbt.Vector.from_dense(np.ones(N))
+    ring = gbt.semiring.plus_times
+
+    def check(got, terms):
+        gi, gj, gv = got.to_coo() if got.ndim == 2 else (
+            got.to_coo()[0], None, got.to_coo()[1])
+        want = {k: math.fsum(t) for k, t in terms.items() if t}
+        keys = list(zip(gi, gj)) if gj is not None else list(gi)
+        assert sorted(keys) == sorted(want)
+        np.testing.assert_allclose(gv, [want[k] for k in keys], rtol=1e-12,
+                                   atol=0)
+
+    rows = {i: list(d[i, pres[i]]) for i in range(N)}
+    cols = {j: list(d[pres[:, j], j]) for j in range(N)}
+    check(A.reduce_rowwise(gbt.monoid.plus).new(), rows)
+    check(A.reduce_columnwise(gbt.monoid.plus).new(), cols)
+    check(A.mxv(ones, ring).new(), rows)
+    check(ones.vxm(A, ring).new(), cols)
+    aat = {(i, j): list(d[i] * d[j])
+           for i in range(N) for j in range(N)
+           if (pres[i] & pres[j]).any()}
+    aat = {k: [x for x in t if x] for k, t in aat.items()}
+    check(A.mxm(A.T, ring).new(), aat)
+    masked = {k: aat[k] for k in zip(r, c) if k in aat}
+    for f in ("dot", "gustavson"):
+        check(A.mxm(A.T, ring).new(mask=A.S, axb_method=f), masked)
 
 
 def test_empty_operands():
