@@ -61,7 +61,18 @@ engine) from the sources, then:
    its FP64 ranks within 1e-9 of the largest against a float64 power
    iteration of the same formula and stopping rule, the iteration counts
    within one; each with its time (median of 3), the device's idle share
-   and the peak memory.
+   and the peak memory;
+10. extract, assign and delete by index lists (phase `index`):
+   connected_components (FastSV) on bench.py's RMAT graph (scale 17) and
+   on the zipf graph, its labels exactly against scipy's weakly connected
+   components, with its FastSV iterations, time (median of 3), idle share
+   and peak memory; on the zipf FP32 matrix A[rows, cols] (sorted halves
+   of the nodes, the sparse route), A[hub, :] and A[:, hub],
+   C(accum=plus)[rows, cols] << B, C(M.S, replace)[rows, cols] << B and
+   del C[rows, cols], and on vectors of 2**19 f[parents] (repeated
+   indices) and v[idx] = s (2**17 indices), each exactly against numpy,
+   with its time (median of 5) and idle share.  None of the seven kernels
+   may launch in it.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -1856,8 +1867,183 @@ def sparse_algorithms_phase(gb, torch, K, src, dst, n, results, totals):
     results["sparse_algorithms"] = out
 
 
+def components_ref(src, dst, n):
+    """scipy's weakly connected components, each labelled by its smallest
+    vertex id (connected_components' labels)."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import connected_components
+
+    G = sps.csr_matrix((np.ones(len(src), np.int8), (src, dst)),
+                       shape=(n, n))
+    count, lab = connected_components(G, directed=True, connection="weak")
+    smallest = np.full(count, n, np.int64)
+    np.minimum.at(smallest, lab, np.arange(n, dtype=np.int64))
+    return smallest[lab], count
+
+
+def index_phase(gb, torch, K, src, dst, w, n, results, totals):
+    """connected_components (FastSV) on bench.py's RMAT graph (scale 17)
+    and on the zipf graph, its labels exactly against scipy; extract,
+    assign and delete by index lists on the zipf FP32 matrix and extract
+    with repeated indices from an INT64 vector of 2**19, each exactly
+    against numpy.  All of it is torch ops on the generic sparse engine and
+    the dense one: it fails if any of the seven kernels launches."""
+    out = {}
+
+    def no_kernels(what):
+        got = check_launches(K, what, totals, need=())
+        if any(got.values()):
+            fail(f"{what}: a kernel launched where none should: {got}")
+
+    from graphblas_tpu_torch.core.vector import Vector
+
+    for tag, (gs, gd, gn) in (("rmat17", build_rmat(17)),
+                              ("zipf", (src, dst, n))):
+        t0 = time.perf_counter()
+        ref, count = components_ref(gs, gd, gn)
+        ref_s = time.perf_counter() - t0
+        G = gb.Matrix.from_coo(gs, gd, np.ones(len(gs), bool), dtype="BOOL",
+                               nrows=gn, ncols=gn)
+        # FastSV's loop ends with one isequal an iteration: count them
+        calls = []
+        isequal = Vector.isequal
+
+        def counted(self, other, **kw):
+            calls.append(1)
+            return isequal(self, other, **kw)
+
+        Vector.isequal = counted
+        try:
+            gb.algorithms.connected_components(G)
+        finally:
+            Vector.isequal = isequal
+        iters = len(calls)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts(K)
+        f, ms, runs, first_s = timed_calls(
+            torch, lambda: gb.algorithms.connected_components(G), reps=3)
+        peak = torch.cuda.max_memory_allocated() - before
+        no_kernels(f"connected_components {tag}")
+        idx, lab = f.to_coo()
+        if not (np.array_equal(idx.astype(np.int64), np.arange(gn))
+                and np.array_equal(lab, ref)):
+            fail(f"connected_components {tag}: labels differ from scipy's "
+                 f"({int((lab != ref).sum()) if len(lab) == gn else 'size'}"
+                 f" differ)")
+        got_count = len(np.unique(lab))
+        log(f"  connected_components {tag} (n={gn}, nnz={len(gs)}): "
+            f"{got_count} components (scipy {count}, {ref_s:.2f} s), "
+            f"{iters} FastSV iterations, ms {runs} (median {ms:.4f}), "
+            f"first call {first_s:.2f} s; peak memory {peak / 1e9:.3f} GB")
+        prof = profile_breakdown(
+            torch, lambda: gb.algorithms.connected_components(G),
+            f"connected_components {tag}", ms)
+        out[f"connected_components_{tag}"] = {
+            "n": gn, "nnz": int(len(gs)), "components": got_count,
+            "iterations": iters, "ms": ms, "ms_runs": runs,
+            "first_call_s": first_s, "peak_memory_bytes": int(peak),
+            "scipy_s": ref_s, "profile": prof}
+        del G, f
+
+    # extract and assign on the zipf FP32 matrix
+    rng = np.random.default_rng(SEED + 11)
+    A = gb.Matrix.from_coo(src, dst, w, dtype="FP32", nrows=n, ncols=n)
+    rows = np.sort(rng.choice(n, n // 2, replace=False))
+    cols = np.sort(rng.choice(n, n // 2, replace=False))
+    hub = int(np.bincount(dst, minlength=n).argmax())
+    in_r = np.zeros(n, bool)
+    in_r[rows] = True
+    in_c = np.zeros(n, bool)
+    in_c[cols] = True
+    region = in_r[src] & in_c[dst]
+    pos_r = np.full(n, -1, np.int64)
+    pos_r[rows] = np.arange(len(rows))
+    pos_c = np.full(n, -1, np.int64)
+    pos_c[cols] = np.arange(len(cols))
+    two = gb.binary.times["FP32"]
+    B = A[rows, cols].new().apply(two, right=2.0).new()
+    M = A.select("tril").new()
+    f_np = rng.integers(0, n, n)
+    fv = gb.Vector.from_dense(f_np)
+    parents = rng.integers(0, n, n)
+    v_idx = rng.choice(n, n // 4, replace=False)  # 2**17 at n = 2**19
+    v_np = rng.integers(-9, 9, n)
+    v_ok = rng.random(n) < 0.5
+    v0 = gb.Vector.from_coo(np.flatnonzero(v_ok), v_np[v_ok], dtype="INT64",
+                            size=n)
+
+    def assign_accum():
+        C = A.dup()
+        C(accum=gb.binary.plus)[rows, cols] << B
+        return C
+
+    def assign_masked():
+        C = A.dup()
+        C(M.S, replace=True)[rows, cols] << B
+        return C
+
+    def delete():
+        C = A.dup()
+        del C[rows, cols]
+        return C
+
+    def assign_vector():
+        v = v0.dup()
+        v[v_idx] = 5
+        return v
+
+    w2 = (w * np.float32(2)).astype(np.float32)
+    tril = src >= dst
+    v_ref = v_np.copy()
+    v_ref[v_idx] = 5
+    v_ref_ok = v_ok.copy()
+    v_ref_ok[v_idx] = True
+    cases = (
+        ("extract A[rows, cols]", lambda: A[rows, cols].new(),
+         (pos_r[src[region]], pos_c[dst[region]], w[region])),
+        ("extract A[hub, :]", lambda: A[hub, :].new(),
+         (dst[src == hub], w[src == hub])),
+        ("extract A[:, hub]", lambda: A[:, hub].new(),
+         (src[dst == hub], w[dst == hub])),
+        ("extract f[parents]", lambda: fv[parents].new(),
+         (np.arange(n), f_np[parents])),
+        ("assign C(accum=plus)[rows, cols] << B", assign_accum,
+         (src, dst, np.where(region, w + w2, w))),
+        ("assign C(M.S, replace)[rows, cols] << B", assign_masked,
+         (src[tril], dst[tril], np.where(region, w2, w)[tril])),
+        ("delete del C[rows, cols]", delete,
+         (src[~region], dst[~region], w[~region])),
+        ("assign v[idx] = s", assign_vector,
+         (np.flatnonzero(v_ref_ok), v_ref[v_ref_ok])),
+    )
+    for name, fn, want in cases:
+        reset_counts(K)
+        got, ms, runs, first_s = timed_calls(torch, fn)
+        no_kernels(name)
+        coo = got.to_coo()
+        for k, (g, r) in enumerate(zip(coo, want)):
+            if not np.array_equal(g.astype(r.dtype), r):
+                fail(f"{name}: part {k} of to_coo differs from numpy's "
+                     f"({len(g)} vs {len(r)} entries)")
+        if got.ndim == 2 and got._sparse is None:
+            fail(f"{name}: the result is not sparse-backed")
+        log(f"  {name}: {got.nvals} entries, exact; ms {runs} (median "
+            f"{ms:.4f}), first call {first_s:.2f} s")
+        prof = profile_breakdown(torch, fn, name, ms)
+        out[name] = {"nvals": int(got.nvals), "ms": ms, "ms_runs": runs,
+                     "first_call_s": first_s, "profile": prof}
+    out["shapes"] = {"n": n, "nnz": int(len(src)), "rows": len(rows),
+                     "cols": len(cols), "region_nnz": int(region.sum()),
+                     "hub": hub, "hub_in_degree": int((dst == hub).sum()),
+                     "vector_assign_indices": int(len(v_idx))}
+    results["index"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
-          "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp")
+          "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
+          "index")
 
 
 def main():
@@ -1960,6 +2146,10 @@ def main():
         if "apsp" in phases:
             log("phase: apsp")
             apsp_phase(gb, torch, K, results, totals)
+
+        if "index" in phases:
+            log("phase: index")
+            index_phase(gb, torch, K, src, dst, w, n, results, totals)
 
     kernels = []
     for name, row in results.get("kernels", {}).items():

@@ -14,24 +14,59 @@ matrices (``from_dense``, and every matrix of at most
 ``mxv``/``vxm``/``inner``, ``power``, element-wise operations, reduces and
 ``diag``, whose tropical products run a kernel of their own (seven
 hand-written CUDA kernels for the H100 in all).  Dense vectors, masks,
-scalar assignment, ``ss.iterate`` and the algorithms ``sssp``,
-``bfs_level``, ``pagerank`` and ``triangle_count`` run on both backings.
-Everything runs on ``cuda`` unless the caller asks for the CPU with
+extract, assign and delete by index lists (``A[rows, cols]``,
+``C(mask, accum)[idx] << v``, ``C[idx](mask) << v``, ``del C[idx]``),
+membership and iteration, ``ss.iterate`` and the algorithms ``sssp``,
+``bfs_level``, ``pagerank``, ``connected_components`` and
+``triangle_count`` run on both backings.  Operators may be given as the
+JAX package's strings (``"+"``, ``"min_plus[FP64]"``).  Everything runs
+on ``cuda`` unless the caller asks for the CPU with
 ``config.set(device="cpu")``.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
 The package imports torch and numpy only, never jax or graphblas_tpu.
 """
 
-from . import (binary, dtypes, exceptions, indexunary, monoid, select,
-               semiring, ss, unary)
-from .core.config import config
-from .core.matrix import Matrix
-from .core.scalar import Scalar
-from .core.vector import Vector
+
+class _ReplaceSingleton:
+    """``replace``: given to ``C(mask, replace)`` it sets replace=True."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self):
+        return "replace"
+
+
+replace = _ReplaceSingleton()
+
+from . import (binary, dtypes, exceptions, indexunary, monoid,  # noqa: E402
+               select, semiring, ss, unary)
+from .core.config import config  # noqa: E402
+from .core.matrix import Matrix  # noqa: E402
+from .core.scalar import Scalar  # noqa: E402
+from .core.vector import Vector  # noqa: E402
+from .exceptions import GraphblasException  # noqa: E402
 
 from . import algorithms  # noqa: E402  (imports Vector from this package)
 
 __all__ = ["Matrix", "Vector", "Scalar", "config", "algorithms", "binary",
-           "dtypes", "exceptions", "indexunary", "monoid", "select",
-           "semiring", "ss", "unary"]
+           "dtypes", "exceptions", "GraphblasException", "indexunary",
+           "monoid", "replace", "select", "semiring", "ss", "unary"]
+
+# the JAX package's names that the port lacks, and their ROADMAP.md items
+_NOT_PORTED = {"agg": 11, "io": 12, "op": 12, "viz": 12, "Recorder": 12,
+               "backend": 12, "init": 12, "parallel": 13}
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        from .core.operator.base import not_ported
+
+        raise not_ported(f"graphblas_tpu_torch.{name}", _NOT_PORTED[name])
+    raise AttributeError(
+        f"module 'graphblas_tpu_torch' has no attribute {name!r}")

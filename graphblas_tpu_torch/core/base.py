@@ -8,18 +8,24 @@ COO tensors on its device); reading ``_vals``/``_valid`` of such a matrix
 densifies it, under the ``dense_limit`` guard, which is what an operation
 without a sparse path does."""
 
+import numpy as np
 import torch
 
 from . import config as _config
 from . import execute
-from ..exceptions import OutOfMemory
+from ..exceptions import DimensionMismatch, OutOfMemory
 from .mask import Mask
 
 
-def _split_call_args(optional, mask, accum):
-    """``c(M)``, ``c(accum)`` and ``c(M, accum)`` positional forms."""
+def _split_call_args(optional, mask, accum, replace):
+    """``c(M)``, ``c(accum)``, ``c(M, accum)`` and ``c(M, replace)``
+    positional forms (``replace`` is ``graphblas_tpu_torch.replace``)."""
+    from .. import replace as replace_singleton
+
     for arg in optional:
-        if isinstance(arg, Mask):
+        if arg is replace_singleton:
+            replace = True
+        elif isinstance(arg, Mask):
             if mask is not None:
                 raise TypeError("Got multiple values for argument 'mask'")
             mask = arg
@@ -27,7 +33,33 @@ def _split_call_args(optional, mask, accum):
             if accum is not None:
                 raise TypeError("Got multiple values for argument 'accum'")
             accum = arg
-    return mask, accum
+    return mask, accum, replace
+
+
+def check_mask(mask, output=None):
+    """A Mask (``M.S``, ``M.V``, ``~M.S``, ...), and of output's shape
+    where it has output's rank (a Vector mask on a Matrix is checked where
+    a row or column assignment takes it)."""
+    if not isinstance(mask, Mask):
+        if isinstance(mask, BaseType):
+            raise TypeError("Mask must indicate values (M.V) or structure "
+                            "(M.S); got a bare collection.  Use `M.S` or "
+                            "`M.V`.")
+        raise TypeError(f"mask must be a Mask (v.S, v.V, ~v.S); got "
+                        f"{type(mask).__name__}")
+    if (output is not None and mask.parent.ndim == output.ndim
+            and tuple(output.shape) != tuple(mask.parent.shape)):
+        raise DimensionMismatch(
+            f"mask shape {mask.parent.shape} does not match output shape "
+            f"{output.shape}")
+    return mask
+
+
+def is_scalar_like(value):
+    """A Python or numpy scalar (what the JAX package's
+    ``_is_scalar_like`` takes)."""
+    return isinstance(value, (int, float, bool, complex, np.number,
+                              np.bool_))
 
 
 class BaseType:
@@ -104,21 +136,74 @@ class BaseType:
                 self._valid.cpu().numpy())
 
     def __call__(self, *optional, mask=None, accum=None, replace=False,
-                 **opts):
+                 input_mask=None, _mask_shape=None, **opts):
+        """``C(mask, accum, replace=, input_mask=)``.  ``_mask_shape`` is
+        the region's shape for a submask (``C[idx](mask)``), whose mask is
+        shaped like the region and not like C."""
         from .expr import Updater
 
-        mask, accum = _split_call_args(optional, mask, accum)
-        if mask is not None and not isinstance(mask, Mask):
-            raise TypeError(f"mask must be a Mask (v.S, v.V, ~v.S); got "
-                            f"{type(mask).__name__}")
+        mask, accum, replace = _split_call_args(optional, mask, accum,
+                                                replace)
+        if mask is not None:
+            if _mask_shape is None:
+                mask = check_mask(mask, self)
+            else:
+                mask = check_mask(mask)
+                region = tuple(_mask_shape)
+                if mask.parent.ndim != len(region):
+                    kind = "Vector" if len(region) == 1 else "Matrix"
+                    got = "Matrix" if mask.parent.ndim == 2 else "Vector"
+                    raise TypeError(f"Indices for subassign imply {kind} "
+                                    f"submask, but got {got} mask instead")
+                if tuple(mask.parent.shape) != region:
+                    raise DimensionMismatch(
+                        f"mask shape {mask.parent.shape} does not match "
+                        f"region shape {region}")
+        if input_mask is not None:
+            if mask is not None:
+                raise TypeError("mask and input_mask arguments cannot both "
+                                "be given")
+            input_mask = check_mask(input_mask)
         return Updater(self, mask=mask, accum=accum, replace=replace,
-                       opts=opts)
+                       input_mask=input_mask, opts=opts)
 
     def __lshift__(self, expr):
         return self.update(expr)
 
     def update(self, expr, **opts):
-        execute.update_into(self, execute.as_expr(expr), opts=opts)
+        self._update(expr, opts=opts)
+
+    def _update(self, expr, *, mask=None, accum=None, replace=False,
+                input_mask=None, opts=None):
+        """``C(mask, accum, replace, input_mask) << expr``: an expression,
+        a collection to copy, an extract (``A[idx]``, where input_mask
+        filters A first) or a scalar, which is assigned to every element."""
+        from .expr import AmbiguousAssignOrExtract, IndexerResolver
+
+        if isinstance(expr, AmbiguousAssignOrExtract):
+            expr = expr._as_extract_expr(input_mask)
+        elif input_mask is not None:
+            raise TypeError("`input_mask` argument may only be used for "
+                            "extract")
+        if self.ndim and (is_scalar_like(expr) or (
+                isinstance(expr, BaseType) and expr.ndim == 0)):
+            keys = (slice(None),) * self.ndim
+            self._assign_at(IndexerResolver(self, keys), expr, mask=mask,
+                            accum=accum, replace=replace, is_submask=False)
+            return
+        execute.update_into(self, execute.as_expr(expr), mask=mask,
+                            accum=accum, replace=replace, opts=opts)
+
+    def clear(self):
+        """Remove every element (the shape, type and backing stay)."""
+        if self._sparse is not None:
+            from .engine import sparse as spx
+
+            self._set_sparse_store(spx.empty_store(
+                *self.shape, self.dtype, self._device))
+            return
+        self._set_store(torch.zeros_like(self._d_vals),
+                        torch.zeros_like(self._d_valid))
 
     def wait(self, how="materialize"):
         if how not in ("materialize", "complete"):
@@ -161,3 +246,42 @@ class BaseExpression:
         if value is None:
             value = self._value = self.new()
         return getattr(value, attr)
+
+
+class NotPorted:
+    """A name of the JAX package's surface that the port lacks: reading it
+    (on the class or an instance) raises NotImplementedError naming its
+    ROADMAP.md queue-1 item."""
+
+    def __init__(self, item):
+        self.item = item
+        self.name = None
+
+    def __set_name__(self, owner, name):
+        self.name = f"{owner.__name__}.{name}"
+
+    def __get__(self, obj, objtype=None):
+        from .operator.base import not_ported
+
+        raise not_ported(self.name, self.item)
+
+
+def infix_not_ported(symbol):
+    """An infix operator (``A @ B``, ``A | B``, ``A & B``) of the JAX
+    package: it raises NotImplementedError (not ``NotImplemented``, which
+    Python would turn into a TypeError)."""
+    def method(self, other):
+        from .operator.base import not_ported
+
+        raise not_ported(f"the infix operator {symbol}", 12)
+
+    method.__name__ = f"infix {symbol}"
+    return method
+
+
+class InfixStubs:
+    """The JAX package's infix expressions (core/infix.py), not ported."""
+
+    __matmul__ = __rmatmul__ = infix_not_ported("@")
+    __or__ = __ror__ = infix_not_ported("|")
+    __and__ = __rand__ = infix_not_ported("&")

@@ -1,15 +1,18 @@
-"""The expression builders Vector, Matrix and ``A.T`` share (the JAX
-package's core/_collection.py): element-wise operations (with a vector
-broadcast along a matrix's rows), ``apply`` with a unary op, a bound
-scalar or an index-unary op, and ``select``."""
+"""What Vector, Matrix and ``A.T`` share (the JAX package's
+core/_collection.py): the expressions they make (element-wise operations,
+with a vector broadcast along a matrix's rows; ``apply`` with a unary op,
+a bound scalar or an index-unary op; ``select``), and the indexing
+protocol of ``Collection`` (extract, assign and delete by index,
+membership and ``get``)."""
 
 import numpy as np
 import torch
 
 from . import dtypes as _dt
 from ..exceptions import DimensionMismatch, EmptyObject
-from .base import BaseExpression
-from .operator.base import OpBase, TypedOpBase, typed
+from .base import BaseExpression, BaseType, is_scalar_like
+from .operator.base import TypedOpBase, typed
+from .operator.utils import op_from_string, select_from_string
 
 
 def unify(a, b, *, left_scalar=False, right_scalar=False):
@@ -111,13 +114,17 @@ def _scalar_value(x):
     return x
 
 
-def _lookup(op, namespaces):
-    """An operator by name, from the first namespace that has it."""
-    for ns in namespaces:
-        found = vars(ns).get(op)
-        if isinstance(found, OpBase):
-            return found
-    raise ValueError(f"Unknown op string for apply: {op!r}")
+def _lookup(op, opclasses):
+    """An operator string, parsed as the first of opclasses that knows it
+    (the JAX package's ``apply``).  A name the JAX package knows and the
+    port lacks raises NotImplementedError."""
+    for opclass in opclasses:
+        try:
+            return op_from_string(op, opclass)
+        except ValueError:
+            continue
+    raise ValueError(f"Unknown op string for apply: {op!r}.  Example "
+                     f"usage: 'abs[int]' or 'rowindex'")
 
 
 def _is_indexunary(op):
@@ -127,12 +134,10 @@ def _is_indexunary(op):
 def apply_expr(self, op, right=None, left=None):
     """A unary op; a binary op with a bound scalar (``right=``/``left=``);
     or an index-unary op with its thunk (``right=``)."""
-    from .. import indexunary, select, unary
-
     src, tflag = untranspose(self)
     shape = _shape(src, tflag)
     if isinstance(op, str):
-        op = _lookup(op, (unary, indexunary, select))
+        op = _lookup(op, ("UnaryOp", "IndexUnaryOp", "SelectOp"))
     if _is_indexunary(op):
         return _indexunary_expr(self, op, False if right is None else right,
                                 "apply_indexunary")
@@ -180,11 +185,136 @@ def _indexunary_expr(self, op, thunk, method):
 def select_expr(self, op, thunk=None):
     """Keep the entries where a select operator (or a BOOL index-unary
     operator) holds."""
-    from .. import select
-
     if isinstance(op, str):
-        op = _lookup(op, (select,))
+        op = select_from_string(op)
     if not _is_indexunary(op):
         raise TypeError(f"select requires a SelectOp; got {op!r}")
     return _indexunary_expr(self, op, False if thunk is None else thunk,
                             "select")
+
+
+# --------------------------------------------------------------------- #
+# the indexing protocol (graphblas_tpu/core/_collection.py)
+class Collection(BaseType):
+    """A Matrix or Vector: extract, assign and delete by index, and
+    membership."""
+
+    def __getitem__(self, keys):
+        from .expr import AmbiguousAssignOrExtract, IndexerResolver
+
+        return AmbiguousAssignOrExtract(self, IndexerResolver(self, keys))
+
+    def __setitem__(self, keys, value):
+        from .expr import IndexerResolver
+
+        self._assign_at(IndexerResolver(self, keys), value, mask=None,
+                        accum=None, replace=False, is_submask=False)
+
+    def __delitem__(self, keys):
+        from .expr import IndexerResolver
+
+        self._delete_at(IndexerResolver(self, keys), mask=None)
+
+    def __contains__(self, index):
+        """``i in v``, ``(i, j) in A``: is an element stored there?"""
+        from .expr import IndexerResolver
+
+        if not IndexerResolver(self, index).is_single_element:
+            raise TypeError(f"Invalid index to Matrix/Vector contains: "
+                            f"{index!r}")
+        return not self[index].new().is_empty
+
+    def get(self, *index, default=None):
+        """One element as a Python value, or default where none is stored:
+        ``A.get(i, j)``, ``v.get(i)``; the default may follow the indices
+        (``v.get(i, 0)``)."""
+        if len(index) == 1 and isinstance(index[0], tuple):
+            index = index[0]
+        if len(index) == self.ndim + 1:
+            default = index[self.ndim]
+            index = index[:self.ndim]
+        key = tuple(index) if self.ndim == 2 else index[0]
+        v = self[key].new().value
+        return default if v is None else v
+
+    def _assign_at(self, resolver, value, *, mask, accum, replace,
+                   is_submask):
+        """GrB_assign (and GxB_subassign where is_submask) of a scalar or a
+        collection of the region's shape into the region."""
+        from . import execute
+        from .expr import AmbiguousAssignOrExtract
+        from .matrix import Matrix, TransposedMatrix
+        from .scalar import Scalar
+        from .vector import Vector
+
+        if isinstance(value, (AmbiguousAssignOrExtract, BaseExpression,
+                              TransposedMatrix)):
+            value = value.new()
+        axes = resolver.indices
+        region_ndim = sum(not ix.is_scalar for ix in axes)
+        # the mask's rank (graphblas_tpu/core/_collection.py _assign_at):
+        # a submask has the region's rank; a Vector mask on a Matrix is a
+        # row or column assignment's (GrB_Row_assign / GrB_Col_assign)
+        cmask_vec = None
+        if mask is not None:
+            m_ndim = mask.parent.ndim
+            if is_submask:
+                if region_ndim == 0:
+                    raise TypeError("Single element assign does not accept "
+                                    "a submask")
+                if m_ndim != region_ndim:
+                    if m_ndim == 2:
+                        raise TypeError("Indices for subassign imply Vector "
+                                        "submask, but got Matrix mask "
+                                        "instead")
+                    raise TypeError("Indices for subassign imply Matrix "
+                                    "submask, but got Vector mask instead")
+            elif self.ndim == 2 and m_ndim == 1:
+                if region_ndim == 0:
+                    raise TypeError("Unable to use Vector mask on single "
+                                    "element assignment to a Matrix")
+                if region_ndim == 2:
+                    raise TypeError("Unable to use Vector mask on Matrix "
+                                    "assignment to a Matrix")
+                cmask_vec = "row" if axes[0].is_scalar else "col"
+                need = self.shape[1] if cmask_vec == "row" else self.shape[0]
+                if mask.parent.shape[0] != need:
+                    raise DimensionMismatch(
+                        f"mask size {mask.parent.shape[0]} does not match "
+                        f"{'ncols' if cmask_vec == 'row' else 'nrows'} "
+                        f"{need}")
+        kw = dict(mask=mask, accum=accum, replace=replace,
+                  is_submask=is_submask, cmask_vec=cmask_vec)
+        if isinstance(value, Scalar) or is_scalar_like(value):
+            if not isinstance(value, Scalar):
+                value = Scalar.from_value(value)
+            execute.assign_update(self, axes, value, value_is_scalar=True,
+                                  **kw)
+            return
+        if not isinstance(value, BaseType):
+            if not isinstance(value, (list, np.ndarray)):
+                raise TypeError(f"Bad type for assignment value: "
+                                f"{type(value)}")
+            arr = np.asarray(value)
+            value = (Vector if arr.ndim == 1 else Matrix).from_dense(arr)
+        region_shape = resolver.out_shape
+        if value.ndim != len(region_shape):
+            raise TypeError(f"Assignment value has wrong rank: {value.ndim} "
+                            f"for region rank {len(region_shape)}")
+        if tuple(value.shape) != region_shape:
+            raise DimensionMismatch(
+                f"Assignment value shape {value.shape} does not match region "
+                f"shape {region_shape}")
+        if self.ndim == 2 and value.ndim == 1:
+            # a row (or column) of the region: a 1 x C (or R x 1) matrix
+            row = axes[0].is_scalar
+            value = Matrix._from_planes(
+                value.dtype, value._vals[None, :] if row else
+                value._vals[:, None],
+                value._valid[None, :] if row else value._valid[:, None])
+        execute.assign_update(self, axes, value, value_is_scalar=False, **kw)
+
+    def _delete_at(self, resolver, mask=None):
+        from . import execute
+
+        execute.delete_region(self, resolver.indices, mask=mask)

@@ -1,7 +1,8 @@
 """Bitmap (values, valid) engine over tensors
 (graphblas_tpu/core/engine/dense.py): masks, apply, element-wise
 operations, monoid reduces, the semiring matmul family, transpose and
-diagonals, and the mask/accum/replace write-back.
+diagonals, extract and scatter by index lists, and the mask/accum/replace
+write-back and subassign.
 
 A positional multiply takes its index from the pair ``(i, k, j)`` it is
 applied to in a product.  PyTorch runs eagerly, so the blocked product is a
@@ -351,6 +352,41 @@ def write_back(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, mask_arr, accum,
         out_valid = torch.where(mask_arr, new_valid, c_valid)
     out_vals = torch.where(mask_arr & new_valid, new_vals, c_vals)
     return out_vals, out_valid
+
+
+def extract_matrix(a_vals, a_valid, rows, cols):
+    """A[rows, cols] of a bitmap store (index lists may repeat)."""
+    return a_vals[rows][:, cols], a_valid[rows][:, cols]
+
+
+def extract_vector(a_vals, a_valid, idx):
+    return a_vals[idx], a_valid[idx]
+
+
+def scatter_matrix(shape, rows, cols, z_vals, z_valid, dtype):
+    """A region's (values, valid) placed at rows x cols of a plane of
+    shape, and the region itself.  Where an index repeats, which of its
+    elements lands is unspecified, as in the JAX package."""
+    dev = z_valid.device
+    out_vals = torch.zeros(shape, dtype=dtype.torch_type, device=dev)
+    out_valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+    region = torch.zeros(shape, dtype=torch.bool, device=dev)
+    r, c = rows[:, None], cols[None, :]
+    out_vals[r, c] = z_vals.expand(len(rows), len(cols))
+    out_valid[r, c] = z_valid.expand(len(rows), len(cols))
+    region[r, c] = True
+    return out_vals, out_valid, region
+
+
+def scatter_vector(size, idx, z_vals, z_valid, dtype):
+    dev = z_valid.device
+    out_vals = torch.zeros(size, dtype=dtype.torch_type, device=dev)
+    out_valid = torch.zeros(size, dtype=torch.bool, device=dev)
+    region = torch.zeros(size, dtype=torch.bool, device=dev)
+    out_vals[idx] = z_vals.expand(len(idx))
+    out_valid[idx] = z_valid.expand(len(idx))
+    region[idx] = True
+    return out_vals, out_valid, region
 
 
 def subassign(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, region,

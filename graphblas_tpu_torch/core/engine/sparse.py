@@ -20,9 +20,9 @@ The work is plain torch ops on the store's device (``searchsorted``,
 ``cumsum``, stable sorts, ``index_select``, ``segment_reduce`` and
 ``scatter_reduce_``): the generic SpMV and reduces for every monoid and
 type the lanepipe and the sort pipeline decline, apply/select/transpose,
-element-wise merges, the masked write-back, and SpGEMM by Gustavson's
-expansion or by the masked dot.  Extract and assign by index lists and
-positional multiplies are not here yet (ROADMAP.md queue 1, items 10 and
+element-wise merges, the masked write-back, SpGEMM by Gustavson's
+expansion or by the masked dot, and extract, assign and delete by index
+lists.  Positional multiplies are not here yet (ROADMAP.md queue 1, item
 9).
 """
 
@@ -758,3 +758,127 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
     keep = (out_valid & ok_m).nonzero().reshape(-1)
     return store_from_parts(mr[keep], mc[keep], out_vals[keep], out_nrows,
                             out_ncols, mono.type)
+
+
+# --------------------------------------------------------------------- #
+# extract (GrB_Matrix_extract): inverse maps and a re-sort, no densify
+def extract_submatrix(sp, rows, cols, in_order):
+    """A[rows, cols] for duplicate-free index lists (int64 on the store's
+    device): each entry's row and column looked up in inverse maps of the
+    lists, the entries on both kept, re-keyed and sorted.  Where both lists
+    increase (in_order) the kept entries are already in (row, col) order
+    and the sort is skipped.  O(nnz + nrows + ncols); one device read, the
+    number of entries kept."""
+    dev = sp.device
+    n_r, n_c = rows.numel(), cols.numel()
+    inv_r = torch.full((sp.nrows,), -1, dtype=_I64, device=dev)
+    inv_r[rows] = _iota(n_r, dev)
+    inv_c = torch.full((sp.ncols,), -1, dtype=_I64, device=dev)
+    inv_c[cols] = _iota(n_c, dev)
+    nr, nc = inv_r[sp.rows], inv_c[sp.cols]
+    keep = ((nr >= 0) & (nc >= 0)).nonzero().reshape(-1)
+    nr, nc, vals = nr[keep], nc[keep], sp.vals[keep]
+    if not in_order:
+        w = max(n_c, 1)
+        key, order = torch.sort(nr * w + nc)
+        nr, nc, vals = key // w, key % w, vals[order]
+    return store_from_parts(nr, nc, vals, n_r, n_c, sp.dtype)
+
+
+def extract_rowcol_dense(sp, fixed, idx, axis_row):
+    """A[fixed, idx] (axis_row) or A[idx, fixed] as a dense vector store
+    of len(idx): one binary search over the (row, col) keys for each
+    element asked for; no device read."""
+    ncols = max(sp.ncols, 1)
+    target = fixed * ncols + idx if axis_row else idx * ncols + fixed
+    q, found = _find(sp.struct.keys(), target)
+    vals = torch.where(found, _take(sp.vals, q),
+                       torch.zeros((), dtype=sp.vals.dtype, device=q.device))
+    return vals, found
+
+
+# --------------------------------------------------------------------- #
+# assign (GrB_Matrix_assign and GxB_subassign onto a sparse matrix)
+def _keyed_store(rows, cols, vals, nrows, ncols, dtype, in_order):
+    """A store of entries at distinct coordinates, sorted by (row, col)
+    unless they already are (in_order)."""
+    if not in_order:
+        key, order = torch.sort(rows * max(ncols, 1) + cols)
+        rows, cols, vals = rows[order], cols[order], vals[order]
+    return store_from_parts(rows, cols, vals, nrows, ncols, dtype)
+
+
+def region_store(rows, cols, v_vals, v_ok, nrows, ncols, dtype, in_order):
+    """A dense region-shaped value plane (len(rows) x len(cols), or
+    broadcast to it) placed at C's coordinates rows x cols, as a store of
+    its present elements (one device read: how many)."""
+    n_c = cols.numel()
+    shape = (rows.numel(), n_c)
+    idx = v_ok.expand(shape).reshape(-1).nonzero().reshape(-1)
+    vals = v_vals.expand(shape).reshape(-1)[idx]
+    return _keyed_store(rows[idx // max(n_c, 1)], cols[idx % max(n_c, 1)],
+                        vals, nrows, ncols, dtype, in_order)
+
+
+def placed_store(v, rows, cols, nrows, ncols, in_order):
+    """A sparse region value (a store of len(rows) x len(cols)) placed at
+    C's coordinates rows x cols."""
+    return _keyed_store(rows[v.rows], cols[v.cols], v.vals, nrows, ncols,
+                        v.dtype, in_order)
+
+
+def membership_fn(rows, cols, nrows, ncols):
+    """in_region(r, c): is (r, c) in rows x cols (int64 on the device)?"""
+    in_r = torch.zeros(nrows, dtype=torch.bool, device=rows.device)
+    in_r[rows] = True
+    in_c = torch.zeros(ncols, dtype=torch.bool, device=cols.device)
+    in_c[cols] = True
+
+    def fn(r, c):
+        return in_r[r] & in_c[c]
+
+    return fn
+
+
+def assign_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn, in_region_fn,
+                  submask):
+    """Assign the region content z (a store at C's coordinates) into C.
+
+    GrB_assign: C's region takes z's content (accum merges inside the
+    region), then the mask and replace act over the whole of C.
+    GxB_subassign (submask): the mask and replace act inside the region
+    only.  The result is the merge of both stores less the elements
+    deleted (one device read for the merge, one for the result)."""
+    rows, cols, c_idx, z_idx, has_c, has_z = merge_slots(c, z)
+    c_val, z_val = _take(c.vals, c_idx), _take(z.vals, z_idx)
+    in_region = in_region_fn(rows, cols) | has_z
+    msk = torch.ones_like(has_c) if mask_fn is None else mask_fn(rows, cols)
+    z_cast = st.cast_values(z_val, z_dt, c_dt)
+    if accum is None:
+        zp_ok = torch.where(in_region, has_z, has_c)
+        zp_val = torch.where(in_region & has_z, z_cast, c_val)
+    else:
+        both = st.cast_values(dense.apply_binop(accum, c_val, c_dt, z_val,
+                                                z_dt),
+                              accum.return_type, c_dt)
+        zp_ok = torch.where(in_region, has_c | has_z, has_c)
+        zp_val = torch.where(in_region & has_c & has_z, both,
+                             torch.where(in_region & has_z & ~has_c, z_cast,
+                                         c_val))
+    kept_c = has_c & (not replace)
+    if submask:
+        take_zp = in_region & msk
+        out_ok = torch.where(in_region, torch.where(msk, zp_ok, kept_c),
+                             has_c)
+    else:
+        take_zp = msk
+        out_ok = torch.where(msk, zp_ok, kept_c)
+    vals = torch.where(take_zp, zp_val, c_val)
+    idx = out_ok.nonzero().reshape(-1)
+    return store_from_parts(rows[idx], cols[idx], vals[idx], c.nrows,
+                            c.ncols, c_dt)
+
+
+def delete_where(c, region):
+    """C less the elements where region holds (one device read)."""
+    return _filtered(c, ~region, c.vals, c.dtype)

@@ -1,8 +1,8 @@
 """The funnel every operation goes through: compute an expression, then
 write it back into its target under mask, accum and replace
 (graphblas_tpu/core/execute.py ``materialize``/``update_into``,
-``_format_plan``, ``_sparse_out_run``, ``_spgemm_run`` and the trace
-implementations ``T_*``).  A dense result is a (values, valid) pair; a
+``_format_plan``, ``_sparse_out_run``, ``_spgemm_run``, ``assign_update``,
+``delete_region`` and the trace implementations ``T_*``).  A dense result is a (values, valid) pair; a
 sparse one, of an operation on sparse-backed matrices, is a SparseStore,
 merged into a sparse target at coordinates (``sparse.write_back_sparse``).
 PyTorch runs eagerly, so there is no jit cache and no recorder; the
@@ -18,12 +18,16 @@ from .operator.base import typed
 
 
 def as_expr(obj):
-    """An expression, or a collection to copy (``c << v``, ``C << A.T``)."""
+    """An expression, a collection to copy (``c << v``, ``C << A.T``) or an
+    extract (``c << v[idx]``)."""
     from .base import BaseExpression, BaseType
+    from .expr import AmbiguousAssignOrExtract
     from .matrix import TransposedMatrix
 
     if isinstance(obj, BaseExpression):
         return obj
+    if isinstance(obj, AmbiguousAssignOrExtract):
+        return obj._as_extract_expr()
     if isinstance(obj, TransposedMatrix):
         m = obj._matrix
         return BaseExpression("transpose", None, [m], m.dtype, obj.shape,
@@ -115,28 +119,191 @@ def _update_sparse(target, expr, mask, accum, replace, opts):
     target._set_store(vals, valid)
 
 
-def assign_scalar(target, value, *, mask=None, accum=None, replace=False):
-    """``target(mask, accum, replace)[:] = value`` for a Python value or a
-    Scalar (an empty Scalar deletes the elements it is assigned to)."""
-    from .scalar import Scalar
+# --------------------------------------------------------------------- #
+# assign and delete by index lists (graphblas_tpu/core/execute.py
+# assign_update, _assign_sparse_target, delete_region)
+def _index_tensors(axes, device):
+    return [torch.from_numpy(ix.array()).to(device) for ix in axes]
 
-    dev = target.device
-    if isinstance(value, Scalar):
-        z_dt, z_val, z_ok = value.dtype, value._vals, value._valid
+
+def _assign_accum(accum, c_dt, v_dt):
+    """An assign's accum, typed for both operands' types (numpy's
+    promotion, as the JAX package's ``get_typed_op``)."""
+    from .collection import unify
+
+    return None if accum is None else typed(accum, unify(c_dt, v_dt),
+                                            "BinaryOp")
+
+
+def assign_update(target, axes, value, *, mask=None, accum=None,
+                  replace=False, is_submask=False, value_is_scalar=False,
+                  cmask_vec=None):
+    """``target(mask, accum, replace)[axes] << value``: GrB_assign, or
+    GxB_subassign (is_submask: the mask is shaped like the region, and it
+    and replace act inside the region only).  axes: the target's resolved
+    AxisIndex list; value: a Scalar (value_is_scalar) or a collection of
+    the region's shape.  A sparse target stays sparse (_assign_sparse_
+    target) except for a Vector mask on a row or column, an index list with
+    duplicates and a dense value over ``dense_limit`` elements, which take
+    the dense path as in the JAX package."""
+    if target._sparse is not None and cmask_vec is None and \
+            _assign_sparse_target(target, axes, value, mask=mask,
+                                  accum=accum, replace=replace,
+                                  is_submask=is_submask,
+                                  value_is_scalar=value_is_scalar):
+        return
+    c_dt, v_dt = target.dtype, value.dtype
+    typed_accum = _assign_accum(accum, c_dt, v_dt)
+    c_vals, c_valid = target._vals, target._valid
+    dev = c_valid.device
+    shape = tuple(target.shape)
+    z_vals = st.cast_values(value._vals.to(dev), v_dt, c_dt)
+    z_valid = value._valid.to(dev)
+    mask_arr = None if mask is None else mask._as_array()
+    if all(ix.is_full for ix in axes):
+        # the region is the whole target: no scatter, and the assign is
+        # the subassign of the whole (one pass, as the BFS level needs)
+        region = torch.ones((), dtype=torch.bool, device=dev)
+        s_vals, s_valid = z_vals.expand(shape), z_valid.expand(shape)
+        if mask_arr is not None and mask_arr.shape != shape:
+            mask_arr = mask_arr.reshape(shape)  # a Vector mask on one row
+        vals, valid = dense.subassign(c_vals, c_valid, c_dt, s_vals, s_valid,
+                                      c_dt, region, mask_arr, typed_accum,
+                                      replace)
+        target._set_store(vals, valid)
+        return
+    idx = _index_tensors(axes, dev)
+    if len(idx) == 2:
+        s_vals, s_valid, region = dense.scatter_matrix(
+            shape, idx[0], idx[1], z_vals, z_valid, c_dt)
     else:
-        s = Scalar.from_value(value, target.dtype)
-        z_dt, z_val, z_ok = s.dtype, s._vals, s._valid
-    shape = target._valid.shape
-    z_vals = z_val.to(dev).expand(shape)
-    z_valid = z_ok.to(dev).expand(shape)
-    region = torch.ones(shape, dtype=torch.bool, device=dev)
-    typed_accum = None if accum is None else typed(accum, target.dtype,
-                                                   "BinaryOp")
-    vals, valid = dense.subassign(
-        target._vals, target._valid, target.dtype, z_vals, z_valid, z_dt,
-        region, None if mask is None else mask._as_array(), typed_accum,
-        replace)
+        s_vals, s_valid, region = dense.scatter_vector(
+            shape[0], idx[0], z_vals, z_valid, c_dt)
+    if is_submask:
+        sm = None
+        if mask_arr is not None:  # the region's mask, placed in C
+            sm = torch.zeros(shape, dtype=torch.bool, device=dev)
+            if len(idx) == 2:
+                sm[idx[0][:, None], idx[1][None, :]] = mask_arr.reshape(
+                    len(idx[0]), len(idx[1]))
+            else:
+                sm[idx[0]] = mask_arr
+        vals, valid = dense.subassign(c_vals, c_valid, c_dt, s_vals, s_valid,
+                                      c_dt, region, sm, typed_accum, replace)
+        target._set_store(vals, valid)
+        return
+    # a mask shaped like C: the region's update first, then the mask over
+    # C; a Vector mask on a row or column assign (GrB_Row_assign,
+    # GrB_Col_assign) acts on that row or column only
+    vals, valid = dense.subassign(c_vals, c_valid, c_dt, s_vals, s_valid,
+                                  c_dt, region, None, typed_accum, False)
+    if mask_arr is not None or replace:
+        full = mask_arr
+        if mask_arr is None or cmask_vec is not None:
+            full = torch.ones(shape, dtype=torch.bool, device=dev)
+            if cmask_vec == "row":
+                full[idx[0][0], :] = mask_arr
+            elif cmask_vec == "col":
+                full[:, idx[1][0]] = mask_arr
+        vals, valid = dense.write_back(c_vals, c_valid, c_dt, vals, valid,
+                                       c_dt, full, None, replace)
     target._set_store(vals, valid)
+
+
+def _submask_fn(mask, rows, cols, nrows, ncols):
+    """A region-shaped mask (GxB_subassign) evaluated at C's coordinates:
+    each coordinate's place in the region from inverse maps; False outside
+    the region."""
+    n_r, n_c = rows.numel(), cols.numel()
+    dev = rows.device
+    inv_r = torch.full((nrows,), n_r, dtype=torch.int64, device=dev)
+    inv_r[rows] = torch.arange(n_r, dtype=torch.int64, device=dev)
+    inv_c = torch.full((ncols,), n_c, dtype=torch.int64, device=dev)
+    inv_c[cols] = torch.arange(n_c, dtype=torch.int64, device=dev)
+    if mask.parent.ndim == 2:
+        at = _coord_mask_fn(mask)
+    else:
+        arr = mask._as_array()
+
+        def at(rr, cc):
+            # a Vector submask runs along the region's one long axis
+            return arr[rr if n_c == 1 else cc]
+
+    def fn(r, c):
+        rr, cc = inv_r[r], inv_c[c]
+        inside = (rr < n_r) & (cc < n_c)
+        return at(rr.clamp(max=n_r - 1), cc.clamp(max=n_c - 1)) & inside
+
+    return fn
+
+
+def _assign_sparse_target(target, axes, value, *, mask, accum, replace,
+                          is_submask, value_is_scalar):
+    """GrB_assign / GxB_subassign onto a sparse-backed Matrix on the
+    sparse engine: the region's content as a store at C's coordinates,
+    merged into C.  Returns False, for the dense path, where an index list
+    repeats or a dense value would span more than ``dense_limit``
+    elements (one device read of each count: the region's content and the
+    result)."""
+    from . import config as _config
+
+    rix, cix = axes
+    if not (rix.is_unique and cix.is_unique):
+        return False
+    n_r, n_c = len(rix.array()), len(cix.array())
+    limit = int(_config.config.get("dense_limit", 1 << 26))
+    value_sparse = not value_is_scalar and value._sparse is not None
+    if not value_sparse and n_r * n_c > limit:
+        return False
+    c_sp = target._sparse
+    c_dt, v_dt = target.dtype, value.dtype
+    typed_accum = _assign_accum(accum, c_dt, v_dt)
+    dev = c_sp.device
+    rows, cols = _index_tensors(axes, dev)
+    in_order = rix.is_increasing and cix.is_increasing
+    nrows, ncols = c_sp.nrows, c_sp.ncols
+    if value_sparse:
+        z = spx.placed_store(value._sparse, rows, cols, nrows, ncols,
+                             in_order)
+    else:
+        z = spx.region_store(rows, cols, value._vals.to(dev),
+                             value._valid.to(dev), nrows, ncols, v_dt,
+                             in_order)
+    if mask is None:
+        mask_fn = None
+    elif is_submask:
+        mask_fn = _submask_fn(mask, rows, cols, nrows, ncols)
+    else:
+        mask_fn = _coord_mask_fn(mask)
+    target._set_sparse_store(spx.assign_sparse(
+        c_sp, z, c_dt, v_dt, typed_accum, bool(replace), mask_fn,
+        spx.membership_fn(rows, cols, nrows, ncols), bool(is_submask)))
+    return True
+
+
+def delete_region(target, axes, *, mask=None):
+    """``del C[axes]`` and ``del C(mask)[axes]``: the elements of the
+    region (where the mask holds) are removed; a sparse target stays
+    sparse."""
+    if target._sparse is not None:
+        c_sp = target._sparse
+        rows, cols = _index_tensors(axes, c_sp.device)
+        region = spx.membership_fn(rows, cols, c_sp.nrows, c_sp.ncols)(
+            c_sp.rows, c_sp.cols)
+        if mask is not None:
+            region = region & _coord_mask_fn(mask)(c_sp.rows, c_sp.cols)
+        target._set_sparse_store(spx.delete_where(c_sp, region))
+        return
+    valid = target._valid
+    idx = _index_tensors(axes, valid.device)
+    region = torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
+    if len(idx) == 2:
+        region[idx[0][:, None], idx[1][None, :]] = True
+    else:
+        region[idx[0]] = True
+    if mask is not None:
+        region = region & mask._as_array()
+    target._set_store(target._vals, valid & ~region)
 
 
 # --------------------------------------------------------------------- #
@@ -160,7 +327,8 @@ def _format_plan(expr):
     "sparse"  -- the result is itself a sparse store.
     "densify" -- no sparse path (``power``, ``diag``, an element-wise add
                  or union with a dense operand, whose result is dense-sized
-                 anyway); densify the sparse operands and go dense.
+                 anyway, an extract by index lists that repeat or under an
+                 input mask); densify the sparse operands and go dense.
 
     The JAX package also sends ``mxm`` with a traced dense operand (loop
     state inside its ``ss.iterate``) to "densify"; nothing is traced here,
@@ -173,6 +341,15 @@ def _format_plan(expr):
         return "inline"
     if m in _SPARSE_OUT:
         return "sparse"
+    if m == "extract":
+        pattern, axes, input_mask, _ = expr._statics
+        if input_mask is not None:
+            return "densify"
+        if pattern == "mat":
+            # duplicate-free lists take the sparse extract
+            return "sparse" if all(ix.is_unique for ix in axes) else \
+                "densify"
+        return "inline"  # a row or column into a dense vector
     if m in ("ewise_mult", "ewise_add", "ewise_union"):
         a_bc, b_bc = expr._statics[3:5]
         if m == "ewise_mult":
@@ -262,6 +439,59 @@ def T_reduce_axis(expr):
     axis, tflag = expr._statics
     vals, valid = _store(a, tflag)
     return dense.reduce_monoid(vals, valid, expr.op, a.dtype, axis)
+
+
+def input_mask_axis(pattern, parent, input_mask):
+    """Check an extract's input mask (graphblas_tpu/core/execute.py
+    apply_input_mask); returns "row" or "col" for a Vector mask on a row or
+    column of a Matrix, else None."""
+    if pattern == "element":
+        raise ValueError("There is no need to use `input_mask` for single "
+                         "element extraction")
+    m_shape = tuple(input_mask.parent.shape)
+    if parent.ndim == 2 and len(m_shape) == 1:
+        if pattern == "row":
+            if m_shape[0] != parent.shape[1]:
+                raise ValueError("Size of `input_mask` Vector does not match "
+                                 "ncols of Matrix")
+            return "row"
+        if pattern == "col":
+            if m_shape[0] != parent.shape[0]:
+                raise ValueError("Size of `input_mask` Vector does not match "
+                                 "nrows of Matrix")
+            return "col"
+        raise TypeError("Got Vector `input_mask` when extracting a submatrix "
+                        "from a Matrix")
+    if parent.ndim == 1 and len(m_shape) == 2:
+        raise TypeError("Mask object must be type Vector")
+    if m_shape != tuple(parent.shape):
+        raise ValueError(f"Shape of `input_mask` does not match shape of "
+                         f"input: {m_shape} vs {tuple(parent.shape)}")
+    return None
+
+
+def T_extract(expr):
+    """Extract by index lists from a dense store ("mat", "row", "col",
+    "vec"), after the input mask, if any, filters the source."""
+    a = expr.args[0]
+    pattern, axes, input_mask, vec_axis = expr._statics
+    vals, valid = a._vals, a._valid
+    if input_mask is not None:
+        arr = input_mask._as_array()
+        if vec_axis == "row":
+            arr = arr[None, :]
+        elif vec_axis == "col":
+            arr = arr[:, None]
+        valid = valid & arr
+    idx = _index_tensors(axes, valid.device)
+    if pattern == "vec":
+        return dense.extract_vector(vals, valid, idx[0])
+    v, ok = dense.extract_matrix(vals, valid, idx[0], idx[1])
+    if pattern == "row":
+        return v[0], ok[0]
+    if pattern == "col":
+        return v[:, 0], ok[:, 0]
+    return v, ok
 
 
 def T_extract_element(expr):
@@ -359,7 +589,8 @@ _DENSE_IMPL = {
     "select": T_select,
     "reduce": T_reduce_scalar, "reduce_rowwise": T_reduce_axis,
     "reduce_columnwise": T_reduce_axis,
-    "extract_element": T_extract_element, "mxm": T_matmul, "mxv": T_matmul,
+    "extract_element": T_extract_element, "extract": T_extract,
+    "mxm": T_matmul, "mxv": T_matmul,
     "vxm": T_matmul, "inner": T_matmul, "power": T_power,
     "ewise_mult": T_ewise, "ewise_add": T_ewise, "ewise_union": T_ewise,
     "diag": T_diag_extract, "diag_build": T_diag_build,
@@ -478,7 +709,18 @@ def _extract_element_impl(expr):
     return spx.extract_element(mat._sparse, False, *expr._statics[0])
 
 
+def _extract_rowcol_impl(expr):
+    """A row or column of a sparse matrix into a dense vector."""
+    mat = expr.args[0]
+    pattern, (rix, cix), _, _ = expr._statics
+    sp = mat._sparse
+    (idx,) = _index_tensors([cix if pattern == "row" else rix], sp.device)
+    fixed = rix.index if pattern == "row" else cix.index
+    return spx.extract_rowcol_dense(sp, fixed, idx, pattern == "row")
+
+
 _INLINE_IMPL = {"mxv": _inline_sparse_impl, "vxm": _inline_sparse_impl,
+                "extract": _extract_rowcol_impl,
                 "reduce_rowwise": _reduce_axis_impl,
                 "reduce_columnwise": _reduce_axis_impl,
                 "reduce": _reduce_scalar_impl,
@@ -533,6 +775,12 @@ def _sparse_out_run(expr, out_dtype, mask=None, opts=None):
     if m.startswith("ewise_"):
         return cast(_ewise_run(expr))
     src = expr.args[0]
+    if m == "extract":
+        axes = expr._statics[1]
+        rows, cols = _index_tensors(axes, src.device)
+        return cast(spx.extract_submatrix(
+            src._sparse, rows, cols,
+            all(ix.is_increasing for ix in axes)))
     sp = src._sparse
     tflag = m == "transpose" or (m != "identity" and expr._statics[-1])
     a = spx.transpose(sp) if tflag else sp

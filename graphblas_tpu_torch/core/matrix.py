@@ -1,5 +1,11 @@
 """Matrix and TransposedMatrix (graphblas_tpu/core/matrix.py).
 
+Extract, assign and delete by index lists come from core/collection.py;
+``A[rows, cols]`` with lists that do not repeat, ``A[i, :]``/``A[:, j]``,
+assign and delete keep a sparse matrix sparse (core/execute.py
+``_format_plan`` and ``assign_update``).  What the JAX package's Matrix has
+and the port lacks raises NotImplementedError naming its ROADMAP.md item.
+
 Two backings, as in the JAX package: a Matrix with at most
 ``auto_sparse_limit`` elements is a dense (values, valid) store on its
 device; a larger one is sparse-backed (a SparseStore of COO tensors on its
@@ -17,8 +23,8 @@ import torch
 from . import config as _config
 from . import dtypes as _dt
 from ..exceptions import DimensionMismatch, EmptyObject
-from .base import BaseExpression, BaseType
-from .collection import apply_expr, ewise_expr, select_expr
+from .base import BaseExpression, InfixStubs, NotPorted
+from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .collection import untranspose as _untranspose
 from .engine import sparse as spx
 from .mask import StructuralMask, ValueMask
@@ -31,7 +37,7 @@ def _shape_of(mat, transposed):
     return (mat.ncols, mat.nrows) if transposed else (mat.nrows, mat.ncols)
 
 
-class Matrix(BaseType):
+class Matrix(InfixStubs, Collection):
     ndim = 2
 
     def __init__(self, dtype=_dt.FP64, nrows=0, ncols=0, *, name=None):
@@ -56,6 +62,15 @@ class Matrix(BaseType):
     @classmethod
     def _empty(cls, dtype, shape, name=None):
         return cls(dtype, shape[0], shape[1], name=name)
+
+    @classmethod
+    def _from_planes(cls, dtype, vals, valid, name=None):
+        """A dense-backed Matrix over (values, valid) planes."""
+        m = cls.__new__(cls)
+        m.dtype, m.name = _dt.lookup_dtype(dtype), name
+        m._nrows, m._ncols = valid.shape
+        m._set_store(vals, valid)
+        return m
 
     @classmethod
     def _from_sparse(cls, dtype, sp, name=None):
@@ -217,20 +232,33 @@ class Matrix(BaseType):
             return False
         return bool(np.all(np.isclose(av, bv, rtol=rel_tol, atol=abs_tol)))
 
-    def __getitem__(self, keys):
-        if (isinstance(keys, tuple) and len(keys) == 2
-                and all(isinstance(k, (int, np.integer)) for k in keys)):
-            idx = []
-            for k, size in zip(keys, self.shape):
-                k = int(k)
-                if not -size <= k < size:
-                    raise IndexError(f"index {k} out of range for size {size}")
-                idx.append(k % size)
+    def _extract_expr(self, resolver, input_mask=None):
+        """A[i, j] (a Scalar), A[i, cols] and A[rows, j] (Vectors) and
+        A[rows, cols] (a Matrix).  Index lists that do not repeat keep a
+        sparse matrix sparse."""
+        from . import execute
+
+        rix, cix = resolver.indices
+        if rix.is_scalar and cix.is_scalar:
+            if input_mask is not None:
+                execute.input_mask_axis("element", self, input_mask)
             return BaseExpression("extract_element", None, [self], self.dtype,
-                                  (), Scalar, (tuple(idx),))
-        raise NotImplementedError(
-            "only element extraction A[i, j] is in the PyTorch port yet "
-            "(ROADMAP.md queue 1, item 10)")
+                                  (), Scalar, ((rix.index, cix.index),))
+        if rix.is_scalar or cix.is_scalar:
+            pattern = "row" if rix.is_scalar else "col"
+            shape, out = ((cix if rix.is_scalar else rix).size,), Vector
+        else:
+            pattern, shape, out = "mat", (rix.size, cix.size), Matrix
+        vec_axis = None if input_mask is None else \
+            execute.input_mask_axis(pattern, self, input_mask)
+        return BaseExpression("extract", None, [self], self.dtype, shape, out,
+                              (pattern, [rix, cix], input_mask, vec_axis))
+
+    def __iter__(self):
+        """The (row, col) of each stored element, in row-major order."""
+        r, c, _ = self.to_coo(values=False)
+        return iter(zip(r.astype(np.int64).tolist(),
+                        c.astype(np.int64).tolist()))
 
     def diag(self, k=0, *, name=None):
         """Diagonal k as a Vector."""
@@ -327,17 +355,24 @@ class Matrix(BaseType):
         return BaseExpression("reduce", mono, [mat], mono.return_type, (),
                               Scalar, (bool(allow_empty),))
 
-    def _not_ported(self, what, item):
-        raise NotImplementedError(
-            f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1, "
-            f"item {item})")
-
-    def kronecker(self, other, op="times"):
-        self._not_ported("kronecker", 11)
-
-    def reposition(self, row_offset, column_offset, *, nrows=None, ncols=None):
-        self._not_ported("reposition", 11)
-
+    # the JAX package's Matrix surface that is not ported yet
+    kronecker = NotPorted(11)
+    reposition = NotPorted(11)
+    build = NotPorted(12)
+    resize = NotPorted(12)
+    ss = NotPorted(12)
+    from_csr = NotPorted(12)
+    from_csc = NotPorted(12)
+    from_dcsr = NotPorted(12)
+    from_dcsc = NotPorted(12)
+    to_csr = NotPorted(12)
+    to_csc = NotPorted(12)
+    to_dcsr = NotPorted(12)
+    to_dcsc = NotPorted(12)
+    from_dicts = NotPorted(12)
+    to_dicts = NotPorted(12)
+    from_edgelist = NotPorted(12)
+    to_edgelist = NotPorted(12)
 
 
 def _coo_equal(a, b, common):
@@ -359,7 +394,7 @@ def _as_matrix(other, within):
     return other
 
 
-class TransposedMatrix:
+class TransposedMatrix(InfixStubs):
     """``A.T``: a view that every operation reads in the other direction."""
 
     ndim = 2
@@ -421,6 +456,10 @@ class TransposedMatrix:
 
     def to_dense(self, fill_value=None, dtype=None):
         return self._matrix.to_dense(fill_value, dtype).T.copy()
+
+    def __getitem__(self, keys):
+        """An extract from the materialized transpose."""
+        return self.new()[keys]
 
     def isequal(self, other, *, check_dtype=False):
         return self.new().isequal(other, check_dtype=check_dtype)

@@ -45,31 +45,35 @@ class TypedOpBase:
         return f"{self.opclass}.{self.name}[{self.type.name}]"
 
 
+def not_ported(what, item):
+    """The error for a part of the JAX package's surface that the port
+    lacks, naming its ROADMAP.md queue-1 item."""
+    return NotImplementedError(
+        f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1, item "
+        f"{item})")
+
+
 def missing(namespace, name, reference_names):
     """The error for an attribute an operator namespace lacks: the JAX
     package's operators that are not ported raise NotImplementedError,
     other names AttributeError."""
     if name in reference_names:
-        return NotImplementedError(
-            f"{namespace}.{name} is not in the PyTorch port yet (ROADMAP.md "
-            f"queue 1, item 12)")
+        return not_ported(f"{namespace}.{name}", 12)
     return AttributeError(
         f"module 'graphblas_tpu_torch.{namespace}' has no attribute {name!r}")
 
 
 def typed(op, dtype, opclass):
-    """Resolve op (typed, untyped or name string) to a typed op of
-    `opclass` for `dtype`."""
+    """Resolve op (typed, untyped or an operator string, parsed as the
+    JAX package parses it) to a typed op of `opclass` for `dtype`."""
+    if isinstance(op, str):
+        from .utils import op_from_string
+
+        op = op_from_string(op, opclass)
     if isinstance(op, TypedOpBase):
         if op.opclass != opclass:
             raise TypeError(f"expected a {opclass}; got {op!r}")
         return op
-    if isinstance(op, str):
-        from ... import binary, monoid, semiring, unary
-
-        ns = {"BinaryOp": binary, "Monoid": monoid, "Semiring": semiring,
-              "UnaryOp": unary}[opclass]
-        op = getattr(ns, op)
     if not isinstance(op, OpBase) or op.opclass != opclass:
         raise TypeError(f"expected a {opclass}; got {op!r}")
     return op[dtype]

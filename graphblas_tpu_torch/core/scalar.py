@@ -1,11 +1,13 @@
-"""Scalar: a 0-d (value, valid) store (graphblas_tpu/core/scalar.py, the
-part the SpMV slice uses)."""
+"""Scalar: a 0-d (value, valid) store (graphblas_tpu/core/scalar.py: its
+construction, ``value``, ``get`` and ``clear``).  What the JAX package's
+Scalar has and the port lacks raises NotImplementedError naming its
+ROADMAP.md item."""
 
 import numpy as np
 import torch
 
 from . import config as _config
-from .base import BaseType
+from .base import BaseType, NotPorted
 from .dtypes import FP64, UINT32, lookup_dtype
 
 
@@ -59,3 +61,18 @@ class Scalar(BaseType):
 
     def __repr__(self):
         return f"Scalar({self.value!r}, dtype={self.dtype.name})"
+
+    def get(self, default=None):
+        return default if self.is_empty else self.value
+
+    # the JAX package's Scalar surface that is not ported yet
+    apply = NotPorted(12)
+    select = NotPorted(12)
+    ewise_add = NotPorted(12)
+    ewise_mult = NotPorted(12)
+    ewise_union = NotPorted(12)
+    dup = NotPorted(12)
+    isequal = NotPorted(12)
+    isclose = NotPorted(12)
+    is_cscalar = NotPorted(12)
+    is_grbscalar = NotPorted(12)

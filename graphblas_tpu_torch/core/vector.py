@@ -1,6 +1,9 @@
 """Vector: a dense (values, valid) store on the configured device
-(graphblas_tpu/core/vector.py, the methods PageRank, BFS, SSSP and
-triangle counting call)."""
+(graphblas_tpu/core/vector.py): construction and export, extract, assign
+and delete by index (core/collection.py), membership and iteration, the
+products, element-wise operations, apply, select and reduce.  What the JAX
+package's Vector has and the port lacks raises NotImplementedError naming
+its ROADMAP.md item."""
 
 import numpy as np
 import torch
@@ -8,8 +11,8 @@ import torch
 from . import config as _config
 from . import dtypes as _dt
 from ..exceptions import DimensionMismatch, EmptyObject
-from .base import BaseExpression, BaseType
-from .collection import apply_expr, ewise_expr, select_expr
+from .base import BaseExpression, InfixStubs, NotPorted
+from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 
@@ -29,7 +32,7 @@ def _unify(a, b):
                                                             b.np_type))
 
 
-class Vector(BaseType):
+class Vector(InfixStubs, Collection):
     ndim = 1
 
     def __init__(self, dtype=_dt.FP64, size=0, *, name=None):
@@ -202,39 +205,28 @@ class Vector(BaseType):
 
     # ------------------------------------------------------------------ #
     # operations
-    def _check_index(self, index):
-        i = int(index)
-        if not -self.size <= i < self.size:
-            raise IndexError(f"index {i} out of range for size {self.size}")
-        return i % self.size
-
-    def __setitem__(self, index, value):
-        """``v[i] = value``: set one element (an empty Scalar deletes it)."""
+    def _extract_expr(self, resolver, input_mask=None):
+        """v[i] (a Scalar) or v[idx] (a Vector; idx may repeat)."""
+        from . import execute
         from .scalar import Scalar
 
-        if not isinstance(index, (int, np.integer)):
-            raise NotImplementedError(
-                "only single-element assignment v[i] = s is in the PyTorch "
-                "port yet (ROADMAP.md queue 1, item 10)")
-        i = self._check_index(index)
-        if not isinstance(value, Scalar):
-            value = Scalar.from_value(value, self.dtype)
-        # stores may be shared between collections: write into copies
-        vals, valid = self._vals.clone(), self._valid.clone()
-        valid[i] = value._valid.to(self.device)
-        vals[i] = _dt.normalize(value._vals.to(self.device), self.dtype)
-        self._set_store(vals, valid)
-
-    def __getitem__(self, index):
-        if isinstance(index, (int, np.integer)):
-            from .scalar import Scalar
-
+        (ix,) = resolver.indices
+        if input_mask is not None and \
+                tuple(input_mask.parent.shape) != self.shape:
+            raise DimensionMismatch("input_mask shape must match the "
+                                    "collection")
+        if ix.is_scalar:  # the JAX package reads no input mask here
             return BaseExpression("extract_element", None, [self],
-                                  self.dtype, (), Scalar,
-                                  (self._check_index(index),))
-        raise NotImplementedError(
-            "only element extraction v[i] is in the PyTorch port yet "
-            "(ROADMAP.md queue 1, item 10)")
+                                  self.dtype, (), Scalar, (ix.index,))
+        vec_axis = None if input_mask is None else \
+            execute.input_mask_axis("vec", self, input_mask)
+        return BaseExpression("extract", None, [self], self.dtype,
+                              (ix.size,), Vector,
+                              ("vec", [ix], input_mask, vec_axis))
+
+    def __iter__(self):
+        """The indices of the stored elements, in order."""
+        return iter(np.nonzero(self._valid.cpu().numpy())[0].tolist())
 
     def vxm(self, other, op="plus_times"):
         """Row vector times matrix (graphblas_tpu vector.py vxm)."""
@@ -305,3 +297,13 @@ class Vector(BaseType):
         mono = typed(op, self.dtype, "Monoid")
         return BaseExpression("reduce", mono, [self], mono.return_type, (),
                               Scalar, (bool(allow_empty),))
+
+    # the JAX package's Vector surface that is not ported yet
+    build = NotPorted(12)
+    from_dict = NotPorted(12)
+    to_dict = NotPorted(12)
+    from_pairs = NotPorted(12)
+    resize = NotPorted(12)
+    outer = NotPorted(12)
+    reposition = NotPorted(11)
+    ss = NotPorted(12)

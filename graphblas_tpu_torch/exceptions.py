@@ -1,9 +1,10 @@
 """``graphblas_tpu_torch.exceptions``: the error classes the port raises
 (graphblas_tpu/exceptions.py).  The two that the port used to raise as
-``ValueError`` subclass it, so either name catches them."""
+``ValueError`` subclass it, and ``IndexOutOfBound`` subclasses
+``IndexError``, so either name catches them."""
 
 __all__ = ["GraphblasException", "DimensionMismatch", "EmptyObject",
-           "OutOfMemory"]
+           "IndexOutOfBound", "OutOfMemory"]
 
 
 class GraphblasException(Exception):
@@ -19,4 +20,8 @@ class EmptyObject(GraphblasException):
 
 
 class OutOfMemory(GraphblasException):
+    pass
+
+
+class IndexOutOfBound(GraphblasException, IndexError):
     pass

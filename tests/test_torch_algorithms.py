@@ -111,12 +111,12 @@ def test_bfs_level_unreachable(cpu, rng):
 
 
 def test_what_waits_is_not_stubbed():
-    """What still waits is absent or raises naming its ROADMAP.md item:
-    ``connected_components`` (extract by index lists) and ``bfs_parent``
-    (the positional multiplies)."""
-    assert talg.__all__ == ["bfs_level", "bfs_parent", "pagerank", "sssp",
+    """What still waits raises naming its ROADMAP.md item: ``bfs_parent``
+    (the positional multiplies).  ``connected_components`` is ported."""
+    assert talg.__all__ == ["bfs_level", "bfs_parent",
+                            "connected_components", "pagerank", "sssp",
                             "triangle_count"]
-    assert not hasattr(talg, "connected_components")
+    assert sorted(talg.__all__) == sorted(jalg.__all__)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         talg.bfs_parent(None)
 
@@ -239,3 +239,51 @@ def test_nothing_densifies():
         for a, b in zip(g[:-1], w[:-1]):
             assert np.array_equal(a, b)
         assert np.allclose(g[-1], w[-1], rtol=1e-12, atol=0)
+
+
+# --------------------------------------------------------------------- #
+# connected_components (FastSV: min_second hooking, f[parents] shortcut)
+def components_ref(src, dst, n):
+    """scipy's weakly connected components, each labelled by its smallest
+    vertex id."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import connected_components
+
+    G = sps.coo_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    _, lab = connected_components(G, directed=True, connection="weak")
+    smallest = np.full(lab.max() + 1, n)
+    np.minimum.at(smallest, lab, np.arange(n))
+    return smallest[lab]
+
+
+def components_graph(name):
+    if name == "zipf":
+        src, dst = bench.build_graph(2000, 8)
+        return src, dst, 2000
+    rng = np.random.default_rng(7)  # 1500 nodes, 600 edges: many pieces
+    n = 1500
+    return rng.integers(0, n, 600), rng.integers(0, n, 600), n
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("name", ["zipf", "forest"])
+def test_connected_components(name, sparse):
+    src, dst, n = components_graph(name)
+    ref = components_ref(src, dst, n)
+    limit = 0 if sparse else 1 << 22
+    with gbt.config.set(device="cpu", auto_sparse_limit=limit):
+        tA = gbt.Matrix.from_coo(src, dst, 1, dtype="BOOL", nrows=n,
+                                 ncols=n, dup_op="lor")
+        assert (tA._sparse is not None) == sparse
+        got = talg.connected_components(tA)
+    with gbj.config.set(auto_sparse_limit=limit):
+        jA = gbj.Matrix.from_coo(src, dst, 1, dtype="BOOL", nrows=n, ncols=n,
+                                 dup_op=gbj.binary.lor)
+        want = jalg.connected_components(jA)
+    assert got.dtype.name == want.dtype.name == "INT64"
+    gi, gv = got.to_coo()
+    wi, wv = want.to_coo()
+    assert np.array_equal(gi, wi) and np.array_equal(gi, np.arange(n))
+    assert np.array_equal(gv, wv) and np.array_equal(gv, ref)
+    if name == "forest":
+        assert len(np.unique(ref)) == 900  # many isolated and small ones

@@ -758,3 +758,57 @@ def test_sparse_engine_matches_cpu(cuda):
             continue
         np.testing.assert_allclose(gc[-1], wc[-1], rtol=1e-12, atol=0,
                                    err_msg=str(i))
+
+
+# --------------------------------------------------------------------- #
+# extract, assign and delete by index lists, and connected_components
+# (torch ops, no kernel of their own) on the card against the same calls
+# on the CPU, which tests/test_torch_index.py holds against the JAX package
+def _index_results(device, backing):
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(13)
+    n = 400
+    r = rng.integers(0, n, 4000)
+    c = (rng.zipf(1.6, 4000) - 1) % n
+    rows = np.sort(rng.choice(n, 150, replace=False))
+    cols = rng.choice(n, 120, replace=False)
+    dup = rng.integers(0, n, 90)
+    limit = {"auto_sparse_limit": 0} if backing == "sparse" else {}
+    with gb.config.set(device=device, **limit):
+        A = gb.Matrix.from_coo(r, c, rng.integers(-9, 9, 4000),
+                               dtype="INT64", nrows=n, ncols=n,
+                               dup_op=gb.binary.plus)
+        M = A.select(gb.select.tril).new()
+        out = [A[rows, cols].new(), A[cols, rows].new(), A[7, :].new(),
+               A[:, int(c[0])].new(), A[rows, 3].new()]
+        B = A[rows, cols].new().apply(gb.binary.times, right=2).new()
+        C = A.dup()
+        C(accum=gb.binary.plus)[rows, cols] << B
+        D = A.dup()
+        D(M.S, replace=True)[rows, cols] << B
+        E = A.dup()
+        E[rows, cols](B.V) << 5
+        F = A.dup()
+        del F[rows, cols]
+        out += [C, D, E, F]
+        f = gb.Vector.from_dense(rng.integers(0, n, n))
+        out.append(f[dup].new())
+        f[dup] = -1
+        f(accum=gb.binary.min) << f[rng.integers(0, n, n)]
+        out += [f, gb.algorithms.connected_components(A)]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backing", ["sparse", "dense"])
+def test_index_and_components_match_cpu(cuda, backing):
+    """Exact: every value is a copy or one accumulate of integers."""
+    got = _index_results("cuda", backing)
+    want = _index_results("cpu", backing)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if backing == "sparse" and g.ndim == 2:
+            assert g._sparse is not None, i
+        for a, b in zip(g.to_coo(), w.to_coo()):
+            assert np.array_equal(a, b), i
