@@ -72,7 +72,20 @@ engine) from the sources, then:
    del C[rows, cols], and on vectors of 2**19 f[parents] (repeated
    indices) and v[idx] = s (2**17 indices), each exactly against numpy,
    with its time (median of 5) and idle share.  None of the seven kernels
-   may launch in it.
+   may launch in it;
+11. positional operators, aggregators, kronecker and reposition (phase
+   `positional_agg`): bfs_parent on the zipf graph and on bench.py's RMAT
+   graph (scale 17), exactly against numpy's BFS parents (the smallest
+   in-neighbour on the level before); the triangle witness C(L.S) << L
+   min_secondi L.T on RMAT 17 by the masked dot, its structure against
+   plus_pair's and 10,000 values against numpy's intersections; a
+   Gustavson min_firsti A @ A on the hypersparse graph; positional apply
+   on the zipf matrix; eleven aggregators rowwise and columnwise and three
+   reduce_scalar on a dense-backed 8192 x 8192 FP32 matrix against numpy
+   in float64; kronecker to 8192 x 8192 against np.kron; reposition of
+   that matrix and of a vector of 2**19 against numpy slicing.  Each call
+   with its time (median of 3, of 5 under 10 ms), idle share and peak
+   memory; none of the seven kernels may launch in it.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -2041,9 +2054,303 @@ def index_phase(gb, torch, K, src, dst, w, n, results, totals):
     results["index"] = out
 
 
+def bfs_parent_ref(src, dst, n):
+    """BFS parents from node 0: each reached node's smallest in-neighbour
+    on the level before it (bfs_ref's levels); node 0 is its own."""
+    lev, depth = bfs_ref(src, dst, n)
+    e = (lev[src] > 0) & (lev[dst] == lev[src] + 1)
+    parent = np.full(n, n, np.int64)
+    np.minimum.at(parent, dst[e], src[e])
+    parent[0] = 0
+    reached = np.flatnonzero(lev > 0)
+    return reached, parent[reached], depth
+
+
+def hypersparse_graph():
+    """hypersparse_phase's digraph: n = 2**22, 2**21 uniform edges."""
+    n, m = 1 << 22, 1 << 21
+    rng = np.random.default_rng(SEED + 2)
+    lin = np.unique(rng.integers(0, n, int(m * 1.01)) * n
+                    + rng.integers(0, n, int(m * 1.01)))
+    lin = np.sort(rng.choice(lin, m, replace=False))
+    return lin // n, lin % n, n
+
+
+def two_hop_ref(r, c, n):
+    """(rows, cols) of A @ A's structure, sorted, by a numpy expansion."""
+    indptr = np.searchsorted(r, np.arange(n + 1))
+    deg = np.diff(indptr)
+    cnt = deg[c]
+    e = np.repeat(np.arange(len(r)), cnt)
+    t = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    j = c[indptr[c[e]] + t]
+    lin = np.unique(r[e] * n + j)
+    return lin // n, lin % n
+
+
+def shifted(a, ro, co):
+    """a moved by ro rows and co columns, what falls outside dropped."""
+    out = np.zeros_like(a)
+    (h, w) = a.shape
+    rows = (max(ro, 0), min(h, h + ro))
+    cols = (max(co, 0), min(w, w + co))
+    if rows[1] > rows[0] and cols[1] > cols[0]:
+        out[rows[0]:rows[1], cols[0]:cols[1]] = \
+            a[rows[0] - ro:rows[1] - ro, cols[0] - co:cols[1] - co]
+    return out
+
+
+def positional_agg_phase(gb, torch, K, src, dst, n, results, totals):
+    """Positional operators, aggregators, kronecker and reposition at full
+    size: bfs_parent on the zipf graph and on bench.py's RMAT graph (scale
+    17), exact against numpy's BFS parents; the triangle witness
+    C(L.S) << L min_secondi L.T by the masked dot, its structure against
+    plus_pair's and 10,000 values against numpy's intersections; a
+    Gustavson min_firsti A @ A on the hypersparse graph against a numpy
+    expansion; positional apply on the zipf matrix; eleven aggregators
+    rowwise and columnwise and three reduce_scalar on a dense-backed
+    8192 x 8192 FP32 matrix against numpy in float64 (counts and indices
+    exactly, the rest within rel 1e-5); kronecker to 8192 x 8192 against
+    np.kron; reposition of a matrix and a vector against numpy slicing.
+    All of it is torch ops: it fails if any of the seven kernels launches.
+    Each call's time is the median of 3 runs (5 under 10 ms), with its
+    device idle share and its peak memory."""
+    from graphblas_tpu_torch.core import execute as ex
+
+    out = {}
+
+    def run(name, fn, check, ranges=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts(K)
+        got, ms, runs, first_s = timed_calls(torch, fn, reps=3)
+        if ms < 10:
+            runs += timed_calls(torch, fn, reps=2)[2]
+            ms = float(np.median(runs))
+        peak = torch.cuda.max_memory_allocated() - before
+        launched = check_launches(K, name, totals, need=())
+        if any(launched.values()):
+            fail(f"{name}: a kernel launched where none should: {launched}")
+        info = check(got) or {}
+        prof = profile_breakdown(torch, fn, name, ms, ranges=ranges)
+        if prof["device_busy_ms"] == 0:  # a profile that saw no device
+            log(f"  {name}: the profile saw no device time; once more")
+            prof = profile_breakdown(torch, fn, name, ms, ranges=ranges)
+        log(f"  {name}: ms {runs} (median {ms:.4f}), first call "
+            f"{first_s:.2f} s, peak memory {peak / 1e9:.3f} GB {info}")
+        out[name] = {"ms": ms, "ms_runs": runs, "first_call_s": first_s,
+                     "peak_memory_bytes": int(peak), "profile": prof, **info}
+        return got, prof
+
+    def check_coo(name, got, want):
+        for k, (g, w) in enumerate(zip(got.to_coo(), want)):
+            if not np.array_equal(g.astype(np.asarray(w).dtype), w):
+                fail(f"{name}: part {k} of to_coo differs from numpy's "
+                     f"({len(g)} vs {len(w)} entries)")
+
+    # 1. bfs_parent
+    rs, rd, rn = build_rmat(17)
+    for tag, (gs, gd, gn) in (("zipf", (src, dst, n)), ("rmat17",
+                                                       (rs, rd, rn))):
+        reached, par, depth = bfs_parent_ref(gs, gd, gn)
+        G = gb.Matrix.from_coo(gs, gd, np.ones(len(gs), np.float32),
+                               dtype="FP32", nrows=gn, ncols=gn)
+
+        def check_parent(p, reached=reached, par=par, depth=depth, tag=tag):
+            check_coo(f"bfs_parent {tag}", p, (reached, par))
+            return {"levels": int(depth), "reached": int(len(reached)),
+                    "nnz": int(len(gs))}
+
+        run(f"bfs_parent {tag}", lambda G=G: gb.algorithms.bfs_parent(G, 0),
+            check_parent)
+        del G
+
+    # 2. the triangle witness on RMAT 17
+    G = gb.Matrix.from_coo(rs, rd, np.ones(len(rs), bool), dtype="BOOL",
+                           nrows=rn, ncols=rn)
+    S = G.apply(gb.unary.one).new(dtype="INT64")
+    S(accum=gb.binary.max) << G.T.new(dtype="INT64").apply(gb.unary.one)
+    L = S.select(gb.select.tril, -1).new(name="L")
+    del G, S
+    lin = np.unique(np.concatenate([rs * rn + rd, rd * rn + rs]))
+    lr, lc = lin // rn, lin % rn
+    low = lr > lc
+    lr, lc = lr[low], lc[low]
+    l_ptr = np.searchsorted(lr, np.arange(rn + 1))
+
+    def witness():
+        C = gb.Matrix("INT64", rn, rn)
+        C(L.S) << L.mxm(L.T, gb.semiring.ss.min_secondi)
+        return C
+
+    P = gb.Matrix("INT64", rn, rn)
+    P(L.S) << L.mxm(L.T, gb.semiring.plus_pair)
+    pr_, pc_, _ = P.to_coo()
+    del P
+
+    def check_witness(C):
+        cr, cc, cv = C.to_coo()
+        if not (np.array_equal(cr, pr_) and np.array_equal(cc, pc_)):
+            fail(f"triangle witness: structure differs from plus_pair's "
+                 f"({len(cr)} vs {len(pr_)} entries)")
+        pick = np.random.default_rng(12).choice(len(cr), min(10000, len(cr)),
+                                                replace=False)
+        for p in pick:
+            i, j = int(cr[p]), int(cc[p])
+            common = np.intersect1d(lc[l_ptr[i]:l_ptr[i + 1]],
+                                    lc[l_ptr[j]:l_ptr[j + 1]],
+                                    assume_unique=True)
+            if not len(common) or int(cv[p]) != int(common[0]):
+                fail(f"triangle witness: C[{i}, {j}] = {cv[p]}, numpy "
+                     f"{common[:1]}")
+        return {"entries": int(len(cr)), "checked": int(len(pick))}
+
+    _, prof = run("triangle witness min_secondi", witness, check_witness,
+                  ranges=ex.spgemm_record)
+    if len(prof["ranges"]) != 1:
+        fail(f"triangle witness: {len(prof['ranges'])} SpGEMM ranges, not 1")
+    rec = prof["ranges"][0]
+    log(f"  triangle witness's mxm: {rec['formulation']} with "
+        f"{rec['terms']} terms (Gustavson {rec['gustavson_terms']}, dot "
+        f"{rec['dot_terms']})")
+    out["triangle witness min_secondi"]["spgemm"] = rec
+    del L
+
+    # 3. Gustavson SpGEMM with a positional multiply
+    hr, hc, hn = hypersparse_graph()
+    H = gb.Matrix.from_coo(hr, hc, np.ones(len(hr), np.float32),
+                           dtype="FP32", nrows=hn, ncols=hn)
+    tr, tc = two_hop_ref(hr, hc, hn)
+    run("hypersparse A @ A min_firsti",
+        lambda: H.mxm(H, gb.semiring.ss.min_firsti).new(),
+        lambda C: check_coo("hypersparse min_firsti", C, (tr, tc, tr))
+        or {"entries": int(len(tr))}, ranges=ex.spgemm_record)
+    del H
+
+    # 4. positional apply on the zipf matrix
+    Z = gb.Matrix.from_coo(src, dst, np.ones(len(src), np.float32),
+                           dtype="FP32", nrows=n, ncols=n)
+    run("apply binary.ss.firstj, right=0",
+        lambda: Z.apply(gb.binary.ss.firstj, right=0).new(),
+        lambda C: check_coo("apply firstj", C, (src, dst, dst)))
+    run("apply unary.ss.positioni",
+        lambda: Z.apply(gb.unary.ss.positioni).new(),
+        lambda C: check_coo("apply positioni", C, (src, dst, src)))
+    del Z
+
+    # 5. aggregators on a dense-backed 8192 x 8192 FP32 matrix
+    rng = np.random.default_rng(12)
+    d = (rng.random((APSP_N, APSP_N), dtype=np.float32)
+         + np.float32(0.05))
+    keep = d.astype(np.float64) > 0.55  # the thunk's FP64 compares
+    D = gb.Matrix.from_dense(d).select("valuegt", 0.55).new()
+    if D._sparse is not None:
+        fail("aggregators: the matrix is not dense-backed")
+    d64 = np.where(keep, d.astype(np.float64), np.nan)
+    cnt = keep.sum(axis=None)
+
+    def stats(axis):
+        c = keep.sum(axis=axis)
+        s = np.nansum(d64, axis=axis)
+        mean = s / c
+        var = np.nanvar(d64, axis=axis)
+        big = np.where(keep, d, np.inf)
+        small = np.where(keep, d, -np.inf)
+        idx = np.arange(APSP_N)
+        first = np.argmax(keep, axis=axis)
+        last = APSP_N - 1 - np.argmax(np.flip(keep, axis=axis), axis=axis)
+        take = (lambda k: d[idx, k]) if axis == 1 else (lambda k: d[k, idx])
+        return {
+            "count": (c, None), "sum": (s, 1e-5), "mean": (mean, 1e-5),
+            "varp": (var, 1e-5),
+            "stds": (np.sqrt(var * c / np.maximum(c - 1, 1)), 1e-5),
+            "L2norm": (np.sqrt(np.nansum(d64 * d64, axis=axis)), 1e-5),
+            "peak_to_peak": (np.nanmax(d64, axis=axis)
+                             - np.nanmin(d64, axis=axis), 1e-5),
+            "argmin": (np.argmin(big, axis=axis), None),
+            "argmax": (np.argmax(small, axis=axis), None),
+            "first": (take(first), None), "last": (take(last), None)}
+
+    def check_values(name, got, want, rel):
+        got = np.asarray(got)
+        if rel is None:
+            if not np.array_equal(got.astype(np.asarray(want).dtype), want):
+                fail(f"{name}: differs from numpy")
+            return 0.0
+        err = np.abs(got.astype(np.float64) - want)
+        if not (err <= rel * np.abs(want)).all():
+            fail(f"{name}: beyond rel {rel} of numpy (max abs err "
+                 f"{float(err.max())})")
+        return float(err.max())
+
+    for axis, method in ((1, "reduce_rowwise"), (0, "reduce_columnwise")):
+        ref = stats(axis)
+        for name, (want, rel) in ref.items():
+            agg = getattr(gb.agg.ss if name in ("argmin", "argmax", "first",
+                                                "last") else gb.agg, name)
+
+            def check_agg(v, want=want, rel=rel, name=name, method=method):
+                idx, vals = v.to_coo()
+                if len(idx) != APSP_N:
+                    fail(f"{method} {name}: {len(idx)} entries")
+                return {"max_abs_err": check_values(f"{method} {name}",
+                                                    vals, want, rel)}
+
+            run(f"{method} agg.{name}",
+                lambda agg=agg, method=method: getattr(D, method)(agg).new(),
+                check_agg)
+    var_all = np.nanvar(d64)
+    for name, want, rel in (("count", cnt, None),
+                            ("mean", np.nansum(d64) / cnt, 1e-5),
+                            ("stdp", np.sqrt(var_all), 1e-5)):
+        run(f"reduce_scalar agg.{name}",
+            lambda name=name: D.reduce_scalar(getattr(gb.agg, name)).new(),
+            lambda s, name=name, want=want, rel=rel: {
+                "max_abs_err": check_values(f"reduce_scalar {name}",
+                                            s.value, want, rel)})
+
+    # 6. kronecker to 8192 x 8192
+    ka = rng.random((64, 128), dtype=np.float32)
+    kb = rng.random((128, 64), dtype=np.float32)
+    ka_ok = rng.random(ka.shape) < 0.5
+    kb_ok = rng.random(kb.shape) < 0.5
+    KA = gb.Matrix.from_coo(*np.nonzero(ka_ok), ka[ka_ok], dtype="FP32",
+                            nrows=64, ncols=128)
+    KB = gb.Matrix.from_coo(*np.nonzero(kb_ok), kb[kb_ok], dtype="FP32",
+                            nrows=128, ncols=64)
+    k_ok = np.kron(ka_ok.astype(np.int8), kb_ok.astype(np.int8)) > 0
+    k_vals = np.kron(ka, kb)
+    kr, kc = np.nonzero(k_ok)
+    run("kronecker 64x128 (x) 128x64 times",
+        lambda: KA.kronecker(KB, gb.binary.times).new(),
+        lambda C: check_coo("kronecker", C, (kr, kc, k_vals[kr, kc]))
+        or {"entries": int(len(kr))})
+    del k_ok, k_vals, kr, kc
+
+    # 7. reposition
+    sh, sv = shifted(keep, 1000, -3000), shifted(d, 1000, -3000)
+    rr, rc = np.nonzero(sh)
+    run("reposition matrix (+1000, -3000)",
+        lambda: D.reposition(1000, -3000).new(),
+        lambda C: check_coo("reposition matrix", C, (rr, rc, sv[rr, rc]))
+        or {"entries": int(len(rr))})
+    nv = 1 << 19
+    vi = np.flatnonzero(rng.random(nv) < 0.5)
+    vv = rng.integers(-99, 99, len(vi))
+    V = gb.Vector.from_coo(vi, vv, dtype="INT64", size=nv)
+    keep_v = vi >= 7
+    run("reposition vector -7", lambda: V.reposition(-7).new(),
+        lambda v: check_coo("reposition vector", v,
+                            (vi[keep_v] - 7, vv[keep_v])))
+    out["shapes"] = {"aggregate_matrix": [APSP_N, APSP_N],
+                     "aggregate_nvals": int(cnt), "vector_size": nv}
+    results["positional_agg"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
           "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
-          "index")
+          "index", "positional_agg")
 
 
 def main():
@@ -2150,6 +2457,10 @@ def main():
         if "index" in phases:
             log("phase: index")
             index_phase(gb, torch, K, src, dst, w, n, results, totals)
+
+        if "positional_agg" in phases:
+            log("phase: positional_agg")
+            positional_agg_phase(gb, torch, K, src, dst, n, results, totals)
 
     kernels = []
     for name, row in results.get("kernels", {}).items():

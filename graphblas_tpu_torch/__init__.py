@@ -16,9 +16,11 @@ matrices (``from_dense``, and every matrix of at most
 hand-written CUDA kernels for the H100 in all).  Dense vectors, masks,
 extract, assign and delete by index lists (``A[rows, cols]``,
 ``C(mask, accum)[idx] << v``, ``C[idx](mask) << v``, ``del C[idx]``),
-membership and iteration, ``ss.iterate`` and the algorithms ``sssp``,
-``bfs_level``, ``pagerank``, ``connected_components`` and
-``triangle_count`` run on both backings.  Operators may be given as the
+membership and iteration, the positional operators (``binary.ss``,
+``unary.ss``, ``semiring.ss``) in every context, the aggregators
+(``agg``), ``kronecker``, ``reposition``, ``ss.iterate`` and the
+algorithms ``sssp``, ``bfs_level``, ``bfs_parent``, ``pagerank``,
+``connected_components`` and ``triangle_count`` run on both backings.  Operators may be given as the
 JAX package's strings (``"+"``, ``"min_plus[FP64]"``).  Everything runs
 on ``cuda`` unless the caller asks for the CPU with
 ``config.set(device="cpu")``.  What is not ported yet raises
@@ -44,8 +46,8 @@ class _ReplaceSingleton:
 
 replace = _ReplaceSingleton()
 
-from . import (binary, dtypes, exceptions, indexunary, monoid,  # noqa: E402
-               select, semiring, ss, unary)
+from . import (agg, binary, dtypes, exceptions, indexunary,  # noqa: E402
+               monoid, select, semiring, ss, unary)
 from .core.config import config  # noqa: E402
 from .core.matrix import Matrix  # noqa: E402
 from .core.scalar import Scalar  # noqa: E402
@@ -54,12 +56,13 @@ from .exceptions import GraphblasException  # noqa: E402
 
 from . import algorithms  # noqa: E402  (imports Vector from this package)
 
-__all__ = ["Matrix", "Vector", "Scalar", "config", "algorithms", "binary",
-           "dtypes", "exceptions", "GraphblasException", "indexunary",
-           "monoid", "replace", "select", "semiring", "ss", "unary"]
+__all__ = ["Matrix", "Vector", "Scalar", "config", "agg", "algorithms",
+           "binary", "dtypes", "exceptions", "GraphblasException",
+           "indexunary", "monoid", "replace", "select", "semiring", "ss",
+           "unary"]
 
 # the JAX package's names that the port lacks, and their ROADMAP.md items
-_NOT_PORTED = {"agg": 11, "io": 12, "op": 12, "viz": 12, "Recorder": 12,
+_NOT_PORTED = {"io": 12, "op": 12, "viz": 12, "Recorder": 12,
                "backend": 12, "init": 12, "parallel": 13}
 
 

@@ -1,12 +1,12 @@
 """Graph algorithms built on the GraphBLAS surface
 (graphblas_tpu/algorithms/): the ones whose operations the port has.
 
-``sssp``, ``bfs_level``, ``pagerank`` (FP64, ``diag().mxm``),
+``sssp``, ``bfs_level``, ``bfs_parent`` (the positional ring
+``min_secondi``), ``pagerank`` (FP64, ``diag().mxm``),
 ``connected_components`` (FastSV: ``min_second`` hooking and pointer
 jumping by extract) and ``triangle_count`` (the masked dot ``C<L> = L
 plus_pair L.T``) run as in the JAX package, sparse-backed or
-dense-backed.  ``bfs_parent`` raises until the positional semirings are
-ported (ROADMAP.md queue 1, item 9).
+dense-backed.
 """
 
 from .bfs import bfs_level, bfs_parent

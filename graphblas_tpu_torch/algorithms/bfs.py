@@ -1,7 +1,10 @@
 """Breadth-first search (graphblas_tpu/algorithms/bfs.py).
 
-Per level: a masked scalar assign, a masked ``lor_land`` vxm and a ``lor``
-reduce that is read on the host.
+Level BFS, per level: a masked scalar assign, a masked ``lor_land`` vxm
+and a ``lor`` reduce that is read on the host.  Parent BFS, per level: a
+masked ``min_secondi`` vxm (the positional multiply gives each edge's
+source), its ``nvals`` read on the host, and a masked copy into the
+parents.
 """
 
 from .. import Vector, dtypes, monoid, semiring
@@ -28,8 +31,21 @@ def bfs_level(A, source=0):
 
 
 def bfs_parent(A, source=0):
-    """Parent of each reachable node in a BFS tree.  Needs the positional
-    semiring ``min_secondi``, which the port does not have yet."""
-    raise NotImplementedError(
-        "bfs_parent needs the positional semiring min_secondi: ROADMAP.md "
-        "queue 1, item 9")
+    """Parent of each reachable node in a BFS tree (the source is its own
+    parent): the smallest node of the previous level with an edge to it.
+
+    Returns an INT64 Vector; unreachable nodes have no entry.
+    """
+    n = A.nrows
+    parent = Vector(dtypes.INT64, n, name="parent")
+    parent[source] = source
+    q = Vector(dtypes.INT64, n, name="frontier")
+    q[source] = source
+    ring = semiring.ss.min_secondi
+    while True:
+        # secondi(q[k], A[k, j]) is k: the smallest frontier node k -> j
+        q(~parent.S, replace=True) << q.vxm(A, ring)
+        if q.nvals == 0:
+            break
+        parent(q.S) << q
+    return parent

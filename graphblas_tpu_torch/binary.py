@@ -1,5 +1,5 @@
 """``graphblas_tpu_torch.binary``: the builtin binary operators of the port.
-The positional ones (``firsti``, ``firstj``, ``secondi``, ``secondj``) live
+The eight positional ones (``firsti``, ``firsti1``, ... ``secondj1``) live
 under ``binary.ss``, as in the JAX package.  An operator of the JAX
 package that the port lacks raises NotImplementedError."""
 
@@ -17,7 +17,7 @@ REFERENCE_NAMES = frozenset((
     "second", "times", "truediv", "numpy"))
 REFERENCE_SS_NAMES = frozenset((
     "firsti", "firsti1", "firstj", "firstj1", "secondi", "secondi1",
-    "secondj", "secondj1"))
+    "secondj", "secondj1", "register_new"))
 
 _plain = {k: v for k, v in _B.items() if v._positional is None}
 globals().update(_plain)

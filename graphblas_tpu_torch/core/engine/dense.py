@@ -1,14 +1,19 @@
 """Bitmap (values, valid) engine over tensors
 (graphblas_tpu/core/engine/dense.py): masks, apply, element-wise
-operations, monoid reduces, the semiring matmul family, transpose and
-diagonals, extract and scatter by index lists, and the mask/accum/replace
-write-back and subassign.
+operations, monoid and aggregator reduces, the semiring matmul family,
+the Kronecker product, transpose, diagonals and reposition, extract and
+scatter by index lists, and the mask/accum/replace write-back and
+subassign.
 
-A positional multiply takes its index from the pair ``(i, k, j)`` it is
-applied to in a product.  PyTorch runs eagerly, so the blocked product is a
+A positional operator takes its value from positions, given as the
+``pos`` dict of int64 tensors that broadcast against the values: an
+element's ``i`` and ``j`` (apply, element-wise operations, the
+write-back's accum), or a product's ``i``, ``k`` and ``j`` for the pair
+``a(i, k) b(k, j)``.  PyTorch runs eagerly, so the blocked product is a
 Python loop where the JAX package traces a ``lax.scan``.
 """
 
+import numpy as np
 import torch
 
 from .. import dtypes as _dt
@@ -33,35 +38,65 @@ def _iota(shape, dim, device, start=0):
                         device=device).reshape(view)
 
 
-def apply_binop(op, x_vals, x_dt, y_vals, y_dt):
-    """Apply a typed BinaryOp with casting; result in op.return_type."""
+def pos_for(shape, device):
+    """The ``i`` and ``j`` of every element of a store of shape, as
+    broadcast views (the JAX package's execute._pos_for): a vector's j is
+    0, and so are a scalar's i and j."""
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    if len(shape) == 0:
+        return {"i": zero, "j": zero}
+    return {"i": _iota(shape, 0, device),
+            "j": _iota(shape, 1, device) if len(shape) > 1 else zero}
+
+
+# the index a positional op's key names: of an element, or of a product's
+# pair a(i, k) b(k, j)
+EWISE_MAP = {"ai": "i", "aj": "j", "bi": "i", "bj": "j", "i": "i", "j": "j"}
+MATMUL_MAP = {"ai": "i", "aj": "k", "bi": "k", "bj": "j"}
+
+
+def positional_value(op, pos, shape, context_map=EWISE_MAP):
+    """A positional op's result over shape: the index its key names, plus
+    its offset, in its return type."""
+    key, off = op._positional
+    out = (pos[context_map[key]] + off).expand(shape).contiguous()
+    return _dt.normalize(out, op.return_type)
+
+
+def apply_binop(op, x_vals, x_dt, y_vals, y_dt, pos=None,
+                context_map=EWISE_MAP):
+    """Apply a typed BinaryOp with casting; result in op.return_type.  A
+    positional op reads `pos` (see positional_value) and not the values."""
     if op._positional is not None:
-        raise NotImplementedError(
-            f"{op!r} outside a semiring is not in the PyTorch port yet "
-            f"(ROADMAP.md queue 1, item 11)")
+        shape = torch.broadcast_shapes(x_vals.shape, y_vals.shape)
+        return positional_value(op, pos, shape, context_map)
     x = st.cast_values(x_vals, x_dt, op.type)
     y = st.cast_values(y_vals, y_dt, op.type2)
     return op(x, y)
 
 
-def apply_unop(op, x_vals, x_dt):
+def apply_unop(op, x_vals, x_dt, pos=None):
+    if op._positional is not None:
+        return positional_value(op, pos, x_vals.shape)
     return op(st.cast_values(x_vals, x_dt, op.type))
 
 
-def apply_op(a_vals, a_valid, op, a_dt):
-    return apply_unop(op, a_vals, a_dt), a_valid
+def apply_op(a_vals, a_valid, op, a_dt, pos=None):
+    return apply_unop(op, a_vals, a_dt, pos=pos), a_valid
 
 
-def bound_vals(a_vals, op, a_dt, scalar_val, scalar_dt, left):
+def bound_vals(a_vals, op, a_dt, scalar_val, scalar_dt, left, pos=None):
     """op(s, a) (left) or op(a, s) for a 0-d scalar tensor s of scalar_dt."""
     s = scalar_val.to(a_vals.device).expand(a_vals.shape)
     if left:
-        return apply_binop(op, s, scalar_dt, a_vals, a_dt)
-    return apply_binop(op, a_vals, a_dt, s, scalar_dt)
+        return apply_binop(op, s, scalar_dt, a_vals, a_dt, pos=pos)
+    return apply_binop(op, a_vals, a_dt, s, scalar_dt, pos=pos)
 
 
-def apply_bound(a_vals, a_valid, op, a_dt, scalar_val, scalar_dt, left):
-    return bound_vals(a_vals, op, a_dt, scalar_val, scalar_dt, left), a_valid
+def apply_bound(a_vals, a_valid, op, a_dt, scalar_val, scalar_dt, left,
+                pos=None):
+    return bound_vals(a_vals, op, a_dt, scalar_val, scalar_dt, left,
+                      pos=pos), a_valid
 
 
 def indexunary_vals(a_vals, i, j, op, a_dt, thunk_val):
@@ -87,13 +122,16 @@ def select_op(a_vals, a_valid, op, a_dt, thunk_val, is_matrix, out_dt):
     return st.cast_values(a_vals, a_dt, out_dt), a_valid & pred
 
 
-def ewise_mult(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
-    return apply_binop(op, a_vals, a_dt, b_vals, b_dt), a_valid & b_valid
+def ewise_mult(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, pos=None):
+    return apply_binop(op, a_vals, a_dt, b_vals, b_dt, pos=pos), \
+        a_valid & b_valid
 
 
-def ewise_add(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, out_dt):
+def ewise_add(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, out_dt,
+              pos=None):
     both = a_valid & b_valid
-    combined = st.cast_values(apply_binop(op, a_vals, a_dt, b_vals, b_dt),
+    combined = st.cast_values(apply_binop(op, a_vals, a_dt, b_vals, b_dt,
+                                          pos=pos),
                               op.return_type, out_dt)
     a_pass = st.cast_values(a_vals, a_dt, out_dt)
     b_pass = st.cast_values(b_vals, b_dt, out_dt)
@@ -102,12 +140,14 @@ def ewise_add(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, out_dt):
     return vals, a_valid | b_valid
 
 
-def ewise_union(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, ldef, rdef):
+def ewise_union(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt, ldef, rdef,
+                pos=None):
     """ldef/rdef: 0-d tensors of op.type / op.type2 standing in for the
     missing side."""
     x = torch.where(a_valid, st.cast_values(a_vals, a_dt, op.type), ldef)
     y = torch.where(b_valid, st.cast_values(b_vals, b_dt, op.type2), rdef)
-    return apply_binop(op, x, op.type, y, op.type2), a_valid | b_valid
+    return apply_binop(op, x, op.type, y, op.type2, pos=pos), \
+        a_valid | b_valid
 
 
 def _fold(x, name, dim, mono, ident):
@@ -166,6 +206,95 @@ def reduce_monoid(vals, valid, mono, in_dt, axis=None):
     ident = st.identity_value_array(mono, mono.type, x.device)
     x = torch.where(valid, x, ident)
     return _fold(x, name, axis, mono, ident), out_valid
+
+
+def reduce_agg(vals, valid, spec, in_dt, ret_dt, axis=None):
+    """Aggregator reduce along `axis` (None: to a 0-d pair): map, monoid
+    reduce, finalize (core/operator/agg.py), with the JAX package's
+    formulas: variance as s2/n - mean**2 in float64, peak_to_peak as
+    max - min.  Returns (values in ret_dt, valid)."""
+    from ..operator.monoid import BUILTINS as monoids
+
+    name = spec.monoid_name
+    out_valid = valid.any() if axis is None else valid.any(dim=axis)
+    count = (valid.sum() if axis is None else valid.sum(dim=axis)).to(
+        torch.float64)
+    if spec.custom is not None:
+        return _dt.normalize(spec.custom(vals, valid, axis), ret_dt), \
+            out_valid
+    if spec.composite is not None:
+        # the children on the same input, then finalize of their results
+        accs = []
+        for child in spec.composite:
+            rr = child.ret_rule
+            child_ret = in_dt if rr is None else (rr(in_dt) if callable(rr)
+                                                  else rr)
+            accs.append(reduce_agg(vals, valid, child, in_dt, child_ret,
+                                   axis)[0])
+        return _dt.normalize(spec.finalize_fn(*accs, count), ret_dt), \
+            out_valid
+    if spec.index_kind is not None:
+        return _reduce_agg_index(vals, valid, spec.index_kind, in_dt, ret_dt,
+                                 axis), out_valid
+    if name == "minmax":  # peak_to_peak
+        mx, _ = reduce_monoid(vals, valid, monoids["max"][in_dt], in_dt, axis)
+        mn, _ = reduce_monoid(vals, valid, monoids["min"][in_dt], in_dt, axis)
+        return _dt.normalize(mx - mn, ret_dt), out_valid
+    if name in ("var_p", "var_s", "std_p", "std_s"):
+        xf = torch.where(valid, st.cast_values(vals, in_dt, _dt.FP64), 0.0)
+        dims = tuple(range(xf.dim())) if axis is None else (axis,)
+        s1 = xf.sum(dim=dims)
+        s2 = (xf * xf).sum(dim=dims)
+        mean = s1 / count
+        var = s2 / count - mean * mean
+        if name.endswith("_s"):
+            var = var * count / torch.clamp(count - 1, min=1)
+        res = torch.sqrt(var) if name.startswith("std") else var
+        return _dt.normalize(res, ret_dt), out_valid
+    mapped = spec.map_fn(vals)
+    # an identity map keeps the input's type (UINT32 is stored as int64)
+    mdt = in_dt if mapped is vals else _dt.lookup_dtype(mapped.dtype)
+    mono = (monoids[name] if isinstance(name, str) else name)[mdt]
+    acc, _ = reduce_monoid(mapped, valid, mono, mdt, axis)
+    if spec.finalize_fn is not None:
+        acc = spec.finalize_fn(acc, count)
+    return _dt.normalize(acc, ret_dt), out_valid
+
+
+def _reduce_agg_index(vals, valid, kind, in_dt, ret_dt, axis):
+    """first, last, their indices, argmin and argmax along axis: where an
+    extremum repeats, the smallest index.  argmin and argmax refuse BOOL
+    (np.iinfo raises), as in the JAX package."""
+    if axis is None:
+        return _reduce_agg_index(vals.reshape(-1), valid.reshape(-1), kind,
+                                 in_dt, ret_dt, 0)
+    shape = valid.shape
+    n = shape[axis]
+    out_shape = shape[:axis] + shape[axis + 1:]
+    if n == 0:
+        return torch.zeros(out_shape, dtype=ret_dt.torch_type,
+                           device=valid.device)
+    idx = _iota(shape, axis, valid.device)
+    if kind in ("first", "first_index"):
+        sel = torch.where(valid, idx, n).amin(dim=axis)
+    elif kind in ("last", "last_index"):
+        sel = torch.where(valid, idx, -1).amax(dim=axis)
+    else:
+        low = kind == "argmin"
+        if in_dt.is_float:
+            fill = float("inf") if low else float("-inf")
+        else:
+            info = np.iinfo(in_dt.np_type)
+            fill = int(info.max if low else info.min)
+        masked = torch.where(valid, vals, fill)
+        ext = (masked.amin if low else masked.amax)(dim=axis, keepdim=True)
+        sel = torch.where(valid & (masked == ext), idx, n).amin(dim=axis)
+        return _dt.normalize(sel, ret_dt)
+    if kind.endswith("_index"):
+        return _dt.normalize(sel, ret_dt)
+    picked = torch.take_along_dim(vals, sel.clamp(0, n - 1).unsqueeze(axis),
+                                  dim=axis).squeeze(axis)
+    return st.cast_values(picked, in_dt, ret_dt)
 
 
 # --------------------------------------------------------------------- #
@@ -252,9 +381,6 @@ def semiring_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt):
                            out_valid)
 
 
-_MATMUL_DIM = {"ai": 0, "aj": 1, "bi": 1, "bj": 2}
-
-
 def _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
                     out_valid):
     """Any semiring, positional multiplies included: k in blocks of kb, a
@@ -286,10 +412,9 @@ def _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
         shape = (m, a_blk.shape[1], n)
         pvalid = a_valid[:, k0:k0 + kb, None] & b_valid[None, k0:k0 + kb, :]
         if positional:
-            key, off = mult._positional
-            dim = _MATMUL_DIM[key]
-            parr = _iota(shape, dim, dev, start=k0 if dim == 1 else 0)
-            pv = _dt.normalize((parr + off).expand(shape), mult.return_type)
+            pos = {"i": _iota(shape, 0, dev), "k": _iota(shape, 1, dev, k0),
+                   "j": _iota(shape, 2, dev)}
+            pv = positional_value(mult, pos, shape, MATMUL_MAP)
         else:
             pv = mult(a_blk[:, :, None].expand(shape),
                       b_blk[None, :, :].expand(shape))
@@ -307,6 +432,36 @@ def _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
                 torch.where(has, blk, acc_vals))
         acc_valid = acc_valid | has
     return acc_vals, out_valid
+
+
+def kron(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
+    """The Kronecker product: out[i*p + k, j*q + l] = op(a[i, j], b[k, l])
+    where both are stored."""
+    m, n = a_valid.shape
+    p, q = b_valid.shape
+    shape = (m, p, n, q)
+    x = st.cast_values(a_vals, a_dt, op.type)[:, None, :, None].expand(shape)
+    y = st.cast_values(b_vals, b_dt, op.type2)[None, :, None, :].expand(shape)
+    out = op(x, y)
+    valid = a_valid[:, None, :, None] & b_valid[None, :, None, :]
+    return out.reshape(m * p, n * q), valid.reshape(m * p, n * q)
+
+
+def reposition(vals, valid, offsets, out_shape):
+    """Every element moved by offsets into a store of out_shape; what falls
+    outside is dropped."""
+    out_vals = torch.zeros(out_shape, dtype=vals.dtype, device=vals.device)
+    out_valid = torch.zeros(out_shape, dtype=torch.bool, device=vals.device)
+    src, dst = [], []
+    for off, n_in, n_out in zip(offsets, valid.shape, out_shape):
+        lo, hi = max(0, -off), min(n_in, n_out - off)
+        if hi <= lo:
+            return out_vals, out_valid
+        src.append(slice(lo, hi))
+        dst.append(slice(lo + off, hi + off))
+    out_vals[tuple(dst)] = vals[tuple(src)]
+    out_valid[tuple(dst)] = valid[tuple(src)]
+    return out_vals, out_valid
 
 
 def transpose(vals, valid):
@@ -329,14 +484,22 @@ def diag_build(v_vals, v_valid, k, n):
     return vals, valid
 
 
+def _accum_vals(accum, c_vals, c_dt, z_vals, z_dt):
+    """accum(c, z) in c's type; a positional accum reads each element's
+    position."""
+    shape = torch.broadcast_shapes(c_vals.shape, z_vals.shape)
+    pos = None if accum._positional is None else \
+        pos_for(shape, c_vals.device)
+    return st.cast_values(apply_binop(accum, c_vals, c_dt, z_vals, z_dt,
+                                      pos=pos), accum.return_type, c_dt)
+
+
 def write_back(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, mask_arr, accum,
                replace):
     """GraphBLAS write-back of z into c under mask, accum and replace."""
     if accum is not None:
         both = c_valid & z_valid
-        cz = st.cast_values(c_vals, c_dt, accum.type)
-        zz = st.cast_values(z_vals, z_dt, accum.type2)
-        merged = st.cast_values(accum(cz, zz), accum.return_type, c_dt)
+        merged = _accum_vals(accum, c_vals, c_dt, z_vals, z_dt)
         z_cast = st.cast_values(z_vals, z_dt, c_dt)
         new_vals = torch.where(both, merged, torch.where(z_valid, z_cast, c_vals))
         new_valid = c_valid | z_valid
@@ -395,9 +558,7 @@ def subassign(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, region,
     z_cast = st.cast_values(z_vals, z_dt, c_dt)
     if accum is not None:
         both = c_valid & z_valid
-        cz = st.cast_values(c_vals, c_dt, accum.type)
-        zz = st.cast_values(z_vals, z_dt, accum.type2)
-        merged = st.cast_values(accum(cz, zz), accum.return_type, c_dt)
+        merged = _accum_vals(accum, c_vals, c_dt, z_vals, z_dt)
         new_vals = torch.where(both, merged, torch.where(z_valid, z_cast, c_vals))
         new_valid = torch.where(region, c_valid | z_valid, c_valid)
     else:

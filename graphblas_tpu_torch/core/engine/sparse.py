@@ -22,14 +22,16 @@ The work is plain torch ops on the store's device (``searchsorted``,
 type the lanepipe and the sort pipeline decline, apply/select/transpose,
 element-wise merges, the masked write-back, SpGEMM by Gustavson's
 expansion or by the masked dot, and extract, assign and delete by index
-lists.  Positional multiplies are not here yet (ROADMAP.md queue 1, item
-9).
+lists.  A positional operator reads the effective coordinates of each
+entry (after ``A.T`` swaps them), built only for the one index it names
+(:func:`_pos`).
 """
 
 import numpy as np
 import torch
 
 from ... import native
+from ...exceptions import InvalidValue
 from .. import dtypes as _dt
 from . import dense
 from . import store as st
@@ -46,7 +48,8 @@ class Structure:
     both, each made once when first needed.  Two stores share a structure
     exactly when they are the same object."""
 
-    __slots__ = ("rows", "cols", "nrows", "ncols", "_csc", "_host")
+    __slots__ = ("rows", "cols", "nrows", "ncols", "_csc", "_host",
+                 "_longest")
 
     def __init__(self, rows, cols, nrows, ncols, *, host=None, csc=None):
         self.rows = rows
@@ -55,6 +58,21 @@ class Structure:
         self.ncols = int(ncols)
         self._csc = csc
         self._host = host
+        self._longest = {}
+
+    def longest(self, of_rows):
+        """The most entries in one row (of_rows) or one column, read from
+        the device once for each: a binary search of the sorted rows (or
+        columns, through csc_perm) at every row's start."""
+        got = self._longest.get(of_rows)
+        if got is None:
+            ids = self.rows if of_rows else self.cols[self.csc_perm()]
+            n = self.nrows if of_rows else self.ncols
+            bounds = torch.searchsorted(ids, torch.arange(
+                n + 1, dtype=ids.dtype, device=ids.device))
+            got = int((bounds[1:] - bounds[:-1]).max()) if n else 0
+            self._longest[of_rows] = got
+        return got
 
     def csc_perm(self):
         """Permutation to (col, row) order, on the device (csc_perm_of)."""
@@ -139,7 +157,8 @@ def sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op):
     flags, uniq = native.coo_mark_unique(r, c)
     if uniq != len(r):
         if dup_op is None:
-            raise ValueError("duplicate indices found; use dup_op to combine")
+            raise InvalidValue("duplicate indices found; use dup_op to "
+                               "combine")
         name = dup_op if isinstance(dup_op, str) else dup_op.name
         starts = np.flatnonzero(flags)
         if name in _DUP_REDUCE:
@@ -270,22 +289,52 @@ def _segment_fold(seg, x, combine, n, ident, start, end):
     return torch.where(end > start, _take(v, end - 1), ident)
 
 
-def _minmax(seg, x, name, n, ident, mono, start, end):
+_RUN = 256  # the most atomics _scatter_minmax sends to one address
+# the two levels pay when the longest segment holds over 1/_SHARE of the
+# slots: its atomics, one after another, outweigh their passes over all
+_SHARE = 32
+
+
+def _scatter_minmax(seg, x, red, ident, n, longest=None):
+    """``ident.expand(n).clone().scatter_reduce_(0, seg, x, red)`` for a
+    sorted seg.  A scatter straight into a hub destination serializes on
+    its atomics, so where the longest segment (longest: an upper bound,
+    None where unknown) may hold over max(_RUN, slots / _SHARE) slots,
+    runs of up to _RUN consecutive slots of one segment reduce first,
+    then the runs into the n slots: no address takes more than _RUN
+    atomics.  scripts/segment_minmax_probe.py times the ways on the zipf
+    graph's hub of 499,786 in-edges."""
+    out = ident.expand(n).clone()
+    m = seg.numel()
+    if longest is not None and longest <= max(_RUN, m // _SHARE):
+        return out.scatter_reduce_(0, seg, x, red)
+    dev = seg.device
+    brk = torch.ones(m, dtype=torch.bool, device=dev)
+    brk[1:] = (seg[1:] != seg[:-1]) | (_iota(m, dev)[1:] % _RUN == 0)
+    run = torch.cumsum(brk, 0) - 1
+    n_runs = min(m, n + m // _RUN + 1)  # at least the runs made
+    run_vals = ident.expand(n_runs).clone().scatter_reduce_(0, run, x, red)
+    run_seg = torch.zeros(n_runs, dtype=_I64, device=dev).scatter_(0, run,
+                                                                   seg)
+    return out.scatter_reduce_(0, run_seg, run_vals, red)
+
+
+def _minmax(seg, x, name, n, ident, mono, start, end, longest):
     """min/max per segment with the fmin/fmax semantics of the JAX
     package's combine: a NaN loses to any number and survives only where
     every slot of its segment is NaN."""
     red = "amin" if name == "min" else "amax"
-    out = ident.expand(n).clone()
     if not mono.type.is_float:
-        return out.scatter_reduce_(0, seg, x, red)
+        return _scatter_minmax(seg, x, red, ident, n, longest)
     nan = torch.isnan(x)
-    out.scatter_reduce_(0, seg, torch.where(nan, ident, x), red)
+    out = _scatter_minmax(seg, torch.where(nan, ident, x), red, ident, n,
+                          longest)
     all_nan = (_segment_sums((~nan).to(_I64), start, end) == 0) & \
         (end > start)
     return torch.where(all_nan, torch.full_like(out, float("nan")), out)
 
 
-def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
+def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt, longest=None):
     """Monoid-reduce ``vals[ok]`` grouped by the sorted ``seg`` into n dense
     slots: (values in mono.type, valid).  As in the JAX package, the
     segments' bounds come from a binary search, with no scatter where many
@@ -294,7 +343,9 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
     differences of one running sum (exact in int64); float sums add each
     segment on its own in float64, since a difference of running sums
     would carry the rounding of every earlier segment.  min and max
-    scatter; times, band and bor fold by a segmented scan."""
+    scatter, in two levels where a segment may be longer than _RUN slots
+    (longest: an upper bound of the longest segment, None where unknown;
+    see _scatter_minmax); times, band and bor fold by a segmented scan."""
     dev = vals.device
     x = st.cast_values(vals, in_dt, mono.type)
     name = mono.parent.name
@@ -322,17 +373,25 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
         out = t > 0 if name == "lor" else t == end - start
         return out, out_valid
     if name in ("min", "max"):
-        return _minmax(seg, xi, name, n, ident, mono, start, end), out_valid
+        return _minmax(seg, xi, name, n, ident, mono, start, end,
+                       longest), out_valid
     out = _segment_fold(seg, xi, mono.binaryop, n, ident, start, end)
     return _dt.normalize(out, mono.type), out_valid
 
 
-def _no_positional(op, where):
-    if op._positional is not None:
-        raise NotImplementedError(
-            f"{op!r} in {where} on a sparse matrix needs the positional "
-            f"multiplies, which are not in the PyTorch port yet (ROADMAP.md "
-            f"queue 1, item 9)")
+def _pos(op, context_map=dense.EWISE_MAP, **where):
+    """The position a positional op reads, as dense.apply_binop takes it,
+    from the callables in `where` (by index name: i, j, k); only the one
+    it names is computed.  None for any other op."""
+    if op._positional is None:
+        return None
+    name = context_map[op._positional[0]]
+    return {name: where[name]()}
+
+
+def _at(sp):
+    """Callables of the i and j of sp's entries, for _pos."""
+    return {"i": lambda: sp.rows, "j": lambda: sp.cols}
 
 
 # --------------------------------------------------------------------- #
@@ -343,7 +402,6 @@ def spmv(sp, at, kind, u_vals, u_valid, ring, a_dt, u_dt):
     reduce by destination.  `at` swaps the coordinate roles (A.T).
     Returns a dense vector store of the output size."""
     mult, mono = ring.binaryop, ring.monoid
-    _no_positional(mult, kind)
     rows, cols = sp.rows, sp.cols
     eff_rows, eff_cols = (cols, rows) if at else (rows, cols)
     if kind == "mxv":
@@ -352,18 +410,34 @@ def spmv(sp, at, kind, u_vals, u_valid, ring, a_dt, u_dt):
         k_ids, dest = eff_rows, eff_cols
     out_size = (sp.ncols if at else sp.nrows) if kind == "mxv" else \
         (sp.nrows if at else sp.ncols)
-    x = u_vals[k_ids]
     x_ok = u_valid[k_ids]
-    if kind == "vxm":
-        prods = dense.apply_binop(mult, x, u_dt, sp.vals, a_dt)
+    if mult._positional is not None:
+        # u is a row (vxm: u(0, k) A(k, j)) or a column (mxv: A(i, k) u(k, 0))
+        zero = torch.zeros((), dtype=_I64, device=rows.device)
+        pos = _pos(mult, dense.MATMUL_MAP, k=lambda: k_ids,
+                   i=lambda: zero if kind == "vxm" else eff_rows,
+                   j=lambda: eff_cols if kind == "vxm" else zero)
+        prods = dense.positional_value(mult, pos, k_ids.shape,
+                                       dense.MATMUL_MAP)
+    elif kind == "vxm":
+        prods = dense.apply_binop(mult, u_vals[k_ids], u_dt, sp.vals, a_dt)
     else:
-        prods = dense.apply_binop(mult, sp.vals, a_dt, x, u_dt)
+        prods = dense.apply_binop(mult, sp.vals, a_dt, u_vals[k_ids], u_dt)
     seg = dest
     if dest is not rows:
         perm = sp.csc_perm()  # destination-sorted order, k ascending
         seg, prods, x_ok = seg[perm], prods[perm], x_ok[perm]
     return segment_reduce_sorted(seg, prods, x_ok, mono, out_size,
-                                 mult.return_type)
+                                 mult.return_type,
+                                 _longest(sp, mono, dest is rows))
+
+
+def _longest(sp, mono, of_rows):
+    """The longest row or column of sp where a min or max reduces over
+    them (segment_reduce_sorted's bound), else None."""
+    if mono.parent.name not in ("min", "max"):
+        return None
+    return sp.struct.longest(of_rows)
 
 
 def reduce_axis(sp, at, axis, mono, in_dt):
@@ -373,12 +447,14 @@ def reduce_axis(sp, at, axis, mono, in_dt):
     eff_rows, eff_cols = (cols, rows) if at else (rows, cols)
     n_r, n_c = (sp.ncols, sp.nrows) if at else (sp.nrows, sp.ncols)
     dest, out_size = (eff_rows, n_r) if axis == 1 else (eff_cols, n_c)
+    longest = _longest(sp, mono, dest is rows)
     vals = sp.vals
     if dest is not rows:
         perm = sp.csc_perm()
         dest, vals = dest[perm], vals[perm]
     ok = torch.ones(dest.numel(), dtype=torch.bool, device=vals.device)
-    return segment_reduce_sorted(dest, vals, ok, mono, out_size, in_dt)
+    return segment_reduce_sorted(dest, vals, ok, mono, out_size, in_dt,
+                                 longest)
 
 
 def extract_element(sp, at, i, j):
@@ -399,11 +475,13 @@ def extract_element(sp, at, i, j):
 # --------------------------------------------------------------------- #
 # structure-preserving operations (sparse in -> sparse out)
 def apply_unary(sp, op, a_dt):
-    return sp.with_values(dense.apply_unop(op, sp.vals, a_dt), op.return_type)
+    vals = dense.apply_unop(op, sp.vals, a_dt, pos=_pos(op, **_at(sp)))
+    return sp.with_values(vals, op.return_type)
 
 
 def apply_bound(sp, op, a_dt, scalar_val, scalar_dt, left):
-    vals = dense.bound_vals(sp.vals, op, a_dt, scalar_val, scalar_dt, left)
+    vals = dense.bound_vals(sp.vals, op, a_dt, scalar_val, scalar_dt, left,
+                            pos=_pos(op, **_at(sp)))
     return sp.with_values(vals, op.return_type)
 
 
@@ -444,7 +522,6 @@ def mxm_diag(sp, d, left_diag, ring, a_dt, d_dt):
     semiring's multiply; the monoid never fires (one k term an output).
     An entry whose diagonal element is missing is dropped."""
     mult = ring.binaryop
-    _no_positional(mult, "mxm")
     n = d.nrows
     dev = sp.device
     dv = torch.zeros(n, dtype=d.vals.dtype, device=dev)
@@ -453,10 +530,14 @@ def mxm_diag(sp, d, left_diag, ring, a_dt, d_dt):
     dok[d.rows] = True
     ids = sp.rows if left_diag else sp.cols
     x = dv[ids]
+    # one k an entry: the diagonal's index
+    pos = _pos(mult, dense.MATMUL_MAP, k=lambda: ids, **_at(sp))
     if left_diag:
-        out = dense.apply_binop(mult, x, d_dt, sp.vals, a_dt)
+        out = dense.apply_binop(mult, x, d_dt, sp.vals, a_dt, pos=pos,
+                                context_map=dense.MATMUL_MAP)
     else:
-        out = dense.apply_binop(mult, sp.vals, a_dt, x, d_dt)
+        out = dense.apply_binop(mult, sp.vals, a_dt, x, d_dt, pos=pos,
+                                context_map=dense.MATMUL_MAP)
     out = st.cast_values(out, mult.return_type, ring.monoid.type)
     return _filtered(sp, dok[ids], out, ring.monoid.type)
 
@@ -466,18 +547,24 @@ def ewise_mult_vector_bcast(sp, op, a_dt, v_vals, v_valid, v_dt, *,
     """A .* broadcast(v along rows): out[i, j] = op(A[i, j], v[j]) (or
     with the vector as the left operand), where v[j] is stored."""
     x = v_vals[sp.cols]
+    pos = _pos(op, **_at(sp))
     if vector_left:
-        out = dense.apply_binop(op, x, v_dt, sp.vals, a_dt)
+        out = dense.apply_binop(op, x, v_dt, sp.vals, a_dt, pos=pos)
     else:
-        out = dense.apply_binop(op, sp.vals, a_dt, x, v_dt)
+        out = dense.apply_binop(op, sp.vals, a_dt, x, v_dt, pos=pos)
     return _filtered(sp, v_valid[sp.cols], out, op.return_type)
 
 
-def ewise_same_structure(a, b, op, a_dt, b_dt, out_dt):
+def ewise_same_structure(a, b, op, a_dt, b_dt, out_dt, transposed=False):
     """Element-wise op (mult, add or union alike) over two stores of one
     structure: every entry is in both, so the op applies everywhere and the
-    structure is kept."""
-    z = dense.apply_binop(op, a.vals, a_dt, b.vals, b_dt)
+    structure is kept.  transposed: both operands are read as ``.T`` (the
+    caller transposes the result), which a positional op must know."""
+    where = _at(a)
+    if transposed:
+        where = {"i": where["j"], "j": where["i"]}
+    z = dense.apply_binop(op, a.vals, a_dt, b.vals, b_dt,
+                          pos=_pos(op, **where))
     return a.with_values(st.cast_values(z, op.return_type, out_dt), out_dt,
                          is_diag=a.is_diag and b.is_diag)
 
@@ -488,10 +575,11 @@ def ewise_mult_sparse_dense(sp, op, sp_dt, d_vals, d_valid, d_dt,
     coordinates (the result's structure is a subset of the sparse one)."""
     lin = sp.rows * d_valid.shape[1] + sp.cols
     dv = d_vals.reshape(-1)[lin]
+    pos = _pos(op, **_at(sp))
     if sparse_left:
-        out = dense.apply_binop(op, sp.vals, sp_dt, dv, d_dt)
+        out = dense.apply_binop(op, sp.vals, sp_dt, dv, d_dt, pos=pos)
     else:
-        out = dense.apply_binop(op, dv, d_dt, sp.vals, sp_dt)
+        out = dense.apply_binop(op, dv, d_dt, sp.vals, sp_dt, pos=pos)
     return _filtered(sp, d_valid.reshape(-1)[lin], out, op.return_type)
 
 
@@ -543,13 +631,15 @@ def merge_ewise(a, b, variant, op, a_dt, b_dt, out_dt, lr=None):
     (union)."""
     if variant == "mult":
         qa, a_in_b = _find(b.struct.keys(), a.struct.keys())
-        z = dense.apply_binop(op, a.vals, a_dt, _take(b.vals, qa), b_dt)
+        z = dense.apply_binop(op, a.vals, a_dt, _take(b.vals, qa), b_dt,
+                              pos=_pos(op, **_at(a)))
         return _filtered(a, a_in_b, st.cast_values(z, op.return_type, out_dt),
                          out_dt)
     rows, cols, a_idx, b_idx, has_a, has_b = merge_slots(a, b)
     av, bv = _take(a.vals, a_idx), _take(b.vals, b_idx)
     both = has_a & has_b
-    comb = st.cast_values(dense.apply_binop(op, av, a_dt, bv, b_dt),
+    pos = _pos(op, i=lambda: rows, j=lambda: cols)
+    comb = st.cast_values(dense.apply_binop(op, av, a_dt, bv, b_dt, pos=pos),
                           op.return_type, out_dt)
     if variant == "add":
         a_pass = st.cast_values(av, a_dt, out_dt)
@@ -557,10 +647,12 @@ def merge_ewise(a, b, variant, op, a_dt, b_dt, out_dt, lr=None):
     else:
         ldef, rdef = lr
         a_pass = st.cast_values(
-            dense.apply_binop(op, av, a_dt, rdef.expand(av.shape), op.type2),
+            dense.apply_binop(op, av, a_dt, rdef.expand(av.shape), op.type2,
+                              pos=pos),
             op.return_type, out_dt)
         b_pass = st.cast_values(
-            dense.apply_binop(op, ldef.expand(bv.shape), op.type, bv, b_dt),
+            dense.apply_binop(op, ldef.expand(bv.shape), op.type, bv, b_dt,
+                              pos=pos),
             op.return_type, out_dt)
     vals = torch.where(both, comb, torch.where(has_a, a_pass, b_pass))
     return store_from_parts(rows, cols, vals, a.nrows, a.ncols, out_dt)
@@ -595,9 +687,11 @@ def write_back_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn):
         out_ok = torch.where(msk, has_z, keep_c)
         vals = torch.where(msk & has_z, z_cast, c_val)
     else:
-        both = st.cast_values(dense.apply_binop(accum, c_val, c_dt, z_val,
-                                                z_dt),
-                              accum.return_type, c_dt)
+        both = st.cast_values(
+            dense.apply_binop(accum, c_val, c_dt, z_val, z_dt,
+                              pos=_pos(accum, i=lambda: rows,
+                                       j=lambda: cols)),
+            accum.return_type, c_dt)
         out_ok = torch.where(msk, has_c | has_z, keep_c)
         vals = torch.where(msk & has_c & has_z, both,
                            torch.where(msk & has_z & ~has_c, z_cast, c_val))
@@ -647,7 +741,6 @@ def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
     the products filtered by mask_fn(i, j) (mask pushdown), sorted by
     output coordinate (stable) and combined with the monoid."""
     mult, mono = ring.binaryop, ring.monoid
-    _no_positional(mult, "mxm")
     dev = a.device
     a_i, a_k = _a_sides(a, at)
     b_k, b_j, b_vals = _b_ksorted(b, bt)
@@ -659,13 +752,21 @@ def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
     if mask_fn is not None:
         keep = mask_fn(i, j).nonzero().reshape(-1)
         e, b_slot, i, j = e[keep], b_slot[keep], i[keep], j[keep]
-    prods = dense.apply_binop(mult, a.vals[e], a_dt, b_vals[b_slot], b_dt)
+    if mult._positional is not None:
+        pos = _pos(mult, dense.MATMUL_MAP, i=lambda: i, j=lambda: j,
+                   k=lambda: a_k[e])
+        prods = dense.positional_value(mult, pos, e.shape, dense.MATMUL_MAP)
+    else:
+        prods = dense.apply_binop(mult, a.vals[e], a_dt, b_vals[b_slot],
+                                  b_dt)
     prods = st.cast_values(prods, mult.return_type, mono.type)
     key, order = torch.sort(i * max(out_ncols, 1) + j, stable=True)
-    uniq, seg = torch.unique_consecutive(key, return_inverse=True)
+    uniq, seg, cnt = torch.unique_consecutive(key, return_inverse=True,
+                                              return_counts=True)
     ok = torch.ones(key.numel(), dtype=torch.bool, device=dev)
+    longest = int(cnt.max()) if mono.parent.name in ("min", "max") else None
     vals, _ = segment_reduce_sorted(seg, prods[order], ok, mono, uniq.numel(),
-                                    mono.type)
+                                    mono.type, longest)
     ncols = max(out_ncols, 1)
     return store_from_parts(uniq // ncols, uniq % ncols, vals, out_nrows,
                             out_ncols, mono.type)
@@ -708,20 +809,21 @@ def _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows, out_ncols):
 
 def spgemm_dot_total(a, b, msp, m_dt, structure, at, bt, out_nrows,
                      out_ncols, k_dim):
-    """[gustavson_total, dot_total] as one int64 device tensor, so the
-    host picks the formulation with one device read."""
+    """[gustavson_total, dot_total, the dot's most terms for one mask
+    entry] as one int64 device tensor, so the host picks the formulation
+    with one device read."""
     gus = spgemm_total(a, b, at, bt, k_dim)
     cnt = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
                        out_ncols)[-1]
-    return torch.stack([gus, cnt.sum()])
+    most = torch.cat([cnt, gus.reshape(1) * 0]).max()  # 0 for no mask
+    return torch.stack([gus, cnt.sum(), most])
 
 
 def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
-                      out_nrows, out_ncols, k_dim, total):
+                      out_nrows, out_ncols, k_dim, total, longest=None):
     """The masked dot.  An output entry sits at a mask entry (that passes a
     value mask) with at least one term whose index both sides store."""
     mult, mono = ring.binaryop, ring.monoid
-    _no_positional(mult, "mxm")
     (a_side, b_side, indptr_a, indptr_b, ok_m, da, db,
      cnt) = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
                          out_ncols)
@@ -748,13 +850,20 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
     if mult.parent.name == "pair":
         prods = torch.ones(found.shape, dtype=mult.return_type.torch_type,
                            device=dev)
+    elif mult._positional is not None:
+        # the term's k: the expanded side's index, which the other side
+        # stores wherever the term is found
+        pos = _pos(mult, dense.MATMUL_MAP, i=lambda: mr[mo],
+                   j=lambda: mc[mo], k=lambda: x_k[src])
+        prods = dense.positional_value(mult, pos, found.shape,
+                                       dense.MATMUL_MAP)
     else:
         ua_t = ua[mo]
         av = _take(a_vals, torch.where(ua_t, src, q - nb))
         bv = _take(b_vals, torch.where(ua_t, q, src - na))
         prods = dense.apply_binop(mult, av, a_dt, bv, b_dt)
     out_vals, out_valid = segment_reduce_sorted(
-        mo, prods, found, mono, msp.nvals(), mult.return_type)
+        mo, prods, found, mono, msp.nvals(), mult.return_type, longest)
     keep = (out_valid & ok_m).nonzero().reshape(-1)
     return store_from_parts(mr[keep], mc[keep], out_vals[keep], out_nrows,
                             out_ncols, mono.type)
@@ -858,9 +967,11 @@ def assign_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn, in_region_fn,
         zp_ok = torch.where(in_region, has_z, has_c)
         zp_val = torch.where(in_region & has_z, z_cast, c_val)
     else:
-        both = st.cast_values(dense.apply_binop(accum, c_val, c_dt, z_val,
-                                                z_dt),
-                              accum.return_type, c_dt)
+        both = st.cast_values(
+            dense.apply_binop(accum, c_val, c_dt, z_val, z_dt,
+                              pos=_pos(accum, i=lambda: rows,
+                                       j=lambda: cols)),
+            accum.return_type, c_dt)
         zp_ok = torch.where(in_region, has_c | has_z, has_c)
         zp_val = torch.where(in_region & has_c & has_z, both,
                              torch.where(in_region & has_z & ~has_c, z_cast,

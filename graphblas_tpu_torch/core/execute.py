@@ -389,10 +389,19 @@ def T_copy(expr):
     return st.cast_values(vals, a.dtype, expr.dtype), valid
 
 
+def _pos_for(op, valid):
+    """The positions of valid's elements where op is positional (the JAX
+    package's _pos_for), else None: no index tensor for the others."""
+    if op._positional is None:
+        return None
+    return dense.pos_for(valid.shape, valid.device)
+
+
 def T_apply(expr):
     a = expr.args[0]
     vals, valid = _store(a, expr._statics[-1])
-    return dense.apply_op(vals, valid, expr.op, a.dtype)
+    return dense.apply_op(vals, valid, expr.op, a.dtype,
+                          pos=_pos_for(expr.op, valid))
 
 
 def T_apply_bound(expr):
@@ -400,7 +409,8 @@ def T_apply_bound(expr):
     s_val, left, tflag = expr._statics
     vals, valid = _store(a, tflag)
     s_dt = expr.op.type if left else expr.op.type2
-    return dense.apply_bound(vals, valid, expr.op, a.dtype, s_val, s_dt, left)
+    return dense.apply_bound(vals, valid, expr.op, a.dtype, s_val, s_dt, left,
+                             pos=_pos_for(expr.op, valid))
 
 
 def T_apply_indexunary(expr):
@@ -558,16 +568,17 @@ def T_ewise(expr):
     elif a_bc:
         a_vals, a_valid = a_vals.expand(b_valid.shape), \
             a_valid.expand(b_valid.shape)
+    pos = _pos_for(expr.op, a_valid)
     if variant == "mult":
         return dense.ewise_mult(a_vals, a_valid, b_vals, b_valid, expr.op,
-                                a.dtype, b.dtype)
+                                a.dtype, b.dtype, pos=pos)
     if variant == "add":
         return dense.ewise_add(a_vals, a_valid, b_vals, b_valid, expr.op,
-                               a.dtype, b.dtype, expr.dtype)
+                               a.dtype, b.dtype, expr.dtype, pos=pos)
     dev = a_valid.device
     return dense.ewise_union(a_vals, a_valid, b_vals, b_valid, expr.op,
                              a.dtype, b.dtype, ldef._vals.to(dev),
-                             rdef._vals.to(dev))
+                             rdef._vals.to(dev), pos=pos)
 
 
 def T_diag_extract(expr):
@@ -583,6 +594,25 @@ def T_diag_build(expr):
     return dense.diag_build(v._vals, v._valid, k, n)
 
 
+def T_reduce_agg(expr):
+    a = expr.args[0]
+    agg = expr.op
+    return dense.reduce_agg(a._vals, a._valid, agg.spec, a.dtype,
+                            agg.return_type, expr._statics[0])
+
+
+def T_kron(expr):
+    a, b = expr.args
+    at, bt = expr._statics
+    return dense.kron(*_store(a, at), *_store(b, bt), expr.op, a.dtype,
+                      b.dtype)
+
+
+def T_reposition(expr):
+    a = expr.args[0]
+    return dense.reposition(a._vals, a._valid, expr._statics[0], expr.shape)
+
+
 _DENSE_IMPL = {
     "identity": T_copy, "transpose": T_copy, "apply": T_apply,
     "apply_bound": T_apply_bound, "apply_indexunary": T_apply_indexunary,
@@ -594,6 +624,8 @@ _DENSE_IMPL = {
     "vxm": T_matmul, "inner": T_matmul, "power": T_power,
     "ewise_mult": T_ewise, "ewise_add": T_ewise, "ewise_union": T_ewise,
     "diag": T_diag_extract, "diag_build": T_diag_build,
+    "reduce_agg": T_reduce_agg, "kronecker": T_kron,
+    "reposition": T_reposition,
 }
 
 
@@ -820,7 +852,7 @@ def _ewise_run(expr):
     if a_sp.struct is b_sp.struct and at == bt:
         # one structure: element by element, the structure kept
         out = spx.ewise_same_structure(a_sp, b_sp, op, a.dtype, b.dtype,
-                                       z_dt)
+                                       z_dt, transposed=at)
         return spx.transpose(out) if at else out
     ax = spx.transpose(a_sp) if at else a_sp
     bx = spx.transpose(b_sp) if bt else b_sp
@@ -890,7 +922,7 @@ def _spgemm_run(expr, mask, opts):
             and mask.parent._sparse is not None
             and method in ("default", "dot")):
         msp, m_dt = mask.parent._sparse, mask.parent.dtype
-        gus, dot = spx.spgemm_dot_total(
+        gus, dot, longest = spx.spgemm_dot_total(
             a_sp, b_sp, msp, m_dt, mask.structure, at, bt, out_nrows,
             out_ncols, k_dim).tolist()
         if method == "dot" or dot <= gus:
@@ -898,7 +930,8 @@ def _spgemm_run(expr, mask, opts):
                     _SPGEMM_RANGE.format("dot", dot, gus, dot)):
                 return spx.spgemm_masked_dot(
                     a_sp, b_sp, msp, at, bt, ring, a.dtype, b.dtype, m_dt,
-                    mask.structure, out_nrows, out_ncols, k_dim, dot)
+                    mask.structure, out_nrows, out_ncols, k_dim, dot,
+                    longest)
     else:
         gus = int(spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
     with torch.profiler.record_function(

@@ -12,10 +12,11 @@ device; a larger one is sparse-backed (a SparseStore of COO tensors on its
 device; a lanepipe or sort-pipeline plan is built at the first mxv/vxm or
 reduce of each direction that takes one).  ``apply``, ``select``, ``A.T``,
 casts, element-wise operations of two sparse operands (and ``ewise_mult``
-with any), reduces, ``mxm`` (SpGEMM, or a scaling by a diagonal) and the
-masked write-back keep a sparse matrix sparse; ``power``, ``diag`` and an
+with any), monoid reduces, ``mxm`` (SpGEMM, or a scaling by a diagonal)
+and the masked write-back keep a sparse matrix sparse; ``power``,
+``diag``, aggregator reduces, ``kronecker``, ``reposition`` and an
 element-wise add or union with a dense operand densify it under the
-``dense_limit`` guard."""
+``dense_limit`` guard, as in the JAX package."""
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from .collection import untranspose as _untranspose
 from .engine import sparse as spx
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
+from .operator.utils import reduce_op
 from .scalar import Scalar
 from .vector import Vector, _unify, _values_dtype
 
@@ -334,13 +336,32 @@ class Matrix(InfixStubs, Collection):
         -1)``, ``A.select(select.valuegt, 0)``)."""
         return select_expr(self, op, thunk)
 
+    def kronecker(self, other, op="times"):
+        """The Kronecker product by a BinaryOp (or a Monoid's op): block
+        (i, j) is op(A[i, j], B); either operand may be transposed."""
+        a, at = _untranspose(self)
+        b, bt = _untranspose(other)
+        if not isinstance(b, Matrix):
+            raise TypeError(f"kronecker expects a Matrix; got "
+                            f"{type(b).__name__}")
+        if getattr(op, "opclass", None) == "Monoid":
+            op = op.binaryop
+        bop = typed(op, _unify(a.dtype, b.dtype), "BinaryOp")
+        sa, sb = _shape_of(a, at), _shape_of(b, bt)
+        return BaseExpression("kronecker", bop, [a, b], bop.return_type,
+                              (sa[0] * sb[0], sa[1] * sb[1]), Matrix,
+                              (at, bt))
+
     def _reduce_axis_expr(self, op, axis, method):
-        """Monoid reduce along an axis of the stored matrix (axis 1 folds
-        each row); for ``A.T`` the caller has already swapped the axis."""
+        """Reduce along an axis of the stored matrix (axis 1 folds each
+        row) by a monoid, a BinaryOp's monoid or an aggregator; for ``A.T``
+        the caller has already swapped the axis."""
         mat, _ = _untranspose(self)
-        mono = typed(op, mat.dtype, "Monoid")
+        red = reduce_op(op, mat.dtype)
         size = mat.nrows if axis == 1 else mat.ncols
-        return BaseExpression(method, mono, [mat], mono.return_type, (size,),
+        if red.opclass == "Aggregator":
+            method = "reduce_agg"
+        return BaseExpression(method, red, [mat], red.return_type, (size,),
                               Vector, (axis, False))
 
     def reduce_rowwise(self, op="plus"):
@@ -351,13 +372,27 @@ class Matrix(InfixStubs, Collection):
 
     def reduce_scalar(self, op="plus", *, allow_empty=True):
         mat, _ = _untranspose(self)
-        mono = typed(op, mat.dtype, "Monoid")
-        return BaseExpression("reduce", mono, [mat], mono.return_type, (),
+        red = reduce_op(op, mat.dtype)
+        if red.opclass == "Aggregator":
+            if red.name in ("argmin", "argmax", "first_index", "last_index"):
+                raise ValueError(f"Aggregator {red.name} may not be used "
+                                 f"with Matrix.reduce_scalar")
+            return BaseExpression("reduce_agg", red, [mat], red.return_type,
+                                  (), Scalar, (None, False))
+        return BaseExpression("reduce", red, [mat], red.return_type, (),
                               Scalar, (bool(allow_empty),))
 
+    def reposition(self, row_offset, column_offset, *, nrows=None,
+                   ncols=None):
+        """Every element moved by the offsets (out of range: dropped), in a
+        matrix of nrows x ncols (by default this one's shape)."""
+        out_nrows = self._nrows if nrows is None else int(nrows)
+        out_ncols = self._ncols if ncols is None else int(ncols)
+        return BaseExpression("reposition", None, [self], self.dtype,
+                              (out_nrows, out_ncols), Matrix,
+                              ((int(row_offset), int(column_offset)),))
+
     # the JAX package's Matrix surface that is not ported yet
-    kronecker = NotPorted(11)
-    reposition = NotPorted(11)
     build = NotPorted(12)
     resize = NotPorted(12)
     ss = NotPorted(12)
@@ -436,6 +471,7 @@ class TransposedMatrix(InfixStubs):
 
     mxv = Matrix.mxv
     mxm = Matrix.mxm
+    kronecker = Matrix.kronecker
     _matmul_expr = Matrix._matmul_expr
     ewise_add = Matrix.ewise_add
     ewise_mult = Matrix.ewise_mult
@@ -453,6 +489,12 @@ class TransposedMatrix(InfixStubs):
 
     def power(self, n, op="plus_times"):
         return self.new().power(n, op)
+
+    def reposition(self, row_offset, column_offset, *, nrows=None,
+                   ncols=None):
+        """Reposition of the materialized transpose."""
+        return self.new().reposition(row_offset, column_offset, nrows=nrows,
+                                     ncols=ncols)
 
     def to_dense(self, fill_value=None, dtype=None):
         return self._matrix.to_dense(fill_value, dtype).T.copy()

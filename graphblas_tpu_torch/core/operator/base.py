@@ -7,6 +7,7 @@ from ..dtypes import lookup_dtype
 
 class OpBase:
     opclass = None
+    _positional = None
 
     def __init__(self, name):
         self.name = name

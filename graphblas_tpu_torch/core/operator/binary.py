@@ -2,10 +2,13 @@
 (graphblas_tpu/core/operator/binary.py, the subset the ported paths name).
 
 ``min`` and ``max`` on floats are ``fmin``/``fmax`` as in the JAX package
-(GraphBLAS ``min`` ignores a NaN operand).  The positional operators
-``firsti``/``firstj``/``secondi``/``secondj`` return an index of the pair
-they are applied to; the engine computes them from positions, so they have
-no function here.  ``land`` and ``lor`` take every type, as in the JAX
+(GraphBLAS ``min`` ignores a NaN operand).  The eight positional operators
+(``firsti``, ``firsti1``, ... ``secondj1``) return an index of the pair
+they are applied to, plus 0 or 1; the engine computes them from positions
+(core/engine/dense.py ``positional_value``), so they have no function
+here.  They ignore the values: on a type other than INT32 and INT64 they
+are their INT64 instance, as in the JAX package.  A builtin that has a
+monoid of its name reduces with it (``BinaryOp.monoid``).  ``land`` and ``lor`` take every type, as in the JAX
 package: the operands' truth values, returned in their own type."""
 
 import torch
@@ -45,8 +48,10 @@ _BUILTIN = {
     "bor": (_INTS, lambda x, y: x | y),
 }
 # name -> (which index of the pair a(i,k) b(k,j), offset)
-_POSITIONAL = {"firsti": ("ai", 0), "firstj": ("aj", 0),
-               "secondi": ("bi", 0), "secondj": ("bj", 0)}
+_POSITIONAL = {"firsti": ("ai", 0), "firsti1": ("ai", 1),
+               "firstj": ("aj", 0), "firstj1": ("aj", 1),
+               "secondi": ("bi", 0), "secondi1": ("bi", 1),
+               "secondj": ("bj", 0), "secondj1": ("bj", 1)}
 _POS = (_dt.INT32, _dt.INT64)
 
 
@@ -74,8 +79,16 @@ class BinaryOp(OpBase):
 
     def _build_typed(self, dt):
         if dt not in self._domains:
-            return None
+            return self[_dt.INT64] if self._positional is not None else None
         return TypedBinaryOp(self, self.name, dt, self._func)
+
+    @property
+    def monoid(self):
+        """The monoid of the same name, which a reduce by this op uses
+        (the JAX package's ``_HAS_MONOID``); None where there is none."""
+        from .monoid import BUILTINS as monoids
+
+        return monoids.get(self.name)
 
 
 BUILTINS = {name: BinaryOp(name, doms, fn)

@@ -62,6 +62,12 @@ class Monoid(OpBase):
         self._domains = domains
         self._identity = identity
 
+    @property
+    def binaryop(self):
+        """The binary op of the same name (what an element-wise operation
+        or a Kronecker product by this monoid applies)."""
+        return _B[self.name]
+
     def _build_typed(self, dt):
         if dt not in self._domains:
             if dt is _dt.BOOL and self.name in BOOL_RENAME and \

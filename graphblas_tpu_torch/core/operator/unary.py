@@ -1,7 +1,11 @@
 """Unary operators: the builtins ``identity``, ``one``, ``abs`` and
-``minv`` (graphblas_tpu/core/operator/unary.py), and user functions
-registered with :meth:`UnaryOp.register_anonymous`, which take a Python
-callable over tensors (the JAX package takes one over jnp arrays).
+``minv`` (graphblas_tpu/core/operator/unary.py), the positional
+``positioni``, ``positioni1``, ``positionj`` and ``positionj1`` (the row
+or column of each element, plus 0 or 1: the engine fills them from
+positions; on a type other than INT32 and INT64 they are their INT64
+instance), and user functions registered with
+:meth:`UnaryOp.register_anonymous`, which take a Python callable over
+tensors (the JAX package takes one over jnp arrays).
 
 ``minv`` follows SuiteSparse on the integers: C-truncated 1/x, and 1/0 is
 the type's maximum."""
@@ -19,6 +23,7 @@ class TypedUnaryOp(TypedOpBase):
     def __init__(self, parent, name, type_, return_type, func):
         super().__init__(parent, name, type_, return_type)
         self.func = func
+        self._positional = parent._positional
 
     def __call__(self, x):
         out = self.func(x)
@@ -61,6 +66,24 @@ class BuiltinUnaryOp(UnaryOp):
         return TypedUnaryOp(self, self.name, dt, dt, self._make(dt))
 
 
+class PositionalUnaryOp(UnaryOp):
+    """A positional unary: which index of the element, and an offset."""
+
+    def __init__(self, name, positional):
+        super().__init__(name, None)
+        self._positional = positional
+
+    def _build_typed(self, dt):
+        if dt not in (_dt.INT32, _dt.INT64):
+            return self[_dt.INT64]
+        return TypedUnaryOp(self, self.name, dt, dt, None)
+
+
+# name -> (which index of the element, offset)
+POSITIONAL = {"positioni": ("i", 0), "positioni1": ("i", 1),
+              "positionj": ("j", 0), "positionj1": ("j", 1)}
+
+
 def _minv(dt):
     if dt.is_bool:
         return torch.ones_like
@@ -83,3 +106,5 @@ BUILTINS = {
                           or dt is _dt.UINT32 else torch.abs),
     "minv": BuiltinUnaryOp("minv", _minv),
 }
+BUILTINS.update({name: PositionalUnaryOp(name, pos)
+                 for name, pos in POSITIONAL.items()})

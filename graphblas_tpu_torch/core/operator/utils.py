@@ -2,9 +2,10 @@
 branch of ``get_typed_op``, ``_from_string`` and the ``*_from_string``
 parsers with their symbol tables).
 
-``"+"``, ``"plus[FP64]"``, ``"min_plus[FP64]"``, ``"min.+"`` and
-``"abs[int]"`` resolve as in the JAX package: a bracketed type gives that
-typed operator, whatever the operands' types.  An unknown name raises
+``"+"``, ``"plus[FP64]"``, ``"min_plus[FP64]"``, ``"min.+"``,
+``"abs[int]"`` and the aggregators' ``"count"`` and ``"ss.argmin"``
+resolve as in the JAX package: a bracketed type gives that typed
+operator, whatever the operands' types.  An unknown name raises
 ValueError; a name the JAX package knows and the port lacks (its
 operators, and the ``numpy`` namespaces) raises NotImplementedError naming
 ROADMAP.md queue 1, item 12."""
@@ -13,7 +14,7 @@ import importlib
 import itertools
 
 from ..dtypes import lookup_dtype
-from .base import OpBase, TypedOpBase, not_ported
+from .base import OpBase, TypedOpBase, not_ported, typed
 
 _str_to_unary = {"-": "ainv", "~": "lnot"}
 _str_to_select = {
@@ -30,6 +31,7 @@ _str_to_binary = {
 }
 _str_to_monoid = {"==": "eq", "+": "plus", "*": "times", "&": "land",
                   "|": "lor", "^": "lxor"}
+_str_to_agg = {"+": "sum", "*": "prod", "&": "all", "|": "any"}
 
 # the names of the JAX package's numpy namespaces (graphblas_tpu/
 # {unary,binary,monoid,semiring}/numpy.py), which a bare name also reaches
@@ -166,12 +168,55 @@ def semiring_from_string(string):
                         "min.+[int]")
 
 
+def aggregator_from_string(string):
+    return _from_string(string, "agg", _str_to_agg, "sum[int]")
+
+
+def binary_or_aggregator_from_string(string):
+    """The JAX package's ``"binary|aggregator"`` kind: a binary op if the
+    string names one, else an aggregator."""
+    try:
+        return binary_from_string(string)
+    except ValueError:
+        try:
+            return aggregator_from_string(string)
+        except ValueError:
+            raise ValueError(f"Unknown binary or aggregator string: "
+                             f"{string!r}.  Example usage: '+[int]'") from None
+
+
 _PARSERS = {"UnaryOp": unary_from_string, "BinaryOp": binary_from_string,
             "Monoid": monoid_from_string, "Semiring": semiring_from_string,
             "IndexUnaryOp": indexunary_from_string,
-            "SelectOp": select_from_string}
+            "SelectOp": select_from_string,
+            "Aggregator": aggregator_from_string}
 
 
 def op_from_string(string, opclass):
     """The operator a string names, parsed as an operator of opclass."""
     return _PARSERS[opclass](string)
+
+
+def reduce_op(op, dtype):
+    """The typed operator a reduce over values of dtype takes: a Monoid,
+    or a TypedAggregator.  A BinaryOp (typed, untyped or a string)
+    reduces with its monoid, of dtype, as in the JAX package; a string
+    parses as a monoid first, then as a binary op or an aggregator."""
+    from .agg import Aggregator
+
+    if isinstance(op, str):
+        try:
+            op = monoid_from_string(op)
+        except ValueError:
+            op = binary_or_aggregator_from_string(op)
+    if isinstance(op, Aggregator):
+        return op[dtype]
+    if getattr(op, "opclass", None) == "BinaryOp":
+        parent = op.parent if isinstance(op, TypedOpBase) else op
+        if parent.monoid is None:
+            raise TypeError(f"BinaryOp {parent.name} has no corresponding "
+                            f"Monoid for reduce")
+        return parent.monoid[dtype]
+    if getattr(op, "opclass", None) == "Aggregator":
+        return op  # a TypedAggregator
+    return typed(op, dtype, "Monoid")

@@ -1,5 +1,6 @@
 """Scalar: a 0-d (value, valid) store (graphblas_tpu/core/scalar.py: its
-construction, ``value``, ``get`` and ``clear``).  What the JAX package's
+construction, ``value`` (a numpy scalar of the dtype), ``get`` and
+``clear``).  What the JAX package's
 Scalar has and the port lacks raises NotImplementedError naming its
 ROADMAP.md item."""
 
@@ -8,7 +9,7 @@ import torch
 
 from . import config as _config
 from .base import BaseType, NotPorted
-from .dtypes import FP64, UINT32, lookup_dtype
+from .dtypes import FP64, UINT32, lookup_dtype, to_numpy
 
 
 class Scalar(BaseType):
@@ -55,12 +56,14 @@ class Scalar(BaseType):
 
     @property
     def value(self):
+        """The value as a numpy scalar of the dtype (``np.float32(0.1)``),
+        as in the JAX package; None when empty."""
         if self.is_empty:
             return None
-        return np.asarray(self._vals.item()).astype(self.dtype.np_type).item()
+        return to_numpy(self._vals, self.dtype)[()]
 
     def __repr__(self):
-        return f"Scalar({self.value!r}, dtype={self.dtype.name})"
+        return f"Scalar({self.value!s}, dtype={self.dtype.name})"
 
     def get(self, default=None):
         return default if self.is_empty else self.value

@@ -1,7 +1,8 @@
 """Vector: a dense (values, valid) store on the configured device
 (graphblas_tpu/core/vector.py): construction and export, extract, assign
 and delete by index (core/collection.py), membership and iteration, the
-products, element-wise operations, apply, select and reduce.  What the JAX
+products, element-wise operations, apply, select, reduce (by a monoid or
+an aggregator) and reposition.  What the JAX
 package's Vector has and the port lacks raises NotImplementedError naming
 its ROADMAP.md item."""
 
@@ -292,11 +293,24 @@ class Vector(InfixStubs, Collection):
                               Matrix, (k, n)).new(name=name)
 
     def reduce(self, op="plus", *, allow_empty=True):
+        """To a Scalar, by a monoid, a BinaryOp's monoid or an
+        aggregator."""
+        from .operator.utils import reduce_op
         from .scalar import Scalar
 
-        mono = typed(op, self.dtype, "Monoid")
-        return BaseExpression("reduce", mono, [self], mono.return_type, (),
+        red = reduce_op(op, self.dtype)
+        if red.opclass == "Aggregator":
+            return BaseExpression("reduce_agg", red, [self], red.return_type,
+                                  (), Scalar, (None, False))
+        return BaseExpression("reduce", red, [self], red.return_type, (),
                               Scalar, (bool(allow_empty),))
+
+    def reposition(self, offset, *, size=None):
+        """Every element moved by offset (out of range: dropped), in a
+        vector of size (by default this one's)."""
+        out_size = self.size if size is None else int(size)
+        return BaseExpression("reposition", None, [self], self.dtype,
+                              (out_size,), Vector, ((int(offset),),))
 
     # the JAX package's Vector surface that is not ported yet
     build = NotPorted(12)
@@ -305,5 +319,4 @@ class Vector(InfixStubs, Collection):
     from_pairs = NotPorted(12)
     resize = NotPorted(12)
     outer = NotPorted(12)
-    reposition = NotPorted(11)
     ss = NotPorted(12)

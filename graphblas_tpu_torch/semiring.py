@@ -23,7 +23,8 @@ def _reference_has(name, positional):
     head, _, tail = name.partition("_")
     tail = {"div": "cdiv", "select1st": "first",
             "select2nd": "second"}.get(tail, tail)
-    mults = _REF_POSITIONAL if positional else _REF_BINARY - {"numpy"}
+    mults = _REF_POSITIONAL - {"register_new"} if positional else \
+        _REF_BINARY - {"numpy"}
     return head in _REF_MONOID and tail in mults
 
 

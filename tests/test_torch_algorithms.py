@@ -110,15 +110,17 @@ def test_bfs_level_unreachable(cpu, rng):
     assert_values_match(got.to_coo(), want.to_coo(), "INT64")
 
 
-def test_what_waits_is_not_stubbed():
-    """What still waits raises naming its ROADMAP.md item: ``bfs_parent``
-    (the positional multiplies).  ``connected_components`` is ported."""
+def test_what_waits_is_not_stubbed(cpu):
+    """Every algorithm of the JAX package is ported: ``bfs_parent`` (the
+    positional ring ``min_secondi``) runs as there."""
     assert talg.__all__ == ["bfs_level", "bfs_parent",
                             "connected_components", "pagerank", "sssp",
                             "triangle_count"]
     assert sorted(talg.__all__) == sorted(jalg.__all__)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        talg.bfs_parent(None)
+    r, c = [0, 0, 1, 2, 4], [1, 2, 3, 3, 5]
+    jA, tA = both_matrices(r, c, np.ones(len(r), np.float32), "FP32", 6)
+    assert_values_match(talg.bfs_parent(tA).to_coo(),
+                        jalg.bfs_parent(jA).to_coo(), "INT64")
 
 
 # --------------------------------------------------------------------- #

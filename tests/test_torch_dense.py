@@ -531,9 +531,9 @@ def test_limits_and_not_ported(cpu):
     got = S.power(3, gbt.semiring.min_plus).new()   # densifies under the limit
     assert got.to_coo()[2].tolist() == [6.0, 6.0, 6.0]
     assert S._sparse is None
-    for call in (lambda: D.kronecker(D), lambda: D.reposition(1, 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    jD3 = gbj.Matrix.from_dense(np.ones((3, 3), np.float32))
+    for call in (lambda M: M.kronecker(M), lambda M: M.reposition(1, 1)):
+        assert_same_collection(call(D).new(), call(jD3).new())
     # select and apply on a dense-backed matrix: the dense engine's twins
     jD = gbj.Matrix.from_dense(-np.arange(9, dtype=np.float32).reshape(3, 3))
     D = gbt.Matrix.from_dense(-np.arange(9, dtype=np.float32).reshape(3, 3))

@@ -812,3 +812,59 @@ def test_index_and_components_match_cpu(cuda, backing):
             assert g._sparse is not None, i
         for a, b in zip(g.to_coo(), w.to_coo()):
             assert np.array_equal(a, b), i
+
+
+# --------------------------------------------------------------------- #
+# positional operators, aggregators, kronecker and reposition (torch ops,
+# no kernel of their own) on the card against the same calls on the CPU,
+# which tests/test_torch_positional.py and tests/test_torch_agg.py hold
+# against the JAX package
+def _positional_agg_results(device, backing):
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(14)
+    n = 300
+    r = rng.integers(0, n, 3000)
+    c = (rng.zipf(1.6, 3000) - 1) % n
+    limit = {"auto_sparse_limit": 0} if backing == "sparse" else {}
+    with gb.config.set(device=device, **limit):
+        A = gb.Matrix.from_coo(r, c, rng.random(3000).astype(np.float32),
+                               dtype="FP32", nrows=n, ncols=n,
+                               dup_op=gb.binary.plus)
+        L = A.apply(gb.unary.one).new(dtype="INT64").select(
+            gb.select.tril, -1).new()
+        out = [gb.algorithms.bfs_parent(A, 0),
+               L.mxm(L.T, gb.semiring.ss.min_secondi).new(
+                   mask=L.S, axb_method="dot"),
+               A.mxm(A, gb.semiring.ss.min_firsti).new(),
+               A.apply(gb.binary.ss.firstj, right=0).new(),
+               A.apply(gb.unary.ss.positioni).new(),
+               A.reduce_rowwise(gb.agg.count).new(),
+               A.reduce_columnwise(gb.agg.ss.argmin).new(),
+               A.reduce_rowwise(gb.agg.mean).new(),
+               A.reduce_scalar(gb.agg.stdp).new(),
+               A[:8, :16].new().kronecker(A[:16, :8].new()).new(),
+               A.reposition(7, -11).new()]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backing", ["sparse", "dense"])
+def test_positional_and_aggregators_match_cpu(cuda, backing):
+    """Integers and indices exact; the float aggregates to rel 1e-6 (their
+    sums run in another order on the card)."""
+    got = _positional_agg_results("cuda", backing)
+    want = _positional_agg_results("cpu", backing)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if g.ndim == 0:
+            np.testing.assert_allclose(g.value, w.value, rtol=1e-6)
+            continue
+        gc, wc = g.to_coo(), w.to_coo()
+        for a, b in zip(gc[:-1], wc[:-1]):
+            assert np.array_equal(a, b), i
+        if wc[-1].dtype.kind == "f":
+            np.testing.assert_allclose(gc[-1], wc[-1], rtol=1e-6, atol=0,
+                                       err_msg=str(i))
+        else:
+            assert np.array_equal(gc[-1], wc[-1]), i

@@ -114,10 +114,10 @@ def test_renamed_and_cast_lookups(lookup, want):
 
 
 @pytest.mark.parametrize("path", [
-    "binary.rminus", "binary.lxor", "binary.numpy", "binary.ss.firsti1",
-    "monoid.lxor", "monoid.eq", "unary.ainv", "unary.ss",
+    "binary.rminus", "binary.lxor", "binary.numpy", "binary.ss.register_new",
+    "monoid.lxor", "monoid.eq", "unary.ainv", "unary.ss.erf",
     "semiring.plus_rminus", "semiring.lxor_land", "semiring.min_div",
-    "semiring.ss.min_firsti1"])
+    "semiring.ss.lxor_firsti1"])
 def test_missing_operator_names_item_12(path):
     def walk(gb):
         obj = gb

@@ -197,8 +197,9 @@ def test_stubs_and_small_ports():
     for name in ("from_csr", "from_edgelist", "ss"):
         with pytest.raises(NotImplementedError, match="item 12"):
             getattr(gbt.Matrix, name)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gbt.agg
+    with gbt.config.set(device="cpu"):
+        v = gbt.Vector.from_coo([0, 2], [1.5, 2.0], size=3)
+        assert v.reduce(gbt.agg.count).new().value == 2
     with pytest.raises(AttributeError):
         gbt.no_such_name
 
