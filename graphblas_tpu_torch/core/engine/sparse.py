@@ -48,8 +48,7 @@ class Structure:
     both, each made once when first needed.  Two stores share a structure
     exactly when they are the same object."""
 
-    __slots__ = ("rows", "cols", "nrows", "ncols", "_csc", "_host",
-                 "_longest")
+    __slots__ = ("rows", "cols", "nrows", "ncols", "_csc", "_host")
 
     def __init__(self, rows, cols, nrows, ncols, *, host=None, csc=None):
         self.rows = rows
@@ -58,21 +57,6 @@ class Structure:
         self.ncols = int(ncols)
         self._csc = csc
         self._host = host
-        self._longest = {}
-
-    def longest(self, of_rows):
-        """The most entries in one row (of_rows) or one column, read from
-        the device once for each: a binary search of the sorted rows (or
-        columns, through csc_perm) at every row's start."""
-        got = self._longest.get(of_rows)
-        if got is None:
-            ids = self.rows if of_rows else self.cols[self.csc_perm()]
-            n = self.nrows if of_rows else self.ncols
-            bounds = torch.searchsorted(ids, torch.arange(
-                n + 1, dtype=ids.dtype, device=ids.device))
-            got = int((bounds[1:] - bounds[:-1]).max()) if n else 0
-            self._longest[of_rows] = got
-        return got
 
     def csc_perm(self):
         """Permutation to (col, row) order, on the device (csc_perm_of)."""
@@ -295,18 +279,19 @@ _RUN = 256  # the most atomics _scatter_minmax sends to one address
 _SHARE = 32
 
 
-def _scatter_minmax(seg, x, red, ident, n, longest=None):
+def _scatter_minmax(seg, x, red, ident, n, start, end):
     """``ident.expand(n).clone().scatter_reduce_(0, seg, x, red)`` for a
-    sorted seg.  A scatter straight into a hub destination serializes on
-    its atomics, so where the longest segment (longest: an upper bound,
-    None where unknown) may hold over max(_RUN, slots / _SHARE) slots,
+    sorted seg whose segments span [start, end).  A scatter straight into
+    a hub destination serializes on its atomics, so where the longest
+    segment holds over max(_RUN, slots / _SHARE) slots (one device read),
     runs of up to _RUN consecutive slots of one segment reduce first,
     then the runs into the n slots: no address takes more than _RUN
-    atomics.  scripts/segment_minmax_probe.py times the ways on the zipf
-    graph's hub of 499,786 in-edges."""
+    atomics.  The probe of commit 25bd9b5 (scripts/segment_minmax_probe.py)
+    timed the ways on the zipf graph's hub of 499,786 in-edges."""
     out = ident.expand(n).clone()
     m = seg.numel()
-    if longest is not None and longest <= max(_RUN, m // _SHARE):
+    longest = int((end - start).max()) if n else 0
+    if longest <= max(_RUN, m // _SHARE):
         return out.scatter_reduce_(0, seg, x, red)
     dev = seg.device
     brk = torch.ones(m, dtype=torch.bool, device=dev)
@@ -319,22 +304,22 @@ def _scatter_minmax(seg, x, red, ident, n, longest=None):
     return out.scatter_reduce_(0, run_seg, run_vals, red)
 
 
-def _minmax(seg, x, name, n, ident, mono, start, end, longest):
+def _minmax(seg, x, name, n, ident, mono, start, end):
     """min/max per segment with the fmin/fmax semantics of the JAX
     package's combine: a NaN loses to any number and survives only where
     every slot of its segment is NaN."""
     red = "amin" if name == "min" else "amax"
     if not mono.type.is_float:
-        return _scatter_minmax(seg, x, red, ident, n, longest)
+        return _scatter_minmax(seg, x, red, ident, n, start, end)
     nan = torch.isnan(x)
     out = _scatter_minmax(seg, torch.where(nan, ident, x), red, ident, n,
-                          longest)
+                          start, end)
     all_nan = (_segment_sums((~nan).to(_I64), start, end) == 0) & \
         (end > start)
     return torch.where(all_nan, torch.full_like(out, float("nan")), out)
 
 
-def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt, longest=None):
+def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
     """Monoid-reduce ``vals[ok]`` grouped by the sorted ``seg`` into n dense
     slots: (values in mono.type, valid).  As in the JAX package, the
     segments' bounds come from a binary search, with no scatter where many
@@ -343,9 +328,8 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt, longest=None):
     differences of one running sum (exact in int64); float sums add each
     segment on its own in float64, since a difference of running sums
     would carry the rounding of every earlier segment.  min and max
-    scatter, in two levels where a segment may be longer than _RUN slots
-    (longest: an upper bound of the longest segment, None where unknown;
-    see _scatter_minmax); times, band and bor fold by a segmented scan."""
+    scatter, in two levels where one segment is long (_scatter_minmax);
+    times, band and bor fold by a segmented scan."""
     dev = vals.device
     x = st.cast_values(vals, in_dt, mono.type)
     name = mono.parent.name
@@ -373,8 +357,7 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt, longest=None):
         out = t > 0 if name == "lor" else t == end - start
         return out, out_valid
     if name in ("min", "max"):
-        return _minmax(seg, xi, name, n, ident, mono, start, end,
-                       longest), out_valid
+        return _minmax(seg, xi, name, n, ident, mono, start, end), out_valid
     out = _segment_fold(seg, xi, mono.binaryop, n, ident, start, end)
     return _dt.normalize(out, mono.type), out_valid
 
@@ -428,16 +411,7 @@ def spmv(sp, at, kind, u_vals, u_valid, ring, a_dt, u_dt):
         perm = sp.csc_perm()  # destination-sorted order, k ascending
         seg, prods, x_ok = seg[perm], prods[perm], x_ok[perm]
     return segment_reduce_sorted(seg, prods, x_ok, mono, out_size,
-                                 mult.return_type,
-                                 _longest(sp, mono, dest is rows))
-
-
-def _longest(sp, mono, of_rows):
-    """The longest row or column of sp where a min or max reduces over
-    them (segment_reduce_sorted's bound), else None."""
-    if mono.parent.name not in ("min", "max"):
-        return None
-    return sp.struct.longest(of_rows)
+                                 mult.return_type)
 
 
 def reduce_axis(sp, at, axis, mono, in_dt):
@@ -447,14 +421,12 @@ def reduce_axis(sp, at, axis, mono, in_dt):
     eff_rows, eff_cols = (cols, rows) if at else (rows, cols)
     n_r, n_c = (sp.ncols, sp.nrows) if at else (sp.nrows, sp.ncols)
     dest, out_size = (eff_rows, n_r) if axis == 1 else (eff_cols, n_c)
-    longest = _longest(sp, mono, dest is rows)
     vals = sp.vals
     if dest is not rows:
         perm = sp.csc_perm()
         dest, vals = dest[perm], vals[perm]
     ok = torch.ones(dest.numel(), dtype=torch.bool, device=vals.device)
-    return segment_reduce_sorted(dest, vals, ok, mono, out_size, in_dt,
-                                 longest)
+    return segment_reduce_sorted(dest, vals, ok, mono, out_size, in_dt)
 
 
 def extract_element(sp, at, i, j):
@@ -761,12 +733,10 @@ def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
                                   b_dt)
     prods = st.cast_values(prods, mult.return_type, mono.type)
     key, order = torch.sort(i * max(out_ncols, 1) + j, stable=True)
-    uniq, seg, cnt = torch.unique_consecutive(key, return_inverse=True,
-                                              return_counts=True)
+    uniq, seg = torch.unique_consecutive(key, return_inverse=True)
     ok = torch.ones(key.numel(), dtype=torch.bool, device=dev)
-    longest = int(cnt.max()) if mono.parent.name in ("min", "max") else None
     vals, _ = segment_reduce_sorted(seg, prods[order], ok, mono, uniq.numel(),
-                                    mono.type, longest)
+                                    mono.type)
     ncols = max(out_ncols, 1)
     return store_from_parts(uniq // ncols, uniq % ncols, vals, out_nrows,
                             out_ncols, mono.type)
@@ -809,18 +779,16 @@ def _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows, out_ncols):
 
 def spgemm_dot_total(a, b, msp, m_dt, structure, at, bt, out_nrows,
                      out_ncols, k_dim):
-    """[gustavson_total, dot_total, the dot's most terms for one mask
-    entry] as one int64 device tensor, so the host picks the formulation
-    with one device read."""
+    """[gustavson_total, dot_total] as one int64 device tensor, so the
+    host picks the formulation with one device read."""
     gus = spgemm_total(a, b, at, bt, k_dim)
     cnt = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
                        out_ncols)[-1]
-    most = torch.cat([cnt, gus.reshape(1) * 0]).max()  # 0 for no mask
-    return torch.stack([gus, cnt.sum(), most])
+    return torch.stack([gus, cnt.sum()])
 
 
 def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
-                      out_nrows, out_ncols, k_dim, total, longest=None):
+                      out_nrows, out_ncols, k_dim, total):
     """The masked dot.  An output entry sits at a mask entry (that passes a
     value mask) with at least one term whose index both sides store."""
     mult, mono = ring.binaryop, ring.monoid
@@ -863,7 +831,7 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
         bv = _take(b_vals, torch.where(ua_t, q, src - na))
         prods = dense.apply_binop(mult, av, a_dt, bv, b_dt)
     out_vals, out_valid = segment_reduce_sorted(
-        mo, prods, found, mono, msp.nvals(), mult.return_type, longest)
+        mo, prods, found, mono, msp.nvals(), mult.return_type)
     keep = (out_valid & ok_m).nonzero().reshape(-1)
     return store_from_parts(mr[keep], mc[keep], out_vals[keep], out_nrows,
                             out_ncols, mono.type)

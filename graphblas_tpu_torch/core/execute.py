@@ -922,7 +922,7 @@ def _spgemm_run(expr, mask, opts):
             and mask.parent._sparse is not None
             and method in ("default", "dot")):
         msp, m_dt = mask.parent._sparse, mask.parent.dtype
-        gus, dot, longest = spx.spgemm_dot_total(
+        gus, dot = spx.spgemm_dot_total(
             a_sp, b_sp, msp, m_dt, mask.structure, at, bt, out_nrows,
             out_ncols, k_dim).tolist()
         if method == "dot" or dot <= gus:
@@ -930,8 +930,7 @@ def _spgemm_run(expr, mask, opts):
                     _SPGEMM_RANGE.format("dot", dot, gus, dot)):
                 return spx.spgemm_masked_dot(
                     a_sp, b_sp, msp, at, bt, ring, a.dtype, b.dtype, m_dt,
-                    mask.structure, out_nrows, out_ncols, k_dim, dot,
-                    longest)
+                    mask.structure, out_nrows, out_ncols, k_dim, dot)
     else:
         gus = int(spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
     with torch.profiler.record_function(

@@ -298,27 +298,31 @@ def test_positional_rings_skip_the_kernels():
                                    torch.float64])
 def test_two_level_scatter_matches_the_scatter(red, dtype):
     """The min/max scatter of the sparse engine's reduces (at most 256
-    atomics an address, so a hub destination does not serialize) against
-    one plain scatter: empty segments, short ones, and segments longer
-    than a run (one of 1500 slots)."""
+    atomics an address where one segment holds over 1/32 of the slots, so
+    a hub destination does not serialize) against one plain scatter:
+    empty segments, short ones, and a segment longer than a run (one of
+    1500 slots); then short segments alone, which scatter once, and no
+    destination at all."""
     from graphblas_tpu_torch.core.engine import sparse as spx
 
     rng = np.random.default_rng(21)
     n = 40
-    seg = np.sort(np.concatenate([rng.integers(0, n, 700),
-                                  np.full(1500, 17), np.full(300, 39)]))
-    seg = torch.from_numpy(seg[(seg != 3) & (seg != 30)])
-    x = torch.from_numpy(rng.integers(-10**6, 10**6, seg.numel())).to(dtype)
     ident = torch.tensor(10**7 if red == "amin" else -10**7, dtype=dtype)
-    got = spx._scatter_minmax(seg, x, red, ident, n)
-    want = ident.expand(n).clone().scatter_reduce_(0, seg, x, red)
-    assert got.dtype == want.dtype and torch.equal(got, want)
-    assert got[3] == ident and got[30] == ident
-    # the bound callers pass: a store's longest row and column
-    r, c, _, (nr, nc) = DATA["A"]
-    struct = spx.Structure(torch.tensor(r), torch.tensor(c), nr, nc)
-    assert struct.longest(True) == np.bincount(r).max()
-    assert struct.longest(False) == np.bincount(c).max()
+    hub = np.concatenate([rng.integers(0, n, 700), np.full(1500, 17),
+                          np.full(300, 39)])
+    for seg, size in ((hub, n), (rng.integers(0, n, 700), n),
+                      (np.zeros(0, np.int64), 0)):
+        seg = np.sort(seg)
+        seg = torch.from_numpy(seg[(seg != 3) & (seg != 30)])
+        x = torch.from_numpy(rng.integers(-10**6, 10**6,
+                                          seg.numel())).to(dtype)
+        bounds = torch.searchsorted(seg, torch.arange(size + 1))
+        got = spx._scatter_minmax(seg, x, red, ident, size, bounds[:-1],
+                                  bounds[1:])
+        want = ident.expand(size).clone().scatter_reduce_(0, seg, x, red)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        if size:
+            assert got[3] == ident and got[30] == ident
 
 
 # --------------------------------------------------------------------- #

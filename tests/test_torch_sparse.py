@@ -247,10 +247,20 @@ def test_write_back_sparse(mats, mask, accum, replace):
 
 
 def _spgemm_operands(gb, kind):
+    """A, B and a mask M.  kind "empty": A has no entries; "disjoint": A
+    lies in the top-left quarter and B in the bottom-right, so A @ B.T and
+    A.T @ B have entries on both sides but no term; "full": M stores every
+    position."""
     r, c, v, _ = coo_data(40, "INT64", density=0.2)
-    A = gb.Matrix.from_coo(r, c, v, dtype="INT64", nrows=N, ncols=N)
-    B = gb.Matrix.from_coo(c, r, v, dtype="INT64", nrows=N, ncols=N)
-    mr, mc, mv, _ = coo_data(41, "INT64", density=0.3)
+    keep = (r < N // 2) & (c < N // 2) if kind == "disjoint" else \
+        np.ones(len(r), dtype=bool)
+    A = gb.Matrix.from_coo(r[keep], c[keep], v[keep], dtype="INT64",
+                           nrows=N, ncols=N)
+    keep = (r >= N // 2) & (c >= N // 2) if kind == "disjoint" else keep
+    B = gb.Matrix.from_coo(c[keep], r[keep], v[keep], dtype="INT64",
+                           nrows=N, ncols=N)
+    mr, mc, mv, _ = coo_data(41, "INT64", density=1.0 if kind == "full"
+                             else 0.3)
     M = gb.Matrix.from_coo(mr, mc, mv, dtype="INT64", nrows=N, ncols=N)
     if kind == "empty":
         A = gb.Matrix("INT64", N, N)
@@ -258,7 +268,9 @@ def _spgemm_operands(gb, kind):
 
 
 SPGEMM = [("plus_times", "S"), ("plus_times", "V"), ("min_plus", "S"),
-          ("plus_pair", "~S"), ("max_first", None), ("plus_times", "emptyS")]
+          ("plus_pair", "~S"), ("max_first", None), ("plus_times", "emptyS"),
+          ("min_plus", "disjointS"), ("min_plus", "disjoint"),
+          ("max_first", "~fullS")]
 
 
 def spgemm_choices(fn):
@@ -275,11 +287,16 @@ def spgemm_choices(fn):
                          ids=[f"{r}-{m}" for r, m in SPGEMM])
 def test_spgemm_both_formulations(ring, mask):
     """A @ B.T and A.T @ B under each formulation forced: the same result,
-    equal to the JAX package's (which picks by the expansion totals)."""
+    equal to the JAX package's (which picks by the expansion totals).  The
+    last three make no term: no index k meets on both sides, or a
+    complemented mask that stores every position drops them all."""
+    kind = {"emptyS": "empty", "disjointS": "disjoint", "disjoint": "disjoint",
+            "~fullS": "full"}.get(mask, "")
     out = {}
     for gb in (gbj, gbt):
-        A, B, M = _spgemm_operands(gb, "empty" if mask == "emptyS" else "")
-        m = {"S": M.S, "V": M.V, "~S": ~M.S, "emptyS": M.S, None: None}[mask]
+        A, B, M = _spgemm_operands(gb, kind)
+        m = {"S": M.S, "V": M.V, "~S": ~M.S, "emptyS": M.S, None: None,
+             "disjointS": M.S, "disjoint": None, "~fullS": ~M.S}[mask]
         rg = getattr(gb.semiring, ring)
         for tr in ("nt", "tn"):
             expr = A.mxm(B.T, rg) if tr == "nt" else A.T.mxm(B, rg)
@@ -292,7 +309,7 @@ def test_spgemm_both_formulations(ring, mask):
                 same(got, out[tr])
                 # an empty operand makes no product at all
                 want = [] if mask == "emptyS" else [
-                    f if mask in ("S", "V") else "gustavson"]
+                    f if mask in ("S", "V", "disjointS") else "gustavson"]
                 assert [r["formulation"] for r in recs] == want
 
 
