@@ -85,7 +85,25 @@ engine) from the sources, then:
    in float64; kronecker to 8192 x 8192 against np.kron; reposition of
    that matrix and of a vector of 2**19 against numpy slicing.  Each call
    with its time (median of 3, of 5 under 10 ms), idle share and peak
-   memory; none of the seven kernels may launch in it.
+   memory; none of the seven kernels may launch in it;
+12. the operators slice (phase `operators`): on the zipf graph with values
+   of each type, vxm and mxv through the lanepipe with each operand in its
+   own type (BOOL x FP32 and BOOL x INT32 plus_times, INT32 x FP32
+   min_plus), narrow types (INT8 plus_times and min_plus, UINT16
+   max_minus), a comparison (lor_lt over FP32, a packed BOOL product) and
+   the new monoids (lxor_land and eq_eq over BOOL, bxor_band over UINT16,
+   also with a sparse u: K5 for bxor); row and column reduces through K6
+   (lxor, bxor, max over INT8); from_coo with duplicates under lor, minus
+   and bxor; and two products on the generic engine (UINT64 plus_times,
+   INT16 plus_floordiv), where no kernel may launch.  Each exactly against
+   numpy with typed wrapping arithmetic (FP32 sums to rel 1e-5), with its
+   time (median of 3) and launches; two calls profiled.  The kernel phase
+   adds K1 over every builtin multiply and type of at most 32 bits and 16
+   mixed operand pairs on a small plan (bitwise against the plain
+   version), K1 on the zipf plan at a mixed, a narrow and a comparison
+   variant (timed warm and after an L2 flush), and K4 with lxor, K5 and
+   K6 with bxor at the main path's shapes: bitwise, 200 launches equal,
+   timed.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -418,6 +436,8 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
     (err, k1_ms, k1_pms, k1_bytes), k1_out = k1_checks(
         gb, torch, {"zipf": (e, eb), "rmat": (er, None)}, rng, variants)
     prods, codes = k1_out["pagerank"], k1_out["bfs"]
+    k1_new_variants(gb, torch, e, eb, rng, variants)
+    k1_grid(gb, torch, dev, rng)
     add("gather_mult", "graphblas_tpu_torch/csrc/gather_mult.cu",
         "graphblas_tpu/core/engine/lanepipe.py:363", err, k1_ms, k1_pms,
         k1_bytes, nops=R_g * 128)
@@ -585,6 +605,7 @@ def kernel_phase(gb, torch, dev, A, Ab, results):
         "graphblas_tpu/core/engine/permute.py:223", err2, ms2, pms2,
         4 * 3 * fin.numel(), library_ms=lib2)
     new_kernels_phase(gb, torch, dev, A, e, rng, add, variants)
+    new_combine_checks(gb, torch, dev, rng, e, eb, variants)
     results["kernel_variants"] = variants
     results.setdefault("kernels", {}).update(rows)
     results["plan"] = {"L": e["L"], "R_g": R_g, "nblocks_g": nblocks,
@@ -2348,9 +2369,439 @@ def positional_agg_phase(gb, torch, K, src, dst, n, results, totals):
     results["positional_agg"] = out
 
 
+# --------------------------------------------------------------------- #
+# the operators slice: every builtin multiply in K1, the new combines in
+# K4-K6, and the new types end to end
+K1_TNAMES = ("FP32", "INT32", "UINT32", "BOOL", "INT8", "INT16", "UINT8",
+             "UINT16")
+# (op, matrix type, vector type, op's lookup type, monoid or None): each
+# operand in its own type; the last casts FP32 products to BOOL for lor
+K1_MIXED = (("times", "BOOL", "FP32", "FP32", None),
+            ("times", "BOOL", "INT32", "INT32", None),
+            ("plus", "FP32", "INT32", "FP32", None),
+            ("lt", "INT8", "FP32", "FP32", None),
+            ("times", "UINT16", "INT32", "INT32", None),
+            ("plus", "FP32", "INT8", "INT8", None),
+            ("bxor", "INT32", "UINT8", "UINT8", None),
+            ("pow", "UINT8", "INT16", "INT16", None),
+            ("land", "FP32", "BOOL", "BOOL", None),
+            ("eq", "UINT32", "INT32", "INT32", None),
+            ("minus", "INT16", "UINT16", "UINT16", None),
+            ("max", "UINT32", "FP32", "FP32", None),
+            ("bshift", "INT8", "INT32", "INT8", None),
+            ("cdiv", "FP32", "UINT8", "UINT8", None),
+            ("rminus", "BOOL", "INT16", "INT16", None),
+            ("plus", "FP32", "FP32", "FP32", "lor"))
+
+
+def typed_words(torch, rng, shape, tname, dev):
+    """Carrier words of a type with the values that tell multiplies apart:
+    FP32 zeros of both signs, NaN, infinities, a subnormal, values past
+    the integer types' ranges; integers over the type's full range (so
+    products and sums wrap) and small ones (so divisions and shifts
+    matter)."""
+    if tname == "FP32":
+        pool = np.float32([0, -0.0, 1.5, -2, np.nan, np.inf, -np.inf, 3e-39,
+                           1e30, 7, 300.7, -40000.5, 3e9])
+        x = np.where(rng.random(shape) < 0.5, rng.choice(pool, shape),
+                     (4 * rng.standard_normal(shape)).astype(np.float32))
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+    if tname == "BOOL":
+        return torch.from_numpy(rng.integers(0, 2, shape, dtype=np.int32)).to(dev)
+    info = np.iinfo(np.dtype(tname.lower()))
+    x = rng.integers(int(info.min), int(info.max) + 1, shape, dtype=np.int64)
+    small = rng.random(shape) < 0.4
+    x[small] = rng.integers(-3 if info.min < 0 else 0, 9, int(small.sum()))
+    return torch.from_numpy(x.astype(np.dtype(tname.lower())).astype(np.int64)
+                            .astype(np.int32)).to(dev)
+
+
+def k1_grid(gb, torch, dev, rng):
+    """K1 over every builtin multiply and every type of at most 32 bits it
+    takes, and over the mixed operand pairs of K1_MIXED, at a small plan
+    (three windows, the last ending at the end of u): vxm and mxv, a
+    sparse u (the okp output) through the route's stage A, the BOOL
+    monoids packed and not; every output bitwise against
+    gather_mult_plain, one launch a call.  Returns the number of cases."""
+    from graphblas_tpu_torch.core import dtypes as dts
+    from graphblas_tpu_torch.core.engine import kernels as K
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+
+    nk = 3 * lp.WINDOW_K
+    lin = np.unique(rng.integers(0, nk * nk, 2 * nk))
+    M = gb.Matrix.from_coo(lin // nk, lin % nk, np.ones(len(lin), np.float32),
+                           dtype="FP32", nrows=nk, ncols=nk)
+    plans = {kind: lp.get_plan(M._sparse, kind == "mxv", device=dev)
+             for kind in ("vxm", "mxv")}
+    if None in plans.values():
+        fail("K1 grid: the small plan exceeds PACK_LIMIT")
+
+    def case(tag, mult, a_t, u_t, mono):
+        a_dt, u_dt = (dts.lookup_dtype(t) for t in (a_t, u_t))
+        for kind, e in plans.items():
+            x_dt, y_dt = (a_dt, u_dt) if kind == "mxv" else (u_dt, a_dt)
+            if K.k1_code(mult, x_dt, y_dt, mono.type) is None:
+                fail(f"K1 grid {tag}: the kernel does not take it")
+            d = e["dev"]
+            R_g, nb = e["R_g"], e["nblocks_g"]
+            plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"],
+                      typed_words(torch, rng, (R_g, 128), a_t, dev))
+            u2 = typed_words(torch, rng, (nk // 128, 128), u_t, dev)
+            u2ok = torch.from_numpy(rng.integers(0, 2, u2.shape, dtype=np.int32)).to(dev)
+            for packed in ((False, True) if mono.type is dts.BOOL else (False,)):
+                kw = dict(kind=kind, R_g=R_g, nblocks=nb, packed=packed,
+                          permA=d["routeP"][0])
+                args = (plan_g, u2, u2ok, mult, a_dt, u_dt, mono)
+                before = K.launches["gather_mult"]
+                got = lp.gather_mult(*args, **kw)
+                if K.launches["gather_mult"] - before != 1:
+                    fail(f"K1 grid {tag}: not one launch a call")
+                want = lp.gather_mult_plain(*args, **kw)
+                compare(f"K1 grid {tag} {kind} packed={packed}", got[0],
+                        want[0], quiet=True)
+                if want[1] is not None:
+                    compare(f"K1 grid {tag} {kind} okp", got[1], want[1],
+                            quiet=True)
+
+    def monoid_for(ret, name=None):
+        if name is not None:
+            return getattr(gb.monoid, name)[ret]
+        return (gb.monoid.lor if ret is dts.BOOL else gb.monoid.min)[ret]
+
+    cases = skipped = 0
+    for op in K.K1_OP:
+        for t in K1_TNAMES:
+            try:
+                mult = getattr(gb.binary, op)[t]
+            except KeyError:
+                continue
+            mono = monoid_for(mult.return_type)
+            if K.k1_code(mult, mult.type, mult.type, mono.type) is None:
+                skipped += 1  # a return type of 64 bits (truediv on INT8)
+                continue
+            case(f"{op}[{t}]", mult, t, t, mono)
+            cases += 1
+    for op, a_t, u_t, t, mname in K1_MIXED:
+        mult = getattr(gb.binary, op)[t]
+        case(f"{op}[{t}] over {a_t} x {u_t}", mult, a_t, u_t,
+             monoid_for(mult.return_type, mname))
+        cases += 1
+    log(f"  K1 grid: {cases} (op, type) and mixed cases bitwise equal to the "
+        f"plain version, vxm and mxv, one launch a call ({skipped} pairs with "
+        f"a 64-bit product left to the generic engine)")
+    return cases
+
+
+def k1_new_variants(gb, torch, e, eb, rng, variants):
+    """K1 on the zipf plan at the slice's variants, beside PageRank's:
+    BOOL x FP32 plus_times (PageRank over a BOOL adjacency), min_plus on
+    INT8 (products wrapped before the min) and lor_lt on FP32 (a BOOL
+    product, packed); each with a full u through the route's stage A,
+    bitwise against the plain version, timed warm and after an L2 flush."""
+    from graphblas_tpu_torch.core import dtypes as dts
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+
+    d, db = e["dev"], eb["dev"]
+    dev = d["meta"].device
+    n, R_g, nb = e["n_in"], e["R_g"], e["nblocks_g"]
+    plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"])
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    uf = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+    ui8 = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(dev)
+    ai8 = torch.from_numpy(rng.integers(-128, 128, (R_g, 128)).astype(np.int32)).to(dev)
+    S, W = 4 * R_g * 128, 4 * nb * 128 * 128
+    U = 4 * lp.pad_u(uf, ones, dts.FP32, n)[0].numel()
+    nbytes = 5 * S + W + U + 12 * nb
+    cases = (("mixed BOOL x FP32 plus_times", gb.semiring.plus_times["FP32"],
+              db["avals_g"], dts.BOOL, uf, dts.FP32, False),
+             ("narrow min_plus[INT8]", gb.semiring.min_plus["INT8"], ai8,
+              dts.INT8, ui8, dts.INT8, False),
+             ("comparison lor_lt[FP32]", gb.semiring.lor_lt["FP32"],
+              d["avals_g"], dts.FP32, uf, dts.FP32, True))
+    for vname, ring, avals, a_dt, u, u_dt, packed in cases:
+        u2, u2ok = lp.pad_u(u, ones, u_dt, n)
+        args = (plan_g + (avals,), u2, u2ok, ring.binaryop, a_dt, u_dt,
+                ring.monoid)
+        kw = dict(kind="vxm", R_g=R_g, nblocks=nb, packed=packed, full_u=True,
+                  permA=d["routeP"][0])
+        k1 = lambda: lp.gather_mult(*args, **kw)  # noqa: E731
+        p1 = lambda: lp.gather_mult_plain(*args, **kw)  # noqa: E731
+        compare(f"K1 gather_mult zipf {vname}", k1()[0], p1()[0])
+        ms, cold, pms = (cuda_ms(torch, k1), cuda_ms(torch, k1, cold=True),
+                         cuda_ms(torch, p1))
+        b_ms, _ = bound(nbytes)
+        variants[f"gather_mult zipf {vname}"] = {
+            "ms": ms, "cold_ms": cold, "plain_ms": pms, "bound_ms": b_ms,
+            "bytes": nbytes}
+        log(f"  gather_mult zipf {vname}: kernel {ms:.4f} ms, after an L2 "
+            f"flush {cold:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
+
+
+def new_combine_checks(gb, torch, dev, rng, e, eb, variants):
+    """Each kernel with a combine of this slice at the main path's shapes:
+    K4 with packed BOOL lxor on the BOOL plan, K5 with UINT32 bxor and
+    validity on the zipf plan's S layout, K6 with UINT32 bxor and a count
+    on a flat array of the zipf plan's length; bitwise against the plain
+    version, 200 launches each equal to the first, timed beside the plain
+    version."""
+    from graphblas_tpu_torch.core import dtypes as dts
+    from graphblas_tpu_torch.core.engine import lanepipe as lp
+    from graphblas_tpu_torch.core.engine import sortpipe as sp
+
+    def check(tag, kfn, pfn, nbytes):
+        for g, w_ in zip(kfn(), pfn()):
+            compare(tag, g, w_)
+        first = [t.view(torch.int32).clone() for t in kfn()]
+        for r in range(200):
+            if not all(bool(torch.equal(g.view(torch.int32), f))
+                       for g, f in zip(kfn(), first)):
+                fail(f"{tag} race check: launch {r + 1} of 200 differs from "
+                     f"the first")
+        ms, pms = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
+        b_ms, _ = bound(nbytes)
+        variants[tag] = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                         "bytes": nbytes}
+        log(f"  {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB); 200 launches bitwise "
+            f"equal")
+
+    db = eb["dev"]
+    shb = tuple(db["barrier"].shape)
+    codes = torch.from_numpy(rng.integers(0, 3, shb).astype(np.int32)).to(dev)
+    lx = lp.combines(gb.monoid.lxor["BOOL"])[1]
+    k4 = (db["routeP"][2], db["barrier"], db["extP"][0], codes, lx)
+    check("fused_permC_scan_permA BOOL packed lxor",
+          lambda: [lp.fused_permC_scan_permA(*k4)],
+          lambda: [lp.fused_permC_scan_permA_plain(*k4)], 4 * 5 * codes.numel())
+    d = e["dev"]
+    shape = tuple(d["barrier"].shape)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+    ok = torch.from_numpy(rng.random(shape) < 0.5).to(dev).to(torch.int32)
+    bx = lp.combines(gb.monoid.bxor[dts.UINT32])[0]
+    check("lane_segscan UINT32 bxor + validity",
+          lambda: lp.lane_segscan(d["barrier"], words, ok, bx),
+          lambda: lp.lane_segscan_plain(d["barrier"], words, ok, bx),
+          4 * 5 * words.numel())
+    L = e["L"] // sp.SEG_BLOCK * sp.SEG_BLOCK
+    bar = torch.from_numpy((rng.random(L) < 1 / 50).astype(np.int32)).to(dev)
+    chans = [torch.from_numpy(rng.integers(-2**31, 2**31, L, dtype=np.int64)
+                              .astype(np.int32)).to(dev),
+             torch.from_numpy(rng.integers(0, 2, L).astype(np.int32)).to(dev)]
+    pair = [sp.monoid_combine(gb.monoid.bxor[dts.UINT32]), sp.COUNT]
+    check("segscan UINT32 bxor, count", lambda: sp.segscan(bar, chans, pair),
+          lambda: sp.segscan_channels_plain(bar, chans, pair), 4 * 5 * L)
+
+
+def _ref_spmv(order, k, d, u_vals, u_valid, a_vals, mult, fold):
+    """numpy vxm/mxv over the edges (k contracts, d receives), edges
+    pre-sorted by d (order): (indices, values) of the result."""
+    ok = u_valid[k[order]]
+    kk, dd = k[order][ok], d[order][ok]
+    p = mult(u_vals[kk], a_vals[order][ok])
+    if len(dd) == 0:
+        return dd, p
+    starts = np.flatnonzero(np.r_[True, dd[1:] != dd[:-1]])
+    return dd[starts].astype(np.int64), fold(p, starts)
+
+
+def _xnor_fold(p, starts):
+    """The eq (lxnor) monoid over runs of BOOL: the xor of each run, with
+    one flip for every pair in it."""
+    cnt = np.diff(np.r_[starts, len(p)])
+    return np.logical_xor.reduceat(p, starts) ^ ((cnt - 1) % 2 == 1)
+
+
+def operators_phase(gb, torch, K, src, dst, n, results, totals):
+    """The operators slice at full width, on bench.py's zipf graph (n =
+    2**19, 3,750,401 entries) with values of each type: vxm and mxv
+    through the lanepipe with mixed operand types (BOOL x FP32 and BOOL x
+    INT32 plus_times, INT32 x FP32 min_plus), narrow types (INT8
+    plus_times and min_plus, UINT16 max_minus), a comparison (lor_lt over
+    FP32) and the new monoids (lxor_land and eq_eq over BOOL, bxor_band
+    over UINT16), each with a full u, and with a sparse u for the new
+    monoids (K5 for bxor; the BOOL monoids take the packed route); row
+    and column reduces through K6 (lxor over BOOL, bxor over UINT16, max
+    over INT8); from_coo with duplicates under lor, minus and bxor; and
+    two generic-engine products (UINT64 plus_times, INT16 plus_floordiv),
+    where no kernel may launch.  Every result exactly against numpy with
+    typed wrapping arithmetic (FP32 sums within rel 1e-5)."""
+    rng = np.random.default_rng(SEED + 13)
+    nnz = len(src)
+    out = {}
+    by_dst = np.argsort(dst, kind="stable")
+    by_src = np.argsort(src, kind="stable")
+    ev = {"BOOL": rng.random(nnz) < 0.6,
+          "FP32": rng.choice(np.float32([0, 0.25, 0.5, 1, 2, 3, -1.5]), nnz),
+          "INT32": rng.integers(-1000, 1000, nnz).astype(np.int32),
+          "INT8": rng.integers(-128, 128, nnz).astype(np.int8),
+          "UINT16": rng.integers(0, 1 << 16, nnz).astype(np.uint16)}
+    uv = {"BOOL": rng.random(n) < 0.5,
+          "FP32": rng.choice(np.float32([0, 0.5, 1, 2, -3, 7.5]), n),
+          "INT32": rng.integers(-1000, 1000, n).astype(np.int32),
+          "INT8": rng.integers(-128, 128, n).astype(np.int8),
+          "UINT16": rng.integers(0, 1 << 16, n).astype(np.uint16)}
+    full = np.ones(n, bool)
+    sparse = rng.random(n) < 0.1
+    mats, vecs = {}, {}
+    for t, v in ev.items():
+        mats[t] = gb.Matrix.from_coo(src, dst, v, dtype=t, nrows=n, ncols=n)
+    for t, v in uv.items():
+        vecs[t, True] = gb.Vector.from_coo(np.arange(n), v, dtype=t, size=n)
+        idx = np.flatnonzero(sparse)
+        vecs[t, False] = gb.Vector.from_coo(idx, v[idx], dtype=t, size=n)
+
+    def run(tag, fn, check, need, profile=False):
+        reset_counts(K)
+        res, ms, runs, first_s = timed_calls(torch, fn, reps=3)
+        torch.cuda.synchronize()
+        got = check_launches(K, tag, totals, need=need)
+        if not need and any(got.values()):
+            fail(f"{tag}: a kernel launched on the generic engine's route")
+        err = check(res)
+        out[tag] = {"ms": ms, "runs_ms": runs, "first_s": first_s,
+                    "launches": got, "max_abs_err": err}
+        if profile:
+            out[tag]["profile"] = profile_breakdown(torch, fn, tag, ms)
+        log(f"  {tag}: {ms:.4f} ms (median of 3), first call {first_s:.2f} s, "
+            f"max abs err {err:.3g}")
+
+    with np.errstate(over="ignore"):
+        f32 = np.float32
+        spmv_cases = (
+            ("plus_times BOOL x FP32", "BOOL", "FP32", "plus_times", "FP32",
+             lambda x, a: x * a.astype(f32), np.add.reduceat, 1e-5),
+            ("plus_times BOOL x INT32", "BOOL", "INT32", "plus_times", "INT32",
+             lambda x, a: x * a.astype(np.int32),
+             lambda p, s: np.add.reduceat(p.astype(np.int64), s).astype(np.int32),
+             None),
+            ("min_plus[FP32] FP32 x INT32", "FP32", "INT32", "min_plus", "FP32",
+             lambda x, a: x.astype(f32) + a, np.minimum.reduceat, None),
+            ("plus_times[INT8]", "INT8", "INT8", "plus_times", "INT8",
+             lambda x, a: x * a,
+             lambda p, s: np.add.reduceat(p.astype(np.int64), s).astype(np.int8),
+             None),
+            ("min_plus[INT8]", "INT8", "INT8", "min_plus", "INT8",
+             lambda x, a: x + a, np.minimum.reduceat, None),
+            ("max_minus[UINT16]", "UINT16", "UINT16", "max_minus", "UINT16",
+             lambda x, a: x - a, np.maximum.reduceat, None),
+            ("lor_lt[FP32]", "FP32", "FP32", "lor_lt", "FP32",
+             lambda x, a: x < a, np.logical_or.reduceat, None),
+            ("lxor_land[BOOL]", "BOOL", "BOOL", "lxor_land", "BOOL",
+             lambda x, a: x & a, np.logical_xor.reduceat, None),
+            ("bxor_band[UINT16]", "UINT16", "UINT16", "bxor_band", "UINT16",
+             lambda x, a: x & a, np.bitwise_xor.reduceat, None),
+            ("eq_eq[BOOL]", "BOOL", "BOOL", "eq_eq", "BOOL",
+             lambda x, a: x == a, _xnor_fold, None))
+        for tag, at, ut, rname, rt, mult, fold, rel in spmv_cases:
+            ring = getattr(gb.semiring, rname)[rt]
+            A = mats[at]
+            for kind in ("vxm", "mxv"):
+                k, d, order = (src, dst, by_dst) if kind == "vxm" else \
+                    (dst, src, by_src)
+                fulls = (True, False) if rname in ("lxor_land", "bxor_band",
+                                                   "eq_eq") else (True,)
+                for is_full in fulls:
+                    u = vecs[ut, is_full]
+                    if kind == "vxm":  # mult(u(i), A(i, j))
+                        mul = mult
+                        fn = lambda u=u, A=A, ring=ring: u.vxm(A, ring).new()  # noqa: E731
+                    else:  # mult(A(i, j), u(j)): the two that do not commute
+                        mul = {"max_minus": lambda x, a: a - x,
+                               "lor_lt": lambda x, a: a < x}.get(rname, mult)
+                        fn = lambda u=u, A=A, ring=ring: A.mxv(u, ring).new()  # noqa: E731
+                    want = _ref_spmv(order, k, d, uv[ut],
+                                     full if is_full else sparse, ev[at], mul,
+                                     fold)
+                    need = ["gather_mult"] + (
+                        ["fused_permC_scan_permA"] if is_full
+                        or ring.monoid.type.is_bool else ["lane_segscan"])
+                    label = f"{kind} {tag}" + ("" if is_full else " sparse u")
+                    run(label, fn, lambda v, label=label, want=want, rel=rel:
+                        check_vector(label, v, *want, rel=rel), need,
+                        profile=label == "vxm plus_times BOOL x FP32")
+
+        # row and column reduces through K6
+        for tag, t, mname, fold in (("lxor", "BOOL", "lxor",
+                                     np.logical_xor.reduceat),
+                                    ("bxor", "UINT16", "bxor",
+                                     np.bitwise_xor.reduceat),
+                                    ("max", "INT8", "max", np.maximum.reduceat)):
+            A, mono = mats[t], getattr(gb.monoid, mname)[t]
+            for axis, d, order in (("rowwise", src, by_src),
+                                   ("columnwise", dst, by_dst)):
+                dd = d[order]
+                starts = np.flatnonzero(np.r_[True, dd[1:] != dd[:-1]])
+                want = (dd[starts].astype(np.int64), fold(ev[t][order], starts))
+                label = f"reduce_{axis} {tag}[{t}]"
+                run(label, lambda A=A, axis=axis, mono=mono:
+                    getattr(A, f"reduce_{axis}")(mono).new(),
+                    lambda v, label=label, want=want: check_vector(label, v, *want),
+                    ["segscan"])
+
+        # from_coo with duplicates: a tenth of the entries twice more
+        dup = rng.choice(nnz, nnz // 10, replace=False)
+        rr = np.r_[src, src[dup], src[dup]]
+        cc = np.r_[dst, dst[dup], dst[dup]]
+        for tag, t, op, vals, fold in (
+                ("lor", "BOOL", gb.binary.lor, rng.random(len(rr)) < 0.3,
+                 np.logical_or.reduceat),
+                ("minus", "INT32", gb.binary.minus,
+                 rng.integers(-2**31, 2**31, len(rr)).astype(np.int32),
+                 lambda v, s: (v[s].astype(np.int64) - np.add.reduceat(
+                     v.astype(np.int64), s) + v[s]).astype(np.int32)),
+                ("bxor", "UINT16", gb.binary.bxor,
+                 rng.integers(0, 1 << 16, len(rr)).astype(np.uint16),
+                 np.bitwise_xor.reduceat)):
+            lin = rr * n + cc
+            order = np.argsort(lin, kind="stable")
+            ls = lin[order]
+            starts = np.flatnonzero(np.r_[True, ls[1:] != ls[:-1]])
+            want_v = fold(vals[order], starts)
+            want_r, want_c = rr[order][starts], cc[order][starts]
+
+            def check_dup(M, tag=tag, want=(want_r, want_c, want_v)):
+                r, c, v = M.to_coo()
+                if not (np.array_equal(r, want[0]) and np.array_equal(c, want[1])
+                        and np.array_equal(v, want[2])):
+                    fail(f"from_coo dup_op={tag}: differs from numpy")
+                return 0.0
+
+            run(f"from_coo dup_op={tag}[{t}]",
+                lambda t=t, op=op, vals=vals: gb.Matrix.from_coo(
+                    rr, cc, vals, dtype=t, nrows=n, ncols=n, dup_op=op),
+                check_dup, [])
+
+        # the generic sparse engine: a 64-bit type (values of 2**63 and
+        # above), and a multiply K1 does not compute (the JAX package's
+        # Python binary floordiv)
+        v64 = rng.integers(0, 2**64, nnz, dtype=np.uint64)
+        u64 = rng.integers(0, 2**64, n, dtype=np.uint64)
+        A64 = gb.Matrix.from_coo(src, dst, v64, dtype="UINT64", nrows=n, ncols=n)
+        x64 = gb.Vector.from_coo(np.arange(n), u64, dtype="UINT64", size=n)
+        want = _ref_spmv(by_src, dst, src, u64, full, v64, lambda x, a: a * x,
+                         np.add.reduceat)
+        run("mxv plus_times[UINT64] (generic)",
+            lambda: A64.mxv(x64, gb.semiring.plus_times["UINT64"]).new(),
+            lambda v: check_vector("mxv plus_times[UINT64]", v, *want), [],
+            profile=True)
+        a16 = rng.integers(-30000, 30000, nnz).astype(np.int16)
+        u16 = rng.integers(1, 300, n).astype(np.int16)
+        A16 = gb.Matrix.from_coo(src, dst, a16, dtype="INT16", nrows=n, ncols=n)
+        x16 = gb.Vector.from_coo(np.arange(n), u16, dtype="INT16", size=n)
+        want = _ref_spmv(by_src, dst, src, u16, full, a16, lambda x, a: a // x,
+                         lambda p, s: np.add.reduceat(p.astype(np.int64), s)
+                         .astype(np.int16))
+        run("mxv plus_floordiv[INT16] (generic)",
+            lambda: A16.mxv(x16, gb.semiring.plus_floordiv["INT16"]).new(),
+            lambda v: check_vector("mxv plus_floordiv[INT16]", v, *want), [])
+    results["operators"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
           "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
-          "index", "positional_agg")
+          "index", "positional_agg", "operators")
 
 
 def main():
@@ -2461,6 +2912,10 @@ def main():
         if "positional_agg" in phases:
             log("phase: positional_agg")
             positional_agg_phase(gb, torch, K, src, dst, n, results, totals)
+
+        if "operators" in phases:
+            log("phase: operators")
+            operators_phase(gb, torch, K, src, dst, n, results, totals)
 
     kernels = []
     for name, row in results.get("kernels", {}).items():

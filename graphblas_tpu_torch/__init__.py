@@ -20,8 +20,14 @@ membership and iteration, the positional operators (``binary.ss``,
 ``unary.ss``, ``semiring.ss``) in every context, the aggregators
 (``agg``), ``kronecker``, ``reposition``, ``ss.iterate`` and the
 algorithms ``sssp``, ``bfs_level``, ``bfs_parent``, ``pagerank``,
-``connected_components`` and ``triangle_count`` run on both backings.  Operators may be given as the
-JAX package's strings (``"+"``, ``"min_plus[FP64]"``).  Everything runs
+``connected_components`` and ``triangle_count`` run on both backings.  The
+eleven real types (BOOL, INT8-INT64, UINT8-UINT64, FP32, FP64) and every
+operator of the JAX package's ``binary``, ``unary``, ``monoid``,
+``semiring``, ``select`` and ``indexunary`` namespaces (with ``numpy``,
+``ss``, ``gb.op``, user operators over tensors) resolve as there; the
+kernels take every builtin multiply on the types of at most 32 bits, each
+operand in its own type.  Operators may be given as the JAX package's
+strings (``"+"``, ``"min_plus[FP64]"``).  Everything runs
 on ``cuda`` unless the caller asks for the CPU with
 ``config.set(device="cpu")``.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
@@ -47,7 +53,7 @@ class _ReplaceSingleton:
 replace = _ReplaceSingleton()
 
 from . import (agg, binary, dtypes, exceptions, indexunary,  # noqa: E402
-               monoid, select, semiring, ss, unary)
+               monoid, op, select, semiring, ss, unary)
 from .core.config import config  # noqa: E402
 from .core.matrix import Matrix  # noqa: E402
 from .core.scalar import Scalar  # noqa: E402
@@ -58,11 +64,11 @@ from . import algorithms  # noqa: E402  (imports Vector from this package)
 
 __all__ = ["Matrix", "Vector", "Scalar", "config", "agg", "algorithms",
            "binary", "dtypes", "exceptions", "GraphblasException",
-           "indexunary", "monoid", "replace", "select", "semiring", "ss",
+           "indexunary", "monoid", "op", "replace", "select", "semiring", "ss",
            "unary"]
 
 # the JAX package's names that the port lacks, and their ROADMAP.md items
-_NOT_PORTED = {"io": 12, "op": 12, "viz": 12, "Recorder": 12,
+_NOT_PORTED = {"io": 12, "viz": 12, "Recorder": 12,
                "backend": 12, "init": 12, "parallel": 13}
 
 

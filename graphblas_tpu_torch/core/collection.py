@@ -9,24 +9,11 @@ import numpy as np
 import torch
 
 from . import dtypes as _dt
+from .dtypes import unify
 from ..exceptions import DimensionMismatch, EmptyObject
 from .base import BaseExpression, BaseType, is_scalar_like
-from .operator.base import TypedOpBase, typed
+from .operator.base import TypedOpBase, typed, unparameterized
 from .operator.utils import op_from_string, select_from_string
-
-
-def unify(a, b, *, left_scalar=False, right_scalar=False):
-    """A type that holds both (graphblas_tpu/core/dtypes.py unify): numpy's
-    promotion, with a scalar operand taken as a 0-d array."""
-    if a == b:
-        return a
-    if left_scalar and not right_scalar:
-        return _dt.lookup_dtype(np.result_type(np.array(0, a.np_type),
-                                               b.np_type))
-    if right_scalar:
-        return _dt.lookup_dtype(np.result_type(a.np_type,
-                                               np.array(0, b.np_type)))
-    return _dt.lookup_dtype(np.promote_types(a.np_type, b.np_type))
 
 
 def untranspose(x):
@@ -136,6 +123,7 @@ def apply_expr(self, op, right=None, left=None):
     or an index-unary op with its thunk (``right=``)."""
     src, tflag = untranspose(self)
     shape = _shape(src, tflag)
+    op = unparameterized(op)
     if isinstance(op, str):
         op = _lookup(op, ("UnaryOp", "IndexUnaryOp", "SelectOp"))
     if _is_indexunary(op):
@@ -159,9 +147,9 @@ def apply_expr(self, op, right=None, left=None):
     if isinstance(op, TypedOpBase):
         bop = typed(op, None, "BinaryOp")
     elif is_left:
-        bop = typed(op, unify(bdt, src.dtype, left_scalar=True), "BinaryOp")
+        bop = typed(op, unify(bdt, src.dtype, is_left_scalar=True), "BinaryOp")
     else:
-        bop = typed(op, unify(src.dtype, bdt, right_scalar=True), "BinaryOp")
+        bop = typed(op, unify(src.dtype, bdt, is_right_scalar=True), "BinaryOp")
     s_val = scalar_tensor(bound, bop.type if is_left else bop.type2,
                           src.device)
     return BaseExpression("apply_bound", bop, [src], bop.return_type, shape,
@@ -185,6 +173,7 @@ def _indexunary_expr(self, op, thunk, method):
 def select_expr(self, op, thunk=None):
     """Keep the entries where a select operator (or a BOOL index-unary
     operator) holds."""
+    op = unparameterized(op)
     if isinstance(op, str):
         op = select_from_string(op)
     if not _is_indexunary(op):

@@ -167,6 +167,9 @@ def _fold(x, name, dim, mono, ident):
         red = x.all(dim=dims[0]) if len(dims) == 1 else x.all()
     elif name == "lor":
         red = x.any(dim=dims[0]) if len(dims) == 1 else x.any()
+    elif name in ("min", "max") and mono.type is _dt.UINT64:
+        s = -(1 << 63)  # unsigned: flip the sign bit around it
+        red = ((x ^ s).amin if name == "min" else (x ^ s).amax)(dim=dims) ^ s
     elif name == "min":
         red = x.amin(dim=dims)
     elif name == "max":

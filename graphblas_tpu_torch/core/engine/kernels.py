@@ -9,7 +9,8 @@ is built when this module is imported, so the CPU tests import it freely.
 Every C entry point that launches returns ``cudaGetLastError()``;
 :func:`check` raises when it is not 0.  Each wrapper adds one to ``launches[<kernel>]`` per
 kernel launch, so a run can show that the main path went through the
-kernels.  The op and type codes here must match csrc/common.cuh.
+kernels.  The op and type codes here must match csrc/common.cuh (the
+scans') and csrc/gather_mult.cu (K1's multiply, :func:`k1_code`).
 """
 
 import collections
@@ -35,10 +36,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
-MULT_OP = {"times": 0, "plus": 1, "first": 2, "second": 3, "pair": 4,
-           "min": 5, "max": 6, "land": 7, "lor": 8, "band": 9, "bor": 10}
 MONOID_OP = {"plus": 0, "times": 1, "min": 2, "max": 3, "lor": 4, "land": 5,
-             "band": 6, "bor": 7}
+             "band": 6, "bor": 7, "lxor": 8, "lxnor": 9, "eq": 9, "bxor": 10}
+# K1's operand types (gather_mult.cu T_*) and multiplies (OP_*): every
+# builtin binary op of core/operator/binary.py's table but cmplx
+K1_TYPE = {"FP32": 0, "INT32": 1, "UINT32": 2, "BOOL": 3, "INT8": 4,
+           "INT16": 5, "UINT8": 6, "UINT16": 7}
+K1_OP = {name: i for i, name in enumerate((
+    "first", "second", "pair", "any", "plus", "minus", "rminus", "times",
+    "cdiv", "rdiv", "truediv", "rtruediv", "min", "max", "pow", "iseq",
+    "isne", "isgt", "islt", "isge", "isle", "lor", "land", "lxor", "lxnor",
+    "bor", "band", "bxor", "bxnor", "bget", "bset", "bclr", "bshift", "atan2",
+    "hypot", "fmod", "remainder", "ldexp", "copysign", "eq", "ne", "gt", "lt",
+    "ge", "le"))}
+# K1's templated multiplies: (op, type) with every type the same
+K1_FAST = {("times", "FP32"): 1, ("plus", "FP32"): 2, ("land", "BOOL"): 3}
 SEG_FIRST = 255  # segscan.cu's combine code for `first`
 MAXCH = 4
 
@@ -49,7 +61,7 @@ _ARGTYPES = {
     "tile_perm_channels": [],
     "mid_perm_tiles": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mid_perm_channels": [_I, _I, _I],
-    "gather_mult": [_P] * 10 + [_I] * 7 + [_P],
+    "gather_mult": [_P] * 10 + [_I] * 7 + [_P],  # (ntiles, code, fast, ...)
     "fused_scan": [_P] * 6 + [_I] * 4 + [_P],
     "lane_segscan": [_P] * 6 + [_I] * 4 + [_P],
     "segscan": [_P] * 4 + [_I, _P, _I, _P],
@@ -166,3 +178,22 @@ def require_cuda(name, tensors, word=4):
         if word is not None and t.element_size() != word:
             raise TypeError(f"{name}: tensors must hold {8 * word}-bit words; "
                             f"got {t.dtype}")
+
+
+def k1_code(mult, x_dt, y_dt, z_dt):
+    """(code, fast) of K1's multiply z = mult(x, y) for x of x_dt and y of
+    y_dt, its product cast to the monoid's z_dt (gather_mult.cu mult_dyn),
+    or None where K1 does not take it: a multiply that is not a builtin
+    of the table (a user function, a numpy ufunc, the JAX package's
+    Python binaries, a positional op), or a type of more than 32 bits."""
+    from ..operator.binary import BUILTINS
+
+    types = (x_dt, y_dt, mult.type, mult.type2, mult.return_type, z_dt)
+    if (BUILTINS.get(mult.name) is not mult.parent or mult.name not in K1_OP
+            or any(t.name not in K1_TYPE for t in types)):
+        return None
+    x, y, t1, t2, rt, z = (K1_TYPE[t.name] for t in types)
+    code = (x | y << 3 | t1 << 6 | t2 << 9 | rt << 12 | z << 15
+            | K1_OP[mult.name] << 18)
+    same = len({t.name for t in types}) == 1
+    return code, K1_FAST.get((mult.name, mult.type.name), 0) if same else 0

@@ -387,12 +387,12 @@ def gather_mult(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
                                  packed=packed, full_u=full_u, permA=permA)
     wbase, idx1, locidx, okg, avals = plan_g
     z_dt = mono.type
-    same = (a_dt == u_dt == mult.type == mult.type2 == mult.return_type
-            == z_dt)
-    if not same or mult.name not in K.MULT_OP:
-        raise NotImplementedError(
-            f"gather_mult on CUDA takes one type for matrix, vector and "
-            f"semiring; got {a_dt}, {u_dt}, {mult!r}, {mono!r}")
+    x_dt, y_dt = (a_dt, u_dt) if kind == "mxv" else (u_dt, a_dt)
+    k1 = K.k1_code(mult, x_dt, y_dt, z_dt)
+    if k1 is None:
+        # eligibility (sortpipe.eligible_spmv) refuses these up front
+        raise ValueError(f"gather_mult: K1 does not take {mult!r} over "
+                         f"{x_dt} and {y_dt} into {z_dt}")
     tensors = [wbase, u2, u2ok, idx1, locidx, okg, avals]
     if permA is not None:
         tensors.append(permA)
@@ -406,14 +406,14 @@ def gather_mult(plan_g, u2, u2ok, mult, a_dt, u_dt, mono, *, kind, R_g,
             or (permA is not None and permA.shape[0] < R_g)):
         raise ValueError("gather_mult: plan arrays do not match R_g/nblocks")
     out = torch.empty((R_g, 128), device=u2.device,
-                      dtype=torch.int32 if packed else u2.dtype)
+                      dtype=torch.int32 if packed else sp.carrier_dtype(z_dt))
     okp = None if (packed or full_u) else torch.empty(
         (R_g, 128), device=u2.device, dtype=torch.int32)
     rc = K.lib("gather_mult").gather_mult(
         wbase.data_ptr(), u2.data_ptr(), u2ok.data_ptr(), idx1.data_ptr(),
         locidx.data_ptr(), okg.data_ptr(), avals.data_ptr(),
         None if permA is None else permA.data_ptr(), out.data_ptr(),
-        None if okp is None else okp.data_ptr(), R_g // 128, K.DT[sp.kernel_dtype(z_dt)], K.MULT_OP[mult.name],
+        None if okp is None else okp.data_ptr(), R_g // 128, *k1,
         int(kind == "mxv"), int(packed), int(full_u),
         0 if packed else _ident_bits(mono), K.stream_ptr(u2))
     K.check("gather_mult", rc)

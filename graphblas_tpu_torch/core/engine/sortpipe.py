@@ -26,8 +26,15 @@ graphs with one hub) and every row/column reduce
 not ported.
 
 Values ride the engine as 32-bit carriers: float32 for FP32, int32 for
-INT32 and BOOL (0/1), and int32 bits for UINT32, whose min/max compare
-with the sign bit flipped.
+BOOL (0/1) and the integers of at most 32 bits (INT8, INT16 and INT32
+sign-extended, UINT8 and UINT16 zero-extended), and int32 bits for
+UINT32, whose min/max compare with the sign bit flipped.  Every product
+is narrowed to its multiply's type before the monoid sees it, and the
+result back to the monoid's type at the end.  A multiply that K1 does
+not take (a user function, a numpy ufunc, the JAX package's Python
+binaries: ``kernels.k1_code``) is refused here as well as in the
+lanepipe, so the CPU takes the route the card takes: the generic sparse
+engine.
 """
 
 import ctypes
@@ -60,8 +67,12 @@ _SCAN_MONOIDS = {
     # booleans carried as int32 0/1
     "lor": torch.maximum,
     "land": lambda a, b: a * b,
+    "lxor": lambda a, b: a ^ b,
+    "lxnor": lambda a, b: (a ^ b) ^ 1,
+    "eq": lambda a, b: (a ^ b) ^ 1,
     "band": lambda a, b: a & b,
     "bor": lambda a, b: a | b,
+    "bxor": lambda a, b: a ^ b,
 }
 
 
@@ -98,9 +109,7 @@ def to_carrier(t, dt):
 
 
 def from_carrier(t, dt):
-    """Carrier tensor -> storage tensor of dt."""
-    if dt is _dt.UINT32:
-        return t.to(torch.int64) & 0xFFFFFFFF
+    """Carrier tensor -> storage tensor of dt (the narrow types wrap)."""
     return _dt.normalize(t, dt)
 
 
@@ -115,24 +124,13 @@ def carrier_scalar(value, dt):
 
 def eligible_spmv(ring, a_dt, u_dt):
     """Can the lanepipe or the sort pipeline execute this (ring, dtypes)
-    combination?"""
+    combination?  Its multiply is one K1 computes (``kernels.k1_code``:
+    a builtin over types of at most 32 bits, each operand in its own
+    type), and its monoid has an identity and a scan combine."""
     mono = ring.monoid
-    mult = ring.binaryop
-    if mult._positional is not None:
-        return False
-    if not (eligible_dtype(a_dt) and eligible_dtype(u_dt)):
-        return False
-    if mono.type._is_udt or not eligible_dtype(mono.type):
-        return False
-    if getattr(mult, "return_type", None) is None:
-        return False
-    if not eligible_dtype(mult.return_type):
-        return False
-    if monoid_scan_fn(mono.parent.name, mono.type) is None:
-        return False
-    if mono.identity is None:
-        return False
-    return True
+    return (K.k1_code(ring.binaryop, a_dt, u_dt, mono.type) is not None
+            and monoid_scan_fn(mono.parent.name, mono.type) is not None
+            and mono.identity is not None)
 
 
 def eligible_reduce(mono, in_dt):

@@ -35,6 +35,7 @@ from ...exceptions import InvalidValue
 from .. import dtypes as _dt
 from . import dense
 from . import store as st
+from ..operator.base import typed
 
 _I64 = torch.int64
 
@@ -131,41 +132,58 @@ class SparseStore:
 
 # --------------------------------------------------------------------- #
 # construction
-def sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op):
-    """Sort COO by (row, col) with the native radix argsort and combine
-    duplicates with dup_op (plus, times, min, max, first, second, any)."""
+def sorted_dedup_coo(rows, cols, values, nrows, ncols, dtype, dup_op):
+    """Sort COO by (row, col) with the native radix argsort, cast the
+    values to dtype and combine duplicates with dup_op, any builtin or user
+    BinaryOp (or a Monoid's): each run of duplicates folds left to right,
+    as in the JAX package."""
     rows = np.ascontiguousarray(rows, np.int64)
     cols = np.ascontiguousarray(cols, np.int64)
     perm = native.coo_argsort(rows, cols, nrows, ncols)
-    r, c, v = rows[perm], cols[perm], np.asarray(values)[perm]
+    r, c = rows[perm], cols[perm]
+    v = np.asarray(values)[perm].astype(dtype.np_type, copy=False)
     flags, uniq = native.coo_mark_unique(r, c)
     if uniq != len(r):
         if dup_op is None:
             raise InvalidValue("duplicate indices found; use dup_op to "
                                "combine")
-        name = dup_op if isinstance(dup_op, str) else dup_op.name
+        if getattr(dup_op, "opclass", None) == "Monoid":
+            dup_op = dup_op.binaryop
+        op = typed(dup_op, dtype, "BinaryOp")
         starts = np.flatnonzero(flags)
-        if name in _DUP_REDUCE:
-            v = _DUP_REDUCE[name].reduceat(v, starts)
-        elif name in ("first", "any"):
+        if op.name in _DUP_REDUCE and op.type == dtype:
+            v = _DUP_REDUCE[op.name].reduceat(v, starts)
+        elif op.name in ("first", "any"):
             v = v[starts]
-        elif name == "second":
+        elif op.name == "second":
             v = v[np.r_[starts[1:], len(v)] - 1]
         else:
-            raise NotImplementedError(
-                f"dup_op {name} is not in the PyTorch port yet "
-                f"(ROADMAP.md queue 1, item 12)")
+            v = _fold_runs(v, starts, op, dtype)
         keep = flags.astype(bool)
         r, c = r[keep], c[keep]
     return r, c, v
+
+
+def _fold_runs(v, starts, op, dtype):
+    """acc = op(acc, next) along each run of duplicates (host tensors; one
+    step per duplicate of the longest run)."""
+    vals = _dt.to_tensor(v, dtype, "cpu")
+    lens = np.diff(np.r_[starts, len(v)])
+    acc = st.cast_values(vals[starts], dtype, op.type)
+    for k in range(1, int(lens.max())):
+        g = torch.from_numpy(np.flatnonzero(lens > k))
+        x = st.cast_values(vals[torch.from_numpy(starts)[g] + k], dtype,
+                           op.type2)
+        acc[g] = st.cast_values(op(acc[g], x), op.return_type, op.type)
+    return _dt.to_numpy(st.cast_values(acc, op.type, dtype), dtype)
 
 
 def build_sparse_store(rows, cols, values, nrows, ncols, dtype, device,
                        dup_op=None):
     """Host COO -> SparseStore on device: sorted and deduplicated on the
     host (native), uploaded once; the host arrays stay as its host copy."""
-    r, c, v = sorted_dedup_coo(rows, cols, values, nrows, ncols, dup_op)
-    v = np.asarray(v).astype(dtype.np_type, copy=False)
+    r, c, v = sorted_dedup_coo(rows, cols, values, nrows, ncols, dtype,
+                               dup_op)
     struct = Structure(torch.from_numpy(r).to(device),
                        torch.from_numpy(c).to(device), nrows, ncols,
                        host=(r, c))
@@ -309,6 +327,9 @@ def _minmax(seg, x, name, n, ident, mono, start, end):
     package's combine: a NaN loses to any number and survives only where
     every slot of its segment is NaN."""
     red = "amin" if name == "min" else "amax"
+    if mono.type is _dt.UINT64:  # unsigned: flip the sign bit around it
+        s = -(1 << 63)
+        return _scatter_minmax(seg, x ^ s, red, ident ^ s, n, start, end) ^ s
     if not mono.type.is_float:
         return _scatter_minmax(seg, x, red, ident, n, start, end)
     nan = torch.isnan(x)

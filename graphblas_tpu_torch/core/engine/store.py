@@ -4,17 +4,17 @@ the port has no struct types, so that module's ``zeros_values``,
 ``np_values_to_device`` and ``where_values`` are ``torch.zeros``,
 ``dtypes.to_tensor`` and ``torch.where`` here."""
 
-import numpy as np
 import torch
 
 from .. import dtypes as _dt
 
 
 def cast_values(values, from_dtype, to_dtype):
-    """GraphBLAS typecast (C-cast semantics)."""
+    """GraphBLAS typecast (core/dtypes.py normalize: integers wrap, floats
+    saturate, UINT64 reads as unsigned)."""
     if from_dtype == to_dtype:
         return values
-    return _dt.normalize(values, to_dtype)
+    return _dt.normalize(values, to_dtype, from_dtype)
 
 
 def identity_value_array(mono, dtype, device):
@@ -23,8 +23,5 @@ def identity_value_array(mono, dtype, device):
     ident = mono.identity
     if ident is None:
         return None
-    if dtype is _dt.UINT32:
-        return torch.tensor(int(ident) & 0xFFFFFFFF, dtype=torch.int64,
-                            device=device)
-    return torch.tensor(np.array(ident, dtype.np_type).item(),
+    return torch.tensor(_dt.storage_scalar(ident, dtype),
                         dtype=dtype.torch_type, device=device)

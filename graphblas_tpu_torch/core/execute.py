@@ -129,9 +129,7 @@ def _index_tensors(axes, device):
 def _assign_accum(accum, c_dt, v_dt):
     """An assign's accum, typed for both operands' types (numpy's
     promotion, as the JAX package's ``get_typed_op``)."""
-    from .collection import unify
-
-    return None if accum is None else typed(accum, unify(c_dt, v_dt),
+    return None if accum is None else typed(accum, _dt.unify(c_dt, v_dt),
                                             "BinaryOp")
 
 

@@ -32,7 +32,7 @@ from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 from .operator.utils import reduce_op
 from .scalar import Scalar
-from .vector import Vector, _unify, _values_dtype
+from .vector import Vector, _values_dtype
 
 
 def _shape_of(mat, transposed):
@@ -137,6 +137,17 @@ class Matrix(InfixStubs, Collection):
         return cls.from_dense(np.full((int(nrows), int(ncols)), value),
                               dtype=dtype, name=name)
 
+    def to_dicts(self, order="rowwise"):
+        """{row: {column: value}} (``order="columnwise"``: {column: {row:
+        value}}), as the JAX package's to_dicts."""
+        r, c, v = self.to_coo()
+        if order in ("columnwise", "col", "column", "columns", "colwise"):
+            r, c = c, r
+        out = {}
+        for i, j, val in zip(r.tolist(), c.tolist(), v.tolist()):
+            out.setdefault(int(i), {})[int(j)] = val
+        return out
+
     def to_coo(self, dtype=None, *, rows=True, columns=True, values=True,
                sort=True):
         if self._sparse is not None:
@@ -213,7 +224,7 @@ class Matrix(InfixStubs, Collection):
             return False
         if self.shape != other.shape:
             return False
-        common = self.dtype if check_dtype else _unify(self.dtype, other.dtype)
+        common = self.dtype if check_dtype else _dt.unify(self.dtype, other.dtype)
         if self._sparse is not None or other._sparse is not None:
             return _coo_equal(self, other, common)
         ok = self._valid
@@ -277,7 +288,7 @@ class Matrix(InfixStubs, Collection):
     def _matmul_expr(self, kind, other, op):
         a, at = _untranspose(self)
         b, bt = _untranspose(other)
-        ring = typed(op, _unify(a.dtype, b.dtype), "Semiring")
+        ring = typed(op, _dt.unify(a.dtype, b.dtype), "Semiring")
         sa = _shape_of(a, at)
         if kind == "mxv":
             if not isinstance(b, Vector):
@@ -346,7 +357,7 @@ class Matrix(InfixStubs, Collection):
                             f"{type(b).__name__}")
         if getattr(op, "opclass", None) == "Monoid":
             op = op.binaryop
-        bop = typed(op, _unify(a.dtype, b.dtype), "BinaryOp")
+        bop = typed(op, _dt.unify(a.dtype, b.dtype), "BinaryOp")
         sa, sb = _shape_of(a, at), _shape_of(b, bt)
         return BaseExpression("kronecker", bop, [a, b], bop.return_type,
                               (sa[0] * sb[0], sa[1] * sb[1]), Matrix,
@@ -405,7 +416,6 @@ class Matrix(InfixStubs, Collection):
     to_dcsr = NotPorted(12)
     to_dcsc = NotPorted(12)
     from_dicts = NotPorted(12)
-    to_dicts = NotPorted(12)
     from_edgelist = NotPorted(12)
     to_edgelist = NotPorted(12)
 

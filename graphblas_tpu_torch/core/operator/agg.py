@@ -224,9 +224,7 @@ def _spec_from_parts(name, *, initval=None, monoid=None, semiring=None,
         else _dt.lookup_dtype(init.dtype)
 
     def mult_for(d):
-        from ..collection import unify
-
-        return typed(mult, unify(init_dt, d) if switch else unify(d, init_dt),
+        return typed(mult, _dt.unify(init_dt, d) if switch else _dt.unify(d, init_dt),
                      "BinaryOp")
 
     def map_fn(x):

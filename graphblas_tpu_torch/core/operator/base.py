@@ -1,34 +1,63 @@
-"""Operator base classes: an untyped operator indexes to typed operators,
-one per DataType, built on demand and cached (graphblas_tpu/core/operator/
-base.py, reduced to what the SpMV slice uses)."""
+"""Operator base classes (graphblas_tpu/core/operator/base.py): an untyped
+operator holds its typed operators, one per DataType.  A builtin's table
+is filled when it is made (the types its domain allows, and the aliases
+of core/operator/coercions.py); a positional operator, a user function
+and an aggregator build a typed operator on demand (``_build_typed``)."""
 
-from ..dtypes import lookup_dtype
+import inspect
+
+from ..dtypes import lookup_dtype, unify
 
 
 class OpBase:
     opclass = None
     _positional = None
+    _modname = "op"
+    # what a lookup of a type the operator refuses raises: KeyError, and
+    # for a user function (or a numpy one) UdfParseError, as the JAX
+    # package's failed trace does
+    _refusal = KeyError
 
-    def __init__(self, name):
+    def __init__(self, name, *, anonymous=False):
         self.name = name
         self._typed_ops = {}
+        self._anonymous = anonymous
+
+    @property
+    def types(self):
+        """Input type -> return type, over the types it takes."""
+        return {t: op.return_type for t, op in self._typed_ops.items()}
+
+    @property
+    def is_positional(self):
+        return self._positional is not None
 
     def __getitem__(self, dtype):
+        if type(dtype) is tuple:
+            d1, d2 = (lookup_dtype(t) for t in dtype)
+            return self[unify(d1, d2)]
         dt = lookup_dtype(dtype)
         typed = self._typed_ops.get(dt)
         if typed is None:
             typed = self._build_typed(dt)
             if typed is None:
-                raise KeyError(f"{self.opclass} {self.name} does not work "
-                               f"on {dt.name} in the PyTorch port")
+                raise self._refusal(f"{self.name} does not work with "
+                                    f"{dt.name}")
             self._typed_ops[dt] = typed
         return typed
 
+    def __contains__(self, dtype):
+        try:
+            self[dtype]
+        except (TypeError, KeyError, ValueError, NotImplementedError):
+            return False
+        return True
+
     def _build_typed(self, dt):
-        raise NotImplementedError
+        return None
 
     def __repr__(self):
-        return f"{self.opclass}.{self.name}"
+        return f"{self._modname}.{self.name}"
 
 
 class TypedOpBase:
@@ -42,8 +71,44 @@ class TypedOpBase:
         self.type2 = type_ if type2 is None else type2
         self.return_type = return_type
 
+    @property
+    def is_positional(self):
+        return self._positional is not None
+
     def __repr__(self):
-        return f"{self.opclass}.{self.name}[{self.type.name}]"
+        return f"{self.parent._modname}.{self.name}[{self.type.name}]"
+
+
+class ParameterizedUdf:
+    """A callable that makes an operator from its parameters
+    (graphblas_tpu/core/operator/base.py ParameterizedUdf)."""
+
+    def __init__(self, name, anonymous):
+        self.name = name
+        self._anonymous = anonymous
+
+
+def unparameterized(op):
+    """A parameterized operator stands for its instance with the default
+    parameters (the JAX package's find_opclass)."""
+    return op() if isinstance(op, ParameterizedUdf) else op
+
+
+def check_arity(func, nargs, what):
+    """TypeError unless func takes nargs positional arguments (a function
+    with *args passes)."""
+    try:
+        sig = inspect.signature(func)
+    except (TypeError, ValueError):
+        return
+    params = sig.parameters.values()
+    if any(p.kind == p.VAR_POSITIONAL for p in params):
+        return
+    n = sum(p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+            for p in params)
+    if n != nargs:
+        raise TypeError(f"{what} function must take exactly {nargs} "
+                        f"positional arguments; got {n}")
 
 
 def not_ported(what, item):
@@ -56,7 +121,7 @@ def not_ported(what, item):
 
 def missing(namespace, name, reference_names):
     """The error for an attribute an operator namespace lacks: the JAX
-    package's operators that are not ported raise NotImplementedError,
+    package's names that wait in the port raise NotImplementedError,
     other names AttributeError."""
     if name in reference_names:
         return not_ported(f"{namespace}.{name}", 12)
@@ -65,12 +130,14 @@ def missing(namespace, name, reference_names):
 
 
 def typed(op, dtype, opclass):
-    """Resolve op (typed, untyped or an operator string, parsed as the
-    JAX package parses it) to a typed op of `opclass` for `dtype`."""
+    """Resolve op (typed, untyped, parameterized or an operator string,
+    parsed as the JAX package parses it) to a typed op of `opclass` for
+    `dtype`."""
     if isinstance(op, str):
         from .utils import op_from_string
 
         op = op_from_string(op, opclass)
+    op = unparameterized(op)
     if isinstance(op, TypedOpBase):
         if op.opclass != opclass:
             raise TypeError(f"expected a {opclass}; got {op!r}")

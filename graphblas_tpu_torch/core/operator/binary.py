@@ -1,65 +1,37 @@
-"""Builtin binary operators, as torch functions
-(graphblas_tpu/core/operator/binary.py, the subset the ported paths name).
+"""Binary operators (graphblas_tpu/core/operator/binary.py): the builtin
+table over the eleven real types, the positional operators, the Python
+binaries of the JAX package (``absfirst``, ``binom``, ``floordiv``, ...),
+the parameterized ``isclose``, and user functions over tensors
+(:meth:`BinaryOp.register_anonymous`, :meth:`BinaryOp.register_new`).
 
-``min`` and ``max`` on floats are ``fmin``/``fmax`` as in the JAX package
-(GraphBLAS ``min`` ignores a NaN operand).  The eight positional operators
-(``firsti``, ``firsti1``, ... ``secondj1``) return an index of the pair
-they are applied to, plus 0 or 1; the engine computes them from positions
-(core/engine/dense.py ``positional_value``), so they have no function
-here.  They ignore the values: on a type other than INT32 and INT64 they
-are their INT64 instance, as in the JAX package.  A builtin that has a
-monoid of its name reduces with it (``BinaryOp.monoid``).  ``land`` and ``lor`` take every type, as in the JAX
-package: the operands' truth values, returned in their own type."""
+Each builtin's function is made for its type by a factory of
+core/operator/ufuncs.py (C semantics: truncated integer division,
+SuiteSparse's x / 0, unsigned UINT64).  ``min`` and ``max`` on floats are
+``fmin``/``fmax`` (GraphBLAS ``min`` ignores a NaN operand).  The eight
+positional operators (``firsti`` ... ``secondj1``) return an index of the
+pair they are applied to, plus 0 or 1; the engine computes them from
+positions (core/engine/dense.py ``positional_value``), so they have no
+function here, and on a type other than INT32 and INT64 they are their
+INT64 instance.  ``cmplx`` waits for the complex types."""
 
 import torch
 
+from ... import exceptions
 from .. import dtypes as _dt
-from .base import OpBase, TypedOpBase
+from . import ufuncs as uf
+from .base import OpBase, ParameterizedUdf, TypedOpBase, check_arity
 
-_NUM = (_dt.BOOL, _dt.INT32, _dt.INT64, _dt.UINT32, _dt.FP32, _dt.FP64)
-_INTS = (_dt.INT32, _dt.INT64, _dt.UINT32)
-
-
-def _logical(fn):
-    def op(x, y):
-        if x.dtype == torch.bool:
-            return fn(x, y)
-        return fn(x != 0, y != 0).to(x.dtype)
-
-    return op
-
-
-# name -> (domains, torch function); every op returns its input type
-_BUILTIN = {
-    "first": (_NUM, lambda x, y: x),
-    "second": (_NUM, lambda x, y: y),
-    "pair": (_NUM, lambda x, y: torch.ones_like(x)),
-    "plus": (_NUM, lambda x, y: x + y),
-    "minus": (_NUM, lambda x, y: x ^ y if x.dtype == torch.bool else x - y),
-    "times": (_NUM, lambda x, y: x * y),
-    "any": (_NUM, lambda x, y: x),  # either operand will do: the first
-    "min": (_NUM, lambda x, y: torch.fmin(x, y) if x.dtype.is_floating_point
-            else torch.minimum(x, y)),
-    "max": (_NUM, lambda x, y: torch.fmax(x, y) if x.dtype.is_floating_point
-            else torch.maximum(x, y)),
-    "land": (_NUM, _logical(torch.logical_and)),
-    "lor": (_NUM, _logical(torch.logical_or)),
-    "band": (_INTS, lambda x, y: x & y),
-    "bor": (_INTS, lambda x, y: x | y),
-}
-# name -> (which index of the pair a(i,k) b(k,j), offset)
-_POSITIONAL = {"firsti": ("ai", 0), "firsti1": ("ai", 1),
-               "firstj": ("aj", 0), "firstj1": ("aj", 1),
-               "secondi": ("bi", 0), "secondi1": ("bi", 1),
-               "secondj": ("bj", 0), "secondj1": ("bj", 1)}
+ALL11 = _dt.ALL
+INTS8 = ALL11[1:9]  # INT8 .. UINT64
+FP = (_dt.FP32, _dt.FP64)
 _POS = (_dt.INT32, _dt.INT64)
 
 
 class TypedBinaryOp(TypedOpBase):
     opclass = "BinaryOp"
 
-    def __init__(self, parent, name, type_, func):
-        super().__init__(parent, name, type_, type_)
+    def __init__(self, parent, name, type_, return_type, func, type2=None):
+        super().__init__(parent, name, type_, return_type, type2)
         self.func = func
         self._positional = parent._positional
 
@@ -67,32 +39,317 @@ class TypedBinaryOp(TypedOpBase):
         """Apply to storage tensors of self.type; result in return_type."""
         return _dt.normalize(self.func(x, y), self.return_type)
 
+    @property
+    def monoid(self):
+        mono = self.parent.monoid
+        if mono is not None and self.type in mono._typed_ops:
+            return mono._typed_ops[self.type]
+        return None
+
+    @property
+    def commutes_to(self):
+        c = self.parent.commutes_to
+        if c is not None and self.type in c._typed_ops:
+            return c._typed_ops[self.type]
+        return None
+
+
+def _is_wrap(cmp):
+    """An ``is*`` comparison: the result in the operands' type."""
+    def make(dt):
+        f = cmp(dt)
+        return f if dt.is_bool else (lambda x, y: f(x, y).to(x.dtype))
+
+    return make
+
+
+def _eq(dt):
+    return lambda x, y: x == y
+
+
+def _ne(dt):
+    return lambda x, y: x != y
+
+
+def _truediv(dt):
+    if dt.is_float:
+        return lambda x, y: x / y
+    return lambda x, y: uf.to_float64(x, dt) / uf.to_float64(y, dt)
+
+
+def _truediv_ret(dt):
+    return dt if dt.is_float else _dt.FP64
+
+
+def _swap(make):
+    def swapped(dt):
+        f = make(dt)
+        return lambda x, y: f(y, x)
+
+    return swapped
+
+
+def _const(fn):
+    return lambda dt: fn
+
+
+def _fmod(dt):
+    return torch.fmod
+
+
+def _remainder(dt):
+    # IEEE remainder: x - round_half_even(x / y) * y
+    return lambda x, y: x - torch.round(x / y) * y
+
+
+def _bxnor(dt):
+    return lambda x, y: ~(x ^ y)
+
+
+_BOOL = _dt.BOOL
+
+# name -> (domains, make(dt) -> torch function, return rule)
+_BUILTIN = {
+    "first": (ALL11, _const(lambda x, y: x), None),
+    "second": (ALL11, _const(lambda x, y: y), None),
+    "pair": (ALL11, _const(lambda x, y: torch.ones_like(x)), None),
+    "any": (ALL11, _const(lambda x, y: x), None),  # either will do: the first
+    "plus": (ALL11, uf.plus, None),
+    "minus": (ALL11, uf.minus, None),
+    "rminus": (ALL11, _swap(uf.minus), None),
+    "times": (ALL11, uf.times, None),
+    "cdiv": (ALL11, uf.div, None),
+    "rdiv": (ALL11, _swap(uf.div), None),
+    "truediv": (ALL11, _truediv, _truediv_ret),
+    "rtruediv": (ALL11, _swap(_truediv), _truediv_ret),
+    "min": (ALL11, uf.minimum, None),
+    "max": (ALL11, uf.maximum, None),
+    "pow": (ALL11, uf.power, None),
+    "iseq": (ALL11, _is_wrap(_eq), None),
+    "isne": (ALL11, _is_wrap(_ne), None),
+    "isgt": (ALL11, _is_wrap(uf.gt), None),
+    "islt": (ALL11, _is_wrap(uf.lt), None),
+    "isge": (ALL11, _is_wrap(uf.ge), None),
+    "isle": (ALL11, _is_wrap(uf.le), None),
+    "lor": (ALL11, uf.lor, None),
+    "land": (ALL11, uf.land, None),
+    "lxor": (ALL11, uf.lxor, None),
+    "lxnor": (ALL11, uf.lxnor, None),
+    "bor": (INTS8, _const(lambda x, y: x | y), None),
+    "band": (INTS8, _const(lambda x, y: x & y), None),
+    "bxor": (INTS8, _const(lambda x, y: x ^ y), None),
+    "bxnor": (INTS8, _bxnor, None),
+    "bget": (INTS8, uf.bget, None),
+    "bset": (INTS8, uf.bset, None),
+    "bclr": (INTS8, uf.bclr, None),
+    "bshift": (INTS8, uf.bshift, None),
+    "atan2": (FP, _const(torch.atan2), None),
+    "hypot": (FP, _const(torch.hypot), None),
+    "fmod": (FP, _fmod, None),
+    "remainder": (FP, _remainder, None),
+    "ldexp": (FP, uf.ldexp, None),
+    "copysign": (FP, _const(torch.copysign), None),
+    "eq": (ALL11, _eq, _BOOL),
+    "ne": (ALL11, _ne, _BOOL),
+    "gt": (ALL11, uf.gt, _BOOL),
+    "lt": (ALL11, uf.lt, _BOOL),
+    "ge": (ALL11, uf.ge, _BOOL),
+    "le": (ALL11, uf.le, _BOOL),
+}
+
+# the Python binaries of the JAX package (its binary/__init__.py), which
+# it types by tracing: the same table here
+
+
+def _absfirst(dt):
+    a = uf.absolute(dt)
+    return lambda x, y: a(x)
+
+
+def _binom(dt):
+    def fn(x, y):
+        xf, yf = uf.to_float64(x, dt), uf.to_float64(y, dt)
+        r = torch.exp(torch.lgamma(xf + 1) - torch.lgamma(yf + 1)
+                      - torch.lgamma(xf - yf + 1))
+        return torch.round(r)
+
+    return fn
+
+
+def _floordiv(dt):
+    if dt.is_bool:
+        return uf.div(dt)
+    if dt.is_unsigned:
+        return uf.idiv(dt)  # floor and truncation agree
+    if dt.is_int:
+        d = uf.idiv(dt)
+
+        def fn(x, y):
+            ys = torch.where(y == 0, torch.ones_like(y), y)
+            return torch.where(y == 0, d(x, y),
+                               torch.div(x, ys, rounding_mode="floor"))
+
+        return fn
+    return lambda x, y: uf.float_divmod(x, y)[0]
+
+
+_EXTRA = {
+    "absfirst": (ALL11, _absfirst, None),
+    "abssecond": (ALL11, _swap(_absfirst), None),
+    "binom": (ALL11, _binom, lambda dt: _dt.INT64 if dt.is_bool else dt),
+    "floordiv": (ALL11, _floordiv, None),
+    "rfloordiv": (ALL11, _swap(_floordiv), None),
+    "rpow": (ALL11, _swap(uf.power), None),
+}
+
+_POSITIONAL = {"firsti": ("ai", 0), "firsti1": ("ai", 1),
+               "firstj": ("aj", 0), "firstj1": ("aj", 1),
+               "secondi": ("bi", 0), "secondi1": ("bi", 1),
+               "secondj": ("bj", 0), "secondj1": ("bj", 1)}
+
+COMMUTES = {
+    "plus": "plus", "times": "times", "min": "min", "max": "max",
+    "lor": "lor", "land": "land", "lxor": "lxor", "lxnor": "lxnor",
+    "eq": "eq", "ne": "ne", "iseq": "iseq", "isne": "isne", "pair": "pair",
+    "any": "any", "hypot": "hypot", "bor": "bor", "band": "band",
+    "bxor": "bxor", "bxnor": "bxnor", "first": "second", "second": "first",
+    "gt": "lt", "lt": "gt", "ge": "le", "le": "ge", "isgt": "islt",
+    "islt": "isgt", "isge": "isle", "isle": "isge", "minus": "rminus",
+    "rminus": "minus", "cdiv": "rdiv", "rdiv": "cdiv", "truediv": "rtruediv",
+    "rtruediv": "truediv", "firsti": "secondi", "firsti1": "secondi1",
+    "firstj": "secondj", "firstj1": "secondj1", "secondi": "firsti",
+    "secondi1": "firsti1", "secondj": "firstj", "secondj1": "firstj1",
+    "absfirst": "abssecond", "abssecond": "absfirst", "floordiv": "rfloordiv",
+    "rfloordiv": "floordiv", "pow": "rpow", "rpow": "pow",
+    "isclose": "isclose",
+}
+
+# names whose builtin reduces with the monoid of the same name
+HAS_MONOID = frozenset(("plus", "times", "min", "max", "lor", "land", "lxor",
+                        "lxnor", "eq", "any", "bor", "band", "bxor", "bxnor"))
+
+
+def infer_return(func, dt, nargs):
+    """The DataType func makes of operands of dt: its result on a probe of
+    dt's storage type (a result in that storage type is dt itself)."""
+    probe = torch.ones(1, dtype=dt.torch_type)
+    out = func(*([probe] * nargs))
+    if not isinstance(out, torch.Tensor):
+        out = torch.as_tensor(out)
+    if out.dtype == dt.torch_type:
+        return dt
+    return _dt.natural(out)
+
 
 class BinaryOp(OpBase):
     opclass = "BinaryOp"
+    _modname = "binary"
 
-    def __init__(self, name, domains, func, positional=None):
-        super().__init__(name)
-        self._domains = domains
-        self._func = func
+    def __init__(self, name, *, anonymous=False, positional=None):
+        super().__init__(name, anonymous=anonymous)
         self._positional = positional
+        self._udf = None  # a user function over tensors, typed on demand
+
+    @classmethod
+    def _builtin(cls, name, domains, make, ret_rule):
+        op = cls(name)
+        for dt in domains:
+            ret = dt if ret_rule is None else (
+                ret_rule(dt) if callable(ret_rule) else ret_rule)
+            op._typed_ops[dt] = TypedBinaryOp(op, name, dt, ret, make(dt))
+        return op
 
     def _build_typed(self, dt):
-        if dt not in self._domains:
-            return self[_dt.INT64] if self._positional is not None else None
-        return TypedBinaryOp(self, self.name, dt, self._func)
+        if self._positional is not None:
+            return self[_dt.INT64]
+        if self._udf is None:
+            return None
+        try:
+            ret = infer_return(self._udf, dt, 2)
+        except Exception:  # noqa: BLE001 - the function refuses the type
+            return None
+        return TypedBinaryOp(self, self.name, dt, ret, self._udf)
+
+    @property
+    def _domains(self):
+        return tuple(self._typed_ops)
 
     @property
     def monoid(self):
         """The monoid of the same name, which a reduce by this op uses
         (the JAX package's ``_HAS_MONOID``); None where there is none."""
+        if self._anonymous or self.name not in HAS_MONOID:
+            return None
         from .monoid import BUILTINS as monoids
 
         return monoids.get(self.name)
 
+    @property
+    def commutes_to(self):
+        name = COMMUTES.get(self.name)
+        return None if name is None else BUILTINS.get(name)
 
-BUILTINS = {name: BinaryOp(name, doms, fn)
-            for name, (doms, fn) in _BUILTIN.items()}
+    @classmethod
+    def register_anonymous(cls, func, name=None, *, parameterized=False,
+                           is_udt=False):
+        """A BinaryOp from a Python function over tensors (torch
+        operations on storage tensors of one type), typed for each of the
+        eleven types it accepts."""
+        if is_udt:
+            raise NotImplementedError(
+                "user-defined types are not in the PyTorch port yet "
+                "(ROADMAP.md queue 1, item 12)")
+        if parameterized:
+            return ParameterizedBinaryOp(name, func, anonymous=True)
+        check_arity(func, 2, "BinaryOp")
+        op = cls(name if name is not None
+                 else getattr(func, "__name__", "binary_op"), anonymous=True)
+        op._udf = func
+        op._refusal = exceptions.UdfParseError
+        for dt in ALL11:
+            typed = op._build_typed(dt)
+            if typed is not None:
+                op._typed_ops[dt] = typed
+        return op
+
+    @classmethod
+    def register_new(cls, name, func, *, parameterized=False, is_udt=False,
+                     lazy=False):
+        from .utils import register_into_namespace
+
+        op = cls.register_anonymous(func, name, parameterized=parameterized,
+                                    is_udt=is_udt)
+        op._anonymous = False
+        register_into_namespace("binary", name, op)
+        return op
+
+
+class ParameterizedBinaryOp(ParameterizedUdf):
+    def __init__(self, name, func, *, anonymous=False):
+        super().__init__(name if name is not None
+                         else getattr(func, "__name__", "binary_op"),
+                         anonymous)
+        self.func = func
+
+    def __call__(self, *args, **kwargs):
+        return BinaryOp.register_anonymous(self.func(*args, **kwargs),
+                                           self.name)
+
+
+def _isclose(rel_tol=1e-7, abs_tol=0.0):
+    def isclose(x, y):
+        return (x - y).abs() <= abs_tol + rel_tol * y.abs()
+
+    return isclose
+
+
+BUILTINS = {name: BinaryOp._builtin(name, *spec)
+            for name, spec in {**_BUILTIN, **_EXTRA}.items()}
 BUILTINS["oneb"] = BUILTINS["pair"]
-BUILTINS.update({name: BinaryOp(name, _POS, None, positional=pos)
-                 for name, pos in _POSITIONAL.items()})
+for _name, _pos in _POSITIONAL.items():
+    _op = BinaryOp(_name, positional=_pos)
+    for _d in _POS:
+        _op._typed_ops[_d] = TypedBinaryOp(_op, _name, _d, _d, None)
+    BUILTINS[_name] = _op
+del _name, _pos, _op, _d
+BUILTINS["isclose"] = ParameterizedBinaryOp("isclose", _isclose)

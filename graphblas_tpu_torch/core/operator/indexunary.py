@@ -5,46 +5,64 @@ The structural operators (``tril``, ``triu``, ``diag``, ``offdiag``,
 ``rowle``/``rowgt``, ``colle``/``colgt``, and the index-valued
 ``rowindex``, ``colindex``, ``diagindex``) read only the position and take
 the thunk as INT64; the value comparisons (``valueeq`` ... ``valuele``)
-compare the value, cast to the operator's type, with the thunk.  A
-SelectOp is an IndexUnaryOp that returns BOOL; the select namespace holds
-those."""
+compare the value, cast to the operator's type, with the thunk (UINT64
+unsigned).  A SelectOp is an IndexUnaryOp that returns BOOL; the select
+namespace holds those.  User functions ``f(x, i, j, thunk)`` over tensors
+register with :meth:`IndexUnaryOp.register_anonymous`."""
 
+import torch
+
+from ... import exceptions
 from .. import dtypes as _dt
-from .base import OpBase, TypedOpBase
+from . import ufuncs as uf
+from .base import OpBase, ParameterizedUdf, TypedOpBase, check_arity
+from .binary import ALL11
+
 
 def _index_only(fn):
     def op(x, i, j, t):
         return fn(i, j, t.to(i.dtype))
 
-    return op
+    return lambda dt: op
 
 
-def _value_only(fn):
-    def op(x, i, j, t):
-        return fn(x, t)
+def _value_only(cmp):
+    def make(dt):
+        f = cmp(dt)
+        return lambda x, i, j, t: f(x, t)
 
-    return op
+    return make
 
 
-# name -> (func, return type: a DataType, or None for INT64 index values)
+def _eq(dt):
+    return lambda x, t: x == t
+
+
+def _ne(dt):
+    return lambda x, t: x != t
+
+
+_BOOL = _dt.BOOL
+# name -> (make(dt) -> func, return type: a DataType, or None for INT64
+# index values)
 _BUILTIN = {
     "rowindex": (_index_only(lambda i, j, t: i + t), None),
     "colindex": (_index_only(lambda i, j, t: j + t), None),
     "diagindex": (_index_only(lambda i, j, t: j - i + t), None),
-    "tril": (_index_only(lambda i, j, t: j <= i + t), _dt.BOOL),
-    "triu": (_index_only(lambda i, j, t: j >= i + t), _dt.BOOL),
-    "diag": (_index_only(lambda i, j, t: j == i + t), _dt.BOOL),
-    "offdiag": (_index_only(lambda i, j, t: j != i + t), _dt.BOOL),
-    "colle": (_index_only(lambda i, j, t: j <= t), _dt.BOOL),
-    "colgt": (_index_only(lambda i, j, t: j > t), _dt.BOOL),
-    "rowle": (_index_only(lambda i, j, t: i <= t), _dt.BOOL),
-    "rowgt": (_index_only(lambda i, j, t: i > t), _dt.BOOL),
-    "valueeq": (_value_only(lambda v, t: v == t), _dt.BOOL),
-    "valuene": (_value_only(lambda v, t: v != t), _dt.BOOL),
-    "valuegt": (_value_only(lambda v, t: v > t), _dt.BOOL),
-    "valuege": (_value_only(lambda v, t: v >= t), _dt.BOOL),
-    "valuelt": (_value_only(lambda v, t: v < t), _dt.BOOL),
-    "valuele": (_value_only(lambda v, t: v <= t), _dt.BOOL),
+    "tril": (_index_only(lambda i, j, t: j <= i + t), _BOOL),
+    "triu": (_index_only(lambda i, j, t: j >= i + t), _BOOL),
+    "diag": (_index_only(lambda i, j, t: j == i + t), _BOOL),
+    "offdiag": (_index_only(lambda i, j, t: j != i + t), _BOOL),
+    "colle": (_index_only(lambda i, j, t: j <= t), _BOOL),
+    "colgt": (_index_only(lambda i, j, t: j > t), _BOOL),
+    "rowle": (_index_only(lambda i, j, t: i <= t), _BOOL),
+    "rowgt": (_index_only(lambda i, j, t: i > t), _BOOL),
+    "valueeq": (_value_only(_eq), _BOOL),
+    "valuene": (_value_only(_ne), _BOOL),
+    "valuegt": (_value_only(uf.gt), _BOOL),
+    "valuege": (_value_only(uf.ge), _BOOL),
+    "valuelt": (_value_only(uf.lt), _BOOL),
+    "valuele": (_value_only(uf.le), _BOOL),
 }
 _POSITIONAL = frozenset(("rowindex", "colindex", "diagindex", "tril", "triu",
                          "diag", "offdiag", "colle", "colgt", "rowle",
@@ -63,6 +81,8 @@ class TypedIndexUnaryOp(TypedOpBase):
         """Apply to storage tensors: values of self.type, int64 rows and
         cols, a 0-d thunk; the result in return_type, shaped like x."""
         out = self.func(x, i, j, thunk)
+        if not isinstance(out, torch.Tensor):
+            out = torch.as_tensor(out, device=x.device)
         return _dt.normalize(out.expand(x.shape), self.return_type)
 
 
@@ -72,25 +92,98 @@ class TypedSelectOp(TypedIndexUnaryOp):
 
 class IndexUnaryOp(OpBase):
     opclass = "IndexUnaryOp"
+    _modname = "indexunary"
     _typed_class = TypedIndexUnaryOp
 
-    def __init__(self, name, func, return_type):
-        super().__init__(name)
-        self._func = func
-        self._return_type = return_type
-        self._positional = name if name in _POSITIONAL else None
+    def __init__(self, name, *, anonymous=False):
+        super().__init__(name, anonymous=anonymous)
+        self._positional = name if name in _POSITIONAL and not anonymous \
+            else None
+        self._udf = None
+
+    @classmethod
+    def _builtin(cls, name, make, ret):
+        op = cls(name)
+        for dt in ALL11:
+            op._typed_ops[dt] = cls._typed_class(
+                op, name, dt, _dt.INT64 if ret is None else ret, make(dt))
+        return op
 
     def _build_typed(self, dt):
-        ret = _dt.INT64 if self._return_type is None else self._return_type
-        return self._typed_class(self, self.name, dt, ret, self._func)
+        if self._udf is None:
+            return None
+        try:
+            probe = torch.ones(1, dtype=dt.torch_type)
+            idx = torch.zeros(1, dtype=torch.int64)
+            out = self._udf(probe, idx, idx, probe)
+            out = out if isinstance(out, torch.Tensor) else torch.as_tensor(out)
+        except Exception:  # noqa: BLE001 - the function refuses the type
+            return None
+        ret = dt if out.dtype == dt.torch_type else _dt.natural(out)
+        if self.opclass == "SelectOp" and ret is not _BOOL:
+            return None
+        return self._typed_class(self, self.name, dt, ret, self._udf)
+
+    @classmethod
+    def register_anonymous(cls, func, name=None, *, parameterized=False,
+                           is_udt=False):
+        """An operator from a Python function f(x, i, j, thunk) over
+        tensors, typed for each of the eleven types it accepts (a SelectOp
+        for those where it returns BOOL)."""
+        if is_udt:
+            raise NotImplementedError(
+                "user-defined types are not in the PyTorch port yet "
+                "(ROADMAP.md queue 1, item 12)")
+        if parameterized:
+            return ParameterizedIndexUnaryOp(cls, name, func)
+        check_arity(func, 4, cls.opclass)
+        op = cls(name if name is not None
+                 else getattr(func, "__name__", "indexunary_op"),
+                 anonymous=True)
+        op._udf = func
+        op._refusal = exceptions.UdfParseError
+        for dt in ALL11:
+            typed = op._build_typed(dt)
+            if typed is not None:
+                op._typed_ops[dt] = typed
+        return op
+
+    @classmethod
+    def register_new(cls, name, func, *, parameterized=False, is_udt=False,
+                     lazy=False):
+        from .utils import register_into_namespace
+
+        op = cls.register_anonymous(func, name, parameterized=parameterized,
+                                    is_udt=is_udt)
+        op._anonymous = False
+        register_into_namespace(cls._modname, name, op)
+        if cls is IndexUnaryOp and not parameterized and op.types and all(
+                rt is _BOOL for rt in op.types.values()):
+            # a BOOL-valued one is a SelectOp too, as in the JAX package
+            register_into_namespace(
+                "select", name, SelectOp.register_anonymous(func, name))
+        return op
 
 
 class SelectOp(IndexUnaryOp):
     opclass = "SelectOp"
+    _modname = "select"
     _typed_class = TypedSelectOp
 
 
-INDEXUNARY = {name: IndexUnaryOp(name, fn, ret)
-              for name, (fn, ret) in _BUILTIN.items()}
-SELECT = {name: SelectOp(name, fn, ret)
-          for name, (fn, ret) in _BUILTIN.items() if ret is _dt.BOOL}
+class ParameterizedIndexUnaryOp(ParameterizedUdf):
+    def __init__(self, cls, name, func):
+        super().__init__(name if name is not None
+                         else getattr(func, "__name__", "indexunary_op"), True)
+        self._cls = cls
+        self.func = func
+
+    def __call__(self, *args, **kwargs):
+        return self._cls.register_anonymous(self.func(*args, **kwargs),
+                                            self.name)
+
+
+INDEXUNARY = {name: IndexUnaryOp._builtin(name, make, ret)
+              for name, (make, ret) in _BUILTIN.items()}
+SELECT = {name: SelectOp._builtin(name, make, ret)
+          for name, (make, ret) in _BUILTIN.items() if ret is _BOOL}

@@ -4,17 +4,18 @@ parsers with their symbol tables).
 
 ``"+"``, ``"plus[FP64]"``, ``"min_plus[FP64]"``, ``"min.+"``,
 ``"abs[int]"`` and the aggregators' ``"count"`` and ``"ss.argmin"``
-resolve as in the JAX package: a bracketed type gives that typed
-operator, whatever the operands' types.  An unknown name raises
-ValueError; a name the JAX package knows and the port lacks (its
-operators, and the ``numpy`` namespaces) raises NotImplementedError naming
-ROADMAP.md queue 1, item 12."""
+resolve as in the JAX package, through the namespaces and their
+``numpy`` namespaces: a bracketed type gives that typed operator,
+whatever the operands' types.  An unknown name raises ValueError; a name
+the JAX package knows and the port lacks (``cmplx``, ``conj``) raises
+NotImplementedError naming ROADMAP.md queue 1, item 12.  User operators
+land in their namespace through :func:`register_into_namespace`."""
 
 import importlib
-import itertools
+from types import ModuleType
 
 from ..dtypes import lookup_dtype
-from .base import OpBase, TypedOpBase, not_ported, typed
+from .base import OpBase, ParameterizedUdf, TypedOpBase, typed, unparameterized
 
 _str_to_unary = {"-": "ainv", "~": "lnot"}
 _str_to_select = {
@@ -33,67 +34,41 @@ _str_to_monoid = {"==": "eq", "+": "plus", "*": "times", "&": "land",
                   "|": "lor", "^": "lxor"}
 _str_to_agg = {"+": "sum", "*": "prod", "&": "all", "|": "any"}
 
-# the names of the JAX package's numpy namespaces (graphblas_tpu/
-# {unary,binary,monoid,semiring}/numpy.py), which a bare name also reaches
-_NP_BINARY = frozenset((
-    "add", "subtract", "multiply", "divide", "logaddexp", "logaddexp2",
-    "true_divide", "floor_divide", "power", "float_power", "remainder", "mod",
-    "fmod", "gcd", "lcm", "arctan2", "hypot", "bitwise_and", "bitwise_or",
-    "bitwise_xor", "left_shift", "right_shift", "greater", "greater_equal",
-    "less", "less_equal", "not_equal", "equal", "logical_and", "logical_or",
-    "logical_xor", "maximum", "minimum", "fmax", "fmin", "copysign",
-    "nextafter", "ldexp"))
-_NP_UNARY = frozenset((
-    "negative", "abs", "absolute", "cbrt", "fabs", "rint", "sign", "exp",
-    "exp2", "log", "log2", "log10", "expm1", "log1p", "positive", "sqrt",
-    "square", "reciprocal", "sin", "cos", "tan", "arcsin", "arccos", "arctan",
-    "sinh", "cosh", "tanh", "arcsinh", "arccosh", "arctanh", "deg2rad",
-    "rad2deg", "degrees", "radians", "bitwise_not", "invert", "logical_not",
-    "isfinite", "isinf", "isnan", "signbit", "floor", "ceil", "trunc",
-    "spacing"))
-_NP_MONOID = frozenset((
-    "add", "multiply", "logaddexp", "logaddexp2", "gcd", "hypot",
-    "bitwise_and", "bitwise_or", "bitwise_xor", "equal", "logical_and",
-    "logical_or", "logical_xor", "maximum", "minimum", "fmax", "fmin"))
+class OpPath:
+    """A namespace of a dotted operator name (``binary.my.op``)."""
+
+    def __init__(self, parent, name):
+        self._parent = parent
+        self._name = name
 
 
-def _np_semiring_names():
-    """graphblas_tpu/semiring/numpy.py's name set: monoid x binary, less
-    the families whose types do not meet."""
-    names = {f"{mo}_{mu}" for mo, mu in itertools.product(_NP_MONOID,
-                                                          _NP_BINARY)}
-    for mos, mus in (
-            ({"equal", "hypot", "logaddexp", "logaddexp2"},
-             {"gcd", "lcm", "left_shift", "right_shift"}),
-            ({"bitwise_and", "bitwise_or", "bitwise_xor", "equal", "gcd"},
-             {"arctan2", "copysign", "divide", "float_power", "hypot",
-              "ldexp", "logaddexp2", "logaddexp", "nextafter",
-              "true_divide"}),
-            ({"hypot", "logaddexp", "logaddexp2"},
-             {"bitwise_and", "bitwise_or", "bitwise_xor"}),
-            ({"equal"}, {"floor_divide", "fmod", "mod", "power",
-                         "remainder", "subtract"})):
-        names -= {f"{mo}_{mu}" for mo, mu in itertools.product(mos, mus)}
-    return frozenset(names)
-
-
-_NUMPY_NAMES = {"unary": _NP_UNARY, "binary": _NP_BINARY,
-                "monoid": _NP_MONOID, "semiring": _np_semiring_names()}
-
-
-def _resolve(module, path):
-    """The operator at a dotted path of a namespace; None where a name is
-    absent (AttributeError).  A name the JAX package has and the port
-    lacks raises NotImplementedError from the namespace's hook."""
+def register_into_namespace(modname, name, op):
+    """Make op ``graphblas_tpu_torch.<modname>.<name>`` (a dotted name
+    makes OpPath levels), and ``op.<name>`` too for a plain name of the
+    unary, binary, monoid and semiring namespaces."""
+    module = importlib.import_module(f"graphblas_tpu_torch.{modname}")
+    *path, leaf = name.split(".")
     cur = module
-    for part in path.split("."):
-        if isinstance(cur, OpBase) or cur is None:
-            return None
-        try:
-            cur = getattr(cur, part)
-        except AttributeError:
-            return None
-    return cur if isinstance(cur, (OpBase, TypedOpBase)) else None
+    for part in path:
+        nxt = vars(cur).get(part) if isinstance(cur, ModuleType) \
+            else getattr(cur, part, None)
+        if nxt is None:
+            nxt = OpPath(cur, part)
+            setattr(cur, part, nxt)
+        elif not isinstance(nxt, (OpPath, ModuleType)):
+            raise AttributeError(f"{part} is already taken in {modname} "
+                                 f"namespace")
+        cur = nxt
+    existing = vars(cur).get(leaf) if isinstance(cur, ModuleType) \
+        else getattr(cur, leaf, None)
+    if existing is not None and not isinstance(existing,
+                                               (OpPath, ModuleType)):
+        raise AttributeError(f"{name} is already defined in gb.{modname}")
+    setattr(cur, leaf, op)
+    if modname in ("unary", "binary", "monoid", "semiring") and not path:
+        opmod = importlib.import_module("graphblas_tpu_torch.op")
+        if leaf not in vars(opmod):
+            setattr(opmod, leaf, op)
 
 
 def _from_string(string, modname, mapping, example):
@@ -115,16 +90,38 @@ def _from_string(string, modname, mapping, example):
         raise ValueError(
             f'Bad {modname} string: {string!r}.  "]" not matched by "[".  '
             f"Example usage: {example!r}")
-    op = _resolve(module, mapping.get(base, base))
-    if op is None:
-        if base in _NUMPY_NAMES.get(modname, ()):
-            raise not_ported(f"{modname}.numpy.{base}", 12)
+    # as the JAX package: the symbol table, the namespace, its numpy
+    # namespace, then a dotted path (a name the port lacks raises
+    # NotImplementedError from the namespace's hook)
+    numpy_ns = getattr(module, "numpy", None)
+    if base in mapping:
+        op = _walk(module, mapping[base])
+    elif hasattr(module, base):
+        op = getattr(module, base)
+    elif numpy_ns is not None and hasattr(numpy_ns, base):
+        op = getattr(numpy_ns, base)
+    else:
+        op = _walk(module, base)
+    if not isinstance(op, (OpBase, TypedOpBase, ParameterizedUdf)):
         raise ValueError(
             f"Unknown {modname} string: {string!r}.  Example usage: "
             f"{example!r}")
     if dtype:
         op = op[dtype]
     return op
+
+
+def _walk(module, path):
+    """The object at a dotted path of a namespace, or None."""
+    cur = module
+    for part in path.split("."):
+        if isinstance(cur, (OpBase, TypedOpBase)):
+            return None  # an operator is no namespace
+        try:
+            cur = getattr(cur, part)
+        except AttributeError:
+            return None
+    return cur
 
 
 def unary_from_string(string):
@@ -159,13 +156,10 @@ def semiring_from_string(string):
             f"Bad semiring string: {string!r}.  The monoid and binaryop "
             f'should be separated by exactly one period, ".".  Example '
             f"usage: min.+[int]")
-    # "monoid.binaryop": the ring of both untyped parents, as the JAX
-    # package's get_semiring composes it
-    mono, mult = (op.parent if isinstance(op, TypedOpBase) else op
-                  for op in (monoid_from_string(split[0]),
-                             binary_from_string(split[1])))
-    return _from_string(f"{mono.name}_{mult.name}", "semiring", {},
-                        "min.+[int]")
+    from .semiring import get_semiring
+
+    return get_semiring(monoid_from_string(split[0]),
+                        binary_from_string(split[1]))
 
 
 def aggregator_from_string(string):
@@ -204,6 +198,7 @@ def reduce_op(op, dtype):
     parses as a monoid first, then as a binary op or an aggregator."""
     from .agg import Aggregator
 
+    op = unparameterized(op)
     if isinstance(op, str):
         try:
             op = monoid_from_string(op)
@@ -220,3 +215,58 @@ def reduce_op(op, dtype):
     if getattr(op, "opclass", None) == "Aggregator":
         return op  # a TypedAggregator
     return typed(op, dtype, "Monoid")
+
+
+def _compile_definition(defn, name):
+    """A callable from a callable, or from Python source (a ``lambda`` or
+    a ``def``) run with ``torch``, ``np`` and ``math`` in scope."""
+    if callable(defn):
+        return defn
+    if not isinstance(defn, str):
+        raise TypeError(f"a jit definition is a callable or Python source; "
+                        f"got {type(defn)}")
+    import math
+
+    import numpy as np
+    import torch
+
+    ns = {"torch": torch, "np": np, "math": math}
+    src = defn.strip()
+    if src.startswith("lambda"):
+        return eval(src, ns)  # noqa: S307 - the caller's operator
+    before = set(ns)
+    try:
+        exec(src, ns)  # noqa: S102 - the caller's operator
+    except SyntaxError as exc:
+        raise TypeError("a jit definition is Python source over torch "
+                        "tensors (a 'lambda ...' or 'def ...'), not C") \
+            from exc
+    funcs = {k: v for k, v in ns.items() if k not in before and callable(v)}
+    if name in funcs:
+        return funcs[name]
+    if len(funcs) == 1:
+        return next(iter(funcs.values()))
+    raise ValueError(f"could not find a function named {name!r} in the jit "
+                     f"definition")
+
+
+def jit_register(modname, name, defn, *types):
+    """``<namespace>.ss.register_new``: the JAX package's engine-JIT
+    registration, with a function over tensors given as a callable or
+    Python source; it lands at ``<namespace>.ss.<name>``.  The types are
+    checked and not used: the function is typed for every type it takes."""
+    from .binary import BinaryOp
+    from .indexunary import IndexUnaryOp, SelectOp
+    from .unary import UnaryOp
+
+    cls = {"unary": UnaryOp, "binary": BinaryOp, "indexunary": IndexUnaryOp,
+           "select": SelectOp}[modname]
+    short = name[3:] if name.startswith("ss.") else name
+    for t in types:
+        if t is not None:
+            lookup_dtype(t)
+    op = cls.register_anonymous(_compile_definition(defn, short),
+                                name=f"ss.{short}")
+    module = importlib.import_module(f"graphblas_tpu_torch.{modname}")
+    setattr(module.ss, short, op)
+    return op

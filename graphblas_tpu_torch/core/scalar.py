@@ -9,7 +9,7 @@ import torch
 
 from . import config as _config
 from .base import BaseType, NotPorted
-from .dtypes import FP64, UINT32, lookup_dtype, to_numpy
+from .dtypes import FP64, lookup_dtype, storage_scalar, to_numpy
 
 
 class Scalar(BaseType):
@@ -42,10 +42,8 @@ class Scalar(BaseType):
         s = cls(dtype, name=name)
         if value is not None:
             dt = s.dtype
-            if dt is UINT32:
-                v = int(value) & 0xFFFFFFFF
-            else:
-                v = np.asarray(value).astype(dt.np_type).item()
+            v = storage_scalar(np.asarray(value).astype(dt.np_type).item(),
+                               dt)
             s._set_store(torch.tensor(v, dtype=dt.torch_type, device=s.device),
                          torch.ones((), dtype=torch.bool, device=s.device))
         return s

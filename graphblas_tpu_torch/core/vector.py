@@ -19,18 +19,14 @@ from .operator.base import typed
 
 
 def _values_dtype(values, dtype):
-    """numpy values and their DataType (inferred when dtype is None)."""
-    values = np.asarray(values)
+    """numpy values and their DataType (inferred when dtype is None); with a
+    dtype, Python numbers convert to it exactly, as in the JAX package
+    (values_to_numpy_buffer), so that 2**64 - 1 stays a UINT64."""
     if dtype is None:
-        dt = _dt.lookup_dtype(values.dtype)
-    else:
-        dt = _dt.lookup_dtype(dtype)
-    return values, dt
-
-
-def _unify(a, b):
-    return a if a == b else _dt.lookup_dtype(np.result_type(a.np_type,
-                                                            b.np_type))
+        values = np.asarray(values)
+        return values, _dt.lookup_dtype(values.dtype)
+    dt = _dt.lookup_dtype(dtype)
+    return np.array(values, dt.np_type, copy=None), dt
 
 
 class Vector(InfixStubs, Collection):
@@ -99,7 +95,7 @@ class Vector(InfixStubs, Collection):
             from .engine.sparse import sorted_dedup_coo
 
             idx, _, vals = sorted_dedup_coo(idx, np.zeros_like(idx), vals,
-                                            size, 1, dup_op)
+                                            size, 1, dt, dup_op)
         v = cls(dt, size, name=name)
         dev = v.device
         t_idx = torch.from_numpy(idx).to(dev)
@@ -141,6 +137,11 @@ class Vector(InfixStubs, Collection):
             valid = torch.from_numpy(values != missing_value).to(v.device)
         v._set_store(vals, valid)
         return v
+
+    def to_dict(self):
+        """{index: value}, as the JAX package's to_dict."""
+        idx, vals = self.to_coo()
+        return {int(i): v for i, v in zip(idx.tolist(), vals.tolist())}
 
     def to_coo(self, dtype=None, *, indices=True, values=True, sort=True):
         ok = self._valid.cpu().numpy()
@@ -187,7 +188,7 @@ class Vector(InfixStubs, Collection):
             return False
         if self.shape != other.shape:
             return False
-        common = self.dtype if check_dtype else _unify(self.dtype, other.dtype)
+        common = self.dtype if check_dtype else _dt.unify(self.dtype, other.dtype)
         ok = self._valid
         av = _dt.normalize(self._vals, common)
         bv = _dt.normalize(other._vals.to(self.device), common)
@@ -237,7 +238,7 @@ class Vector(InfixStubs, Collection):
         b = other._matrix if bt else other
         if not isinstance(b, Matrix):
             raise TypeError(f"vxm expects a Matrix; got {type(b).__name__}")
-        ring = typed(op, _unify(self.dtype, b.dtype), "Semiring")
+        ring = typed(op, _dt.unify(self.dtype, b.dtype), "Semiring")
         bshape = (b.ncols, b.nrows) if bt else (b.nrows, b.ncols)
         if self.size != bshape[0]:
             raise DimensionMismatch(f"Dimensions not compatible for vxm: "
@@ -252,7 +253,7 @@ class Vector(InfixStubs, Collection):
         if not isinstance(other, Vector):
             raise TypeError(f"inner expects a Vector; got "
                             f"{type(other).__name__}")
-        ring = typed(op, _unify(self.dtype, other.dtype), "Semiring")
+        ring = typed(op, _dt.unify(self.dtype, other.dtype), "Semiring")
         if self.size != other.size:
             raise DimensionMismatch(f"Dimensions not compatible for inner: "
                                     f"{self.size} vs {other.size}")
@@ -315,7 +316,6 @@ class Vector(InfixStubs, Collection):
     # the JAX package's Vector surface that is not ported yet
     build = NotPorted(12)
     from_dict = NotPorted(12)
-    to_dict = NotPorted(12)
     from_pairs = NotPorted(12)
     resize = NotPorted(12)
     outer = NotPorted(12)

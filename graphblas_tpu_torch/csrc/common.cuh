@@ -1,5 +1,6 @@
 // Shared device code for the lanepipe kernels: the within-tile permutation
-// closed form and the typed multiply / monoid operators.
+// closed form and the monoid combines (K1's typed multiply is in
+// gather_mult.cu).
 //
 // All kernels move 32-bit words.  Values travel as raw bits (uint32_t) and
 // are reinterpreted per carrier type: FP32 as float, INT32 as int, UINT32 as
@@ -21,19 +22,6 @@
 #define DT_U32 2
 #define DT_BOOL 3
 
-// multiply op codes
-#define OP_TIMES 0
-#define OP_PLUS 1
-#define OP_FIRST 2
-#define OP_SECOND 3
-#define OP_PAIR 4
-#define OP_MIN 5
-#define OP_MAX 6
-#define OP_LAND 7
-#define OP_LOR 8
-#define OP_BAND 9
-#define OP_BOR 10
-
 // monoid codes
 #define MO_PLUS 0
 #define MO_TIMES 1
@@ -43,6 +31,9 @@
 #define MO_LAND 5
 #define MO_BAND 6
 #define MO_BOR 7
+#define MO_LXOR 8
+#define MO_LXNOR 9  // also the BOOL monoid eq
+#define MO_BXOR 10
 
 // The tile-permutation closed form: output element (r, l) of the packed
 // three-phase tile permutation p (A = bits 0-6, B = 7-13, C = 14-20) is
@@ -107,57 +98,6 @@ __device__ __forceinline__ float fmax_nan(float a, float b) {
   return a > b ? a : b;
 }
 
-// typed multiply z = op(x, y) on carrier bits; integer arithmetic wraps
-template <int DT>
-__device__ __forceinline__ uint32_t mult_bits(int op, uint32_t x, uint32_t y) {
-  if (DT == DT_F32) {
-    float a = as_f(x), b = as_f(y);
-    switch (op) {
-      case OP_TIMES: return f_bits(a * b);
-      case OP_PLUS: return f_bits(a + b);
-      case OP_FIRST: return x;
-      case OP_SECOND: return y;
-      case OP_PAIR: return f_bits(1.0f);
-      // the binary ops min/max ignore a NaN operand (GraphBLAS, jnp.fmin)
-      case OP_MIN: return f_bits(fminf(a, b));
-      case OP_MAX: return f_bits(fmaxf(a, b));
-      // the operands' truth values, as 1 or 0 in the type (a NaN is true)
-      case OP_LAND: return f_bits(a != 0.0f && b != 0.0f ? 1.0f : 0.0f);
-      case OP_LOR: return f_bits(a != 0.0f || b != 0.0f ? 1.0f : 0.0f);
-    }
-    return 0;
-  } else if (DT == DT_BOOL) {
-    uint32_t a = x != 0, b = y != 0;
-    switch (op) {
-      case OP_TIMES: case OP_MIN: case OP_LAND: return a & b;
-      case OP_PLUS: case OP_MAX: case OP_LOR: return a | b;
-      case OP_FIRST: return a;
-      case OP_SECOND: return b;
-      case OP_PAIR: return 1u;
-    }
-    return 0;
-  } else {
-    switch (op) {
-      case OP_TIMES: return x * y;
-      case OP_PLUS: return x + y;
-      case OP_FIRST: return x;
-      case OP_SECOND: return y;
-      case OP_PAIR: return 1u;
-      case OP_BAND: return x & y;
-      case OP_BOR: return x | y;
-      case OP_LAND: return x != 0 && y != 0;
-      case OP_LOR: return x != 0 || y != 0;
-      case OP_MIN:
-        if (DT == DT_I32) return (int)x < (int)y ? x : y;
-        return x < y ? x : y;
-      case OP_MAX:
-        if (DT == DT_I32) return (int)x > (int)y ? x : y;
-        return x > y ? x : y;
-    }
-    return 0;
-  }
-}
-
 // monoid combine(left, right) on carrier bits
 template <int DT>
 __device__ __forceinline__ uint32_t combine_bits(int mo, uint32_t x, uint32_t y) {
@@ -176,9 +116,12 @@ __device__ __forceinline__ uint32_t combine_bits(int mo, uint32_t x, uint32_t y)
       case MO_TIMES: return x * y;
       case MO_BAND: return x & y;
       case MO_BOR: return x | y;
+      case MO_BXOR: return x ^ y;
       // booleans ride as 0/1: lor = max, land = product
       case MO_LOR: return x > y ? x : y;
       case MO_LAND: return x * y;
+      case MO_LXOR: return x ^ y;
+      case MO_LXNOR: return (x ^ y) ^ 1u;
       case MO_MIN:
         if (DT == DT_U32) return x < y ? x : y;
         return (int)x < (int)y ? x : y;

@@ -210,7 +210,7 @@ static int launch(int ntiles, cudaStream_t st, const int* pcr, const int* bar,
 extern "C" int fused_scan(const void* pcr, const void* barrier, const void* pae,
                           const void* vals, void* scratch, void* out,
                           int ntiles, int dt, int mo, int packed, void* stream) {
-  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BOR)
+  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BXOR)
     return (int)cudaErrorInvalidValue;
   if (ntiles <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;

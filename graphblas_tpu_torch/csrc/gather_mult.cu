@@ -44,10 +44,14 @@
 //      (staged as one 32-bit word of bits a thread).
 //
 // The multiplies of the main paths are template arguments: FP32 times
-// (PageRank), BOOL land (BFS), FP32 plus (SSSP's min_plus).  Every other
-// (type, op) pair goes through one out-of-line multiply, which keeps the
-// build to seconds (a run-time switch inlined at every unrolled site does
-// not).
+// (PageRank), BOOL land (BFS), FP32 plus (SSSP's min_plus), where matrix,
+// vector, multiply and monoid share the type.  Everything else goes
+// through one out-of-line multiply (mult_dyn), which keeps the build to
+// seconds (a run-time switch inlined at every unrolled site does not):
+// every builtin binary op on the types of at most 32 bits, each operand
+// cast from its own type to the op's, the product narrowed to the op's
+// return type (INT8 sums wrap before a min sees them) and cast to the
+// monoid's, as core/engine/sortpipe.py multiply computes it.
 #include "common.cuh"
 
 #define K1_NT 1024  // threads a block: one G block, two tiles
@@ -58,15 +62,216 @@
 
 enum MulOp { MU_TIMES_F, MU_PLUS_F, MU_LAND_B, MU_DYN };
 
-// code = dt | op << 4.  Not inlined: one shared body keeps the build short.
-__device__ __noinline__ uint32_t mult_dyn(int code, uint32_t x, uint32_t y) {
-  const int op = code >> 4;
-  switch (code & 15) {
-    case DT_F32: return mult_bits<DT_F32>(op, x, y);
-    case DT_I32: return mult_bits<DT_I32>(op, x, y);
-    case DT_U32: return mult_bits<DT_U32>(op, x, y);
-    default: return mult_bits<DT_BOOL>(op, x, y);
+// ---------------------------------------------------------------------- //
+// The out-of-line multiply: every builtin binary op on every type of at
+// most 32 bits, with each operand in its own type.  A 32-bit word holds a
+// value of type T_* as the engine's carrier does: FP32 as float bits, BOOL
+// as 0/1, every integer sign- or zero-extended.  The codes must match
+// graphblas_tpu_torch/core/engine/kernels.py.
+enum { T_F32, T_I32, T_U32, T_BOOL, T_I8, T_I16, T_U8, T_U16 };
+enum {
+  OP_FIRST, OP_SECOND, OP_PAIR, OP_ANY, OP_PLUS, OP_MINUS, OP_RMINUS,
+  OP_TIMES, OP_CDIV, OP_RDIV, OP_TRUEDIV, OP_RTRUEDIV, OP_MIN, OP_MAX,
+  OP_POW, OP_ISEQ, OP_ISNE, OP_ISGT, OP_ISLT, OP_ISGE, OP_ISLE, OP_LOR,
+  OP_LAND, OP_LXOR, OP_LXNOR, OP_BOR, OP_BAND, OP_BXOR, OP_BXNOR, OP_BGET,
+  OP_BSET, OP_BCLR, OP_BSHIFT, OP_ATAN2, OP_HYPOT, OP_FMOD, OP_REMAINDER,
+  OP_LDEXP, OP_COPYSIGN, OP_EQ, OP_NE, OP_GT, OP_LT, OP_GE, OP_LE,
+  OP_COUNT
+};
+
+__device__ __forceinline__ int t_bits(int t) {
+  return t == T_I8 || t == T_U8 ? 8 : t == T_I16 || t == T_U16 ? 16 : 32;
+}
+
+__device__ __forceinline__ bool t_signed(int t) {
+  return t == T_I32 || t == T_I8 || t == T_I16;
+}
+
+// an integer's value from its word
+__device__ __forceinline__ long long t_ext(uint32_t v, int t) {
+  return t == T_U32 ? (long long)v : (long long)(int)v;
+}
+
+// a 64-bit integer wrapped to type t (a C cast), as its word
+__device__ __forceinline__ uint32_t t_wrap(long long w, int t) {
+  switch (t) {
+    case T_I8: return (uint32_t)(int)(signed char)w;
+    case T_I16: return (uint32_t)(int)(short)w;
+    case T_U8: return (uint32_t)(w & 0xff);
+    case T_U16: return (uint32_t)(w & 0xffff);
+    case T_BOOL: return w != 0;
+    default: return (uint32_t)w;
   }
+}
+
+// a float truncated toward zero and saturated to integer type t, NaN -> 0
+// (core/dtypes.py float_to_int)
+__device__ uint32_t t_sat(double f, int t) {
+  const int nb = t_bits(t);
+  const double lo = t_signed(t) ? -ldexp(1.0, nb - 1) : 0.0;
+  const double hi = t_signed(t) ? ldexp(1.0, nb - 1) - 1 : ldexp(1.0, nb) - 1;
+  if (f != f) return 0u;
+  return t_wrap(f <= lo ? (long long)lo : f >= hi ? (long long)hi
+                                                    : (long long)f, t);
+}
+
+// GraphBLAS's casts (core/dtypes.py normalize): integers wrap, floats
+// saturate, nonzero -> true
+__device__ uint32_t t_cast(uint32_t v, int from, int to) {
+  if (from == to) return v;
+  if (to == T_BOOL) return from == T_F32 ? as_f(v) != 0.0f : v != 0;
+  if (to == T_F32)
+    return f_bits(from == T_U32 ? (float)v : (float)(int)v);
+  if (from == T_F32) return t_sat(as_f(v), to);
+  return t_wrap(t_ext(v, from), to);
+}
+
+// 2 ** k for k in [-126, 127], exactly
+__device__ __forceinline__ float pow2f(int k) {
+  return __int_as_float((k + 127) << 23);
+}
+
+__device__ uint32_t mult_f32(int op, float a, float b) {
+  // one rounding an operation, as the plain version's separate torch ops
+  // (no contraction into an fma)
+  switch (op) {
+    case OP_FIRST: case OP_ANY: return f_bits(a);
+    case OP_SECOND: return f_bits(b);
+    case OP_PAIR: return f_bits(1.0f);
+    case OP_PLUS: return f_bits(__fadd_rn(a, b));
+    case OP_MINUS: return f_bits(__fsub_rn(a, b));
+    case OP_RMINUS: return f_bits(__fsub_rn(b, a));
+    case OP_TIMES: return f_bits(__fmul_rn(a, b));
+    case OP_CDIV: case OP_TRUEDIV: return f_bits(__fdiv_rn(a, b));
+    case OP_RDIV: case OP_RTRUEDIV: return f_bits(__fdiv_rn(b, a));
+    // the binary ops min/max ignore a NaN operand (GraphBLAS, fmin)
+    case OP_MIN: return f_bits(fminf(a, b));
+    case OP_MAX: return f_bits(fmaxf(a, b));
+    case OP_POW: return f_bits(powf(a, b));
+    case OP_ISEQ: return f_bits(a == b ? 1.0f : 0.0f);
+    case OP_ISNE: return f_bits(a != b ? 1.0f : 0.0f);
+    case OP_ISGT: return f_bits(a > b ? 1.0f : 0.0f);
+    case OP_ISLT: return f_bits(a < b ? 1.0f : 0.0f);
+    case OP_ISGE: return f_bits(a >= b ? 1.0f : 0.0f);
+    case OP_ISLE: return f_bits(a <= b ? 1.0f : 0.0f);
+    // the operands' truth values, as 1 or 0 in the type (a NaN is true)
+    case OP_LOR: return f_bits(a != 0.0f || b != 0.0f ? 1.0f : 0.0f);
+    case OP_LAND: return f_bits(a != 0.0f && b != 0.0f ? 1.0f : 0.0f);
+    case OP_LXOR: return f_bits((a != 0.0f) != (b != 0.0f) ? 1.0f : 0.0f);
+    case OP_LXNOR: return f_bits((a != 0.0f) == (b != 0.0f) ? 1.0f : 0.0f);
+    case OP_ATAN2: return f_bits(atan2f(a, b));
+    case OP_HYPOT: return f_bits(hypotf(a, b));
+    case OP_FMOD: return f_bits(fmodf(a, b));
+    // IEEE remainder as torch computes it: x - round_half_even(x / y) * y
+    case OP_REMAINDER:
+      return f_bits(__fsub_rn(a, __fmul_rn(rintf(__fdiv_rn(a, b)), b)));
+    // x * 2 ** trunc(y), the exponent saturated to int32 and cut to
+    // [-300, 300], in three exact power-of-two steps (ufuncs.ldexp)
+    case OP_LDEXP: {
+      const int e = min(max((int)t_sat(b, T_I32), -300), 300);
+      const int a1 = e / 3, a2 = (e - a1) / 2, a3 = e - a1 - a2;
+      return f_bits(__fmul_rn(__fmul_rn(__fmul_rn(a, pow2f(a1)), pow2f(a2)),
+                              pow2f(a3)));
+    }
+    case OP_COPYSIGN: return f_bits(copysignf(a, b));
+    case OP_EQ: return a == b;
+    case OP_NE: return a != b;
+    case OP_GT: return a > b;
+    case OP_LT: return a < b;
+    case OP_GE: return a >= b;
+    case OP_LE: return a <= b;
+  }
+  return 0;
+}
+
+__device__ uint32_t mult_bool(int op, uint32_t a, uint32_t b) {
+  switch (op) {
+    case OP_FIRST: case OP_ANY: return a;
+    case OP_SECOND: return b;
+    case OP_PAIR: return 1u;
+    case OP_TIMES: case OP_MIN: case OP_LAND: return a & b;
+    case OP_PLUS: case OP_MAX: case OP_LOR: return a | b;
+    case OP_MINUS: case OP_RMINUS: case OP_LXOR: case OP_ISNE: case OP_NE:
+      return a ^ b;
+    case OP_CDIV: return b ? a : 1u;
+    case OP_RDIV: return a ? b : 1u;
+    case OP_POW: return a | (b ^ 1u);
+    case OP_ISEQ: case OP_LXNOR: case OP_EQ: return (a ^ b) ^ 1u;
+    case OP_ISGT: case OP_GT: return a > b;
+    case OP_ISLT: case OP_LT: return a < b;
+    case OP_ISGE: case OP_GE: return a >= b;
+    case OP_ISLE: case OP_LE: return a <= b;
+  }
+  return 0;
+}
+
+// C-truncated x / y with SuiteSparse's x / 0 (0, or the type's extremum)
+__device__ long long idiv(long long x, long long y, int t) {
+  if (y != 0) return x / y;
+  if (x == 0) return 0;
+  const int nb = t_bits(t);
+  if (!t_signed(t)) return (long long)((1ull << nb) - 1);
+  return x > 0 ? (1ll << (nb - 1)) - 1 : -(1ll << (nb - 1));
+}
+
+__device__ uint32_t mult_int(int op, int t, long long x, long long y) {
+  const int nb = t_bits(t);
+  switch (op) {
+    case OP_FIRST: case OP_ANY: return t_wrap(x, t);
+    case OP_SECOND: return t_wrap(y, t);
+    case OP_PAIR: return 1u;
+    case OP_PLUS: return t_wrap(x + y, t);
+    case OP_MINUS: return t_wrap(x - y, t);
+    case OP_RMINUS: return t_wrap(y - x, t);
+    case OP_TIMES: return t_wrap(x * y, t);
+    case OP_CDIV: return t_wrap(idiv(x, y, t), t);
+    case OP_RDIV: return t_wrap(idiv(y, x, t), t);
+    case OP_MIN: return t_wrap(x < y ? x : y, t);
+    case OP_MAX: return t_wrap(x > y ? x : y, t);
+    // through float64, truncated, as ufuncs.power
+    case OP_POW: return t_sat(pow((double)x, (double)y), t);
+    case OP_ISEQ: case OP_EQ: return x == y;
+    case OP_ISNE: case OP_NE: return x != y;
+    case OP_ISGT: case OP_GT: return x > y;
+    case OP_ISLT: case OP_LT: return x < y;
+    case OP_ISGE: case OP_GE: return x >= y;
+    case OP_ISLE: case OP_LE: return x <= y;
+    case OP_LOR: return x != 0 || y != 0;
+    case OP_LAND: return x != 0 && y != 0;
+    case OP_LXOR: return (x != 0) != (y != 0);
+    case OP_LXNOR: return (x != 0) == (y != 0);
+    case OP_BOR: return t_wrap(x | y, t);
+    case OP_BAND: return t_wrap(x & y, t);
+    case OP_BXOR: return t_wrap(x ^ y, t);
+    case OP_BXNOR: return t_wrap(~(x ^ y), t);
+    // a bit position outside [0, width) shifts everything out
+    case OP_BGET:
+      if (y >= 0 && y < nb) return t_wrap((x >> y) & 1, t);
+      return t_signed(t) && x < 0;
+    case OP_BSET: return t_wrap(y >= 0 && y < nb ? x | (1ll << y) : x, t);
+    case OP_BCLR: return t_wrap(y >= 0 && y < nb ? x & ~(1ll << y) : x, t);
+    case OP_BSHIFT: {  // left for y >= 0, right (arithmetic if signed)
+      const long long m = y < 0 ? -y : y;
+      if (y >= 0) return m >= nb ? 0u : t_wrap(x << m, t);
+      if (m >= nb) return t_signed(t) && x < 0 ? t_wrap(-1, t) : 0u;
+      return t_wrap(x >> m, t);
+    }
+  }
+  return 0;
+}
+
+// code = x type | y type << 3 | op's first input type << 6 | second << 9
+//        | op's return type << 12 | monoid type << 15 | op << 18
+__device__ __noinline__ uint32_t mult_dyn(int code, uint32_t x, uint32_t y) {
+  const int xt = code & 7, yt = (code >> 3) & 7, t1 = (code >> 6) & 7,
+            t2 = (code >> 9) & 7, rt = (code >> 12) & 7, zt = (code >> 15) & 7,
+            op = code >> 18;
+  const uint32_t a = t_cast(x, xt, t1), b = t_cast(y, yt, t2);
+  uint32_t r;
+  if (t1 == T_F32) r = mult_f32(op, as_f(a), as_f(b));
+  else if (t1 == T_BOOL) r = mult_bool(op, a, b);
+  else r = mult_int(op, t1, t_ext(a, t1), t_ext(b, t2));
+  return t_cast(r, rt, zt);
 }
 
 template <int OP>
@@ -240,28 +445,29 @@ static int launch(int nblocks, cudaStream_t st, const int* meta,
 }
 
 // One launch.  ntiles = R_g / 128, two tiles a G block.  Every pointer but
-// meta, u2 and u2ok is 16-byte aligned.
+// meta, u2 and u2ok is 16-byte aligned.  fast picks a templated multiply
+// (1: FP32 times, 2: FP32 plus, 3: BOOL land, every type the same);
+// 0 runs mult_dyn with `code`.
 extern "C" int gather_mult(const void* meta, const void* u2, const void* u2ok,
                            const void* idx1, const void* locidx,
                            const void* okg, const void* avals,
                            const void* permA, void* out, void* okp,
-                           int ntiles, int dt, int op, int mxv, int packed,
+                           int ntiles, int code, int fast, int mxv, int packed,
                            int full_u, int ident_bits, void* stream) {
-  if (dt < DT_F32 || dt > DT_BOOL || op < OP_TIMES || op > OP_BOR ||
+  if (fast < 0 || fast > 3 || (code >> 18) >= OP_COUNT || code < 0 ||
       ntiles % 2)
     return (int)cudaErrorInvalidValue;
   if (ntiles <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int code = dt | op << 4;
 #define ARGS                                                                \
   ntiles / 2, st, (const int*)meta, (const uint32_t*)u2, (const int*)u2ok,  \
       (const int*)idx1, (const int*)locidx, (const int*)okg,                \
       (const uint32_t*)avals, (const int*)permA, (uint32_t*)out, (int*)okp, \
       code, mxv, packed, full_u, (uint32_t)ident_bits
   int rc;
-  if (dt == DT_F32 && op == OP_TIMES) rc = launch<MU_TIMES_F>(ARGS);
-  else if (dt == DT_F32 && op == OP_PLUS) rc = launch<MU_PLUS_F>(ARGS);
-  else if (dt == DT_BOOL && op == OP_LAND) rc = launch<MU_LAND_B>(ARGS);
+  if (fast == 1) rc = launch<MU_TIMES_F>(ARGS);
+  else if (fast == 2) rc = launch<MU_PLUS_F>(ARGS);
+  else if (fast == 3) rc = launch<MU_LAND_B>(ARGS);
   else rc = launch<MU_DYN>(ARGS);
 #undef ARGS
   return rc;

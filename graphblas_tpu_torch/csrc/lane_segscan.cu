@@ -271,7 +271,7 @@ extern "C" int lane_segscan(const void* barrier, const void* vals,
                             const void* ok, void* scratch, void* out,
                             void* outh, int ntiles, int dt, int mo, int packed,
                             void* stream) {
-  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BOR)
+  if (dt < DT_F32 || dt > DT_BOOL || mo < MO_PLUS || mo > MO_BXOR)
     return (int)cudaErrorInvalidValue;
   if (ntiles <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;

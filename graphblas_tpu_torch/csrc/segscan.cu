@@ -62,7 +62,8 @@
 // them.
 enum SegOp {
   SO_FIRST, SO_ADD, SO_MUL, SO_AND, SO_OR, SO_MIN_I, SO_MAX_I, SO_MIN_U,
-  SO_MAX_U, SO_ADD_F, SO_MUL_F, SO_MIN_F, SO_MAX_F, SO_INVALID,
+  SO_MAX_U, SO_ADD_F, SO_MUL_F, SO_MIN_F, SO_MAX_F, SO_XOR, SO_XNOR_B,
+  SO_INVALID,
   SO_DYN  // the op is read at run time from SegChans::cc
 };
 
@@ -90,6 +91,8 @@ static int seg_op(int code) {
     case MO_TIMES: case MO_LAND: return SO_MUL;  // booleans ride as 0/1
     case MO_BAND: return SO_AND;
     case MO_BOR: return SO_OR;
+    case MO_BXOR: case MO_LXOR: return SO_XOR;
+    case MO_LXNOR: return SO_XNOR_B;  // booleans ride as 0/1
     case MO_LOR: return SO_MAX_U;
     case MO_MIN: return dt == DT_U32 ? SO_MIN_U : SO_MIN_I;
     case MO_MAX: return dt == DT_U32 ? SO_MAX_U : SO_MAX_I;
@@ -116,6 +119,8 @@ __device__ __noinline__ uint32_t comb(int op, uint32_t x, uint32_t y) {
     case SO_MUL_F: return f_bits(as_f(x) * as_f(y));
     case SO_MIN_F: return f_bits(fmin_nan(as_f(x), as_f(y)));
     case SO_MAX_F: return f_bits(fmax_nan(as_f(x), as_f(y)));
+    case SO_XOR: return x ^ y;
+    case SO_XNOR_B: return (x ^ y) ^ 1u;
   }
   return y;
 }
@@ -137,7 +142,9 @@ __device__ __forceinline__ uint32_t comb_t(int dyn, uint32_t x, uint32_t y) {
   else if constexpr (OP == SO_ADD_F) return f_bits(as_f(x) + as_f(y));
   else if constexpr (OP == SO_MUL_F) return f_bits(as_f(x) * as_f(y));
   else if constexpr (OP == SO_MIN_F) return f_bits(fmin_nan(as_f(x), as_f(y)));
-  else return f_bits(fmax_nan(as_f(x), as_f(y)));
+  else if constexpr (OP == SO_MAX_F) return f_bits(fmax_nan(as_f(x), as_f(y)));
+  else if constexpr (OP == SO_XOR) return x ^ y;
+  else return (x ^ y) ^ 1u;
 }
 
 // The combines of a launch's channels, one template argument each.  The

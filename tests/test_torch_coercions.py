@@ -1,0 +1,7 @@
+"""The reference's coercions cases against the port (the twin of
+tests/test_coercions.py), run on the CPU with the same inputs and expected
+values the JAX package meets there."""
+
+from tests.test_torch_operator_grids import twin
+
+twin("test_coercions", globals())

@@ -298,7 +298,9 @@ def test_segscan_fp32_times_across_tiles(cuda):
 # pair the kernel takes, templated (FP32 times and plus, BOOL land) or
 # through its out-of-line multiply; then the logical multiplies end to end
 K1_TYPES = ("FP32", "INT32", "UINT32", "BOOL")
-K1_PAIRS = [(op, dt) for op in K.MULT_OP for dt in K1_TYPES
+K1_OPS = ("times", "plus", "first", "second", "pair", "min", "max", "land",
+          "lor", "band", "bor")
+K1_PAIRS = [(op, dt) for op in K1_OPS for dt in K1_TYPES
             if not (op in ("band", "bor") and dt in ("FP32", "BOOL"))]
 K1_N = 3 * lp.WINDOW_K  # three windows: the last one ends at the end of u2
 _k1_plans = {}
@@ -868,3 +870,202 @@ def test_positional_and_aggregators_match_cpu(cuda, backing):
                                        err_msg=str(i))
         else:
             assert np.array_equal(gc[-1], wc[-1]), i
+
+
+# --------------------------------------------------------------------- #
+# the operators slice: K1 over every builtin multiply and type of at most
+# 32 bits, each operand in its own type (the templated fast paths and
+# the out-of-line multiply); K4, K5 and K6 with lxor, lxnor, eq and bxor;
+# the products that raised on the card before K1 took mixed types
+K1_ALL_TYPES = ("FP32", "INT32", "UINT32", "BOOL", "INT8", "INT16", "UINT8",
+                "UINT16")
+
+
+def _k1_grid():
+    from graphblas_tpu_torch import binary
+    from graphblas_tpu_torch.core import dtypes as dts
+
+    out = []
+    for op in K.K1_OP:
+        for t in K1_ALL_TYPES:
+            if dts.lookup_dtype(t) not in getattr(binary, op)._typed_ops:
+                continue
+            mult = getattr(binary, op)[t]
+            if K.k1_code(mult, dts.lookup_dtype(t), dts.lookup_dtype(t),
+                         mult.return_type) is not None:
+                out.append((op, t, t, t))
+    return out
+
+
+K1_GRID = _k1_grid()
+K1_MIXED = [("times", "BOOL", "FP32", "FP32"), ("times", "BOOL", "INT32", "INT32"),
+            ("plus", "FP32", "INT32", "FP32"), ("lt", "INT8", "FP32", "FP32"),
+            ("times", "UINT16", "INT32", "INT32"), ("plus", "FP32", "INT8", "INT8"),
+            ("bxor", "INT32", "UINT8", "UINT8"), ("pow", "UINT8", "INT16", "INT16"),
+            ("land", "FP32", "BOOL", "BOOL"), ("eq", "UINT32", "INT32", "INT32"),
+            ("minus", "INT16", "UINT16", "UINT16"), ("max", "UINT32", "FP32", "FP32"),
+            ("bshift", "INT8", "INT32", "INT8"), ("cdiv", "FP32", "UINT8", "UINT8")]
+
+
+def k1_typed_words(rng, shape, name, cuda):
+    """Carrier words of any type K1 takes: FP32 with zeros of both signs,
+    NaN, infinities, a subnormal and values past the integer ranges;
+    integers over their type's range and small ones; BOOL 0/1."""
+    if name in ("FP32", "BOOL", "INT32"):
+        return k1_words(rng, shape, name, cuda) if name != "FP32" else \
+            torch.from_numpy(np.where(
+                rng.random(shape) < 0.5,
+                rng.choice(np.float32([0, -0.0, 1.5, -2, np.nan, np.inf,
+                                       -np.inf, 3e-39, 300.7, -40000.5, 3e9]),
+                           shape),
+                4 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+    info = np.iinfo(np.dtype(name.lower()))
+    x = rng.integers(int(info.min), int(info.max) + 1, shape, dtype=np.int64)
+    small = rng.random(shape) < 0.4
+    x[small] = rng.integers(-3 if info.min < 0 else 0, 9, int(small.sum()))
+    return torch.from_numpy(x.astype(np.dtype(name.lower())).astype(np.int64)
+                            .astype(np.int32)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,a_t,u_t,t", K1_GRID + K1_MIXED,
+                         ids=[f"{o}-{a}x{u}-{t}" for o, a, u, t in K1_GRID + K1_MIXED])
+def test_gather_mult_every_builtin_op(cuda, op, a_t, u_t, t):
+    """vxm and mxv, a sparse u (okp), through the route's stage A, the
+    BOOL monoid packed and not: bitwise equal to gather_mult_plain on the
+    card, one launch a call."""
+    from graphblas_tpu_torch import binary
+    from graphblas_tpu_torch.core import dtypes as dts
+
+    rng = np.random.default_rng(35)
+    mult = getattr(binary, op)[t]
+    ret = mult.return_type
+    mono = (monoid.lor if ret is dts.BOOL else monoid.min)[ret]
+    a_dt, u_dt = dts.lookup_dtype(a_t), dts.lookup_dtype(u_t)
+    for kind in ("vxm", "mxv"):
+        e = k1_plan(cuda, kind)
+        d = e["dev"]
+        R_g, nb = e["R_g"], e["nblocks_g"]
+        plan_g = (d["meta"], d["idx1_g"], d["locidx_g"], d["okg"],
+                  k1_typed_words(rng, (R_g, 128), a_t, cuda))
+        u2 = k1_typed_words(rng, (K1_N // 128, 128), u_t, cuda)
+        u2ok = torch.from_numpy(rng.integers(0, 2, u2.shape, dtype=np.int32)).to(cuda)
+        for packed in ((True, False) if ret is dts.BOOL else (False,)):
+            kw = dict(kind=kind, R_g=R_g, nblocks=nb, packed=packed,
+                      permA=d["routeP"][0])
+            args = (plan_g, u2, u2ok, mult, a_dt, u_dt, mono)
+            before = K.launches["gather_mult"]
+            got = lp.gather_mult(*args, **kw)
+            assert K.launches["gather_mult"] == before + 1
+            want = lp.gather_mult_plain(*args, **kw)
+            tag = (kind, packed)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), tag
+            if want[1] is not None:
+                assert torch.equal(got[1], want[1]), tag
+
+
+NEW_SCANS = [("lxor", "BOOL", True), ("lxor", "BOOL", False),
+             ("lxnor", "BOOL", True), ("eq", "BOOL", True),
+             ("eq", "BOOL", False), ("bxor", "UINT32", False)]
+K4_LAYOUTS = [("row 0 only", 64), ("every row", 8), ("random", 264),
+              ("long run", 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,tiles", K4_LAYOUTS)
+@pytest.mark.parametrize("mono_name,dtype,packed", NEW_SCANS)
+def test_fused_scan_new_combines(cuda, mono_name, dtype, packed, kind, tiles):
+    """K4 with the combines of the operators slice, over the barrier
+    layouts of test_fused_scan_barrier_layouts: bitwise."""
+    rng = np.random.default_rng(36)
+    pc, bar, pa, vals = k4_inputs(rng, tiles, kind, dtype, packed)
+    if dtype == "BOOL" and not packed:
+        vals = vals & 1
+    k4_check(cuda, mono_name, dtype, packed, [pc, bar, pa, vals])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,tiles", [("no barrier in row 0", 24),
+                                        ("none", 80), ("every row", 8),
+                                        ("random", 1)])
+@pytest.mark.parametrize("mono_name,dtype,packed", NEW_SCANS)
+def test_lane_segscan_new_combines(cuda, mono_name, dtype, packed, kind, tiles):
+    """K5 with the combines of the operators slice and a validity channel,
+    over the barrier layouts of test_lane_segscan_barrier_layouts:
+    bitwise."""
+    rng = np.random.default_rng(37)
+    bar = k5_barrier(rng, kind, tiles)
+    vals = k5_values(rng, bar.shape, dtype, packed)
+    k5_check(cuda, mono_name, dtype, packed, bar, vals, k5_ok(rng, bar.shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tile starts", "tile ends", "every element",
+                                  "random"])
+@pytest.mark.parametrize("mono_name,dtype", [("lxor", "BOOL"), ("lxnor", "BOOL"),
+                                             ("eq", "BOOL"), ("bxor", "UINT32")])
+def test_segscan_new_combines(cuda, mono_name, dtype, kind):
+    """K6 with the combines of the operators slice beside a count, over
+    the look-back's barrier layouts: bitwise; and 200 launches of each
+    equal to the first."""
+    rng = np.random.default_rng(38)
+    L = 16 * sp.SEG_BLOCK
+    bar = seg_barrier(rng, kind, L)
+    pair = [sp.monoid_combine(getattr(monoid, mono_name)[dtype]), sp.COUNT]
+    vals = [torch.from_numpy((rng.integers(0, 2, L) if dtype == "BOOL" else
+                              rng.integers(-2**31, 2**31, L)).astype(np.int32)),
+            seg_values(rng, sp.COUNT, L)]
+    first = seg_check(cuda, bar, pair, vals)
+    if kind == "random":
+        for _ in range(200):
+            again = sp.segscan(bar.to(cuda), [v.to(cuda) for v in vals], pair)
+            assert all(torch.equal(a, f) for a, f in zip(again, first))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vxm", "mxv"])
+@pytest.mark.parametrize("ring,rt,a_t,u_t", [
+    ("plus_times", "FP32", "BOOL", "FP32"),
+    ("plus_times", "INT32", "BOOL", "INT32"),
+    ("min_plus", "FP32", "FP32", "INT32")])
+def test_mixed_operand_products_on_the_card(cuda, ring, rt, a_t, u_t, kind):
+    """The products that raised NotImplementedError on the card while K1
+    took one type: PageRank's plus_times over a BOOL adjacency with an FP32
+    and an INT32 vector, and an INT32 vector's min_plus over FP32 weights.
+    Through the lanepipe and K1, equal to numpy (FP32 sums to rel 1e-5)."""
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(39)
+    n = 3000
+    r, c = np.nonzero(rng.random((n, n)) < 0.002)
+    a = (rng.random(len(r)) < 0.6 if a_t == "BOOL"
+         else rng.choice(np.float32([0.25, 1, 2, -1.5]), len(r)))
+    x = (rng.random(n).astype(np.float32) if u_t == "FP32"
+         else rng.integers(-1000, 1000, n).astype(np.int32))
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        A = gb.Matrix.from_coo(r, c, a, dtype=a_t, nrows=n, ncols=n)
+        u = gb.Vector.from_coo(np.arange(n), x, dtype=u_t, size=n)
+        sr = getattr(gb.semiring, ring)[rt]
+        before = K.launches["gather_mult"]
+        w = (u.vxm(A, sr) if kind == "vxm" else A.mxv(u, sr)).new()
+        assert K.launches["gather_mult"] > before
+        gi, gv = w.to_coo()
+    k, d = (r, c) if kind == "vxm" else (c, r)
+    prod = (x[k].astype(np.float64) * a if ring == "plus_times"
+            else x[k].astype(np.float32) + a)
+    if ring == "plus_times":
+        want = np.zeros(n)
+        np.add.at(want, d, prod)
+    else:
+        want = np.full(n, np.inf, np.float32)
+        np.minimum.at(want, d, prod)
+    idx = np.unique(d)
+    np.testing.assert_array_equal(gi, idx)
+    if rt == "INT32":
+        np.testing.assert_array_equal(gv, want[idx].astype(np.int64)
+                                      .astype(np.int32))
+    elif ring == "min_plus":
+        np.testing.assert_array_equal(gv, want[idx])
+    else:
+        np.testing.assert_allclose(gv, want[idx], rtol=1e-5)

@@ -1,0 +1,55 @@
+"""The reference's operator x type grids against the port (the twin of
+tests/test_operator_grids.py): every case of that module, run on the
+port on the CPU with the same inputs and the same expected values the
+JAX package meets there.
+
+:func:`twin` makes such a twin of any reference module; the twins of
+test_dup_op.py, test_coercions.py and test_numpyops.py use it too."""
+
+import functools
+import os
+import re
+import types
+
+import pytest
+
+import graphblas_tpu_torch as gbt
+
+
+def _on_port(fn, not_ported):
+    @functools.wraps(fn)
+    def test(*args, **kwargs):
+        with gbt.config.set(device="cpu"):
+            if not_ported:
+                with pytest.raises(NotImplementedError, match="item 12"):
+                    fn(*args, **kwargs)
+            else:
+                fn(*args, **kwargs)
+
+    return test
+
+
+def twin(ref_name, namespace, not_ported=()):
+    """Define in `namespace` (a test module's globals) every test of
+    tests/<ref_name>.py, run against the port on the CPU: the module's
+    source with its graphblas_tpu imports taken from graphblas_tpu_torch.
+    The tests named in not_ported need what the port lacks (complex types,
+    user-defined types, infix expressions) and must raise
+    NotImplementedError naming ROADMAP.md queue 1, item 12."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        f"{ref_name}.py")
+    with open(path) as f:
+        src = re.sub(r"\bgraphblas_tpu\b", "graphblas_tpu_torch", f.read())
+    mod = types.ModuleType(f"port_twin_of_{ref_name}")
+    mod.__file__ = path
+    with gbt.config.set(device="cpu"):
+        exec(compile(src, path, "exec"), mod.__dict__)  # noqa: S102
+    names = [n for n, fn in vars(mod).items()
+             if n.startswith("test_") and callable(fn)]
+    assert set(not_ported) <= set(names), set(not_ported) - set(names)
+    for name in names:
+        namespace[name] = _on_port(getattr(mod, name), name in not_ported)
+    return names
+
+
+twin("test_operator_grids", globals())

@@ -133,13 +133,13 @@ NOT_PORTED = {
 
 @pytest.mark.parametrize("form", list(NOT_PORTED))
 def test_not_ported_operator_strings(form):
-    """The JAX package takes these; the port names item 12."""
-    A, B = mats(gbj)
-    NOT_PORTED[form](A, B).new()
-    with gbt.config.set(device="cpu"):
-        A, B = mats(gbt)
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            NOT_PORTED[form](A, B)
+    """Strings of operators that the port once lacked: both packages
+    compute the same values, types and structure."""
+    got, want = both(lambda gb: NOT_PORTED[form](*mats(gb)).new())
+    assert got.dtype.name == want.dtype.name
+    for g, w in zip(got.to_coo(), want.to_coo()):
+        np.testing.assert_allclose(np.asarray(g, np.float64),
+                                   np.asarray(w, np.float64), rtol=1e-6)
 
 
 # --------------------------------------------------------------------- #
