@@ -103,7 +103,21 @@ engine) from the sources, then:
    version), K1 on the zipf plan at a mixed, a narrow and a comparison
    variant (timed warm and after an L2 flush), and K4 with lxor, K5 and
    K6 with bxor at the main path's shapes: bitwise, 200 launches equal,
-   timed.
+   timed;
+13. the expression surface and the constructors (phase `infix`): the zipf
+   graph built by Matrix.from_csr from scipy's CSR (equal to from_coo),
+   to_csr/to_csc bitwise against scipy, from_dcsr and to_dcsc, build with
+   5% duplicate coordinates under plus and min against numpy, the edge
+   list both ways, resize to 2**18 and back; PageRank, a level BFS from
+   the hub and SSSP written in infix (`semiring.plus_times(r @ A)`,
+   `lor_land(q @ Ab)` under `while q.reduce(lor)`, `d(binary.min) <<
+   min_plus(d @ A)`), each bitwise equal to its method form with the
+   same launches, both timed in turns (median of 5); `A + A.T`, `A *
+   A.T`, `A - A.T`, `A == A.T`, `A > t`, `-A`, `abs(-A)`, the expression
+   selects, vxm under `v.S & u.V` and `~v.S | u.S`, reduces under
+   comparisons, Scalar conversions and Vector.outer (4,194,304 entries)
+   against numpy; `D(binary.min) << min_plus(D @ D)` at 2048^2 (K7)
+   against the method form bitwise.  Every one of K1-K7 launches in it.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -2799,9 +2813,381 @@ def operators_phase(gb, torch, K, src, dst, n, results, totals):
     results["operators"] = out
 
 
+def _merge_ref(ka, va, kb, vb, how):
+    """Keys and values of an element-wise add, mult, minus (union with 0
+    defaults) or eq of two sorted key arrays, in numpy."""
+    both = np.intersect1d(ka, kb)
+    pa, pb = np.searchsorted(ka, both), np.searchsorted(kb, both)
+    if how == "mult":
+        return both, va[pa] * vb[pb]
+    if how == "eq":
+        return both, va[pa] == vb[pb]
+    keys = np.union1d(ka, kb)
+    ia, ib = np.searchsorted(ka, keys), np.searchsorted(kb, keys)
+    in_a = (ia < len(ka)) & (ka[np.minimum(ia, len(ka) - 1)] == keys)
+    in_b = (ib < len(kb)) & (kb[np.minimum(ib, len(kb) - 1)] == keys)
+    a = np.where(in_a, va[np.minimum(ia, len(ka) - 1)], va.dtype.type(0))
+    b = np.where(in_b, vb[np.minimum(ib, len(kb) - 1)], vb.dtype.type(0))
+    if how == "add":
+        return keys, np.where(in_a & in_b, a + b, np.where(in_a, a, b))
+    return keys, a - b  # minus: a - 0 and 0 - b where one side is missing
+
+
+def _check_coo(name, M, n, keys, vals, rel=None):
+    """A result Matrix against (row * n + col) keys and values."""
+    r, c, v = M.to_coo()
+    got = r.astype(np.int64) * n + c.astype(np.int64)
+    if not np.array_equal(got, keys):
+        fail(f"infix {name}: structure differs ({len(got)} vs {len(keys)} "
+             f"entries)")
+    if rel is None:
+        if not np.array_equal(v, vals.astype(v.dtype)):
+            fail(f"infix {name}: values differ from numpy")
+    else:
+        g, w = v.astype(np.float64), vals.astype(np.float64)
+        if (np.abs(g - w) > rel * np.abs(w)).any():
+            fail(f"infix {name}: values beyond rel {rel} of numpy")
+
+
+def _same_vector(name, a, b):
+    ai, av = a.to_coo()
+    bi, bv = b.to_coo()
+    if not (np.array_equal(ai, bi) and np.array_equal(av.view(np.uint8),
+                                                      bv.view(np.uint8))):
+        fail(f"infix {name}: the infix form differs from the method form")
+
+
+def infix_phase(gb, torch, K, src, dst, w, n, results, totals):
+    """The expression surface and the constructors at full width, on
+    bench.py's zipf graph (n = 2**19, 3,750,401 entries) built by
+    Matrix.from_csr from scipy's CSR: the constructors and exports round
+    trip against scipy and numpy; PageRank (20 iterations), a level BFS
+    from the hub and SSSP written in infix (``semiring.plus_times(r @
+    A)``, ``q(~v.S, replace=True) << lor_land(q @ Ab)`` under ``while
+    q.reduce(lor)``, ``d(binary.min) << min_plus(d @ A)``) equal their
+    method forms bitwise with the same launch counts, each timed (host
+    clock, median of 5); the arithmetic and comparison operators, the
+    expression selects, two combined masks, Scalar comparisons and
+    conversions and Vector.outer against numpy; and K7 through
+    ``D(binary.min) << min_plus(D @ D)`` at 2048 x 2048.  Each of K1-K7
+    must launch in the phase."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(SEED + 14)
+    nnz = len(src)
+    out = {}
+    phase = {k: 0 for k in KERNELS}
+
+    def launches(tag, need=()):
+        got = check_launches(K, tag, totals, need=need)
+        for k, v in got.items():
+            phase[k] += v
+        return got
+
+    def timed_expr(tag, fn):
+        """Median host ms of 3 calls after a first one (plans)."""
+        res, ms, runs, first_s = timed_calls(torch, fn, reps=3)
+        out[tag] = {"ms": ms, "ms_runs": runs, "first_call_s": first_s}
+        log(f"  {tag}: ms {runs} (median {ms:.4f}), first call "
+            f"{first_s * 1e3:.2f} ms")
+        return res
+
+    def timed(tag, fn):
+        """Host ms of one call (a construction: it is not repeated)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[tag] = {"ms": ms}
+        log(f"  {tag}: {ms:.2f} ms")
+        return res
+
+    # ---- construction and export against scipy
+    reset_counts(K)
+    S = sps.csr_matrix((w, (src, dst)), shape=(n, n))
+    S.sum_duplicates()
+    S.sort_indices()
+    A = timed("from_csr", lambda: gb.Matrix.from_csr(
+        S.indptr, S.indices, S.data, dtype="FP32", nrows=n, ncols=n))
+    if A._sparse is None:
+        fail("infix: from_csr densified the zipf graph")
+    A0 = gb.Matrix.from_coo(src, dst, w, dtype="FP32", nrows=n, ncols=n)
+    if not A.isequal(A0, check_dtype=True):
+        fail("infix: from_csr differs from from_coo")
+    del A0
+    indptr, ind, data = timed("to_csr", A.to_csr)
+    if not (np.array_equal(indptr.astype(np.int64), S.indptr)
+            and np.array_equal(ind.astype(np.int64), S.indices)
+            and np.array_equal(data.view(np.uint32), S.data.view(np.uint32))):
+        fail("infix: to_csr differs from scipy's CSR")
+    Sc = S.tocsc()
+    Sc.sort_indices()
+    indptr, ind, data = timed("to_csc", A.to_csc)
+    if not (np.array_equal(indptr.astype(np.int64), Sc.indptr)
+            and np.array_equal(ind.astype(np.int64), Sc.indices)
+            and np.array_equal(data.view(np.uint32),
+                               Sc.data.view(np.uint32))):
+        fail("infix: to_csc differs from scipy's CSC")
+    counts = np.diff(S.indptr)
+    crows = np.flatnonzero(counts)
+    B = timed("from_dcsr", lambda: gb.Matrix.from_dcsr(
+        crows, np.r_[0, np.cumsum(counts[crows])], S.indices, S.data,
+        dtype="FP32", nrows=n, ncols=n))
+    if not B.isequal(A, check_dtype=True):
+        fail("infix: from_dcsr differs from the matrix")
+    ccols, cptr, rows_c, vals_c = timed("to_dcsc", A.to_dcsc)
+    ccounts = np.diff(Sc.indptr)
+    if not (np.array_equal(ccols.astype(np.int64), np.flatnonzero(ccounts))
+            and np.array_equal(cptr.astype(np.int64),
+                               np.r_[0, np.cumsum(ccounts[ccounts > 0])])
+            and np.array_equal(rows_c.astype(np.int64), Sc.indices)
+            and np.array_equal(vals_c.view(np.uint32),
+                               Sc.data.view(np.uint32))):
+        fail("infix: to_dcsc differs from scipy's CSC")
+    # build with 5% duplicate coordinates
+    dup = rng.choice(nnz, nnz // 20, replace=False)
+    rows2 = np.concatenate([src, src[dup]])
+    cols2 = np.concatenate([dst, dst[dup]])
+    vals2 = np.concatenate([w, rng.random(len(dup), dtype=np.float32)])
+    keys2 = rows2 * n + cols2
+    order = np.argsort(keys2, kind="stable")
+    starts = np.flatnonzero(np.r_[True, np.diff(keys2[order]) != 0])
+    for name, op, fold in (("plus", gb.binary.plus, np.add),
+                           ("min", gb.binary.min, np.minimum)):
+        Bd = gb.Matrix(gb.dtypes.FP32, n, n)
+        timed(f"build dup_op={name}", lambda Bd=Bd, op=op: Bd.build(
+            rows2, cols2, vals2, dup_op=op))
+        _check_coo(f"build dup_op={name}", Bd, n, keys2[order][starts],
+                   fold.reduceat(vals2[order], starts))
+    E, V = timed("to_edgelist", A.to_edgelist)
+    if not (np.array_equal(E[:, 0].astype(np.int64), src)
+            and np.array_equal(E[:, 1].astype(np.int64), dst)):
+        fail("infix: to_edgelist differs from the COO")
+    B = timed("from_edgelist", lambda: gb.Matrix.from_edgelist(
+        E, V, dtype="FP32", nrows=n, ncols=n))
+    if not B.isequal(A, check_dtype=True):
+        fail("infix: from_edgelist differs from the matrix")
+    B = A.dup()
+    half = n // 2
+    crop = (src < half) & (dst < half)
+    timed("resize to 2**18", lambda: B.resize(half, half))
+    if B._sparse is None or B.shape != (half, half):
+        fail("infix: resize densified or kept its shape")
+    _check_coo("resize down", B, half, src[crop] * half + dst[crop], w[crop])
+    timed("resize back", lambda: B.resize(n, n))
+    _check_coo("resize back", B, n, src[crop] * n + dst[crop], w[crop])
+    del B, E, V, Sc
+    launches("construction")
+
+    # ---- the main paths, infix against the method form
+    Ab = gb.Matrix.from_coo(src, dst, np.ones(nnz, bool), dtype="BOOL",
+                            nrows=n, ncols=n)
+    pt = gb.semiring.plus_times["FP32"]
+    damp, tele = np.float32(0.85), np.float32(0.15 / n)
+    damp_tele = gb.unary.register_anonymous(lambda x: x * damp + tele,
+                                            name="damp_tele_infix")
+    lor_land = gb.semiring.lor_land["BOOL"]
+    min_plus = gb.semiring.min_plus["FP32"]
+    hub = int(np.argmax(np.bincount(dst, minlength=n)))
+
+    def pagerank(infix):
+        rank = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+        y = gb.Vector(gb.dtypes.FP32, n)
+        for _ in range(20):
+            if infix:
+                y << pt(rank @ A)
+                rank << damp_tele(y)
+            else:
+                y << rank.vxm(A, pt)
+                rank << y.apply(damp_tele)
+        return rank
+
+    def bfs(infix):
+        q = gb.Vector.from_coo([hub], [True], size=n)
+        v = gb.Vector(gb.dtypes.INT32, n)
+        i = 0
+        while True:
+            i += 1
+            v(mask=q.V)[:] = i
+            if infix:
+                q(~v.S, replace=True) << lor_land(q @ Ab)
+                if not q.reduce(gb.monoid.lor):
+                    break
+            else:
+                q(~v.S, replace=True) << q.vxm(Ab, lor_land)
+                if not q.reduce(gb.monoid.lor, allow_empty=False).new().value:
+                    break
+        return v
+
+    def sssp(infix):
+        if not infix:
+            return gb.algorithms.sssp(A, 0)
+        d = gb.Vector(gb.dtypes.FP32, n)
+        d[0] = 0
+        while True:
+            prev = d.dup()
+            d(gb.binary.min) << min_plus(d @ A)
+            if d.isequal(prev):
+                return d
+
+    need = {"pagerank": LANEPIPE_FAST, "bfs": LANEPIPE_FAST,
+            "sssp": ("gather_mult", "mid_perm", "tile_perm",
+                     "lane_segscan")}
+    for tag, fn in (("pagerank", pagerank), ("bfs", bfs), ("sssp", sssp)):
+        fn(False)  # warm-up: plans
+        forms = {}
+        for infix in (False, True):
+            form = "infix" if infix else "method"
+            reset_counts(K)
+            res = fn(infix)
+            torch.cuda.synchronize()
+            forms[form] = (res, launches(f"{tag} ({form})", need[tag]), [])
+        # timed in turns (method, infix, infix, method, ...)
+        for r in range(2 * RUNS):
+            infix = r % 4 in (1, 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(infix)
+            torch.cuda.synchronize()
+            forms["infix" if infix else "method"][2].append(
+                (time.perf_counter() - t0) * 1e3)
+        (rm, gm, tm), (ri, gi, ti) = forms["method"], forms["infix"]
+        _same_vector(tag, ri, rm)
+        if {k: gm[k] for k in KERNELS[:6]} != {k: gi[k] for k in KERNELS[:6]}:
+            fail(f"infix {tag}: launches {gi} differ from the method form's "
+                 f"{gm}")
+        med_m, med_i = float(np.median(tm)), float(np.median(ti))
+        spread = max(max(tm) - min(tm), max(ti) - min(ti))
+        log(f"  {tag}: method ms {tm} (median {med_m:.3f}), infix ms {ti} "
+            f"(median {med_i:.3f}), gap {med_i - med_m:+.3f} ms, spread "
+            f"{spread:.3f} ms, launches {gi}, {ri.nvals} entries")
+        out[tag] = {"method_ms_runs": tm, "infix_ms_runs": ti,
+                    "method_ms": med_m, "infix_ms": med_i,
+                    "gap_ms": med_i - med_m, "spread_ms": spread,
+                    "launches": {k: gi[k] for k in KERNELS},
+                    "nvals": ri.nvals}
+
+    # ---- expressions against numpy
+    reset_counts(K)
+    ka = src * n + dst
+    kt_order = np.argsort(dst * n + src)
+    kt, vt = (dst * n + src)[kt_order], w[kt_order]
+    t = np.float32(np.median(w))
+    k = n // 2
+    cases = (
+        ("A + A.T", lambda: (A + A.T).new(), _merge_ref(ka, w, kt, vt, "add")),
+        ("A * A.T", lambda: (A * A.T).new(), _merge_ref(ka, w, kt, vt, "mult")),
+        ("A - A.T", lambda: (A - A.T).new(),
+         _merge_ref(ka, w, kt, vt, "minus")),
+        ("A == A.T", lambda: (A == A.T).new(), _merge_ref(ka, w, kt, vt, "eq")),
+        ("A > t", lambda: (A > t).new(), (ka, w > t)),
+        ("-A", lambda: (-A).new(), (ka, -w)),
+        ("abs(-A)", lambda: abs(-A).new(), (ka, w)),
+        ("select.value(A > t)", lambda: gb.select.value(A > t).new(),
+         (ka[w > t], w[w > t])),
+        ("select.row(A < k)", lambda: gb.select.row(A < k).new(),
+         (ka[src < k], w[src < k])),
+        ("select.column(A >= k)", lambda: gb.select.column(A >= k).new(),
+         (ka[dst >= k], w[dst >= k])),
+    )
+    for name, fn, (keys, vals) in cases:
+        res = timed_expr(name, fn)
+        _check_coo(name, res, n, keys, vals)
+    if not gb.select.value(A > t).new().isequal(
+            A.select("valuegt", t).new(), check_dtype=True):
+        fail("infix: select.value(A > t) differs from A.select('valuegt', t)")
+    # masked vxm under combined masks
+    x = gb.Vector.from_dense(rng.random(n, dtype=np.float32))
+    v_in = rng.random(n) < 0.3
+    u_in = rng.random(n) < 0.5
+    u_val = rng.random(n) < 0.5
+    vv = gb.Vector.from_coo(np.flatnonzero(v_in), 1.0, dtype="FP32", size=n)
+    uu = gb.Vector.from_coo(np.flatnonzero(u_in), u_val[u_in], dtype="BOOL",
+                            size=n)
+    xs = x.to_dense().astype(np.float64)
+    yref = np.bincount(dst, weights=xs[src] * w.astype(np.float64),
+                       minlength=n)
+    ystruct = np.bincount(dst, minlength=n) > 0
+    for name, mask, want in (
+            ("vxm under v.S & u.V", lambda: vv.S & uu.V, v_in & u_in & u_val),
+            ("vxm under ~v.S | u.S", lambda: ~vv.S | uu.S, ~v_in | u_in)):
+        res = gb.Vector(gb.dtypes.FP32, n)
+
+        def run(res=res, mask=mask):
+            res(mask()) << pt(x @ A)
+            return res
+
+        timed_expr(name, run)
+        idx = np.flatnonzero(want & ystruct)
+        check_vector(f"infix {name}", res, idx, yref[idx], rel=1e-5)
+    total = A.reduce_scalar().new().value
+    if not (bool(A.reduce_scalar() == total)
+            and not bool(A.reduce_scalar() == total + 1)):
+        fail("infix: bool(A.reduce_scalar() == x) is wrong")
+    rows_ok = timed_expr("A.reduce_rowwise() > 0",
+                    lambda: (A.reduce_rowwise() > 0).new())
+    rows_i = np.flatnonzero(np.bincount(src, minlength=n))
+    check_vector("infix A.reduce_rowwise() > 0", rows_ok, rows_i,
+                 np.ones(len(rows_i), bool))
+    s = A.apply(gb.unary.one["INT64"]).reduce_scalar().new()
+    if int(s) != nnz or float(s) != float(nnz) or not isinstance(int(s), int):
+        fail(f"infix: int(s), float(s) give {int(s)}, {float(s)}, not {nnz}")
+    ia = np.sort(rng.choice(n, 2048, replace=False))
+    ib = np.sort(rng.choice(n, 2048, replace=False))
+    va = rng.random(2048, dtype=np.float32)
+    vb = rng.random(2048, dtype=np.float32)
+    a = gb.Vector.from_coo(ia, va, dtype="FP32", size=n)
+    b = gb.Vector.from_coo(ib, vb, dtype="FP32", size=n)
+    M = timed_expr("Vector.outer", lambda: a.outer(b).new())
+    if M._sparse is None or M.nvals != 2048 * 2048:
+        fail(f"infix: outer gave {M.nvals} entries (sparse: "
+             f"{M._sparse is not None})")
+    _check_coo("Vector.outer", M, n,
+               (ia[:, None] * n + ib[None, :]).ravel(),
+               np.outer(va, vb).ravel())
+    del M
+    launches("expressions", need=("segscan",) + LANEPIPE_FAST)
+
+    # ---- K7 through infix: min_plus(D @ D) on a dense-backed matrix
+    dn = APSP_MXM_N
+    vals = rng.random((dn, dn), dtype=np.float32) + np.float32(0.05)
+    vals[rng.random((dn, dn)) < 0.9] = np.inf
+    np.fill_diagonal(vals, 0)
+    with gb.config.set(auto_sparse_limit=1 << 22):
+        D1 = gb.Matrix.from_dense(vals, missing_value=np.inf)
+        D2 = gb.Matrix.from_dense(vals, missing_value=np.inf)
+        res = {}
+        for form, D in (("method", D1), ("infix", D2)):
+            reset_counts(K)
+
+            def step(D=D, form=form):
+                if form == "infix":
+                    D(gb.binary.min) << min_plus(D @ D)
+                else:
+                    D(accum=gb.binary.min) << D.mxm(D, min_plus)
+                return D
+
+            timed_expr(f"D(min) << min_plus(D @ D) ({form})", step)
+            res[form] = launches(f"min_plus(D @ D) ({form})",
+                                 need=("tropical_matmul",))
+        if D1._sparse is not None or D2._sparse is not None:
+            fail("infix: the dense product left the dense engine")
+        if res["method"] != res["infix"] or not np.array_equal(
+                D1.to_dense(fill_value=np.inf).view(np.uint32),
+                D2.to_dense(fill_value=np.inf).view(np.uint32)):
+            fail("infix: min_plus(D @ D) differs from the method form")
+    never = [k for k in KERNELS if phase[k] == 0]
+    if never:
+        fail(f"infix: kernels never launched in the phase: {never}")
+    log(f"  launches in the phase: {phase}")
+    out["launches"] = phase
+    results["infix"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
           "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
-          "index", "positional_agg", "operators")
+          "index", "positional_agg", "operators", "infix")
 
 
 def main():
@@ -2916,6 +3302,10 @@ def main():
         if "operators" in phases:
             log("phase: operators")
             operators_phase(gb, torch, K, src, dst, n, results, totals)
+
+        if "infix" in phases:
+            log("phase: infix")
+            infix_phase(gb, torch, K, src, dst, w, n, results, totals)
 
     kernels = []
     for name, row in results.get("kernels", {}).items():

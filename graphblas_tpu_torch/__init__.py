@@ -16,7 +16,11 @@ matrices (``from_dense``, and every matrix of at most
 hand-written CUDA kernels for the H100 in all).  Dense vectors, masks,
 extract, assign and delete by index lists (``A[rows, cols]``,
 ``C(mask, accum)[idx] << v``, ``C[idx](mask) << v``, ``del C[idx]``),
-membership and iteration, the positional operators (``binary.ss``,
+membership and iteration, the infix expressions (``A @ B``, ``x | y``,
+``x & y``, Python arithmetic and comparisons, ``select.value(A > 0)``),
+the mask algebra (``v.S & u.V``), the constructors and exports (CSR, CSC,
+DCSR, DCSC, edge lists, dicts, ``build``, ``resize``, ``outer``), the
+positional operators (``binary.ss``,
 ``unary.ss``, ``semiring.ss``) in every context, the aggregators
 (``agg``), ``kronecker``, ``reposition``, ``ss.iterate`` and the
 algorithms ``sssp``, ``bfs_level``, ``bfs_parent``, ``pagerank``,
@@ -58,6 +62,7 @@ from .core.config import config  # noqa: E402
 from .core.matrix import Matrix  # noqa: E402
 from .core.scalar import Scalar  # noqa: E402
 from .core.vector import Vector  # noqa: E402
+from .core import infix as _infix  # noqa: E402,F401  (|, &, @, arithmetic)
 from .exceptions import GraphblasException  # noqa: E402
 
 from . import algorithms  # noqa: E402  (imports Vector from this package)

@@ -1,5 +1,8 @@
 """Collections and expressions: ``<<``, ``.new()``,
-``c(mask=, accum=, replace=)`` (graphblas_tpu/core/base.py).
+``c(mask=, accum=, replace=)`` (graphblas_tpu/core/base.py), with the
+type checks ``_expect_type``/``_expect_op``, autocompute (an expression
+used where a value is needed is computed once) and the JAX package's
+``TypeError`` for ``bool(A)`` and ``np.asarray(A)``.
 
 A collection has one of two backings.  The dense one is a (values, valid)
 pair of tensors on its device.  A Matrix with more than
@@ -15,6 +18,39 @@ from . import config as _config
 from . import execute
 from ..exceptions import DimensionMismatch, OutOfMemory
 from .mask import Mask
+from .operator.base import find_opclass
+from .opts import validate_opts
+
+
+def _expect_type(self, x, types, *, within=None, argname=None,
+                 extra_message=""):
+    """x itself if it is one of types; an expression whose output type is
+    one of them, computed (autocompute); else TypeError."""
+    if isinstance(x, types):
+        return x
+    tt = types if isinstance(types, tuple) else (types,)
+    out_t = getattr(x, "output_type", None)
+    if (isinstance(out_t, type) and hasattr(x, "new")
+            and any(issubclass(out_t, t) for t in tt)
+            and _config.config.get("autocompute", True)):
+        return x.new()
+    names = ", ".join(t.__name__ for t in tt)
+    where = f" (in {within!r})" if within else ""
+    arg = f" for argument {argname!r}" if argname else ""
+    raise TypeError(f"Bad type{arg}{where}: expected {names}, got "
+                    f"{type(x).__name__}."
+                    + (f"  {extra_message}" if extra_message else ""))
+
+
+def _expect_op(self, op, opclasses, *, within=None, argname=None):
+    op, opclass = find_opclass(op)
+    if isinstance(opclasses, str):
+        opclasses = (opclasses,)
+    if opclass not in opclasses:
+        raise TypeError(f"Bad operator type for {within or 'operation'}: "
+                        f"expected {' or '.join(opclasses)}, got {opclass} "
+                        f"({op!r})")
+    return op
 
 
 def _split_call_args(optional, mask, accum, replace):
@@ -29,7 +65,16 @@ def _split_call_args(optional, mask, accum, replace):
             if mask is not None:
                 raise TypeError("Got multiple values for argument 'mask'")
             mask = arg
+        elif isinstance(arg, BaseType) or hasattr(arg, "output_type"):
+            raise TypeError("Mask must indicate values (M.V) or structure "
+                            "(M.S)")
         else:
+            opclass = find_opclass(arg)[1]
+            if opclass == "UnknownOpClass":
+                raise TypeError(f"Invalid item found in output params: "
+                                f"{type(arg)}")
+            if opclass not in ("BinaryOp", "Monoid"):
+                raise TypeError(f"accum must be a BinaryOp, not {opclass}")
             if accum is not None:
                 raise TypeError("Got multiple values for argument 'accum'")
             accum = arg
@@ -69,6 +114,29 @@ class BaseType:
     _d_valid = None
     _sparse = None
     _device = None
+    _name = None
+    _is_scalar = False
+
+    _expect_type = _expect_type
+    _expect_op = _expect_op
+
+    @property
+    def name(self):
+        return self._name
+
+    @name.setter
+    def name(self, value):
+        self._name = value
+
+    def __bool__(self):
+        raise TypeError(f"__bool__ not defined for objects of type "
+                        f"{type(self).__name__}.  Perhaps use .nvals "
+                        f"attribute instead.")
+
+    def __array__(self, dtype=None, **kwargs):
+        raise TypeError(f"{type(self).__name__} can't be directly converted "
+                        f"to a numpy array; perhaps use `.to_coo()` or "
+                        f"`.to_dense()`")
 
     def _set_store(self, vals, valid):
         self._d_vals = vals
@@ -144,6 +212,9 @@ class BaseType:
 
         mask, accum, replace = _split_call_args(optional, mask, accum,
                                                 replace)
+        if replace and mask is None:
+            raise TypeError("'replace' argument may only be True if a mask "
+                            "is provided")
         if mask is not None:
             if _mask_shape is None:
                 mask = check_mask(mask, self)
@@ -171,20 +242,27 @@ class BaseType:
         return self.update(expr)
 
     def update(self, expr, **opts):
-        self._update(expr, opts=opts)
+        self._update(expr, opts=validate_opts(opts))
 
     def _update(self, expr, *, mask=None, accum=None, replace=False,
                 input_mask=None, opts=None):
         """``C(mask, accum, replace, input_mask) << expr``: an expression,
         a collection to copy, an extract (``A[idx]``, where input_mask
         filters A first) or a scalar, which is assigned to every element."""
-        from .expr import AmbiguousAssignOrExtract, IndexerResolver
+        from .expr import (AmbiguousAssignOrExtract, IndexerResolver,
+                           InfixExprBase)
 
+        if isinstance(expr, InfixExprBase):
+            expr = expr._to_expr()
         if isinstance(expr, AmbiguousAssignOrExtract):
             expr = expr._as_extract_expr(input_mask)
         elif input_mask is not None:
             raise TypeError("`input_mask` argument may only be used for "
                             "extract")
+        if self._is_scalar and (is_scalar_like(expr) or expr is None or (
+                isinstance(expr, BaseType) and expr._is_scalar)):
+            self._update_from_value(expr, accum=accum)
+            return
         if self.ndim and (is_scalar_like(expr) or (
                 isinstance(expr, BaseType) and expr.ndim == 0)):
             keys = (slice(None),) * self.ndim
@@ -211,41 +289,93 @@ class BaseType:
                              f"got {how!r}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return self
 
 
 class BaseExpression:
-    """A deferred operation; ``.new()`` or ``c << expr`` computes it."""
+    """A deferred operation; ``.new()`` or ``c << expr`` computes it.  An
+    attribute the expression lacks is read from its computed value
+    (autocompute), computed once."""
 
     def __init__(self, method_name, op, args, dtype, shape, output_type,
-                 statics=()):
-        self.method_name = method_name
+                 statics=(), public_name=None):
+        self._kind = method_name  # what execute dispatches on
+        self.method_name = public_name or method_name  # the JAX package's
         self.op = op
         self.args = args
         self.dtype = dtype
         self.shape = shape
         self.output_type = output_type
         self._statics = statics
+        self._value = None
+        self._name = None
 
-    def new(self, dtype=None, *, mask=None, name=None, **opts):
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def name(self):
+        if self._name is not None:
+            return self._name
+        opname = getattr(self.op, "name", self.op)
+        return f"{type(self).__name__.lower()}.{self.method_name}({opname})"
+
+    @name.setter
+    def name(self, value):
+        self._name = value
+
+    def new(self, dtype=None, *, mask=None, name=None, is_cscalar=None,
+            **opts):
         from .dtypes import lookup_dtype
 
+        opts = validate_opts(opts)
         out_dtype = self.dtype if dtype is None else lookup_dtype(dtype)
-        return execute.materialize(self, out_dtype, mask=mask, name=name,
-                                   opts=opts)
+        rv = self._value
+        if mask is None and rv is not None and rv.dtype == out_dtype:
+            # the autocomputed value, handed over once
+            self._value = None
+            if name is not None:
+                rv.name = name
+            return rv
+        if mask is not None:
+            mask = check_mask(mask)
+        out = execute.materialize(self, out_dtype, mask=mask, name=name,
+                                  opts=opts)
+        if is_cscalar is not None and out._is_scalar:
+            out._is_cscalar = bool(is_cscalar)
+        return out
+
+    dup = new
+
+    def _get_value(self, attr=None, default=None):
+        if not _config.config.get("autocompute", True):
+            if default is not None:
+                return default
+            raise TypeError(f"{type(self).__name__} is not computed "
+                            f"automatically because "
+                            f"`gb.config['autocompute']` is False.  Call "
+                            f"`.new()` to compute.")
+        if self._value is None:
+            self._value = self.new()
+        return self._value if attr is None else getattr(self._value, attr)
 
     def __repr__(self):
-        return f"<{self.output_type.__name__} expression {self.method_name}>"
+        args = ", ".join(getattr(a, "name", None) or type(a).__name__
+                         for a in self.args)
+        opname = getattr(self.op, "name", None)
+        op_part = f", op={opname}" if opname else ""
+        return (f"gb.{self.output_type.__name__}Expression  "
+                f"{self.method_name}({args}{op_part})  "
+                f"dtype={self.dtype.name}  shape={tuple(self.shape)}\n"
+                f"Do expr.new() or `output << expr` to calculate the "
+                f"expression.")
 
     def __getattr__(self, attr):
-        """Autocompute: an attribute the expression lacks is read from its
-        computed value (``A.apply(op).reduce(...)``), computed once."""
         if attr.startswith("_") or attr in ("method_name", "op", "args",
                                             "dtype", "shape", "output_type"):
             raise AttributeError(attr)
-        value = self.__dict__.get("_value")
-        if value is None:
-            value = self._value = self.new()
-        return getattr(value, attr)
+        return self._get_value(attr)
 
 
 class NotPorted:
@@ -264,24 +394,3 @@ class NotPorted:
         from .operator.base import not_ported
 
         raise not_ported(self.name, self.item)
-
-
-def infix_not_ported(symbol):
-    """An infix operator (``A @ B``, ``A | B``, ``A & B``) of the JAX
-    package: it raises NotImplementedError (not ``NotImplemented``, which
-    Python would turn into a TypeError)."""
-    def method(self, other):
-        from .operator.base import not_ported
-
-        raise not_ported(f"the infix operator {symbol}", 12)
-
-    method.__name__ = f"infix {symbol}"
-    return method
-
-
-class InfixStubs:
-    """The JAX package's infix expressions (core/infix.py), not ported."""
-
-    __matmul__ = __rmatmul__ = infix_not_ported("@")
-    __or__ = __ror__ = infix_not_ported("|")
-    __and__ = __rand__ = infix_not_ported("&")

@@ -50,7 +50,7 @@ def scalar_tensor(value, dtype, device):
             raise EmptyObject(
                 "Empty Scalar is not allowed as a bound scalar operand")
         return _dt.normalize(value._vals.to(device), dtype)
-    return _dt.to_tensor(np.asarray(value), dtype, device)
+    return _dt.to_tensor(np.asarray(value), dtype, device).reshape(())
 
 
 def ewise_expr(self, other, op, variant, ldef=None, rdef=None):
@@ -60,6 +60,12 @@ def ewise_expr(self, other, op, variant, ldef=None, rdef=None):
     from .scalar import Scalar
     from .vector import Vector
 
+    from .matrix import TransposedMatrix
+
+    if isinstance(other, BaseExpression):
+        other = self._expect_type(other, (Matrix, Vector, TransposedMatrix),
+                                  within=f"ewise_{variant}",
+                                  argname="other")
     a, at = untranspose(self)
     b, bt = untranspose(other)
     if not isinstance(b, (Matrix, Vector)):
@@ -152,8 +158,11 @@ def apply_expr(self, op, right=None, left=None):
         bop = typed(op, unify(src.dtype, bdt, is_right_scalar=True), "BinaryOp")
     s_val = scalar_tensor(bound, bop.type if is_left else bop.type2,
                           src.device)
-    return BaseExpression("apply_bound", bop, [src], bop.return_type, shape,
-                          type(src), (s_val, is_left, tflag))
+    expr = BaseExpression("apply_bound", bop, [src], bop.return_type, shape,
+                          type(src), (s_val, is_left, tflag),
+                          public_name="apply")
+    expr._bound = bound  # for select.value(A > t) and the positional forms
+    return expr
 
 
 def _indexunary_expr(self, op, thunk, method):
@@ -173,6 +182,32 @@ def _indexunary_expr(self, op, thunk, method):
 def select_expr(self, op, thunk=None):
     """Keep the entries where a select operator (or a BOOL index-unary
     operator) holds."""
+    from .mask import Mask, ValueMask
+
+    if isinstance(op, BaseType) and op.dtype == _dt.BOOL and op.ndim:
+        op = ValueMask(op)  # a BOOL collection selects by its values
+    if isinstance(op, Mask):
+        if thunk is not None and thunk is not False:
+            raise TypeError("thunk argument not allowed when selecting "
+                            "with a mask")
+        if op.parent.ndim != self.ndim:
+            raise TypeError(f"Mask used as a select operator must have the "
+                            f"same rank as the input; got "
+                            f"{op.parent.ndim}-d mask for {self.ndim}-d "
+                            f"input")
+        from .. import binary
+
+        return self.ewise_mult(op.new(), binary.first)
+    if isinstance(op, BaseExpression):
+        from ..select import match_expr
+
+        src, _ = untranspose(self)
+        match = match_expr(src, op)
+        if match is None:
+            raise TypeError("Unable to interpret select expression; use a "
+                            "SelectOp, e.g. A.select('>', 5) or "
+                            "select.valuegt(A, 5)")
+        op, thunk = match
     op = unparameterized(op)
     if isinstance(op, str):
         op = select_from_string(op)

@@ -10,7 +10,9 @@ and no GPU, :func:`device` raises.
 sparse-backed, a smaller one is a dense (values, valid) store
 (graphblas_tpu/core/matrix.py:56).  ``dense_limit``: the largest sparse
 Matrix, in elements, that an operation without a sparse path may densify
-(graphblas_tpu/core/base.py:139).
+(graphblas_tpu/core/base.py:139).  ``autocompute``: an expression used
+where a value is needed (``A.ewise_add(B).nvals``, ``bool(s == 3)``) is
+computed; with False that raises TypeError.
 """
 
 import contextlib
@@ -80,6 +82,7 @@ class Config:
 
 
 config = Config({
+    "autocompute": True,
     "auto_sparse_limit": 1 << 22,
     "dense_limit": 1 << 26,
     "device": "cuda",

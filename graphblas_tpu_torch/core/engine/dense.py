@@ -110,6 +110,9 @@ def indexunary_vals(a_vals, i, j, op, a_dt, thunk_val):
 def apply_indexunary(a_vals, a_valid, op, a_dt, thunk_val, is_matrix):
     shape = a_valid.shape
     dev = a_valid.device
+    if not shape:  # a Scalar: row and column 0
+        i = j = torch.zeros((), dtype=torch.int64, device=dev)
+        return indexunary_vals(a_vals, i, j, op, a_dt, thunk_val), a_valid
     i = _iota(shape, 0, dev).expand(shape)
     j = _iota(shape, 1, dev).expand(shape) if is_matrix else \
         torch.zeros_like(i)

@@ -214,6 +214,15 @@ def _filtered(sp, keep, vals, dtype):
                        is_diag=sp.is_diag)
 
 
+def resized(sp, nrows, ncols):
+    """sp's entries inside nrows x ncols, in a store of that shape (the
+    (row, col) order holds)."""
+    keep = (sp.rows < nrows) & (sp.cols < ncols)
+    idx = keep.nonzero().reshape(-1)
+    return SparseStore(Structure(sp.rows[idx], sp.cols[idx], nrows, ncols),
+                       sp.vals[idx], sp.dtype)
+
+
 def diag_sparse_store(v_vals, v_valid, dtype, k, n):
     """Sparse k-offset diagonal (n x n) of a dense vector store; is_diag
     for k == 0, which is what the mxm scaling path keys on."""
@@ -546,6 +555,20 @@ def ewise_mult_vector_bcast(sp, op, a_dt, v_vals, v_valid, v_dt, *,
     else:
         out = dense.apply_binop(op, sp.vals, a_dt, x, v_dt, pos=pos)
     return _filtered(sp, v_valid[sp.cols], out, op.return_type)
+
+
+def outer(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
+    """The outer product of two dense vector stores as a SparseStore in
+    op's return type: op(a[i], b[j]) at every (i, j) both store, in
+    (row, col) order."""
+    ia = a_valid.nonzero().reshape(-1)
+    ib = b_valid.nonzero().reshape(-1)
+    rows = ia.repeat_interleave(ib.numel())
+    cols = ib.repeat(ia.numel())
+    z = dense.apply_binop(op, a_vals[rows], a_dt, b_vals[cols], b_dt,
+                          pos=_pos(op, i=lambda: rows, j=lambda: cols))
+    return store_from_parts(rows, cols, z, a_valid.numel(), b_valid.numel(),
+                            op.return_type)
 
 
 def ewise_same_structure(a, b, op, a_dt, b_dt, out_dt, transposed=False):

@@ -10,11 +10,13 @@ distributed branches of the JAX package are ROADMAP.md queue 1, item 13."""
 
 import torch
 
+from . import config as _config
 from . import dtypes as _dt
 from .engine import dense, lanepipe, sortpipe
 from .engine import sparse as spx
 from .engine import store as st
 from .operator.base import typed
+from .opts import validate_opts
 
 
 def as_expr(obj):
@@ -38,28 +40,8 @@ def as_expr(obj):
     raise TypeError(f"cannot assign {type(obj).__name__} with <<")
 
 
-def _check_opts(opts):
-    """Per-call options: ``axb_method`` (an mxm formulation: ``dot`` or
-    ``gustavson``; the others choose as ``default`` does, by the smaller
-    expansion).  Any other option is not in the port yet."""
-    for key, val in (opts or {}).items():
-        if key != "axb_method":
-            raise NotImplementedError(
-                f"descriptor option {key!r} is not in the PyTorch port yet "
-                f"(ROADMAP.md queue 1, item 12)")
-        if val is not None and (not isinstance(val, str)
-                                or val.lower() not in _AXB_METHODS):
-            raise ValueError(
-                f"Invalid value for 'axb_method' descriptor option: {val!r}. "
-                f"Must be one of {', '.join(sorted(_AXB_METHODS))}")
-    return opts or {}
-
-
-_AXB_METHODS = {"gustavson", "dot", "hash", "saxpy", "default"}
-
-
 def materialize(expr, out_dtype, *, mask=None, name=None, opts=None):
-    opts = _check_opts(opts)
+    opts = validate_opts(opts)
     if mask is None and _format_plan(expr) == "sparse":
         sp = _sparse_out_run(expr, out_dtype, opts=opts)
         return expr.output_type._from_sparse(out_dtype, sp, name=name)
@@ -81,7 +63,7 @@ def update_into(target, expr, *, mask=None, accum=None, replace=False,
         raise DimensionMismatch(
             f"mask shape {mask.parent.shape} does not match output shape "
             f"{target.shape}")
-    opts = _check_opts(opts)
+    opts = validate_opts(opts)
     plan = _format_plan(expr)
     typed_accum = None if accum is None else typed(accum, target.dtype,
                                                    "BinaryOp")
@@ -243,8 +225,6 @@ def _assign_sparse_target(target, axes, value, *, mask, accum, replace,
     repeats or a dense value would span more than ``dense_limit``
     elements (one device read of each count: the region's content and the
     result)."""
-    from . import config as _config
-
     rix, cix = axes
     if not (rix.is_unique and cix.is_unique):
         return False
@@ -332,9 +312,13 @@ def _format_plan(expr):
     state inside its ``ss.iterate``) to "densify"; nothing is traced here,
     so that branch has no counterpart.
     """
+    m = expr._kind
+    if m == "outer":  # of dense vectors: sparse where the result is large
+        n = expr.shape[0] * expr.shape[1]
+        return "sparse" if n > int(_config.config.get(
+            "auto_sparse_limit", 1 << 22)) else None
     if not _sp_args(expr):
         return None
-    m = expr.method_name
     if m in _INLINE:
         return "inline"
     if m in _SPARSE_OUT:
@@ -363,7 +347,7 @@ def compute(expr, plan=None):
     """(values, valid) of an expression whose result is dense, in
     expr.dtype."""
     plan = _format_plan(expr) if plan is None else plan
-    m = expr.method_name
+    m = expr._kind
     if plan == "inline":
         return _INLINE_IMPL[m](expr)
     if plan == "densify":
@@ -383,7 +367,7 @@ def _store(obj, transposed=False):
 
 def T_copy(expr):
     a = expr.args[0]
-    vals, valid = _store(a, expr.method_name == "transpose")
+    vals, valid = _store(a, expr._kind == "transpose")
     return st.cast_values(vals, a.dtype, expr.dtype), valid
 
 
@@ -511,7 +495,7 @@ def T_extract_element(expr):
 def T_matmul(expr):
     """mxm, and mxv/vxm/inner of dense-backed operands as products with a
     one-column or one-row matrix."""
-    kind = expr.method_name
+    kind = expr._kind
     a, b = expr.args
     ring = expr.op
     if kind == "mxm":
@@ -579,6 +563,17 @@ def T_ewise(expr):
                              rdef._vals.to(dev), pos=pos)
 
 
+def T_outer(expr):
+    a, b = expr.args
+    shape = expr.shape
+    return dense.ewise_mult(
+        a._vals[:, None].expand(shape), a._valid[:, None].expand(shape),
+        b._vals[None, :].expand(shape), b._valid[None, :].expand(shape),
+        expr.op, a.dtype, b.dtype,
+        pos=None if expr.op._positional is None else
+        dense.pos_for(shape, a._valid.device))
+
+
 def T_diag_extract(expr):
     a = expr.args[0]
     k, tflag = expr._statics
@@ -623,7 +618,7 @@ _DENSE_IMPL = {
     "ewise_mult": T_ewise, "ewise_add": T_ewise, "ewise_union": T_ewise,
     "diag": T_diag_extract, "diag_build": T_diag_build,
     "reduce_agg": T_reduce_agg, "kronecker": T_kron,
-    "reposition": T_reposition,
+    "reposition": T_reposition, "outer": T_outer,
 }
 
 
@@ -638,7 +633,7 @@ def _inline_sparse_impl(expr):
     or through the sort pipeline when the matrix packs over
     ``lanepipe.PACK_LIMIT``; the generic sparse engine takes every ring and
     type those two decline (FP64, INT64, monoids without a scan)."""
-    m = expr.method_name
+    m = expr._kind
     tflag = expr._statics[0]
     mat, vec = (expr.args[0], expr.args[1]) if m == "mxv" else \
         (expr.args[1], expr.args[0])
@@ -794,7 +789,7 @@ def _sparse_out_run(expr, out_dtype, mask=None, opts=None):
     """Execute a "sparse"-plan expression; returns its SparseStore in
     out_dtype.  Only mxm reads the mask (it filters products before they
     are combined); the write-back applies it."""
-    m = expr.method_name
+    m = expr._kind
     z_dt = expr.dtype
 
     def cast(sp):
@@ -804,6 +799,10 @@ def _sparse_out_run(expr, out_dtype, mask=None, opts=None):
         return _mxm_run(expr, cast, mask, opts)
     if m.startswith("ewise_"):
         return cast(_ewise_run(expr))
+    if m == "outer":
+        a, b = expr.args
+        return cast(spx.outer(a._vals, a._valid, b._vals, b._valid, expr.op,
+                              a.dtype, b.dtype))
     src = expr.args[0]
     if m == "extract":
         axes = expr._statics[1]

@@ -5,7 +5,8 @@ Scalar indices; ``AmbiguousAssignOrExtract`` (``C[idx]``) extracts when
 used as a value and assigns when used as a target; ``C[idx](mask)`` is a
 submask assigner (GxB_subassign: mask and replace scoped to the region);
 ``Updater`` (``C(mask, accum, replace, input_mask)``) carries its
-arguments into ``<<``, ``[idx] =`` and ``del [idx]``."""
+arguments into ``<<``, ``[idx] =`` and ``del [idx]``.  ``InfixExprBase``
+is the base of ``x | y``, ``x & y`` and ``x @ y`` (core/infix.py)."""
 
 import numpy as np
 
@@ -295,28 +296,96 @@ class AmbiguousAssignOrExtract:
         return (f"{type(self.parent).__name__}[...] (ambiguous "
                 f"assign-or-extract)")
 
-    def _scalar_value(self):
-        if self.ndim != 0:
-            raise TypeError("only a single element converts to a Python "
-                            "value")
-        return self._get_value("value")
-
+    # the comparisons, conversions and iteration of the extracted value
     def __eq__(self, other):
-        return self._scalar_value() == other
+        return self._get_value() == other
 
     def __ne__(self, other):
-        return self._scalar_value() != other
+        return self._get_value() != other
 
-    __hash__ = None
+    __hash__ = object.__hash__
 
     def __bool__(self):
-        return bool(self._scalar_value())
+        return bool(self._get_value())
 
     def __int__(self):
-        return int(self._scalar_value())
+        return int(self._get_value())
 
     def __float__(self):
-        return float(self._scalar_value())
+        return float(self._get_value())
+
+    def __complex__(self):
+        return complex(self._get_value())
 
     def __index__(self):
-        return int(self._scalar_value())
+        return self._get_value().__index__()
+
+    def __iter__(self):
+        return iter(self._get_value())
+
+    def __contains__(self, item):
+        return item in self._get_value()
+
+    def __array__(self, dtype=None, **kwargs):
+        return self._get_value().__array__(dtype, **kwargs)
+
+
+class InfixExprBase:
+    """``x | y``, ``x & y`` and ``x @ y`` (graphblas_tpu/core/expr.py
+    InfixExprBase): the operator is given later, by calling one on the
+    expression (``semiring.min_plus(A @ B)``), or the method's default is
+    taken when the expression is computed."""
+
+    _is_scalar = False
+
+    def __init__(self, left, right):
+        self.left = left
+        self.right = right
+        self._expr = None
+
+    def new(self, dtype=None, *, mask=None, name=None, **opts):
+        return self._to_expr().new(dtype, mask=mask, name=name, **opts)
+
+    dup = new
+
+    def _to_expr(self):
+        if self._expr is None:
+            # the method's default operator
+            self._expr = getattr(self.left, self.method_name)(self.right)
+        return self._expr
+
+    def _apply_op(self, op):
+        """``monoid.plus(x | y)``, ``semiring.min_plus(A @ B)``."""
+        from .operator.base import find_opclass
+
+        op, opclass = find_opclass(op)
+        if self.method_name in ("ewise_add", "ewise_mult"):
+            if opclass not in ("BinaryOp", "Monoid"):
+                raise TypeError(f"Bad operator for infix {self._infix!r}: "
+                                f"expected BinaryOp or Monoid, got "
+                                f"{opclass}")
+        elif opclass != "Semiring":
+            raise TypeError(f"Bad operator for infix {self._infix!r}: "
+                            f"expected Semiring, got {opclass}")
+        return getattr(self.left, self.method_name)(self.right, op)
+
+    def _get_value(self, attr=None, default=None):
+        return self._to_expr()._get_value(attr, default)
+
+    @property
+    def dtype(self):
+        return self._to_expr().dtype
+
+    @property
+    def name(self):
+        ln = getattr(self.left, "name", None) or type(self.left).__name__
+        rn = getattr(self.right, "name", None) or type(self.right).__name__
+        return f"{ln} {self._infix} {rn}"
+
+    def __repr__(self):
+        return self.name
+
+    def __getattr__(self, attr):
+        if attr.startswith("_") or attr in ("method_name", "left", "right"):
+            raise AttributeError(attr)
+        return self._get_value(attr)

@@ -3,8 +3,10 @@
 Extract, assign and delete by index lists come from core/collection.py;
 ``A[rows, cols]`` with lists that do not repeat, ``A[i, :]``/``A[:, j]``,
 assign and delete keep a sparse matrix sparse (core/execute.py
-``_format_plan`` and ``assign_update``).  What the JAX package's Matrix has
-and the port lacks raises NotImplementedError naming its ROADMAP.md item.
+``_format_plan`` and ``assign_update``), and so do the constructors from
+CSR, CSC, DCSR, DCSC, edge lists and dicts, ``build``, the exports and
+``resize``.  ``Matrix.ss`` waits for ROADMAP.md queue 1, item 12 and
+raises NotImplementedError naming it.
 
 Two backings, as in the JAX package: a Matrix with at most
 ``auto_sparse_limit`` elements is a dense (values, valid) store on its
@@ -23,8 +25,9 @@ import torch
 
 from . import config as _config
 from . import dtypes as _dt
-from ..exceptions import DimensionMismatch, EmptyObject
-from .base import BaseExpression, InfixStubs, NotPorted
+from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
+                          OutputNotEmpty)
+from .base import BaseExpression, NotPorted
 from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .collection import untranspose as _untranspose
 from .engine import sparse as spx
@@ -32,6 +35,7 @@ from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 from .operator.utils import reduce_op
 from .scalar import Scalar
+from .utils import get_order, ints_to_numpy_buffer
 from .vector import Vector, _values_dtype
 
 
@@ -39,7 +43,7 @@ def _shape_of(mat, transposed):
     return (mat.ncols, mat.nrows) if transposed else (mat.nrows, mat.ncols)
 
 
-class Matrix(InfixStubs, Collection):
+class Matrix(Collection):
     ndim = 2
 
     def __init__(self, dtype=_dt.FP64, nrows=0, ncols=0, *, name=None):
@@ -137,11 +141,194 @@ class Matrix(InfixStubs, Collection):
         return cls.from_dense(np.full((int(nrows), int(ncols)), value),
                               dtype=dtype, name=name)
 
+    @classmethod
+    def from_edgelist(cls, edgelist, values=None, dtype=None, *, nrows=None,
+                      ncols=None, dup_op=None, name=None):
+        """From (row, col) or (row, col, value) rows."""
+        edges = np.asarray(edgelist if isinstance(edgelist, np.ndarray)
+                           else list(edgelist))
+        if edges.ndim != 2 or edges.shape[1] not in (2, 3):
+            raise ValueError("edgelist must be an iterable of (row, col) or "
+                             "(row, col, value)")
+        if edges.shape[1] == 3:
+            if values is not None:
+                raise TypeError("Too many sources of values: edgelist "
+                                "values and `values=`")
+            values = edges[:, 2]
+        elif values is None:
+            values = 1.0
+        return cls.from_coo(edges[:, 0].astype(np.int64),
+                            edges[:, 1].astype(np.int64), values, dtype,
+                            nrows=nrows, ncols=ncols, dup_op=dup_op,
+                            name=name)
+
+    @classmethod
+    def from_csr(cls, indptr, col_indices, values=1.0, dtype=None, *,
+                 nrows=None, ncols=None, name=None):
+        """From compressed rows; a matrix over ``auto_sparse_limit``
+        elements is sparse-backed, as from_coo makes it."""
+        indptr = ints_to_numpy_buffer(indptr, np.int64, name="indptr")
+        cols = ints_to_numpy_buffer(col_indices, np.int64,
+                                    name="col_indices")
+        if nrows is None:
+            nrows = len(indptr) - 1
+        rows = np.repeat(np.arange(nrows, dtype=np.int64), np.diff(indptr))
+        return cls.from_coo(rows, cols, values, dtype, nrows=nrows,
+                            ncols=_infer(ncols, cols), name=name)
+
+    @classmethod
+    def from_csc(cls, indptr, row_indices, values=1.0, dtype=None, *,
+                 nrows=None, ncols=None, name=None):
+        indptr = ints_to_numpy_buffer(indptr, np.int64, name="indptr")
+        rows = ints_to_numpy_buffer(row_indices, np.int64,
+                                    name="row_indices")
+        if ncols is None:
+            ncols = len(indptr) - 1
+        cols = np.repeat(np.arange(ncols, dtype=np.int64), np.diff(indptr))
+        return cls.from_coo(rows, cols, values, dtype,
+                            nrows=_infer(nrows, rows), ncols=ncols,
+                            name=name)
+
+    @classmethod
+    def from_dcsr(cls, compressed_rows, indptr, col_indices, values=1.0,
+                  dtype=None, *, nrows=None, ncols=None, name=None):
+        """From doubly compressed rows (the nonempty rows and their
+        pointers)."""
+        crows = ints_to_numpy_buffer(compressed_rows, np.int64,
+                                     name="compressed_rows")
+        indptr = ints_to_numpy_buffer(indptr, np.int64, name="indptr")
+        cols = ints_to_numpy_buffer(col_indices, np.int64,
+                                    name="col_indices")
+        return cls.from_coo(np.repeat(crows, np.diff(indptr)), cols, values,
+                            dtype, nrows=_infer(nrows, crows),
+                            ncols=_infer(ncols, cols), name=name)
+
+    @classmethod
+    def from_dcsc(cls, compressed_cols, indptr, row_indices, values=1.0,
+                  dtype=None, *, nrows=None, ncols=None, name=None):
+        ccols = ints_to_numpy_buffer(compressed_cols, np.int64,
+                                     name="compressed_cols")
+        indptr = ints_to_numpy_buffer(indptr, np.int64, name="indptr")
+        rows = ints_to_numpy_buffer(row_indices, np.int64,
+                                    name="row_indices")
+        return cls.from_coo(rows, np.repeat(ccols, np.diff(indptr)), values,
+                            dtype, nrows=_infer(nrows, rows),
+                            ncols=_infer(ncols, ccols), name=name)
+
+    @classmethod
+    def from_dicts(cls, nested_dicts, dtype=None, *, order="rowwise",
+                   nrows=None, ncols=None, name=None):
+        """From {row: {col: value}} (or a list of dicts, one a row;
+        ``order="columnwise"`` reads them as columns)."""
+        order = get_order(order)
+        items = nested_dicts.items() if isinstance(nested_dicts, dict) \
+            else enumerate(nested_dicts)
+        rows, cols, vals = [], [], []
+        for outer, inner in items:
+            for k, v in inner.items():
+                rows.append(outer)
+                cols.append(k)
+                vals.append(v)
+        if order == "columnwise":
+            rows, cols = cols, rows
+        if not rows and (nrows is None or ncols is None):
+            raise ValueError("Unable to infer nrows/ncols from empty dicts")
+        return cls.from_coo(np.array(rows, np.int64),
+                            np.array(cols, np.int64),
+                            vals if vals else np.array([], np.float64),
+                            dtype, nrows=nrows, ncols=ncols, name=name)
+
+    def build(self, rows, columns, values, *, dup_op=None, clear=False,
+              nrows=None, ncols=None):
+        """Set the elements from COO (duplicates combine with dup_op) into
+        an empty matrix, or, with clear, after removing its elements; the
+        backing stays as it was."""
+        if nrows is not None or ncols is not None:
+            raise TypeError("nrows/ncols keyword args not supported (resize "
+                            "first)")
+        if not clear and self.nvals > 0:
+            raise OutputNotEmpty("Matrix already contains values; use "
+                                 "clear=True")
+        rows = ints_to_numpy_buffer(rows, np.int64, name="row indices")
+        cols = ints_to_numpy_buffer(columns, np.int64, name="column indices")
+        values = _values_dtype(values, self.dtype)[0]
+        if values.ndim == 0:
+            values = np.broadcast_to(values, rows.shape)
+        if not len(rows) == len(cols) == len(values):
+            raise ValueError(f"The lengths of `rows`, `columns`, and "
+                             f"`values` must match: {len(rows)}, "
+                             f"{len(cols)}, {len(values)}")
+        if len(rows):
+            if rows.min() < 0 or rows.max() >= self._nrows:
+                raise IndexOutOfBound(f"row index out of bounds for nrows "
+                                      f"{self._nrows}")
+            if cols.min() < 0 or cols.max() >= self._ncols:
+                raise IndexOutOfBound(f"column index out of bounds for "
+                                      f"ncols {self._ncols}")
+        dense = self._sparse is None
+        self._set_sparse_store(spx.build_sparse_store(
+            rows, cols, values, self._nrows, self._ncols, self.dtype,
+            self._device, dup_op))
+        if dense:
+            self._densify()
+
+    def to_edgelist(self, dtype=None, *, values=True, sort=True):
+        """((nvals, 2) array of (row, col), values or None)."""
+        r, c, v = self.to_coo(dtype, values=values, sort=sort)
+        return np.column_stack([r, c]), v
+
+    def _compressed(self, dtype, by_col):
+        """(indptr, minor indices, values) in row-major (CSR) or
+        column-major (CSC) order, read from the device once."""
+        r, c, v = self.to_coo(dtype)
+        if by_col:
+            if self._sparse is not None:
+                perm = self._sparse.csc_perm().cpu().numpy()
+            else:
+                perm = np.argsort(c, kind="stable")
+            r, c, v = c[perm], r[perm], v[perm]
+        n = self._ncols if by_col else self._nrows
+        indptr = np.zeros(n + 1, np.uint64)
+        indptr[1:] = np.cumsum(np.bincount(r.astype(np.int64), minlength=n))
+        return indptr, c, v
+
+    def to_csr(self, dtype=None, *, sort=True):
+        return self._compressed(dtype, False)
+
+    def to_csc(self, dtype=None, *, sort=True):
+        return self._compressed(dtype, True)
+
+    def to_dcsr(self, dtype=None, *, sort=True):
+        """(compressed rows, indptr, col indices, values)."""
+        return _doubly(*self._compressed(dtype, False))
+
+    def to_dcsc(self, dtype=None, *, sort=True):
+        return _doubly(*self._compressed(dtype, True))
+
+    def resize(self, nrows, ncols):
+        """Change the shape in place; elements outside it are dropped.  A
+        sparse-backed matrix stays sparse."""
+        nrows, ncols = int(nrows), int(ncols)
+        if nrows < 0 or ncols < 0:
+            raise ValueError("nrows and ncols must be non-negative")
+        if self._sparse is not None:
+            self._set_sparse_store(spx.resized(self._sparse, nrows, ncols))
+        else:
+            vals = torch.zeros((nrows, ncols), dtype=self.dtype.torch_type,
+                               device=self._device)
+            valid = torch.zeros((nrows, ncols), dtype=torch.bool,
+                                device=self._device)
+            r, c = min(nrows, self._nrows), min(ncols, self._ncols)
+            vals[:r, :c] = self._d_vals[:r, :c]
+            valid[:r, :c] = self._d_valid[:r, :c]
+            self._set_store(vals, valid)
+        self._nrows, self._ncols = nrows, ncols
+
     def to_dicts(self, order="rowwise"):
         """{row: {column: value}} (``order="columnwise"``: {column: {row:
         value}}), as the JAX package's to_dicts."""
         r, c, v = self.to_coo()
-        if order in ("columnwise", "col", "column", "columns", "colwise"):
+        if get_order(order) == "columnwise":
             r, c = c, r
         out = {}
         for i, j, val in zip(r.tolist(), c.tolist(), v.tolist()):
@@ -267,6 +454,15 @@ class Matrix(InfixStubs, Collection):
         return BaseExpression("extract", None, [self], self.dtype, shape, out,
                               (pattern, [rix, cix], input_mask, vec_axis))
 
+    def _as_vector(self, *, name=None):
+        """An (n, 1) matrix as a Vector of its one column."""
+        if self._ncols != 1:
+            raise ValueError(f"Matrix must have a single column (not "
+                             f"{self._ncols}) to be cast to a Vector")
+        return Vector._from_store(self.dtype, self._vals[:, 0],
+                                  self._valid[:, 0],
+                                  name=self.name if name is None else name)
+
     def __iter__(self):
         """The (row, col) of each stored element, in row-major order."""
         r, c, _ = self.to_coo(values=False)
@@ -286,21 +482,19 @@ class Matrix(InfixStubs, Collection):
     # ------------------------------------------------------------------ #
     # linear algebra
     def _matmul_expr(self, kind, other, op):
+        other = self._expect_type(
+            other, Vector if kind == "mxv" else (Matrix, TransposedMatrix),
+            within=kind, argname="other")
         a, at = _untranspose(self)
         b, bt = _untranspose(other)
         ring = typed(op, _dt.unify(a.dtype, b.dtype), "Semiring")
         sa = _shape_of(a, at)
         if kind == "mxv":
-            if not isinstance(b, Vector):
-                raise TypeError(f"mxv expects a Vector; got "
-                                f"{type(b).__name__}")
             if sa[1] != b.size:
                 raise DimensionMismatch(
                     f"Dimensions not compatible for mxv: {sa} x {b.size}")
             return BaseExpression("mxv", ring, [a, b], ring.return_type,
                                   (sa[0],), Vector, (at,))
-        if not isinstance(b, Matrix):
-            raise TypeError(f"mxm expects a Matrix; got {type(b).__name__}")
         sb = _shape_of(b, bt)
         if sa[1] != sb[0]:
             raise DimensionMismatch(
@@ -350,11 +544,10 @@ class Matrix(InfixStubs, Collection):
     def kronecker(self, other, op="times"):
         """The Kronecker product by a BinaryOp (or a Monoid's op): block
         (i, j) is op(A[i, j], B); either operand may be transposed."""
+        other = self._expect_type(other, (Matrix, TransposedMatrix),
+                                  within="kronecker", argname="other")
         a, at = _untranspose(self)
         b, bt = _untranspose(other)
-        if not isinstance(b, Matrix):
-            raise TypeError(f"kronecker expects a Matrix; got "
-                            f"{type(b).__name__}")
         if getattr(op, "opclass", None) == "Monoid":
             op = op.binaryop
         bop = typed(op, _dt.unify(a.dtype, b.dtype), "BinaryOp")
@@ -391,7 +584,8 @@ class Matrix(InfixStubs, Collection):
             return BaseExpression("reduce_agg", red, [mat], red.return_type,
                                   (), Scalar, (None, False))
         return BaseExpression("reduce", red, [mat], red.return_type, (),
-                              Scalar, (bool(allow_empty),))
+                              Scalar, (bool(allow_empty),),
+                              public_name="reduce_scalar")
 
     def reposition(self, row_offset, column_offset, *, nrows=None,
                    ncols=None):
@@ -404,20 +598,22 @@ class Matrix(InfixStubs, Collection):
                               ((int(row_offset), int(column_offset)),))
 
     # the JAX package's Matrix surface that is not ported yet
-    build = NotPorted(12)
-    resize = NotPorted(12)
     ss = NotPorted(12)
-    from_csr = NotPorted(12)
-    from_csc = NotPorted(12)
-    from_dcsr = NotPorted(12)
-    from_dcsc = NotPorted(12)
-    to_csr = NotPorted(12)
-    to_csc = NotPorted(12)
-    to_dcsr = NotPorted(12)
-    to_dcsc = NotPorted(12)
-    from_dicts = NotPorted(12)
-    from_edgelist = NotPorted(12)
-    to_edgelist = NotPorted(12)
+
+
+def _infer(n, indices):
+    """A dimension given, or one past the largest index."""
+    if n is not None:
+        return n
+    return int(indices.max()) + 1 if len(indices) else 0
+
+
+def _doubly(indptr, minor, v):
+    counts = np.diff(indptr.astype(np.int64))
+    nonempty = np.flatnonzero(counts)
+    new_indptr = np.zeros(len(nonempty) + 1, np.uint64)
+    new_indptr[1:] = np.cumsum(counts[nonempty])
+    return nonempty.astype(np.uint64), new_indptr, minor, v
 
 
 def _coo_equal(a, b, common):
@@ -434,15 +630,20 @@ def _as_matrix(other, within):
     if isinstance(other, TransposedMatrix):
         return other.new()
     if not isinstance(other, Matrix):
+        if isinstance(getattr(other, "output_type", None), type) and \
+                issubclass(other.output_type, Matrix):
+            return other.new()  # an expression: computed
         raise TypeError(f"{within} expects a Matrix; got "
                         f"{type(other).__name__}")
     return other
 
 
-class TransposedMatrix(InfixStubs):
+class TransposedMatrix:
     """``A.T``: a view that every operation reads in the other direction."""
 
     ndim = 2
+    _is_scalar = False
+    _expect_type = Collection._expect_type
 
     def __init__(self, matrix):
         self._matrix = matrix
@@ -505,6 +706,17 @@ class TransposedMatrix(InfixStubs):
         """Reposition of the materialized transpose."""
         return self.new().reposition(row_offset, column_offset, nrows=nrows,
                                      ncols=ncols)
+
+    @property
+    def name(self):
+        return f"{self._matrix.name or 'M'}.T"
+
+    def to_coo(self, dtype=None, *, rows=True, columns=True, values=True,
+               sort=True):
+        c, r, v = self._matrix.to_coo(dtype, sort=sort)
+        order = np.lexsort((r, c)) if sort else slice(None)
+        return (c[order] if rows else None, r[order] if columns else None,
+                v[order] if values else None)
 
     def to_dense(self, fill_value=None, dtype=None):
         return self._matrix.to_dense(fill_value, dtype).T.copy()

@@ -56,6 +56,13 @@ class OpBase:
     def _build_typed(self, dt):
         return None
 
+    def __call__(self, *args, **kwargs):
+        """The operator on collections or infix expressions (see
+        utils.call_expr)."""
+        from .utils import call_expr
+
+        return call_expr(self, *args, **kwargs)
+
     def __repr__(self):
         return f"{self._modname}.{self.name}"
 
@@ -75,6 +82,11 @@ class TypedOpBase:
     def is_positional(self):
         return self._positional is not None
 
+    def __call__(self, *args, **kwargs):
+        from .utils import call_expr
+
+        return call_expr(self, *args, **kwargs)
+
     def __repr__(self):
         return f"{self.parent._modname}.{self.name}[{self.type.name}]"
 
@@ -92,6 +104,14 @@ def unparameterized(op):
     """A parameterized operator stands for its instance with the default
     parameters (the JAX package's find_opclass)."""
     return op() if isinstance(op, ParameterizedUdf) else op
+
+
+def find_opclass(op):
+    """(op, its opclass name) of any operator-like object; a
+    parameterized operator stands for its default instance, and anything
+    else is of "UnknownOpClass" (the JAX package's find_opclass)."""
+    op = unparameterized(op)
+    return op, getattr(op, "opclass", None) or "UnknownOpClass"
 
 
 def check_arity(func, nargs, what):

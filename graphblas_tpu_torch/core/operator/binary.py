@@ -35,9 +35,16 @@ class TypedBinaryOp(TypedOpBase):
         self.func = func
         self._positional = parent._positional
 
-    def __call__(self, x, y):
-        """Apply to storage tensors of self.type; result in return_type."""
-        return _dt.normalize(self.func(x, y), self.return_type)
+    def __call__(self, left, right=None, *, left_default=None,
+                 right_default=None):
+        """On storage tensors of self.type, the result in return_type; on
+        collections and infix expressions, an expression (call_op)."""
+        if isinstance(left, torch.Tensor):
+            return _dt.normalize(self.func(left, right), self.return_type)
+        from .utils import call_op
+
+        return call_op(self, left, right, left_default=left_default,
+                       right_default=right_default)
 
     @property
     def monoid(self):

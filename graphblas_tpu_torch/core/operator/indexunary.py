@@ -77,9 +77,15 @@ class TypedIndexUnaryOp(TypedOpBase):
         self.func = func
         self._positional = parent._positional
 
-    def __call__(self, x, i, j, thunk):
+    def __call__(self, x, i=None, j=None, thunk=None):
         """Apply to storage tensors: values of self.type, int64 rows and
-        cols, a 0-d thunk; the result in return_type, shaped like x."""
+        cols, a 0-d thunk; the result in return_type, shaped like x.  On a
+        collection (``select.tril(A, -1)``), an expression
+        (call_indexunary; the second argument is the thunk)."""
+        if not isinstance(x, torch.Tensor):
+            from .utils import call_indexunary
+
+            return call_indexunary(self, x, i if thunk is None else thunk)
         out = self.func(x, i, j, thunk)
         if not isinstance(out, torch.Tensor):
             out = torch.as_tensor(out, device=x.device)

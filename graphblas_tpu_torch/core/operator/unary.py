@@ -29,6 +29,12 @@ class TypedUnaryOp(TypedOpBase):
         self._positional = parent._positional
 
     def __call__(self, x):
+        """On a storage tensor of self.type, the result in return_type; on
+        a collection, an apply (call_op_unary)."""
+        if not isinstance(x, torch.Tensor):
+            from .utils import call_op_unary
+
+            return call_op_unary(self, x)
         out = self.func(x)
         if not isinstance(out, torch.Tensor):
             out = torch.as_tensor(out, device=x.device).expand(x.shape)

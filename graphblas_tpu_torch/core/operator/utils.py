@@ -217,6 +217,95 @@ def reduce_op(op, dtype):
     return typed(op, dtype, "Monoid")
 
 
+# --------------------------------------------------------------------- #
+# an operator called on collections and infix expressions
+# (graphblas_tpu/core/operator/utils.py _call_op)
+def call_op(op, left, right=None, *, left_default=None, right_default=None):
+    """``monoid.plus(x | y)``, ``semiring.min_plus(A @ B)``,
+    ``binary.minus(x | y, left_default=0, right_default=0)`` (an
+    ewise_union), ``binary.plus(A, 1)`` and ``binary.plus(1, A)`` (bound
+    applies); an expression operand is computed first."""
+    from ..base import BaseExpression, BaseType
+    from ..expr import AmbiguousAssignOrExtract, InfixExprBase
+
+    if isinstance(left, (BaseExpression, AmbiguousAssignOrExtract)):
+        left = left._get_value()
+    if isinstance(right, (BaseExpression, AmbiguousAssignOrExtract)):
+        right = right._get_value()
+    if right is None and left_default is None and right_default is None:
+        if isinstance(left, InfixExprBase):
+            return left._apply_op(op)
+        raise TypeError(
+            f"Bad type when calling {op!r}.\n"
+            f"    - Expected an infix expression, such as: {op!r}(x & y)\n"
+            f"    - Or a combination of a collection and a scalar, such as: "
+            f"{op!r}(x, 1)")
+    if left_default is not None or right_default is not None:
+        if (left_default is None or right_default is None
+                or right is not None or not isinstance(left, InfixExprBase)
+                or left.method_name != "ewise_add"):
+            raise TypeError(
+                f"Bad arguments when calling {op!r}.  Specify both "
+                f"left_default and right_default when calling with an "
+                f"ewise-union infix expression, e.g.:\n"
+                f"    {op!r}(x | y, left_default=0, right_default=0)")
+        return left.left.ewise_union(left.right, op, left_default,
+                                     right_default)
+    if isinstance(left, BaseType) and isinstance(right, BaseType):
+        raise TypeError(
+            f"Bad types when calling {op!r}.  Got {type(left)} and "
+            f"{type(right)}.\n    When calling with two arguments, one must "
+            f"be a scalar.")
+    if isinstance(left, BaseType):
+        return left.apply(op, right=right)
+    if isinstance(right, BaseType):
+        return right.apply(op, left=left)
+    raise TypeError(
+        f"Bad types when calling {op!r}.  Got {type(left)} and "
+        f"{type(right)}.\n    At least one argument must be a Matrix, "
+        f"Vector, or Scalar.")
+
+
+def call_op_unary(op, val):
+    """``unary.abs(A)``: the apply of a collection or an expression."""
+    from ..base import BaseExpression, BaseType
+    from ..expr import AmbiguousAssignOrExtract, InfixExprBase
+
+    if isinstance(val, (BaseExpression, AmbiguousAssignOrExtract,
+                        InfixExprBase)):
+        val = val._get_value()
+    if isinstance(val, BaseType):
+        return val.apply(op)
+    raise TypeError(f"Bad type when calling {op!r}: {type(val)}")
+
+
+def call_expr(op, *args, **kwargs):
+    """An operator called on collections: by its class, call_op,
+    call_op_unary or call_indexunary."""
+    if op.opclass == "UnaryOp":
+        return call_op_unary(op, *args, **kwargs)
+    if op.opclass in ("IndexUnaryOp", "SelectOp"):
+        return call_indexunary(op, *args, **kwargs)
+    return call_op(op, *args, **kwargs)
+
+
+def call_indexunary(op, val, thunk=None):
+    """``indexunary.rowindex(A, 1)`` (apply), ``select.tril(A, -1)`` and
+    ``select.valueeq(5, s)`` (select: a literal first operand is a
+    Scalar)."""
+    if thunk is None:
+        thunk = False
+    if op.opclass == "SelectOp":
+        if not hasattr(val, "select"):
+            from ..scalar import Scalar
+
+            val = Scalar.from_value(val)
+        return val.select(op, thunk)
+    if not hasattr(val, "apply"):
+        raise TypeError(f"Bad type when calling {op!r}: {type(val)}")
+    return val.apply(op, right=thunk)
+
+
 def _compile_definition(defn, name):
     """A callable from a callable, or from Python source (a ``lambda`` or
     a ``def``) run with ``torch``, ``np`` and ``math`` in scope."""

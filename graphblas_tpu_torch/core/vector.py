@@ -1,21 +1,23 @@
 """Vector: a dense (values, valid) store on the configured device
-(graphblas_tpu/core/vector.py): construction and export, extract, assign
-and delete by index (core/collection.py), membership and iteration, the
-products, element-wise operations, apply, select, reduce (by a monoid or
-an aggregator) and reposition.  What the JAX
-package's Vector has and the port lacks raises NotImplementedError naming
-its ROADMAP.md item."""
+(graphblas_tpu/core/vector.py): construction (``from_coo``, ``from_pairs``,
+``from_dict``, ``build``) and export, ``resize``, extract, assign and
+delete by index (core/collection.py), membership and iteration, the
+products, ``outer``, element-wise operations, apply, select, reduce (by a
+monoid or an aggregator) and reposition.  ``Vector.ss`` waits for
+ROADMAP.md queue 1, item 12 and raises NotImplementedError naming it."""
 
 import numpy as np
 import torch
 
 from . import config as _config
 from . import dtypes as _dt
-from ..exceptions import DimensionMismatch, EmptyObject
-from .base import BaseExpression, InfixStubs, NotPorted
+from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
+                          OutputNotEmpty)
+from .base import BaseExpression, NotPorted
 from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
+from .utils import ints_to_numpy_buffer
 
 
 def _values_dtype(values, dtype):
@@ -29,7 +31,7 @@ def _values_dtype(values, dtype):
     return np.array(values, dt.np_type, copy=None), dt
 
 
-class Vector(InfixStubs, Collection):
+class Vector(Collection):
     ndim = 1
 
     def __init__(self, dtype=_dt.FP64, size=0, *, name=None):
@@ -89,19 +91,85 @@ class Vector(InfixStubs, Collection):
             size = int(indices.max()) + 1
         if len(indices) and (indices.min() < 0 or indices.max() >= size):
             raise IndexError(f"index out of bounds for size {size}")
-        order = np.argsort(indices, kind="stable")
-        idx, vals = indices[order], values[order]
-        if len(idx) > 1 and (np.diff(idx) == 0).any():
+        v = cls(dt, size, name=name)
+        v.build(indices, values, dup_op=dup_op)
+        return v
+
+    @classmethod
+    def from_pairs(cls, pairs, dtype=None, *, size=None, name=None):
+        """From (index, value) pairs."""
+        pairs = list(pairs)
+        if any(len(p) != 2 for p in pairs):
+            raise ValueError("All pairs must be length 2")
+        return cls.from_coo(np.array([p[0] for p in pairs], np.int64),
+                            [p[1] for p in pairs], dtype, size=size,
+                            name=name)
+
+    @classmethod
+    def from_dict(cls, d, dtype=None, *, size=None, name=None):
+        """From {index: value}."""
+        if size is None and len(d) == 0:
+            raise ValueError("Unable to infer size from an empty dict")
+        values = list(d.values())
+        return cls.from_coo(np.fromiter(d.keys(), np.int64, len(d)),
+                            values if values else np.array([], np.float64),
+                            dtype, size=size, name=name)
+
+    def build(self, indices, values, *, dup_op=None, clear=False,
+              size=None):
+        """Set the elements from indices and values (duplicates combine
+        with dup_op) into an empty vector, or, with clear, after removing
+        its elements."""
+        if size is not None:
+            raise TypeError("`size` keyword arg is not supported (resize "
+                            "first)")
+        if not clear and self.nvals > 0:
+            raise OutputNotEmpty("Vector already contains values; use "
+                                 "clear=True")
+        indices = ints_to_numpy_buffer(indices, np.int64, name="indices")
+        values = _values_dtype(values, self.dtype)[0]
+        if values.ndim == 0:
+            values = np.broadcast_to(values, indices.shape)
+        if len(indices) != len(values):
+            raise ValueError(f"`indices` and `values` lengths must match: "
+                             f"{len(indices)}, {len(values)}")
+        n = self.size
+        if len(indices) and (indices.min() < 0 or indices.max() >= n):
+            raise IndexOutOfBound(f"index out of bounds for size {n}")
+        idx, vals = indices, values
+        if len(idx) > 1 and not (np.diff(idx) > 0).all():
             from .engine.sparse import sorted_dedup_coo
 
-            idx, _, vals = sorted_dedup_coo(idx, np.zeros_like(idx), vals,
-                                            size, 1, dt, dup_op)
-        v = cls(dt, size, name=name)
-        dev = v.device
-        t_idx = torch.from_numpy(idx).to(dev)
-        v._vals[t_idx] = _dt.to_tensor(vals, dt, dev)
-        v._valid[t_idx] = True
-        return v
+            idx, _, vals = sorted_dedup_coo(idx, np.zeros_like(idx), vals, n,
+                                            1, self.dtype, dup_op)
+        dev, dt = self.device, self.dtype
+        t_idx = torch.from_numpy(np.ascontiguousarray(idx)).to(dev)
+        new_vals = torch.zeros(n, dtype=dt.torch_type, device=dev)
+        new_valid = torch.zeros(n, dtype=torch.bool, device=dev)
+        new_vals[t_idx] = _dt.to_tensor(vals, dt, dev)
+        new_valid[t_idx] = True
+        self._set_store(new_vals, new_valid)
+
+    def resize(self, size):
+        """Change the size in place; elements past it are dropped."""
+        size = int(size)
+        if size < 0:
+            raise ValueError("size must be non-negative")
+        keep = min(size, self.size)
+        vals = torch.zeros(size, dtype=self.dtype.torch_type,
+                           device=self.device)
+        valid = torch.zeros(size, dtype=torch.bool, device=self.device)
+        vals[:keep] = self._vals[:keep]
+        valid[:keep] = self._valid[:keep]
+        self._set_store(vals, valid)
+
+    def _as_matrix(self, *, name=None):
+        """The vector as an (n, 1) column Matrix over the same store."""
+        from .matrix import Matrix
+
+        return Matrix._from_planes(self.dtype, self._vals[:, None],
+                                   self._valid[:, None],
+                                   name=self.name if name is None else name)
 
     @classmethod
     def from_scalar(cls, value, size, dtype=None, *, name=None):
@@ -165,9 +233,8 @@ class Vector(InfixStubs, Collection):
         return out
 
     def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
-        if not isinstance(other, Vector):
-            raise TypeError(f"isclose expects a Vector; got "
-                            f"{type(other).__name__}")
+        other = self._expect_type(other, Vector, within="isclose",
+                                  argname="other")
         if check_dtype and self.dtype != other.dtype:
             return False
         if self.shape != other.shape:
@@ -181,9 +248,8 @@ class Vector(InfixStubs, Collection):
     def isequal(self, other, *, check_dtype=False):
         """Exact equality: same size, same structure, same values (compared
         on the device; one read of the verdict)."""
-        if not isinstance(other, Vector):
-            raise TypeError(f"isequal expects a Vector; got "
-                            f"{type(other).__name__}")
+        other = self._expect_type(other, Vector, within="isequal",
+                                  argname="other")
         if check_dtype and self.dtype != other.dtype:
             return False
         if self.shape != other.shape:
@@ -234,6 +300,8 @@ class Vector(InfixStubs, Collection):
         """Row vector times matrix (graphblas_tpu vector.py vxm)."""
         from .matrix import Matrix, TransposedMatrix
 
+        other = self._expect_type(other, (Matrix, TransposedMatrix),
+                                  within="vxm", argname="other")
         bt = isinstance(other, TransposedMatrix)
         b = other._matrix if bt else other
         if not isinstance(b, Matrix):
@@ -250,9 +318,8 @@ class Vector(InfixStubs, Collection):
         """Inner product with another Vector, a Scalar expression."""
         from .scalar import Scalar
 
-        if not isinstance(other, Vector):
-            raise TypeError(f"inner expects a Vector; got "
-                            f"{type(other).__name__}")
+        other = self._expect_type(other, Vector, within="inner",
+                                  argname="other")
         ring = typed(op, _dt.unify(self.dtype, other.dtype), "Semiring")
         if self.size != other.size:
             raise DimensionMismatch(f"Dimensions not compatible for inner: "
@@ -313,10 +380,20 @@ class Vector(InfixStubs, Collection):
         return BaseExpression("reposition", None, [self], self.dtype,
                               (out_size,), Vector, ((int(offset),),))
 
+    def outer(self, other, op="times"):
+        """The outer product by a BinaryOp (or a Monoid's op): element
+        (i, j) is op(self[i], other[j]), stored where both are.  Over
+        ``auto_sparse_limit`` elements the result is sparse-backed, with
+        the product of the two structures."""
+        from .matrix import Matrix
+
+        other = self._expect_type(other, Vector, within="outer",
+                                  argname="other")
+        if getattr(op, "opclass", None) == "Monoid":
+            op = op.binaryop
+        bop = typed(op, _dt.unify(self.dtype, other.dtype), "BinaryOp")
+        return BaseExpression("outer", bop, [self, other], bop.return_type,
+                              (self.size, other.size), Matrix)
+
     # the JAX package's Vector surface that is not ported yet
-    build = NotPorted(12)
-    from_dict = NotPorted(12)
-    from_pairs = NotPorted(12)
-    resize = NotPorted(12)
-    outer = NotPorted(12)
     ss = NotPorted(12)

@@ -39,3 +39,13 @@ def iterate(body, state, *, cond=None, max_iter=64):
             if c.is_empty or not c.value:
                 break
     return i
+
+
+# the JAX package's names of gb.ss that the port lacks
+_WAITING = frozenset(("diag", "concat", "config", "about", "burble"))
+
+
+def __getattr__(name):
+    from ..core.operator.base import missing
+
+    raise missing("ss", name, _WAITING)

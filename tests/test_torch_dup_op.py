@@ -1,10 +1,8 @@
 """The reference's dup_op cases against the port (the twin of
 tests/test_dup_op.py), run on the CPU with the same inputs and expected
-values the JAX package meets there.  ``Matrix.build``, ``from_edgelist``
-and ``from_dicts`` wait for item 12."""
+values the JAX package meets there, ``Matrix.build``, ``from_edgelist``
+and ``from_dicts`` included."""
 
 from tests.test_torch_operator_grids import twin
 
-twin("test_dup_op", globals(), not_ported=(
-    "test_build_clear_and_dup_op", "test_from_edgelist_dup_op",
-    "test_from_dicts_and_from_dense_no_dup_possible"))
+twin("test_dup_op", globals())

@@ -10,7 +10,25 @@
 3. ``Scalar.value`` is a numpy scalar of the dtype, as in the JAX
    package, for reduces, extracted elements and ``get``; ``repr`` shows
    that value.
+4. ``==``, ``!=``, ``<``, ``<=``, ``>``, ``>=`` build the JAX package's
+   comparison expressions (two collections: an ``ewise_mult``; a
+   collection and a scalar: a bound ``apply``; two Scalars: a Scalar
+   ``ewise_mult``), whose truth is the computed comparison's:
+   ``bool(A.reduce_scalar() == 6)`` is True.  Python compared identities
+   before.
+5. ``bool(A)`` and ``np.asarray(A)`` raise TypeError for Matrix and
+   Vector; a Scalar converts with ``bool``, ``int``, ``float``,
+   ``complex``, ``operator.index`` and ``np.asarray`` as in the JAX
+   package.
+6. A Scalar is unhashable; collections keep identity hashing.
+7. ``==`` and ``bool()`` on a mask raise TypeError.
+8. What raised the wrong exception: ``float(s)``, ``int(s)``,
+   ``s.value = 4``, ``A.S & B.S``, ``v.S | v.V``, ``A + B``, ``A < 1``,
+   ``-A``, ``abs(A)``, ``A.S.dtype`` and ``A.S.new()`` compute what the JAX
+   package computes.
 """
+
+import operator
 
 import numpy as np
 import pytest
@@ -129,3 +147,148 @@ def test_scalar_value_is_a_numpy_scalar(dtype):
             "Scalar(3, dtype=INT64)"
         assert repr(gbt.Scalar("BOOL")) == "Scalar(None, dtype=BOOL)"
         assert gbt.Scalar("FP64").get(7) == 7
+
+
+# --------------------------------------------------------------------- #
+# 4-8: equality, truth, conversion, hashing and masks
+def infix_operands(gb):
+    A = gb.Matrix.from_coo([0, 0, 1, 2], [1, 2, 2, 0], [1.0, 2.0, 3.0, 0.0],
+                           nrows=3, ncols=3)
+    B = gb.Matrix.from_coo([0, 1, 2, 2], [1, 2, 0, 2], [1.0, 5.0, 0.0, 4.0],
+                           nrows=3, ncols=3)
+    v = gb.Vector.from_coo([0, 2], [3.0, 1.0], size=3)
+    return A, B, v
+
+
+def computed(x):
+    """What an expression computes, or a Python value as it is."""
+    if hasattr(x, "new"):
+        x = x.new()
+    if hasattr(x, "to_coo"):
+        return x.dtype.name, [a.tolist() for a in x.to_coo()]
+    if hasattr(x, "value"):
+        return x.dtype.name, None if x.value is None else x.value.item()
+    return x
+
+
+COMPARISONS = {
+    "reduce_scalar == 6": lambda A, B, v: A.reduce_scalar() == 6,
+    "Scalar == 3": lambda A, B, v: v.reduce().new() == 4,
+    "Scalar != 3": lambda A, B, v: v.reduce().new() != 3,
+    "3 < Scalar": lambda A, B, v: 3 < v.reduce().new(),
+    "Scalar == Scalar": lambda A, B, v: (v.reduce().new()
+                                         == A.reduce_scalar().new()),
+    "A == B": lambda A, B, v: A == B,
+    "A != B": lambda A, B, v: A != B,
+    "A.T == A.T": lambda A, B, v: A.T == A.T,
+    "A < B": lambda A, B, v: A < B,
+    "A >= 1": lambda A, B, v: A >= 1,
+    "v <= 1": lambda A, B, v: v <= 1,
+    "ewise_mult == v": lambda A, B, v: v.ewise_mult(v) == v,
+    "v[0] == 3": lambda A, B, v: v[0] == 3.0,
+}
+
+
+@pytest.mark.parametrize("backing", list(BACKINGS))
+@pytest.mark.parametrize("case", list(COMPARISONS))
+def test_comparisons_are_expressions(backing, case):
+    def fn(gb):
+        e = COMPARISONS[case](*infix_operands(gb))
+        kind = (type(e).__name__, getattr(e, "method_name", None),
+                str(e.dtype), tuple(e.shape))
+        truth = bool(e) if e.ndim == 0 else None
+        return kind, truth, computed(e)
+
+    want = fn(gbj)
+    with gbt.config.set(device="cpu", **BACKINGS[backing]):
+        got = fn(gbt)
+    assert got == want
+    if case in ("reduce_scalar == 6", "Scalar == 3", "v[0] == 3"):
+        assert got[1] is True
+
+
+@pytest.mark.parametrize("kind", ["Matrix", "Vector"])
+def test_no_truth_or_array_of_collections(kind):
+    for gb, cfg in ((gbj, {}), (gbt, {"device": "cpu"})):
+        with gbt.config.set(**cfg):
+            A, _, v = infix_operands(gb)
+            x = A if kind == "Matrix" else v
+            with pytest.raises(TypeError, match="__bool__"):
+                bool(x)
+            with pytest.raises(TypeError, match="numpy array"):
+                np.asarray(x)
+
+
+@pytest.mark.parametrize("value", [5, 2.5, 0, True, -3])
+def test_scalar_conversions(value):
+    def fn(gb):
+        s = gb.Scalar.from_value(value)
+        out = [bool(s), int(s), float(s), complex(s),
+               np.asarray(s).dtype.name, np.asarray(s).item()]
+        try:
+            out.append(operator.index(s))
+        except TypeError:
+            out.append("TypeError")
+        e = gb.Scalar(s.dtype)
+        out.append(bool(e))
+        try:
+            float(e)
+        except TypeError:
+            out.append("TypeError")
+        return out
+
+    want = fn(gbj)
+    with gbt.config.set(device="cpu"):
+        assert fn(gbt) == want
+
+
+def test_scalar_unhashable_collections_hashable():
+    for gb, cfg in ((gbj, {}), (gbt, {"device": "cpu"})):
+        with gbt.config.set(**cfg):
+            A, _, v = infix_operands(gb)
+            s = A.reduce_scalar().new()
+            with pytest.raises(TypeError, match="unhashable"):
+                hash(s)
+            assert {A: 1, v: 2, A.T: 3}[v] == 2
+            assert hash(A) == hash(A)
+
+
+def test_mask_equality_and_truth():
+    for gb, cfg in ((gbj, {}), (gbt, {"device": "cpu"})):
+        with gbt.config.set(**cfg):
+            A, _, v = infix_operands(gb)
+            for m in (v.S, ~v.V, A.S, ~A.V):
+                with pytest.raises(TypeError, match="__eq__"):
+                    m == m  # noqa: B015
+                with pytest.raises(TypeError, match="__bool__"):
+                    bool(m)
+
+
+WRONG_EXCEPTIONS = {
+    "float(s)": lambda A, B, v: float(A.reduce_scalar().new()),
+    "int(s)": lambda A, B, v: int(A.reduce_scalar().new()),
+    "s.value = 4": lambda A, B, v: _set_value(A.reduce_scalar().new(), 4),
+    "A.S & B.S": lambda A, B, v: (A.S & B.S).new(),
+    "v.S | v.V": lambda A, B, v: (v.S | v.V).new(),
+    "A + B": lambda A, B, v: A + B,
+    "A < 1": lambda A, B, v: A < 1,
+    "-A": lambda A, B, v: -A,
+    "abs(A)": lambda A, B, v: abs(-A),
+    "A.S.dtype": lambda A, B, v: str(A.S.dtype),
+    "A.S.new()": lambda A, B, v: A.S.new(),
+}
+
+
+def _set_value(s, x):
+    s.value = x
+    return s
+
+
+@pytest.mark.parametrize("case", list(WRONG_EXCEPTIONS))
+def test_calls_that_raised_the_wrong_exception(case):
+    def fn(gb):
+        return computed(WRONG_EXCEPTIONS[case](*infix_operands(gb)))
+
+    want = fn(gbj)
+    with gbt.config.set(device="cpu"):
+        assert fn(gbt) == want

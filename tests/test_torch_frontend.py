@@ -315,9 +315,13 @@ def test_not_ported_raises(cpu):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gbt.dtypes.lookup_dtype("FC64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.to_csr()
+        A.ss
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        x @ x
+        gbt.io
+    # to_csr and x @ x, which raised before the constructors and the
+    # infix slice, match the JAX package
+    assert all(np.array_equal(g, w) for g, w in zip(A.to_csr(), jA.to_csr()))
+    assert (x @ x).new().value == (jx @ jx).new().value == 2.0
     # one destination with 5000 in-edges packs over PACK_LIMIT: the sort
     # pipeline takes it
     n = 5001

@@ -1069,3 +1069,111 @@ def test_mixed_operand_products_on_the_card(cuda, ring, rt, a_t, u_t, kind):
         np.testing.assert_array_equal(gv, want[idx])
     else:
         np.testing.assert_allclose(gv, want[idx], rtol=1e-5)
+
+
+# ---- the infix slice on the card: the infix forms launch what the method
+# forms launch and compute the same bits
+def _launch_counts():
+    return dict(K.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vxm", "mxv", "mxm_sparse", "mxm_dense"])
+def test_infix_forms_match_method_forms(cuda, kind):
+    """``semiring.plus_times(u @ A)``, ``min_plus(A @ u)`` and
+    ``min_plus(A @ B)`` against ``u.vxm``, ``A.mxv`` and ``A.mxm``: the
+    same bits and the same kernel launches."""
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(41)
+    n = 3000 if kind != "mxm_dense" else 300
+    r, c = np.nonzero(rng.random((n, n)) < 0.003)
+    a = rng.choice(np.float32([0.25, 1, 2, 3.5]), len(r))
+    x = rng.random(n).astype(np.float32)
+    limit = 0 if kind != "mxm_dense" else 1 << 22
+    with gb.config.set(device=cuda, auto_sparse_limit=limit):
+        A = gb.Matrix.from_coo(r, c, a, dtype="FP32", nrows=n, ncols=n)
+        u = gb.Vector.from_coo(np.arange(n), x, dtype="FP32", size=n)
+        pt, mp = gb.semiring.plus_times["FP32"], gb.semiring.min_plus["FP32"]
+        forms = {"vxm": (lambda: u.vxm(A, pt), lambda: pt(u @ A)),
+                 "mxv": (lambda: A.mxv(u, mp), lambda: mp(A @ u)),
+                 "mxm_sparse": (lambda: A.mxm(A.T, mp), lambda: mp(A @ A.T)),
+                 "mxm_dense": (lambda: A.mxm(A, mp), lambda: mp(A @ A))}[kind]
+        forms[0]().new()  # plans
+        outs, counts = [], []
+        for fn in forms:
+            before = _launch_counts()
+            outs.append(fn().new())
+            torch.cuda.synchronize()
+            counts.append({k: K.launches[k] - v for k, v in before.items()})
+    assert counts[0] == counts[1]
+    if kind in ("vxm", "mxv"):
+        assert counts[0]["gather_mult"] == 1
+    if kind == "mxm_dense":
+        assert counts[0]["tropical_matmul"] >= 1
+    g, m = outs[1].to_coo(), outs[0].to_coo()
+    for gg, mm in zip(g, m):
+        np.testing.assert_array_equal(gg, mm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["v.S & u.V", "~v.S | u.S"])
+def test_combined_mask_vxm(cuda, combine):
+    """A vxm under a combined mask, on the lanepipe, against numpy."""
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(43)
+    n = 4000
+    r, c = np.nonzero(rng.random((n, n)) < 0.002)
+    a = rng.random(len(r)).astype(np.float32)
+    x = rng.random(n).astype(np.float32)
+    v_in, u_in, u_val = (rng.random(n) < p for p in (0.3, 0.5, 0.5))
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        A = gb.Matrix.from_coo(r, c, a, dtype="FP32", nrows=n, ncols=n)
+        xv = gb.Vector.from_coo(np.arange(n), x, dtype="FP32", size=n)
+        v = gb.Vector.from_coo(np.flatnonzero(v_in), 1.0, dtype="FP32",
+                               size=n)
+        u = gb.Vector.from_coo(np.flatnonzero(u_in), u_val[u_in],
+                               dtype="BOOL", size=n)
+        mask = v.S & u.V if combine == "v.S & u.V" else ~v.S | u.S
+        w = gb.Vector(gb.dtypes.FP32, n)
+        before = K.launches["gather_mult"]
+        w(mask) << gb.semiring.plus_times["FP32"](xv @ A)
+        assert K.launches["gather_mult"] == before + 1
+        gi, gv = w.to_coo()
+    want = np.bincount(c, weights=x[r].astype(np.float64) * a, minlength=n)
+    allowed = (v_in & u_in & u_val if combine == "v.S & u.V"
+               else ~v_in | u_in)
+    idx = np.flatnonzero(allowed & (np.bincount(c, minlength=n) > 0))
+    np.testing.assert_array_equal(gi, idx)
+    np.testing.assert_allclose(gv, want[idx], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_from_csr_to_csr_on_the_card(cuda):
+    """from_csr at n = 2**16 stays sparse on the card and round-trips
+    scipy's CSR and CSC bitwise."""
+    import scipy.sparse as sps
+
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(47)
+    n = 1 << 16
+    r = rng.integers(0, n, 8 * n)
+    c = (rng.zipf(1.5, 8 * n) - 1) % n
+    S = sps.csr_matrix((rng.random(len(r)).astype(np.float32), (r, c)),
+                       shape=(n, n))
+    S.sum_duplicates()
+    S.sort_indices()
+    with gb.config.set(device=cuda):
+        A = gb.Matrix.from_csr(S.indptr, S.indices, S.data, dtype="FP32",
+                               nrows=n, ncols=n)
+        assert A._sparse is not None and A._sparse.device.type == "cuda"
+        indptr, ind, data = A.to_csr()
+        cptr, cind, cdata = A.to_csc()
+    Sc = S.tocsc()
+    Sc.sort_indices()
+    for got, want in ((indptr, S.indptr), (ind, S.indices), (data, S.data),
+                      (cptr, Sc.indptr), (cind, Sc.indices),
+                      (cdata, Sc.data)):
+        np.testing.assert_array_equal(got.astype(want.dtype), want)

@@ -9,6 +9,7 @@ test_dup_op.py, test_coercions.py and test_numpyops.py use it too."""
 import functools
 import os
 import re
+import sys
 import types
 
 import pytest
@@ -29,27 +30,59 @@ def _on_port(fn, not_ported):
     return test
 
 
-def twin(ref_name, namespace, not_ported=()):
-    """Define in `namespace` (a test module's globals) every test of
-    tests/<ref_name>.py, run against the port on the CPU: the module's
-    source with its graphblas_tpu imports taken from graphblas_tpu_torch.
-    The tests named in not_ported need what the port lacks (complex types,
-    user-defined types, infix expressions) and must raise
-    NotImplementedError naming ROADMAP.md queue 1, item 12."""
+def _port_module(ref_name):
+    """tests/<ref_name>.py run with its graphblas_tpu imports taken from
+    graphblas_tpu_torch (and ``from .helpers import`` from the same twin
+    of tests/helpers.py)."""
+    modname = f"tests.port_twin_of_{ref_name}"
+    if modname in sys.modules:
+        return sys.modules[modname]
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         f"{ref_name}.py")
     with open(path) as f:
         src = re.sub(r"\bgraphblas_tpu\b", "graphblas_tpu_torch", f.read())
-    mod = types.ModuleType(f"port_twin_of_{ref_name}")
+    src = src.replace("from .helpers import",
+                      "from tests.port_twin_of_helpers import")
+    if "port_twin_of_helpers" in src:
+        _port_module("helpers")
+    mod = types.ModuleType(modname)
     mod.__file__ = path
+    sys.modules[modname] = mod
     with gbt.config.set(device="cpu"):
         exec(compile(src, path, "exec"), mod.__dict__)  # noqa: S102
+    return mod
+
+
+def twin(ref_name, namespace, not_ported=(), only=None):
+    """Define in `namespace` (a test module's globals) every test of
+    tests/<ref_name>.py (or those named in `only`), run against the port
+    on the CPU: the module's source with its graphblas_tpu imports taken
+    from graphblas_tpu_torch.  The tests named in not_ported need what the
+    port lacks (complex types, user-defined types, formatting) and must
+    raise NotImplementedError naming ROADMAP.md queue 1, item 12."""
+    mod = _port_module(ref_name)
     names = [n for n, fn in vars(mod).items()
              if n.startswith("test_") and callable(fn)]
+    if only is not None:
+        assert set(only) <= set(names), set(only) - set(names)
+        names = [n for n in names if n in only]
     assert set(not_ported) <= set(names), set(not_ported) - set(names)
     for name in names:
         namespace[name] = _on_port(getattr(mod, name), name in not_ported)
+    fixtures = {n: fn for n, fn in vars(mod).items()
+                if type(fn).__name__ == "FixtureFunctionDefinition"
+                or hasattr(fn, "_pytestfixturefunction")}
+    if fixtures:
+        # the module's fixtures, made on the CPU too
+        namespace.update(fixtures)
+        namespace["_port_fixtures_on_cpu"] = pytest.fixture(
+            autouse=True, name="_port_fixtures_on_cpu")(_cpu_config)
     return names
+
+
+def _cpu_config():
+    with gbt.config.set(device="cpu"):
+        yield
 
 
 twin("test_operator_grids", globals())
