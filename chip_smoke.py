@@ -117,7 +117,23 @@ engine) from the sources, then:
    selects, vxm under `v.S & u.V` and `~v.S | u.S`, reduces under
    comparisons, Scalar conversions and Vector.outer (4,194,304 entries)
    against numpy; `D(binary.min) << min_plus(D @ D)` at 2048^2 (K7)
-   against the method form bitwise.  Every one of K1-K7 launches in it.
+   against the method form bitwise.  Every one of K1-K7 launches in it;
+14. the ss extensions and interchange (phase `ss_io`, on the zipf graph,
+   before the graph is freed): `A.ss.export("csr")` and
+   `Matrix.ss.import_csr`, then PageRank (20 iterations) and SSSP on the
+   import bitwise equal to the original's with the same launches; the
+   rowwise and columnwise `A.ss.scan("plus")` through K6 against a float64
+   numpy cumsum per row (rel 1e-5 of the running sum) and against K6's
+   plain version on the card's arrays (rel 1e-6), an INT32 copy's scans
+   exactly; `sort`, `selectk("largest", 4)` and `compactify` exactly
+   against numpy's lexsort, `selectk("random", 4)`'s counts; a 4 x 4
+   `split` (sparse tiles) and `gb.ss.concat` back, its peak memory under
+   three times `A.ss.nbytes`; `serialize`/`deserialize` and a pickle round
+   trip of the BOOL graph, BFS on each exactly; the scipy round trip and
+   `mmwrite`/`mmread` of an RMAT-12 graph; `repr` and `_repr_html_` under
+   1 s and 1 MB; a Recorder around one BFS level; four dense 2048^2 tiles
+   joined by `gb.ss.concat` into a 4096^2 `min_plus` product (K7) bitwise
+   equal to the unsplit matrix's.  Every one of K1-K7 launches in it.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -3185,9 +3201,353 @@ def infix_phase(gb, torch, K, src, dst, w, n, results, totals):
     results["infix"] = out
 
 
+def _pagerank_run(gb, torch, K, A, n, iters):
+    """bench.py's PageRank (pr_body under ss.iterate) on A: the ranks and
+    the launches of the run."""
+    ring = gb.semiring.plus_times["FP32"]
+    damp, tele = np.float32(0.85), np.float32(0.15 / n)
+    damp_tele = gb.unary.register_anonymous(lambda x: x * damp + tele,
+                                            name="damp_tele_ss_io")
+
+    def pr_body(s, i):
+        s["y"] << s["rank"].vxm(A, ring)
+        s["rank"] << s["y"].apply(damp_tele)
+
+    y = gb.Vector(gb.dtypes.FP32, n)
+    pr_body({"rank": gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32)),
+             "y": y}, None)  # plans
+    rank = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+    torch.cuda.synchronize()
+    before = dict(K.launches)
+    gb.ss.iterate(pr_body, {"rank": rank, "y": y}, max_iter=iters)
+    torch.cuda.synchronize()
+    return rank.to_dense(), {k: K.launches[k] - before.get(k, 0)
+                            for k in KERNELS}
+
+
+def _bfs_levels(gb, Ab, n):
+    """bench.py's level BFS from node 0 on Ab: (levels Vector, depth)."""
+    lor_land = gb.semiring.lor_land["BOOL"]
+
+    def body(s, i):
+        s["v"](mask=s["q"].V)[:] = i
+        s["q"](~s["v"].S, replace=True) << s["q"].vxm(Ab, lor_land)
+
+    def cond(s, i):
+        return s["q"].reduce(gb.monoid.lor, allow_empty=False).new()
+
+    q = gb.Vector.from_coo([0], [True], size=n)
+    v = gb.Vector(gb.dtypes.INT32, n)
+    it = gb.ss.iterate(body, {"q": q, "v": v}, cond=cond, max_iter=64)
+    return v, it
+
+
+def _row_ranks(keys_sorted):
+    """Rank of each entry within its run of equal keys (keys sorted)."""
+    idx = np.arange(len(keys_sorted))
+    starts = np.searchsorted(keys_sorted, keys_sorted, side="left")
+    return idx - starts
+
+
+def _segment_cumsum(group, x):
+    """Inclusive cumsum of x (sorted by group) restarting at each group,
+    in float64 (or int64 for integers)."""
+    cs = np.cumsum(x)
+    first = np.searchsorted(group, group, side="left")
+    before = np.where(first > 0, cs[np.maximum(first - 1, 0)], 0)
+    return cs - before
+
+
+def ss_io_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals):
+    """The ss extensions and interchange at full width, on bench.py's zipf
+    graph (n = 2**19): export as CSR and import_csr (PageRank bitwise with
+    the same K1-K4 launches, SSSP through K5 bitwise); the rowwise and
+    columnwise scans through K6 against numpy in float64 (rel 1e-5 of each
+    row's running sum) and against K6's plain version on the card's arrays,
+    an INT32 scan exactly; sort, selectk and compactify exactly against
+    numpy's lexsort; a 4 x 4 split and concat (sparse tiles, peak memory
+    under three times the matrix's bytes); serialize and pickle of the BOOL
+    graph (BFS levels exactly); scipy and Matrix Market round trips; repr
+    (under 1 s and 1 MB); a Recorder around one BFS level; and four dense
+    2048 x 2048 tiles joined by concat into a min_plus product (K7)
+    bitwise equal to the unsplit matrix's.  Every one of K1-K7 launches in
+    it."""
+    import pickle
+    import tempfile
+
+    from graphblas_tpu_torch.core.engine import sortpipe as spipe
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    out = {}
+    nnz = len(src)
+    r_h, c_h, v_h = (x.copy() for x in A._sparse.host_coo())
+
+    def timed(tag, fn, peak=False, reps=0):
+        """Host ms of one call; with peak, the device memory it raised
+        the peak by; with reps, the median of reps calls after a first
+        one (which may build plans and grow the allocator's pool)."""
+        if reps:
+            res, ms, runs, first_s = timed_calls(torch, fn, reps=reps)
+            out[tag] = {"ms": ms, "ms_runs": runs, "first_call_s": first_s}
+            log(f"  {tag}: ms {[round(r, 4) for r in runs]} (median "
+                f"{ms:.4f}), first call {first_s * 1e3:.2f} ms")
+            return res
+        torch.cuda.synchronize()
+        if peak:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[tag] = {"ms": ms}
+        extra = ""
+        if peak:
+            mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+            out[tag]["peak_mb"] = mb
+            extra = f", peak +{mb:.3f} MB"
+        log(f"  {tag}: {ms:.2f} ms{extra}")
+        return res
+
+    reset_counts(K)
+    # ---- 1. CSR export and import; PageRank and SSSP on the import
+    d = timed("export csr", lambda: A.ss.export("csr"))
+    B = timed("import_csr", lambda: gb.Matrix.ss.import_csr(**d))
+    del d
+    if B._sparse is None or not B.isequal(A, check_dtype=True):
+        fail("ss_io: import_csr of the export differs from the matrix")
+    ranks, counts = [], []
+    for M in (A, B):
+        rk, cnt = _pagerank_run(gb, torch, K, M, n, 20)
+        ranks.append(rk)
+        counts.append(cnt)
+    if not np.array_equal(ranks[0].view(np.uint32), ranks[1].view(np.uint32)):
+        fail("ss_io: PageRank on the imported matrix is not bitwise equal")
+    if counts[0] != counts[1] or not all(counts[1][k] for k in LANEPIPE_FAST):
+        fail(f"ss_io: PageRank launches differ: {counts}")
+    log(f"  pagerank x20 on import_csr: bitwise equal, launches {counts[1]}")
+    d_a = gb.algorithms.sssp(A, 0)
+    k5 = K.launches["lane_segscan"]
+    d_b = timed("sssp on import_csr", lambda: gb.algorithms.sssp(B, 0))
+    if K.launches["lane_segscan"] == k5:
+        fail("ss_io: SSSP on the imported matrix did not launch K5")
+    if not all(np.array_equal(x, y) for x, y in zip(d_a.to_coo(),
+                                                      d_b.to_coo())):
+        fail("ss_io: SSSP on the imported matrix differs")
+    del B, d_a, d_b
+
+    # ---- 2. scans through K6
+    group_c = np.lexsort((r_h, c_h))  # (col, row) order
+
+    def check_scan(tag, S, group, vals, order, rel):
+        sr, sc, sv = S.to_coo()
+        if not (np.array_equal(sr, r_h) and np.array_equal(sc, c_h)):
+            fail(f"ss_io: {tag} changed the structure")
+        g, x = group[order], vals[order]
+        ref = np.empty(nnz, np.float64 if rel else np.int64)
+        ref[order] = _segment_cumsum(g, x.astype(ref.dtype))
+        if rel is None:
+            if not np.array_equal(sv.astype(np.int64), ref):
+                fail(f"ss_io: {tag} differs from numpy")
+            return 0.0
+        mag = np.empty(nnz)
+        mag[order] = _segment_cumsum(g, np.abs(x.astype(np.float64)))
+        err = np.abs(sv.astype(np.float64) - ref)
+        if (err > rel * mag).any():
+            fail(f"ss_io: {tag} beyond rel {rel} of the running sum")
+        return float(err.max())
+
+    def check_plain(tag, M, S, rowwise, rel):
+        """S's values against K6's plain version on the card's arrays."""
+        sp_ = M._sparse
+        if rowwise:
+            group, x, perm = sp_.rows, sp_.vals, None
+        else:
+            perm = sp_.csc_perm()
+            group, x = sp_.cols[perm], sp_.vals[perm]
+        mono = gb.binary.plus[M.dtype].monoid
+        plain = spipe.from_carrier(spipe.segscan_channels_plain(
+            spx.group_barrier(group), [spipe.to_carrier(x, M.dtype)],
+            [spipe.monoid_combine(mono)])[0], M.dtype)
+        got = S._sparse.vals if perm is None else S._sparse.vals[perm]
+        if rel is None:
+            ok = bool(torch.equal(got, plain))
+        else:
+            ok = bool((torch.abs(got - plain) <= rel * torch.abs(plain)).all())
+        if not ok:
+            fail(f"ss_io: {tag} differs from K6's plain version")
+
+    for tag, rowwise in (("scan plus rowwise", True),
+                         ("scan plus columnwise", False)):
+        k6 = K.launches["segscan"]
+        S = timed(tag, lambda rowwise=rowwise: A.ss.scan(
+            "plus", order="rowwise" if rowwise else "columnwise"), reps=3)
+        if K.launches["segscan"] == k6:
+            fail(f"ss_io: {tag} did not launch K6")
+        order = np.arange(nnz) if rowwise else group_c
+        group = r_h if rowwise else c_h
+        err = check_scan(tag, S, group, v_h, order, 1e-5)
+        check_plain(tag, A, S, rowwise, 1e-6)
+        out[tag]["max_abs_err"] = err
+        del S
+    wi = ((src + dst) % 7 + 1).astype(np.float32)
+    Ai = gb.Matrix.from_coo(src, dst, wi, dtype="FP32", nrows=n,
+                            ncols=n).apply("identity[INT32]").new()
+    if Ai.dtype.name != "INT32" or Ai._sparse is None:
+        fail("ss_io: the INT32 copy is not a sparse INT32 matrix")
+    for tag, rowwise in (("scan plus INT32 rowwise", True),
+                         ("scan plus INT32 columnwise", False)):
+        S = timed(tag, lambda rowwise=rowwise: Ai.ss.scan(
+            "plus", order="rowwise" if rowwise else "columnwise"), reps=3)
+        check_scan(tag, S, r_h if rowwise else c_h, wi.astype(np.int64),
+                   np.arange(nnz) if rowwise else group_c, None)
+        check_plain(tag, Ai, S, rowwise, None)
+        del S
+    del Ai
+
+    # ---- 3. sort, selectk and compactify against numpy's lexsort
+    C, P = timed("sort", lambda: A.ss.sort(), reps=3)
+    o = np.lexsort((c_h, v_h, r_h))
+    rank = _row_ranks(r_h[o])
+    cr, cc, cv = C.to_coo()
+    pr, pc, pv = P.to_coo()
+    if not (np.array_equal(cr, r_h[o]) and np.array_equal(cc, rank)
+            and np.array_equal(cv, v_h[o]) and np.array_equal(pv, c_h[o])
+            and np.array_equal(pr, cr) and np.array_equal(pc, cc)):
+        fail("ss_io: sort differs from numpy's lexsort")
+    del C, P
+    L = timed("selectk largest 4", lambda: A.ss.selectk("largest", 4),
+              reps=3)
+    o = np.lexsort((c_h, -v_h.astype(np.float64), r_h))
+    keep = np.sort(o[_row_ranks(r_h[o]) < 4])
+    if not all(np.array_equal(x, y[keep]) for x, y in
+               zip(L.to_coo(), (r_h, c_h, v_h))):
+        fail("ss_io: selectk largest differs from numpy")
+    del L
+    Cf = timed("compactify first", lambda: A.ss.compactify("first"),
+               reps=3)
+    deg = np.bincount(r_h, minlength=n)
+    cr, cc, cv = Cf.to_coo()
+    if Cf.shape != (n, int(deg.max())) or not (
+            np.array_equal(cr, r_h) and np.array_equal(cc, _row_ranks(r_h))
+            and np.array_equal(cv, v_h)):
+        fail("ss_io: compactify differs from numpy")
+    del Cf
+    R4 = timed("selectk random 4", lambda: A.ss.selectk("random", 4),
+               reps=3)
+    if not np.array_equal(np.bincount(R4.to_coo()[0].astype(np.int64),
+                                      minlength=n), np.minimum(deg, 4)):
+        fail("ss_io: selectk random does not keep min(4, count) a row")
+    del R4
+
+    # ---- 4. split into a 4 x 4 grid and concat back
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tiles = timed("split 4x4", lambda: A.ss.split(n // 4))
+    if len(tiles) != 4 or any(len(row) != 4 or any(t._sparse is None
+                                                    for t in row)
+                              for row in tiles):
+        fail("ss_io: split did not give a 4 x 4 grid of sparse tiles")
+    D = timed("concat 4x4", lambda: gb.ss.concat(tiles))
+    peak = torch.cuda.max_memory_allocated() - base
+    if D._sparse is None or not D.isequal(A, check_dtype=True):
+        fail("ss_io: concat of the split differs from the matrix")
+    if peak > 3 * A.ss.nbytes:
+        fail(f"ss_io: split and concat peak {peak} bytes over three times "
+             f"the matrix's {A.ss.nbytes}")
+    out["split_concat_peak_mb"] = peak / 2**20
+    log(f"  split + concat peak +{peak / 2**20:.1f} MB (matrix "
+        f"{A.ss.nbytes / 2**20:.1f} MB)")
+    del tiles, D
+
+    # ---- 5. serialize and pickle of the BOOL graph; BFS on each
+    lev, depth = bfs_ref(src, dst, n)
+    ref_i = np.flatnonzero(lev)
+    blob = timed("serialize", lambda: Ab.ss.serialize())
+    Bs = timed("deserialize", lambda: gb.Matrix.ss.deserialize(blob))
+    out["serialize"]["bytes"] = int(blob.nbytes)
+    data = timed("pickle dumps", lambda: pickle.dumps(Ab))
+    Bp = timed("pickle loads", lambda: pickle.loads(data))
+    del blob, data
+    for tag, M in (("deserialize", Bs), ("pickle", Bp)):
+        if M._sparse is None or not M.isequal(Ab, check_dtype=True):
+            fail(f"ss_io: {tag} round trip differs")
+        v, it = _bfs_levels(gb, M, n)
+        vi, vv = v.to_coo()
+        if it != depth or not (np.array_equal(vi.astype(np.int64), ref_i)
+                               and np.array_equal(vv.astype(np.int64),
+                                                  lev[ref_i])):
+            fail(f"ss_io: BFS on the {tag} graph differs from numpy's")
+    log(f"  bfs on deserialized and unpickled graphs: depth {depth}, exact")
+    del Bs, Bp
+
+    # ---- 6. scipy and Matrix Market round trips
+    Ssp = timed("to_scipy_sparse", lambda: gb.io.to_scipy_sparse(A))
+    Bsp = timed("from_scipy_sparse", lambda: gb.io.from_scipy_sparse(Ssp))
+    if not Bsp.isequal(A, check_dtype=True):
+        fail("ss_io: the scipy round trip differs")
+    del Ssp, Bsp
+    rs, rd, rn = build_rmat(12)
+    rv = np.random.default_rng(SEED + 15).random(len(rs))
+    R = gb.Matrix.from_coo(rs, rd, rv, dtype="FP64", nrows=rn, ncols=rn)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rmat12.mtx")
+        timed("mmwrite rmat12", lambda: gb.io.mmwrite(path, R))
+        R2 = timed("mmread rmat12", lambda: gb.io.mmread(path))
+    if not R2.isequal(R, check_dtype=True):
+        fail("ss_io: the Matrix Market round trip differs")
+
+    # ---- 7. repr without a plane
+    for tag, fn in (("repr", lambda: repr(A)),
+                    ("repr_html", lambda: A._repr_html_())):
+        text = timed(tag, fn, peak=True)
+        if out[tag]["ms"] > 1000 or out[tag]["peak_mb"] > 1.0:
+            fail(f"ss_io: {tag} took {out[tag]}")
+        if "(0, " not in text:
+            fail(f"ss_io: {tag} shows no entries")
+    log("  repr: " + repr(A).replace("\n", " | ")[:200])
+
+    # ---- 8. a Recorder around one BFS level
+    q = gb.Vector.from_coo([0], [True], size=n)
+    v = gb.Vector(gb.dtypes.INT32, n, name="v")
+    q.name = "q"
+    with gb.Recorder() as rec:
+        v(mask=q.V)[:] = 1
+        q(~v.S, replace=True) << q.vxm(Ab, gb.semiring.lor_land["BOOL"])
+    if len(rec) < 1:
+        fail("ss_io: the Recorder recorded nothing")
+    log(f"  recorder: {len(rec)} lines; first: {rec.data[:3]}")
+    out["recorder_lines"] = rec.data[:3]
+
+    # ---- 9. dense tiles joined by concat, then min_plus (K7)
+    rng = np.random.default_rng(SEED + 16)
+    full = rng.random((4096, 4096), dtype=np.float32)
+    full[rng.random(full.shape) < 0.5] = np.inf
+    with gb.config.set(auto_sparse_limit=1 << 25):  # products stay dense
+        tiles = [[gb.Matrix.from_dense(full[i:i + 2048, j:j + 2048],
+                                       missing_value=np.inf)
+                  for j in (0, 2048)] for i in (0, 2048)]
+        Dd = timed("concat dense 2x2", lambda: gb.ss.concat(tiles))
+        E = gb.Matrix.from_dense(full, missing_value=np.inf)
+        if Dd._sparse is not None or not Dd.isequal(E, check_dtype=True):
+            fail("ss_io: the dense concat differs from the unsplit matrix")
+        k7 = K.launches["tropical_matmul"]
+        got = timed("min_plus on the concat", lambda: Dd.mxm(
+            Dd, gb.semiring.min_plus).new(), reps=3)
+        if K.launches["tropical_matmul"] == k7 or got._sparse is not None:
+            fail("ss_io: min_plus on the concat did not run K7")
+        want = E.mxm(E, gb.semiring.min_plus).new()
+        if not got.isequal(want, check_dtype=True):
+            fail("ss_io: min_plus on the concat is not bitwise equal")
+    del tiles, Dd, E, got, want
+    out["launches"] = check_launches(K, "ss_io", totals, need=KERNELS)
+    results["ss_io"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
           "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
-          "index", "positional_agg", "operators", "infix")
+          "index", "positional_agg", "operators", "infix", "ss_io")
 
 
 def main():
@@ -3277,6 +3637,9 @@ def main():
         if "reduce" in phases:
             log("phase: reduce zipf")
             reduce_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals)
+        if "ss_io" in phases:
+            log("phase: ss_io")
+            ss_io_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals)
         del A, Ab
         if "hypersparse" in phases:
             log("phase: hypersparse")

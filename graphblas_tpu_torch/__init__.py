@@ -24,7 +24,11 @@ positional operators (``binary.ss``,
 ``unary.ss``, ``semiring.ss``) in every context, the aggregators
 (``agg``), ``kronecker``, ``reposition``, ``ss.iterate`` and the
 algorithms ``sssp``, ``bfs_level``, ``bfs_parent``, ``pagerank``,
-``connected_components`` and ``triangle_count`` run on both backings.  The
+``connected_components`` and ``triangle_count`` run on both backings, and
+so do ``Matrix.ss``/``Vector.ss`` (formats, import and export, split and
+concat, sort, selectk, compactify, the prefix scan, serialize), ``gb.ss``
+(``diag``, ``concat``, ``config``, ``about``, ``Context``), the reprs,
+pickling, ``gb.io``, ``gb.viz`` and the ``Recorder``.  The
 eleven real types (BOOL, INT8-INT64, UINT8-UINT64, FP32, FP64) and every
 operator of the JAX package's ``binary``, ``unary``, ``monoid``,
 ``semiring``, ``select`` and ``indexunary`` namespaces (with ``numpy``,
@@ -33,11 +37,19 @@ kernels take every builtin multiply on the types of at most 32 bits, each
 operand in its own type.  Operators may be given as the JAX package's
 strings (``"+"``, ``"min_plus[FP64]"``).  Everything runs
 on ``cuda`` unless the caller asks for the CPU with
-``config.set(device="cpu")``.  What is not ported yet raises
+``config.set(device="cpu")``.  ``backend`` is ``"torch"``: PyTorch with
+the hand-written CUDA kernels.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
 The package imports torch and numpy only, never jax or graphblas_tpu.
 """
+
+
+from . import core as _core
+
+__version__ = "0.1.0"
+
+backend = "torch"
 
 
 class _ReplaceSingleton:
@@ -53,8 +65,29 @@ class _ReplaceSingleton:
     def __repr__(self):
         return "replace"
 
+    def __reduce__(self):
+        return "replace"
+
 
 replace = _ReplaceSingleton()
+
+
+def init(backend="torch", blocking=None):
+    """Set the execution mode once: ``backend`` must be "torch" (or
+    "cuda", "cpu"), and ``blocking=True`` makes every operation wait for
+    the card to finish (for debugging and timing).  A second call with
+    other parameters raises RuntimeError."""
+    if backend not in ("torch", "cuda", "cpu"):
+        raise ValueError(f"Bad backend name: {backend!r}.  This package's "
+                         f"backend is 'torch'.")
+    if _core._init_params is not None:
+        if _core._blocking is not None and blocking is not None and \
+                blocking != _core._blocking:
+            raise RuntimeError("graphblas_tpu_torch is already initialized "
+                               "with different parameters")
+        return
+    _core._init_params = {"backend": backend, "blocking": bool(blocking)}
+    _core._blocking = bool(blocking)
 
 from . import (agg, binary, dtypes, exceptions, indexunary,  # noqa: E402
                monoid, op, select, semiring, ss, unary)
@@ -63,18 +96,18 @@ from .core.matrix import Matrix  # noqa: E402
 from .core.scalar import Scalar  # noqa: E402
 from .core.vector import Vector  # noqa: E402
 from .core import infix as _infix  # noqa: E402,F401  (|, &, @, arithmetic)
+from .core.recorder import Recorder  # noqa: E402
 from .exceptions import GraphblasException  # noqa: E402
 
-from . import algorithms  # noqa: E402  (imports Vector from this package)
+from . import algorithms, io, viz  # noqa: E402  (they import Vector)
 
-__all__ = ["Matrix", "Vector", "Scalar", "config", "agg", "algorithms",
-           "binary", "dtypes", "exceptions", "GraphblasException",
-           "indexunary", "monoid", "op", "replace", "select", "semiring", "ss",
-           "unary"]
+__all__ = ["Matrix", "Vector", "Scalar", "Recorder", "config", "agg",
+           "algorithms", "backend", "binary", "dtypes", "exceptions",
+           "GraphblasException", "indexunary", "init", "io", "monoid", "op",
+           "replace", "select", "semiring", "ss", "unary", "viz"]
 
 # the JAX package's names that the port lacks, and their ROADMAP.md items
-_NOT_PORTED = {"io": 12, "viz": 12, "Recorder": 12,
-               "backend": 12, "init": 12, "parallel": 13}
+_NOT_PORTED = {"parallel": 13}
 
 
 def __getattr__(name):

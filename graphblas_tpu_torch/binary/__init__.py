@@ -9,6 +9,7 @@ import importlib
 from ..core.operator import utils as _utils
 from ..core.operator.base import missing
 from ..core.operator.binary import BUILTINS as _B, BinaryOp, TypedBinaryOp
+from ..core.ss.jit import jit_register
 
 # the names of graphblas_tpu.binary that the port lacks
 WAITING = frozenset(("cmplx",))
@@ -30,7 +31,7 @@ class _SSNamespace:
     @staticmethod
     def register_new(name, jit_definition, left_type=None, right_type=None,
                      ret_type=None):
-        return _utils.jit_register("binary", name, jit_definition,
+        return jit_register("binary", name, jit_definition,
                                    left_type, right_type, ret_type)
 
     def __getattr__(self, name):

@@ -361,15 +361,12 @@ class BaseExpression:
         return self._value if attr is None else getattr(self._value, attr)
 
     def __repr__(self):
-        args = ", ".join(getattr(a, "name", None) or type(a).__name__
-                         for a in self.args)
-        opname = getattr(self.op, "name", None)
-        op_part = f", op={opname}" if opname else ""
-        return (f"gb.{self.output_type.__name__}Expression  "
-                f"{self.method_name}({args}{op_part})  "
-                f"dtype={self.dtype.name}  shape={tuple(self.shape)}\n"
-                f"Do expr.new() or `output << expr` to calculate the "
-                f"expression.")
+        from . import formatting
+
+        return formatting.format_expression(self)
+
+    def _repr_html_(self):
+        return f"<pre>{self!r}</pre>"
 
     def __getattr__(self, attr):
         if attr.startswith("_") or attr in ("method_name", "op", "args",
@@ -378,19 +375,19 @@ class BaseExpression:
         return self._get_value(attr)
 
 
-class NotPorted:
-    """A name of the JAX package's surface that the port lacks: reading it
-    (on the class or an instance) raises NotImplementedError naming its
-    ROADMAP.md queue-1 item."""
+class SSDescriptor:
+    """``x.ss``: the object's ss extension (made once and kept, with its
+    per-object config); on the class, the extension class itself (whose
+    importers are classmethods)."""
 
-    def __init__(self, item):
-        self.item = item
-        self.name = None
-
-    def __set_name__(self, owner, name):
-        self.name = f"{owner.__name__}.{name}"
+    def __init__(self, loader):
+        self._loader = loader
 
     def __get__(self, obj, objtype=None):
-        from .operator.base import not_ported
-
-        raise not_ported(self.name, self.item)
+        cls = self._loader()
+        if obj is None:
+            return cls
+        ss = obj.__dict__.get("_ss")
+        if ss is None:
+            ss = obj.__dict__["_ss"] = cls(obj)
+        return ss

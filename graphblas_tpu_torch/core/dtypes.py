@@ -132,6 +132,12 @@ def _not_ported(key):
         f"its eleven real types (ROADMAP.md queue 1, item 12)")
 
 
+def _deserialize_udt(np_type_string, name):
+    """A pickled user-defined type of the JAX package: it waits for the
+    user-defined types."""
+    raise _not_ported(f"user-defined type {name}")
+
+
 def lookup_dtype(key, value=None):
     """DataType from a DataType, name, numpy type, torch dtype or Python
     type (graphblas_tpu/core/dtypes.py lookup_dtype).  With ``value``, a

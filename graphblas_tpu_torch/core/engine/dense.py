@@ -292,6 +292,9 @@ def _reduce_agg_index(vals, valid, kind, in_dt, ret_dt, axis):
         else:
             info = np.iinfo(in_dt.np_type)
             fill = int(info.max if low else info.min)
+        if in_dt is _dt.UINT64:  # unsigned order on the int64 bits
+            vals = vals ^ torch.iinfo(torch.int64).min
+            fill = fill - (1 << 63)
         masked = torch.where(valid, vals, fill)
         ext = (masked.amin if low else masked.amax)(dim=axis, keepdim=True)
         sel = torch.where(valid & (masked == ext), idx, n).amin(dim=axis)
@@ -576,3 +579,64 @@ def subassign(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, region,
     if replace and submask_arr is not None:
         out_valid = torch.where(region & ~submask_arr, False, out_valid)
     return out_vals, out_valid
+
+
+# --------------------------------------------------------------------- #
+# rowwise order kernels: sort / compactify / selectk (the last axis of a
+# bitmap store; a vector is one row)
+def _row_order(vals, valid, dtype, how, rng_keys=None):
+    """Permutation ordering each row's stored elements by ``how``
+    (sparse.order_key), ties by column; missing elements order last."""
+    from .sparse import order_key
+
+    n = valid.shape[-1]
+    colid = torch.arange(n, dtype=torch.int64, device=valid.device)
+    order = colid.expand(valid.shape)
+    if how == "last":
+        order = torch.flip(order, (-1,))
+    else:
+        key = order_key(vals, dtype, how, rng_keys)
+        if key is not None:
+            order = torch.sort(key, dim=-1, stable=True)[1]
+    missing = torch.gather((~valid).to(torch.int8), -1, order)
+    return torch.gather(order, -1, torch.sort(missing, dim=-1,
+                                              stable=True)[1])
+
+
+def _packed_valid(valid):
+    counts = valid.sum(dim=-1, keepdim=True)
+    colid = torch.arange(valid.shape[-1], dtype=torch.int64,
+                         device=valid.device)
+    return colid < counts
+
+
+def rowwise_compactify(vals, valid, dtype, how, width, rng_keys=None):
+    """Stored values packed left per row in ``how`` order, as (nrows,
+    width) planes (padded where width exceeds the row length)."""
+    order = _row_order(vals, valid, dtype, how, rng_keys)
+    packed = torch.gather(vals, -1, order)
+    out_ok = _packed_valid(valid)
+    n = valid.shape[-1]
+    if width <= n:
+        return packed[..., :width], out_ok[..., :width]
+    pad = [(0, 0)] * (valid.dim() - 1) + [(0, width - n)]
+    flat = [p for pair in reversed(pad) for p in pair]
+    return (torch.nn.functional.pad(packed, flat),
+            torch.nn.functional.pad(out_ok, flat))
+
+
+def rowwise_sort(vals, valid, dtype, descending=False):
+    """(sorted values packed left, source column of each as int64,
+    validity) of each row."""
+    order = _row_order(vals, valid, dtype, "desc" if descending else "asc")
+    return torch.gather(vals, -1, order), order, _packed_valid(valid)
+
+
+def rowwise_selectk(vals, valid, dtype, how, k, rng_keys=None):
+    """At most k stored elements per row, at their places."""
+    order = _row_order(vals, valid, dtype, how, rng_keys)
+    rank = torch.empty_like(order)
+    rank.scatter_(-1, order, torch.arange(
+        order.shape[-1], dtype=torch.int64,
+        device=order.device).expand(order.shape).contiguous())
+    return vals, valid & (rank < k)

@@ -1005,3 +1005,253 @@ def assign_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn, in_region_fn,
 def delete_where(c, region):
     """C less the elements where region holds (one device read)."""
     return _filtered(c, ~region, c.vals, c.dtype)
+
+
+# --------------------------------------------------------------------- #
+# order operations, scans and layout on sorted COO (the Matrix.ss and
+# Vector.ss extensions; the JAX package runs them on its dense store)
+def order_key(vals, dtype, how, rng_keys=None):
+    """The key ``how`` orders each group's entries by (the JAX package's
+    ``_row_order``): BOOL as a small integer, descending as ``~v`` for
+    integers and ``-v`` for floats, UINT64 by its unsigned order; the
+    random keys given for "random"; None for "first" and "last", which
+    order by position."""
+    if how in ("first", "last"):
+        return None
+    if how == "random":
+        return rng_keys
+    if how not in ("smallest", "asc", "largest", "desc"):
+        raise ValueError(f"Invalid how: {how}")
+    if dtype.is_float:
+        v = vals.to(torch.float64)
+        return -v if how in ("largest", "desc") else v
+    v = vals.to(_I64)
+    if dtype is _dt.UINT64:
+        v = v ^ torch.iinfo(_I64).min
+    return ~v if how in ("largest", "desc") else v
+
+
+def group_order(group, key, how="first"):
+    """Permutation ordering entries, sorted by (group, minor), by (group,
+    key, minor): stable sorts, so ties keep their minor order; "last"
+    reverses the minor order.  Returns (order, rank of order's entries
+    within their group)."""
+    n = group.numel()
+    order = torch.arange(n, dtype=_I64, device=group.device)
+    if how == "last":
+        order = torch.flip(order, (0,))
+    elif key is not None:
+        order = torch.sort(key, stable=True)[1]
+    order = order[torch.sort(group[order], stable=True)[1]]
+    g = group[order]
+    start = torch.searchsorted(g, g, right=False)
+    return order, torch.arange(n, dtype=_I64, device=group.device) - start
+
+
+def _rank_of(order, rank):
+    out = torch.empty_like(rank)
+    out[order] = rank
+    return out
+
+
+def _rows_first(rows, cols, *vals):
+    """Entries sorted by (col, row) -> sorted by (row, col) (a stable sort
+    by row)."""
+    p = torch.sort(rows, stable=True)[1]
+    return (rows[p], cols[p]) + tuple(v[p] for v in vals)
+
+
+def sort_store(sp, how, rowwise=True):
+    """(values, permutation) stores of ``A.ss.sort``: each row's (column's)
+    entries in key order, packed to columns (rows) 0..count-1; the
+    permutation holds each one's source column (row) as INT64."""
+    if rowwise:
+        group, minor, vals = sp.rows, sp.cols, sp.vals
+    else:
+        perm = sp.csc_perm()
+        group, minor, vals = sp.cols[perm], sp.rows[perm], sp.vals[perm]
+    order, rank = group_order(group, order_key(vals, sp.dtype, how), how)
+    g, src, v = group[order], minor[order], vals[order]
+    if rowwise:
+        rows, cols = g, rank
+    else:
+        rows, cols, v, src = _rows_first(rank, g, v, src)
+    struct = Structure(rows, cols, sp.nrows, sp.ncols)
+    return (SparseStore(struct, v, sp.dtype),
+            SparseStore(struct, src, _dt.INT64))
+
+
+def selectk_store(sp, how, k, rng_keys=None):
+    """The entries of rank < k in their row, at their places."""
+    order, rank = group_order(
+        sp.rows, order_key(sp.vals, sp.dtype, how, rng_keys), how)
+    return _filtered(sp, _rank_of(order, rank) < k, sp.vals, sp.dtype)
+
+
+def compactify_store(sp, how, width, rng_keys=None):
+    """Each row's entries in key order packed left into columns
+    0..min(count, width)-1 of an nrows x width store."""
+    order, rank = group_order(
+        sp.rows, order_key(sp.vals, sp.dtype, how, rng_keys), how)
+    keep = (rank < width).nonzero().reshape(-1)
+    order, rank = order[keep], rank[keep]
+    return store_from_parts(sp.rows[order], rank, sp.vals[order], sp.nrows,
+                            width, sp.dtype)
+
+
+def group_barrier(group):
+    """int32 barrier: 1 at the first entry of each group (and at 0)."""
+    b = torch.ones(group.numel(), dtype=torch.int32, device=group.device)
+    if group.numel() > 1:
+        b[1:] = (group[1:] != group[:-1]).to(torch.int32)
+    return b
+
+
+def scan_values(group, vals, op, in_dt):
+    """Inclusive scan of vals (sorted by group, cast from in_dt to the op's
+    type) restarting at each group, in the op's return type.  A monoid
+    the sort pipeline's kernel types take (FP32, INT32, UINT32, BOOL, the
+    narrow integers) runs kernel K6 (sortpipe.segscan); every other type
+    and associative op runs the log-step plain scan on the device, and an
+    op that is not associative folds left to right."""
+    from . import sortpipe
+
+    t = op.type
+    x = st.cast_values(vals, in_dt, t)
+    barrier = group_barrier(group)
+    mono = op.monoid
+    n = x.numel()
+    if n and mono is not None and sortpipe.eligible_reduce(mono, t):
+        comb = sortpipe.monoid_combine(mono)
+        L = max(-(-n // sortpipe.SEG_BLOCK), 1) * sortpipe.SEG_BLOCK
+        bar = torch.ones(L, dtype=torch.int32, device=x.device)
+        bar[:n] = barrier
+        car = torch.zeros(L, dtype=sortpipe.carrier_dtype(t), device=x.device)
+        car[:n] = sortpipe.to_carrier(x, t)
+        (out,) = sortpipe.segscan(bar, [car], [comb])
+        res = sortpipe.from_carrier(out[:n], t)
+    elif n:
+        def fn(a, b):
+            return st.cast_values(op(a, b), op.return_type, t)
+
+        if mono is not None or op.name in _ASSOCIATIVE:
+            res = sortpipe.segscan_plain(barrier, x, fn)
+        else:
+            res = _scan_left_to_right(group, x, fn)
+    else:
+        res = x
+    return st.cast_values(res, t, op.return_type)
+
+
+# ops without a monoid whose scan does not depend on the grouping
+_ASSOCIATIVE = frozenset(("first", "second", "any", "pair"))
+
+
+def _scan_left_to_right(group, x, fn):
+    """acc = fn(acc, next) along each group, one step per entry of the
+    longest group: the scan of an op that is not associative (``minus``)
+    folds strictly left to right."""
+    rank = group_order(group, None)[1]
+    acc = x.clone()
+    for k in range(1, int(rank.max()) + 1):
+        idx = (rank == k).nonzero().reshape(-1)
+        acc[idx] = fn(acc[idx - 1], x[idx])
+    return acc
+
+
+def scan_store(sp, op, rowwise=True):
+    """``A.ss.scan``: the inclusive scan of each row's (column's) entries,
+    in the input's structure and the op's return type."""
+    if rowwise:
+        out = scan_values(sp.rows, sp.vals, op, sp.dtype)
+    else:
+        perm = sp.csc_perm()
+        scanned = scan_values(sp.cols[perm], sp.vals[perm], op, sp.dtype)
+        out = torch.empty_like(scanned)
+        out[perm] = scanned
+    return sp.with_values(out, op.return_type)
+
+
+def split_store(sp, row_sizes, col_sizes):
+    """The grid of tiles (a list of rows of stores) of the given row and
+    column sizes, each tile's entries shifted to its origin.  One binary
+    search finds every tile row's entries; in each, a stable sort by the
+    tile column keeps the (row, col) order and makes each tile a slice
+    (one read of the counts a tile row)."""
+    dev = sp.device
+    r_edges = np.concatenate([[0], np.cumsum(row_sizes)]).astype(np.int64)
+    c_edges = np.concatenate([[0], np.cumsum(col_sizes)]).astype(np.int64)
+    bounds = torch.searchsorted(
+        sp.rows, torch.from_numpy(r_edges).to(dev)).tolist()
+    inner = torch.from_numpy(c_edges[1:-1]).to(dev)
+    grid = []
+    for t, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        rows, cols, vals = sp.rows[lo:hi], sp.cols[lo:hi], sp.vals[lo:hi]
+        tile = torch.bucketize(cols, inner, out_int32=True, right=True)
+        if len(col_sizes) > 1:
+            p = torch.sort(tile, stable=True)[1]
+            rows, cols, vals = rows[p], cols[p], vals[p]
+        counts = torch.bincount(tile, minlength=len(col_sizes)).tolist()
+        row, start = [], 0
+        for j, cnt in enumerate(counts):
+            sl = slice(start, start + cnt)
+            row.append(store_from_parts(
+                rows[sl] - int(r_edges[t]), cols[sl] - int(c_edges[j]),
+                vals[sl], int(row_sizes[t]), int(col_sizes[j]), sp.dtype))
+            start += cnt
+        grid.append(row)
+    return grid
+
+
+def _exclusive_cumsum(x):
+    return torch.cumsum(x, 0) - x
+
+
+def concat_stores(grid, dtype):
+    """One store from a grid (list of rows) of stores of dtype.  Each
+    entry is written once, straight to its place in the (row, col) order:
+    in a tile row, row r's entries of tile j follow those of the tiles
+    before it, which a count per row and tile gives (no sort, no copy of
+    the tiles beside the result)."""
+    ncols = sum(t.ncols for t in grid[0])
+    total = sum(t.nvals() for row in grid for t in row)
+    dev = grid[0][0].device
+    out_r = torch.empty(total, dtype=_I64, device=dev)
+    out_c = torch.empty(total, dtype=_I64, device=dev)
+    out_v = torch.empty(total, dtype=dtype.torch_type, device=dev)
+    base = r_off = 0
+    for row in grid:
+        if sum(t.ncols for t in row) != ncols:
+            raise ValueError("tiles in each row must have the same total "
+                             "number of columns")
+        h = row[0].nrows
+        counts = [torch.bincount(t.rows, minlength=h) for t in row]
+        row_start = base + _exclusive_cumsum(sum(counts))
+        before = torch.zeros(h, dtype=_I64, device=dev)
+        c_off = 0
+        for t, cnt in zip(row, counts):
+            if t.nvals():
+                start = row_start - _exclusive_cumsum(cnt) + before
+                pos = start[t.rows] + _iota(t.nvals(), dev)
+                out_r[pos] = t.rows + r_off
+                out_c[pos] = t.cols + c_off
+                out_v[pos] = t.vals
+            before += cnt
+            c_off += t.ncols
+        base += sum(t.nvals() for t in row)
+        r_off += h
+    return store_from_parts(out_r, out_c, out_v, r_off, ncols, dtype)
+
+
+def reshape_store(sp, nrows, ncols, columnwise=False):
+    """The entries at their places in the flat row-major (column-major)
+    order of an nrows x ncols store."""
+    if columnwise:
+        lin = sp.cols * sp.nrows + sp.rows
+        r, c = lin % nrows, lin // nrows
+        p = torch.sort(r * ncols + c)[1]
+        r, c, v = r[p], c[p], sp.vals[p]
+    else:
+        lin = sp.rows * sp.ncols + sp.cols
+        r, c, v = lin // ncols, lin % ncols, sp.vals
+    return store_from_parts(r, c, v, nrows, ncols, sp.dtype)

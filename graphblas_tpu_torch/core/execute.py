@@ -2,11 +2,14 @@
 write it back into its target under mask, accum and replace
 (graphblas_tpu/core/execute.py ``materialize``/``update_into``,
 ``_format_plan``, ``_sparse_out_run``, ``_spgemm_run``, ``assign_update``,
-``delete_region`` and the trace implementations ``T_*``).  A dense result is a (values, valid) pair; a
-sparse one, of an operation on sparse-backed matrices, is a SparseStore,
-merged into a sparse target at coordinates (``sparse.write_back_sparse``).
-PyTorch runs eagerly, so there is no jit cache and no recorder; the
-distributed branches of the JAX package are ROADMAP.md queue 1, item 13."""
+``delete_region`` and the trace implementations ``T_*``).  A dense result
+is a (values, valid) pair; a sparse one, of an operation on sparse-backed
+matrices, is a SparseStore, merged into a sparse target at coordinates
+(``sparse.write_back_sparse``).  Each dispatch writes one line to an
+active Recorder (core/recorder.py) where the JAX package writes it, and
+waits for the card after ``init(blocking=True)``.  PyTorch runs eagerly,
+so there is no jit cache; the distributed branches of the JAX package are
+ROADMAP.md queue 1, item 13."""
 
 import torch
 
@@ -17,6 +20,7 @@ from .engine import sparse as spx
 from .engine import store as st
 from .operator.base import typed
 from .opts import validate_opts
+from .recorder import record
 
 
 def as_expr(obj):
@@ -43,7 +47,9 @@ def as_expr(obj):
 def materialize(expr, out_dtype, *, mask=None, name=None, opts=None):
     opts = validate_opts(opts)
     if mask is None and _format_plan(expr) == "sparse":
+        record(lambda: _record_line(None, expr, None, None, False))
         sp = _sparse_out_run(expr, out_dtype, opts=opts)
+        _wait(sp.vals)
         return expr.output_type._from_sparse(out_dtype, sp, name=name)
     out = expr.output_type._empty(out_dtype, expr.shape, name=name)
     update_into(out, expr, mask=mask, opts=opts)
@@ -67,15 +73,51 @@ def update_into(target, expr, *, mask=None, accum=None, replace=False,
     plan = _format_plan(expr)
     typed_accum = None if accum is None else typed(accum, target.dtype,
                                                    "BinaryOp")
+    record(lambda: _record_line(target, expr, mask, accum, replace))
     if plan == "sparse":
         _update_sparse(target, expr, mask, typed_accum, replace, opts)
-        return
-    z_vals, z_valid = compute(expr, plan)
-    mask_arr = None if mask is None else mask._as_array()
-    vals, valid = dense.write_back(target._vals, target._valid, target.dtype,
-                                   z_vals, z_valid, expr.dtype, mask_arr,
-                                   typed_accum, replace)
-    target._set_store(vals, valid)
+    else:
+        z_vals, z_valid = compute(expr, plan)
+        mask_arr = None if mask is None else mask._as_array()
+        target._set_store(*dense.write_back(
+            target._vals, target._valid, target.dtype, z_vals, z_valid,
+            expr.dtype, mask_arr, typed_accum, replace))
+    _wait(target._d_valid if target._sparse is None else target._sparse.vals)
+
+
+def _wait(t):
+    """After init(blocking=True), wait for the card to finish."""
+    from . import _blocking
+
+    if _blocking and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _record_line(target, expr, mask, accum, replace):
+    """The Recorder's line for one dispatch (the JAX package's text):
+    ``method(target, mask=M.S, accum=plus, replace=True, op=..., args)``;
+    a mask prints by its parent's name, never by its repr."""
+    from .base import BaseType
+
+    tname = getattr(target, "name", None) or (
+        type(target).__name__ if target is not None else "_")
+    opname = getattr(expr.op, "name", expr.op) if expr.op is not None \
+        else None
+    parts = [f"{expr.method_name}({tname}"]
+    if mask is not None:
+        pname = getattr(mask.parent, "name", None) or "M"
+        kind = "S" if mask.structure else "V"
+        parts.append(f"mask={'~' if mask.complement else ''}{pname}.{kind}")
+    if accum is not None:
+        parts.append(f"accum={getattr(accum, 'name', accum)}")
+    if replace:
+        parts.append("replace=True")
+    if opname is not None:
+        parts.append(f"op={opname}")
+    for a in expr.args:
+        if isinstance(a, BaseType):
+            parts.append(getattr(a, "name", None) or type(a).__name__)
+    return ", ".join(parts) + ")"
 
 
 def _update_sparse(target, expr, mask, accum, replace, opts):

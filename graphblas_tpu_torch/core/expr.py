@@ -173,6 +173,11 @@ class Updater:
         self.input_mask = input_mask
         self.opts = opts
 
+    def __repr__(self):
+        kwargs = {"mask": self.mask, "accum": self.accum,
+                  "replace": self.replace, "input_mask": self.input_mask}
+        return f"Updater({self.parent!r}, {kwargs})"
+
     def __lshift__(self, expr):
         return self.update(expr)
 
@@ -293,8 +298,8 @@ class AmbiguousAssignOrExtract:
         return self._get_value(attr)
 
     def __repr__(self):
-        return (f"{type(self.parent).__name__}[...] (ambiguous "
-                f"assign-or-extract)")
+        return (f"{self.parent.name or type(self.parent).__name__}[...] "
+                f"(ambiguous assign-or-extract)")
 
     # the comparisons, conversions and iteration of the extracted value
     def __eq__(self, other):

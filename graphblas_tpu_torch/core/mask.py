@@ -46,16 +46,14 @@ class Mask:
                         f"{type(self)}.")
 
     def __repr__(self):
-        """The first line of the JAX package's mask repr: the name
-        (``"~v.S"``), the class and the parent's kind and shape (the grid
-        below it waits for the formatting module)."""
-        p = self.parent
-        kind = "Vector" if p.ndim == 1 else "Matrix"
-        pname = p.name or ("v" if p.ndim == 1 else "M")
-        label = (f'"{"~" if self.complement else ""}{pname}.'
-                 f'{"S" if self.structure else "V"}"')
-        return (f"{label} {type(self).__name__} of gb.{kind} "
-                f"(shape={tuple(p.shape)}, dtype={p.dtype.name})")
+        from .formatting import format_mask
+
+        return format_mask(self)
+
+    def _repr_html_(self):
+        from .formatting import format_mask
+
+        return f"<pre>{format_mask(self)}</pre>"
 
     @property
     def name(self):

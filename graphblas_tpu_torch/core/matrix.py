@@ -5,8 +5,8 @@ Extract, assign and delete by index lists come from core/collection.py;
 assign and delete keep a sparse matrix sparse (core/execute.py
 ``_format_plan`` and ``assign_update``), and so do the constructors from
 CSR, CSC, DCSR, DCSC, edge lists and dicts, ``build``, the exports and
-``resize``.  ``Matrix.ss`` waits for ROADMAP.md queue 1, item 12 and
-raises NotImplementedError naming it.
+``resize``.  ``Matrix.ss`` is core/ss/matrix.py; the reprs are
+core/formatting.py's; a pickle holds the COO, as the JAX package's.
 
 Two backings, as in the JAX package: a Matrix with at most
 ``auto_sparse_limit`` elements is a dense (values, valid) store on its
@@ -27,7 +27,7 @@ from . import config as _config
 from . import dtypes as _dt
 from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
                           OutputNotEmpty)
-from .base import BaseExpression, NotPorted
+from .base import BaseExpression, SSDescriptor
 from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .collection import untranspose as _untranspose
 from .engine import sparse as spx
@@ -386,8 +386,28 @@ class Matrix(Collection):
         return ValueMask(self)
 
     def __repr__(self):
-        return (f"Matrix(dtype={self.dtype.name}, shape={self.shape}, "
-                f"nvals={self.nvals})")
+        from . import formatting
+
+        return formatting.format_matrix(self)
+
+    def _repr_html_(self, mask=None):
+        from . import formatting
+
+        return formatting.format_matrix_html(self, mask=mask)
+
+    def __reduce__(self):
+        """Pickled as the JAX package pickles a Matrix: its COO, shape,
+        type and name (the backing follows the shape when loaded)."""
+        r, c, v = self.to_coo()
+        return (Matrix._deserialize, (self.dtype.name, self._nrows,
+                                      self._ncols, r, c, v, self._name))
+
+    @staticmethod
+    def _deserialize(dtype, nrows, ncols, r, c, v, name):
+        m = Matrix(dtype, nrows, ncols, name=name)
+        if len(r):
+            m.build(r.astype(np.int64), c.astype(np.int64), v)
+        return m
 
     def dup(self, dtype=None, *, clear=False, mask=None, name=None):
         """A copy, optionally cast, masked or cleared."""
@@ -597,8 +617,13 @@ class Matrix(Collection):
                               (out_nrows, out_ncols), Matrix,
                               ((int(row_offset), int(column_offset)),))
 
-    # the JAX package's Matrix surface that is not ported yet
-    ss = NotPorted(12)
+    ss = SSDescriptor(lambda: _ss_matrix().MatrixSS)
+
+
+def _ss_matrix():
+    from .ss import matrix
+
+    return matrix
 
 
 def _infer(n, indices):
@@ -647,6 +672,16 @@ class TransposedMatrix:
 
     def __init__(self, matrix):
         self._matrix = matrix
+
+    def __repr__(self):
+        from .formatting import format_transposed
+
+        return format_transposed(self)
+
+    def _repr_html_(self):
+        from .formatting import format_transposed
+
+        return f"<pre>{format_transposed(self)}</pre>"
 
     @property
     def dtype(self):

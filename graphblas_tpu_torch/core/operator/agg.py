@@ -262,7 +262,10 @@ def _spec_from_parts(name, *, initval=None, monoid=None, semiring=None,
     return AggSpec(name, map_fn, mono, fin_fn, ret_rule=ret_rule)
 
 
-_ALL = (_dt.BOOL, _dt.INT32, _dt.INT64, _dt.UINT32, _dt.FP32, _dt.FP64)
+# the JAX package's domains (its _UINTS and _D11; its FC32 and FC64 wait
+# for ROADMAP.md queue 1, item 12)
+_UINTS = (_dt.UINT8, _dt.UINT16, _dt.UINT32, _dt.UINT64)
+_D11 = _dt.ALL
 
 
 class TypedAggregator(TypedOpBase):
@@ -273,9 +276,6 @@ class TypedAggregator(TypedOpBase):
         ret = type_ if rr is None else (rr(type_) if callable(rr) else rr)
         super().__init__(parent, parent.name, type_, ret)
         self.spec = parent.spec
-
-    def __repr__(self):
-        return f"agg.{self.name}[{self.type.name}]"
 
     def __call__(self, val):
         return self.parent(val)
@@ -304,6 +304,7 @@ class Aggregator(OpBase):
     """
 
     opclass = "Aggregator"
+    _modname = "agg"
 
     def __init__(self, name, spec=None, **parts):
         super().__init__(name)
@@ -313,20 +314,17 @@ class Aggregator(OpBase):
             raise TypeError("cannot pass both a spec and declarative parts")
         self.spec = spec
 
-    def __repr__(self):
-        return f"agg.{self.name}"
-
     @property
     def types(self):
         """Input type -> return type, over the types it takes."""
         spec = self.spec
         if spec.types_domain == "uint":
-            domain = (_dt.UINT32,)
+            domain = _UINTS
         elif isinstance(spec.monoid_name, OpBase):
             mono = spec.monoid_name
-            domain = tuple(dt for dt in _ALL if dt in mono._domains) or _ALL
+            domain = tuple(dt for dt in _D11 if dt in mono._domains) or _D11
         else:
-            domain = _ALL
+            domain = _D11
         return {dt: TypedAggregator(self, dt).return_type for dt in domain}
 
     def _build_typed(self, dt):

@@ -66,6 +66,26 @@ class OpBase:
     def __repr__(self):
         return f"{self._modname}.{self.name}"
 
+    def __reduce__(self):
+        """Pickled by namespace and name, as in the JAX package."""
+        if self._anonymous:
+            raise TypeError(f"Anonymous op {self.name} is not picklable by "
+                            f"name")
+        return (_op_from_namespace, (self._modname, self.name))
+
+
+def _op_from_namespace(modname, name):
+    import importlib
+
+    obj = importlib.import_module(f"graphblas_tpu_torch.{modname}")
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _deserialize_typed(parent, typename):
+    return parent[typename]
+
 
 class TypedOpBase:
     opclass = None
@@ -89,6 +109,9 @@ class TypedOpBase:
 
     def __repr__(self):
         return f"{self.parent._modname}.{self.name}[{self.type.name}]"
+
+    def __reduce__(self):
+        return (_deserialize_typed, (self.parent, self.type.name))
 
 
 class ParameterizedUdf:

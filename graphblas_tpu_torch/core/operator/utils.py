@@ -304,58 +304,3 @@ def call_indexunary(op, val, thunk=None):
     if not hasattr(val, "apply"):
         raise TypeError(f"Bad type when calling {op!r}: {type(val)}")
     return val.apply(op, right=thunk)
-
-
-def _compile_definition(defn, name):
-    """A callable from a callable, or from Python source (a ``lambda`` or
-    a ``def``) run with ``torch``, ``np`` and ``math`` in scope."""
-    if callable(defn):
-        return defn
-    if not isinstance(defn, str):
-        raise TypeError(f"a jit definition is a callable or Python source; "
-                        f"got {type(defn)}")
-    import math
-
-    import numpy as np
-    import torch
-
-    ns = {"torch": torch, "np": np, "math": math}
-    src = defn.strip()
-    if src.startswith("lambda"):
-        return eval(src, ns)  # noqa: S307 - the caller's operator
-    before = set(ns)
-    try:
-        exec(src, ns)  # noqa: S102 - the caller's operator
-    except SyntaxError as exc:
-        raise TypeError("a jit definition is Python source over torch "
-                        "tensors (a 'lambda ...' or 'def ...'), not C") \
-            from exc
-    funcs = {k: v for k, v in ns.items() if k not in before and callable(v)}
-    if name in funcs:
-        return funcs[name]
-    if len(funcs) == 1:
-        return next(iter(funcs.values()))
-    raise ValueError(f"could not find a function named {name!r} in the jit "
-                     f"definition")
-
-
-def jit_register(modname, name, defn, *types):
-    """``<namespace>.ss.register_new``: the JAX package's engine-JIT
-    registration, with a function over tensors given as a callable or
-    Python source; it lands at ``<namespace>.ss.<name>``.  The types are
-    checked and not used: the function is typed for every type it takes."""
-    from .binary import BinaryOp
-    from .indexunary import IndexUnaryOp, SelectOp
-    from .unary import UnaryOp
-
-    cls = {"unary": UnaryOp, "binary": BinaryOp, "indexunary": IndexUnaryOp,
-           "select": SelectOp}[modname]
-    short = name[3:] if name.startswith("ss.") else name
-    for t in types:
-        if t is not None:
-            lookup_dtype(t)
-    op = cls.register_anonymous(_compile_definition(defn, short),
-                                name=f"ss.{short}")
-    module = importlib.import_module(f"graphblas_tpu_torch.{modname}")
-    setattr(module.ss, short, op)
-    return op

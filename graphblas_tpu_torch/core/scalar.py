@@ -265,7 +265,18 @@ class Scalar(BaseType):
 
     # ------------------------------------------------------------------ #
     def __repr__(self):
-        return f"Scalar({self.value!s}, dtype={self.dtype.name})"
+        from . import formatting
+
+        return formatting.format_scalar(self)
+
+    def _repr_html_(self):
+        from . import formatting
+
+        return formatting.format_scalar_html(self)
+
+    def __reduce__(self):
+        return (_deserialize_scalar, (self.dtype.name, self.value,
+                                      self._is_cscalar, self._name))
 
     def __invert__(self):
         from ..unary import lnot
@@ -301,3 +312,10 @@ class Scalar(BaseType):
     def __array__(self, dtype=None, **kwargs):
         return np.array(self.value,
                         self.dtype.np_type if dtype is None else dtype)
+
+
+def _deserialize_scalar(dtype, value, is_cscalar, name):
+    s = Scalar(dtype, is_cscalar=is_cscalar, name=name)
+    if value is not None:
+        s.value = value
+    return s

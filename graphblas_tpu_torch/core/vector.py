@@ -3,8 +3,9 @@
 ``from_dict``, ``build``) and export, ``resize``, extract, assign and
 delete by index (core/collection.py), membership and iteration, the
 products, ``outer``, element-wise operations, apply, select, reduce (by a
-monoid or an aggregator) and reposition.  ``Vector.ss`` waits for
-ROADMAP.md queue 1, item 12 and raises NotImplementedError naming it."""
+monoid or an aggregator) and reposition.  ``Vector.ss`` is
+core/ss/vector.py; the reprs are core/formatting.py's; a pickle holds the
+COO, as the JAX package's."""
 
 import numpy as np
 import torch
@@ -13,7 +14,7 @@ from . import config as _config
 from . import dtypes as _dt
 from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
                           OutputNotEmpty)
-from .base import BaseExpression, NotPorted
+from .base import BaseExpression, SSDescriptor
 from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
@@ -74,8 +75,27 @@ class Vector(Collection):
         return ValueMask(self)
 
     def __repr__(self):
-        return (f"Vector(dtype={self.dtype.name}, size={self.size}, "
-                f"nvals={self.nvals})")
+        from . import formatting
+
+        return formatting.format_vector(self)
+
+    def _repr_html_(self, mask=None):
+        from . import formatting
+
+        return formatting.format_vector_html(self, mask=mask)
+
+    def __reduce__(self):
+        """Pickled as the JAX package pickles a Vector: its COO."""
+        idx, vals = self.to_coo()
+        return (Vector._deserialize, (self.dtype.name, self.size, idx, vals,
+                                      self._name))
+
+    @staticmethod
+    def _deserialize(dtype, size, idx, vals, name):
+        v = Vector(dtype, size, name=name)
+        if len(idx):
+            v.build(idx.astype(np.int64), vals)
+        return v
 
     # ------------------------------------------------------------------ #
     # constructors and exports
@@ -395,5 +415,10 @@ class Vector(Collection):
         return BaseExpression("outer", bop, [self, other], bop.return_type,
                               (self.size, other.size), Matrix)
 
-    # the JAX package's Vector surface that is not ported yet
-    ss = NotPorted(12)
+    ss = SSDescriptor(lambda: _ss_vector().VectorSS)
+
+
+def _ss_vector():
+    from .ss import vector
+
+    return vector

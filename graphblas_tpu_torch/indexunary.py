@@ -6,6 +6,7 @@ from .core.operator import utils as _utils
 from .core.operator.base import missing
 from .core.operator.indexunary import INDEXUNARY as _B
 from .core.operator.indexunary import IndexUnaryOp, TypedIndexUnaryOp
+from .core.ss.jit import jit_register
 
 register_new = IndexUnaryOp.register_new
 register_anonymous = IndexUnaryOp.register_anonymous
@@ -25,7 +26,7 @@ class _SSNamespace:
     @staticmethod
     def register_new(name, jit_definition, input_type=None, thunk_type=None,
                      ret_type=None):
-        return _utils.jit_register("indexunary", name, jit_definition,
+        return jit_register("indexunary", name, jit_definition,
                                    input_type, thunk_type, ret_type)
 
     def __getattr__(self, name):

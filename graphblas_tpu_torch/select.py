@@ -12,6 +12,7 @@ from .core.operator import utils as _utils
 from .core.operator.base import missing
 from .core.operator.indexunary import SELECT as _B
 from .core.operator.indexunary import SelectOp, TypedSelectOp
+from .core.ss.jit import jit_register
 
 register_new = SelectOp.register_new
 register_anonymous = SelectOp.register_anonymous
@@ -30,7 +31,7 @@ class _SSNamespace:
 
     @staticmethod
     def register_new(name, jit_definition, input_type=None, thunk_type=None):
-        return _utils.jit_register("select", name, jit_definition,
+        return jit_register("select", name, jit_definition,
                                    input_type, thunk_type)
 
     def __getattr__(self, name):

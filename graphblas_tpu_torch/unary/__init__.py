@@ -10,6 +10,7 @@ import importlib
 from ..core.operator import utils as _utils
 from ..core.operator.base import missing
 from ..core.operator.unary import BUILTINS as _B, TypedUnaryOp, UnaryOp
+from ..core.ss.jit import jit_register
 
 # the names of graphblas_tpu.unary that the port lacks
 WAITING = frozenset(("conj", "creal", "cimag", "carg"))
@@ -32,7 +33,7 @@ class _SSNamespace:
 
     @staticmethod
     def register_new(name, jit_definition, input_type=None, ret_type=None):
-        return _utils.jit_register("unary", name, jit_definition,
+        return jit_register("unary", name, jit_definition,
                                    input_type, ret_type)
 
     def __getattr__(self, name):

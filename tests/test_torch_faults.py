@@ -142,10 +142,12 @@ def test_scalar_value_is_a_numpy_scalar(dtype):
     with gbt.config.set(device="cpu"):
         s = gbt.Scalar.from_value(0.1, "FP32")
         assert s.value == np.float32(0.1)
-        assert repr(s) == "Scalar(0.1, dtype=FP32)"
+        assert repr(s) == repr(gbj.Scalar.from_value(0.1, "FP32")) == \
+            "gb.Scalar\nvalue: 0.1\ndtype: FP32"
         assert repr(gbt.Scalar.from_value(3, "INT64")) == \
-            "Scalar(3, dtype=INT64)"
-        assert repr(gbt.Scalar("BOOL")) == "Scalar(None, dtype=BOOL)"
+            repr(gbj.Scalar.from_value(3, "INT64"))
+        assert repr(gbt.Scalar("BOOL")) == repr(gbj.Scalar("BOOL")) == \
+            "gb.Scalar\nvalue: (empty)\ndtype: BOOL"
         assert gbt.Scalar("FP64").get(7) == 7
 
 

@@ -315,9 +315,9 @@ def test_not_ported_raises(cpu):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gbt.dtypes.lookup_dtype("FC64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.ss
+        gbt.parallel
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gbt.io
+        gbt.unary.conj
     # to_csr and x @ x, which raised before the constructors and the
     # infix slice, match the JAX package
     assert all(np.array_equal(g, w) for g, w in zip(A.to_csr(), jA.to_csr()))

@@ -1177,3 +1177,99 @@ def test_from_csr_to_csr_on_the_card(cuda):
                       (cptr, Sc.indptr), (cind, Sc.indices),
                       (cdata, Sc.data)):
         np.testing.assert_array_equal(got.astype(want.dtype), want)
+
+
+# ---- the ss extensions on the card: the scan runs K6, an imported graph
+# runs the products, dense tiles joined by concat run K7
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,op", [("FP32", "plus"), ("INT32", "plus"),
+                                      ("FP32", "max"), ("UINT16", "min"),
+                                      ("BOOL", "lor")])
+@pytest.mark.parametrize("order", ["rowwise", "columnwise"])
+def test_ss_scan_launches_k6(cuda, dtype, op, order):
+    """``A.ss.scan`` on a sparse store is one K6 call and equals the same
+    scan by K6's plain version on the card's arrays."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    rng = np.random.default_rng(53)
+    n = 20000
+    r = rng.integers(0, n, 6 * n)
+    c = (rng.zipf(1.6, 6 * n) - 1) % n
+    vals = rng.integers(0, 5, len(r))
+    with gb.config.set(device=cuda):
+        A = gb.Matrix.from_coo(r, c, vals, dtype=dtype, nrows=n, ncols=n,
+                               dup_op=gb.binary.first)
+        assert A._sparse is not None
+        before = K.launches["segscan"]
+        S = A.ss.scan(op, order=order)
+        torch.cuda.synchronize()
+        assert K.launches["segscan"] == before + 1
+        sp_ = A._sparse
+        typed = getattr(gb.binary, op)[A.dtype]
+        if order == "rowwise":
+            group, x, perm = sp_.rows, sp_.vals, None
+        else:
+            perm = sp_.csc_perm()
+            group, x = sp_.cols[perm], sp_.vals[perm]
+        car = sp.to_carrier(x, A.dtype)
+        plain = sp.segscan_channels_plain(
+            spx.group_barrier(group), [car],
+            [sp.monoid_combine(typed.monoid)])[0]
+        plain = sp.from_carrier(plain, A.dtype)
+        got = S._sparse.vals if perm is None else S._sparse.vals[perm]
+        if dtype == "FP32":
+            torch.testing.assert_close(got, plain, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got, plain)
+
+
+@pytest.mark.gpu
+def test_import_csr_then_vxm_on_the_card(cuda):
+    """A graph exported as CSR and imported again gives the original's vxm
+    bitwise, through the same kernels."""
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(59)
+    n = 1 << 15
+    r = rng.integers(0, n, 8 * n)
+    c = (rng.zipf(1.5, 8 * n) - 1) % n
+    w = rng.random(len(r)).astype(np.float32)
+    with gb.config.set(device=cuda):
+        A = gb.Matrix.from_coo(r, c, w, dtype="FP32", nrows=n, ncols=n,
+                               dup_op=gb.binary.plus)
+        B = gb.Matrix.ss.import_csr(**A.ss.export("csr"))
+        assert B.isequal(A) and B._sparse is not None
+        u = gb.Vector.from_coo(np.arange(n), rng.random(n).astype(np.float32),
+                               dtype="FP32", size=n)
+        ring = gb.semiring.plus_times["FP32"]
+        outs, counts = [], []
+        for M in (A, B):
+            u.vxm(M, ring).new()  # plans
+            before = _launch_counts()
+            outs.append(u.vxm(M, ring).new())
+            torch.cuda.synchronize()
+            counts.append({k: K.launches[k] - v for k, v in before.items()})
+    assert counts[0] == counts[1] and counts[0]["gather_mult"] == 1
+    assert outs[0].isequal(outs[1])
+
+
+@pytest.mark.gpu
+def test_concat_dense_tiles_then_min_plus_launches_k7(cuda):
+    import graphblas_tpu_torch as gb
+
+    rng = np.random.default_rng(61)
+    full = rng.random((512, 512)).astype(np.float32)
+    full[rng.random(full.shape) < 0.5] = np.inf
+    with gb.config.set(device=cuda):
+        tiles = [[gb.Matrix.from_dense(full[i:i + 256, j:j + 256],
+                                       missing_value=np.inf)
+                  for j in (0, 256)] for i in (0, 256)]
+        D = gb.ss.concat(tiles)
+        assert D._sparse is None
+        E = gb.Matrix.from_dense(full, missing_value=np.inf)
+        before = K.launches["tropical_matmul"]
+        got = D.mxm(D, gb.semiring.min_plus).new()
+        torch.cuda.synchronize()
+        assert K.launches["tropical_matmul"] > before
+        assert got.isequal(E.mxm(E, gb.semiring.min_plus).new())

@@ -118,7 +118,7 @@ def test_renamed_and_cast_lookups(lookup, want):
 
 @pytest.mark.parametrize("path", [
     "unary.conj", "unary.creal", "unary.cimag", "unary.carg", "binary.cmplx",
-    "dtypes.register_anonymous", "dtypes.ss", "io", "viz",
+    "dtypes.register_anonymous", "dtypes.ss", "op.conj", "op.cmplx",
     "dtypes.FC32", "dtypes.FC64", "dtypes.register_new"])
 def test_missing_operator_names_item_12(path):
     def walk(gb):

@@ -176,8 +176,10 @@ def test_public_names_work_or_name_their_item(kind):
             except NotImplementedError as exc:
                 assert ITEM.search(str(exc)), (name, str(exc))
                 stubbed.append(name)
-        # the stubs are what the port lacks, not what it has
+        # the stubs are what the port lacks, not what it has: on the
+        # package only the distribution (item 13)
         assert "get" not in stubbed and "clear" not in stubbed
+        assert stubbed == (["parallel"] if kind == "gb" else [])
 
 
 _INFIX_CALLS = (lambda A, B, v: A @ B, lambda A, B, v: A | B,
@@ -223,10 +225,12 @@ def test_infix_operators_name_their_item():
 
 
 def test_stubs_and_small_ports():
-    """The stubs raise on the class too; ``clear``, ``get``, ``replace`` and
-    the package's GraphblasException work as in the JAX package."""
-    for obj, name in ((gbt.Matrix, "ss"), (gbt.Vector, "ss"), (gbt, "io")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    """The stubs raise, naming their items; ``clear``, ``get``,
+    ``replace`` and the package's GraphblasException work as in the JAX
+    package."""
+    for obj, name, item in ((gbt, "parallel", 13), (gbt.dtypes, "FC64", 12),
+                            (gbt.op, "conj", 12)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(obj, name)
     with gbt.config.set(device="cpu"):
         v = gbt.Vector.from_coo([0, 2], [1.5, 2.0], size=3)
@@ -256,8 +260,7 @@ def test_stubs_and_small_ports():
 @pytest.mark.parametrize("kind", ["Matrix", "Vector", "Scalar"])
 def test_only_ss_waits_on_collections(kind):
     """Every public name of the JAX package's Matrix, Vector and Scalar
-    works in the port, but ``ss`` on Matrix and Vector, which names item
-    12."""
+    works in the port, ``ss`` on Matrix and Vector included."""
     with gbt.config.set(device="cpu"):
         obj = instances(gbt)[kind]
         waiting = []
@@ -267,4 +270,4 @@ def test_only_ss_waits_on_collections(kind):
             except NotImplementedError as exc:
                 assert "item 12" in str(exc)
                 waiting.append(name)
-    assert waiting == ([] if kind == "Scalar" else ["ss"])
+    assert waiting == []
