@@ -133,7 +133,22 @@ engine) from the sources, then:
    `mmwrite`/`mmread` of an RMAT-12 graph; `repr` and `_repr_html_` under
    1 s and 1 MB; a Recorder around one BFS level; four dense 2048^2 tiles
    joined by `gb.ss.concat` into a 4096^2 `min_plus` product (K7) bitwise
-   equal to the unsplit matrix's.  Every one of K1-K7 launches in it.
+   equal to the unsplit matrix's.  Every one of K1-K7 launches in it;
+15. the complex types and user-defined types (phase `complex_udt`, on the
+   zipf graph): FC32 and FC64 matrices exp(i theta) / outdeg through
+   vxm/mxv plus_times, plus and times row reduces and reduce_scalar
+   against scipy/numpy in complex128 (rel 1e-5 and 1e-12 of the
+   magnitude), conj/creal/cimag/carg/abs, `cmplx` of two FP32 matrices,
+   `A.T` and a cast, with no kernel launched; creal and cimag of W cmplx
+   V bitwise W and V, and PageRank (20 iterations), SSSP (K5) and a row
+   reduce (K6) on them bitwise equal to those on W and V with the same
+   launches; a 4096^2 FC32 plus_times product against numpy and min_plus
+   on creal of a 2048^2 FC32 matrix through K7 bitwise; point_t and a
+   (3,)float32 vector through is_udt operators, a user monoid, extract,
+   assign, delete and a structural mask against numpy; FC64 and point_t
+   through serialize, pickle and the csr and bitmapr formats, and FC64
+   through Matrix Market (hermitian, RMAT 12).  Every one of K1-K7
+   launches in it.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -165,6 +180,8 @@ SPIN_CYCLES = 20_000_000  # ~10 ms of spinning at the H100's clock
 RUNS = 5  # timed runs of each loop; the median is reported
 APSP_N = 8192  # the largest square matrix dense_limit = 2**26 densifies
 APSP_MXM_N = 2048  # the plus_times and generic-product checks
+CU_DENSE_N = 4096  # complex_udt: the FC32 plus_times product
+CU_MINPLUS_N = 2048  # complex_udt: min_plus on creal; the bitmapr block
 
 
 def fail(msg):
@@ -3545,9 +3562,453 @@ def ss_io_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals):
     results["ss_io"] = out
 
 
+# ---------------------------------------------------------------------- #
+# the complex types and user-defined types (phase `complex_udt`)
+def _cclose(name, got, want, rel):
+    """Complex (or real) values against a complex128 reference within rel
+    of the magnitude: |got - want| <= rel * max(|want|, max |want|).
+    Returns the max abs error."""
+    g = np.asarray(got).astype(np.complex128)
+    w = np.asarray(want).astype(np.complex128)
+    if g.shape != w.shape:
+        fail(f"{name}: shape {g.shape} != {w.shape}")
+    if not np.isfinite(g).all():
+        fail(f"{name}: non-finite values")
+    if not len(w):
+        return 0.0
+    err = np.abs(g - w)
+    bad = int((err > rel * np.maximum(np.abs(w), np.abs(w).max())).sum())
+    if bad:
+        fail(f"{name}: {bad} values beyond rel {rel} of the magnitude (max "
+             f"abs err {err.max():.3g})")
+    return float(err.max())
+
+
+def _same_bits(name, a, b):
+    """Two float arrays equal bit for bit."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+        fail(f"{name}: not bitwise equal")
+
+
+def _keys(M, n):
+    r, c, v = M.to_coo()
+    return r.astype(np.int64) * n + c.astype(np.int64), v
+
+
+def _no_launch(K, before, what):
+    """Fail if a kernel launched since `before` (no complex or user-defined
+    value may enter K1-K7)."""
+    moved = {k: K.launches[k] - before.get(k, 0) for k in KERNELS
+             if K.launches[k] != before.get(k, 0)}
+    if moved:
+        fail(f"complex_udt: {what} launched kernels {moved}")
+
+
+def _record(gb, torch, out, tag, fn, profile=False):
+    """Host ms (warm median of 3), the peak memory one call raises, and,
+    with profile, the device busy and idle share."""
+    res, ms, runs, first_s = timed_calls(torch, fn, reps=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    rec = {"ms": ms, "ms_runs": runs, "first_call_s": first_s,
+           "peak_mb": peak}
+    log(f"  {tag}: ms {[round(r, 4) for r in runs]} (median {ms:.4f}), "
+        f"first call {first_s * 1e3:.2f} ms, peak +{peak:.1f} MB")
+    if profile:
+        rec["profile"] = profile_breakdown(torch, fn, tag, ms)
+    out[tag] = rec
+    return res
+
+
+def complex_udt_phase(gb, torch, K, src, dst, w, n, A, results, totals):
+    """The complex types and user-defined types at full width, on bench.py's
+    zipf graph (n = 2**19): FC32 and FC64 magnetic adjacencies exp(i theta)
+    / outdeg (theta from seed 17) through vxm/mxv plus_times, plus and
+    times reduces and reduce_scalar against scipy/numpy in complex128 (rel
+    1e-5 and 1e-12 of the magnitude), conj/creal/cimag/carg/abs, cmplx of
+    two FP32 matrices, A.T and a cast, with no kernel launched; Z = W cmplx
+    V with creal(Z) and cimag(Z) bitwise W and V, and PageRank, SSSP (K5)
+    and a row reduce (K6) on them bitwise equal to those on W and V with
+    the same launches; a 4096^2 FC32 plus_times product against numpy and
+    min_plus on creal of a 2048^2 FC32 matrix through K7 bitwise; point_t
+    (two float64 fields) on the zipf graph and a (3,)float32 subarray
+    vector of 2**19 through is_udt ewise_add/ewise_mult/apply, a user
+    monoid's row reduce, extract/assign/delete by index lists and a
+    structural-mask write, exactly against numpy; FC64 and point_t through
+    serialize, pickle, CSR and bitmapr export/import and FC64 through
+    Matrix Market (hermitian, RMAT 12).  Host ms, peak memory, device busy
+    and idle share of the complex vxm, the complex reduce and the UDT
+    ewise_add.  Every one of K1-K7 launches in it."""
+    import pickle
+    import tempfile
+
+    import scipy.sparse as sps
+
+    out = {}
+    nnz = len(src)
+    rng = np.random.default_rng(SEED + 17)
+    theta = rng.uniform(0, 2 * np.pi, nnz)
+    outdeg = np.bincount(src, minlength=n).astype(np.float64)
+    mag = np.exp(1j * theta) / outdeg[src]
+    x = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
+    keys = src * n + dst  # sorted: build_graph's COO is (row, col) order
+    reset_counts(K)
+
+    # ---- 1. complex SpMV and reduces, FC32 and FC64: no kernel
+    before = dict(K.launches)
+    Z64 = None
+    for dt, rel in (("FC32", 1e-5), ("FC64", 1e-12)):
+        np_t = np.complex64 if dt == "FC32" else np.complex128
+        vals = mag.astype(np_t)
+        M = sps.csr_matrix((vals.astype(np.complex128), (src, dst)),
+                           shape=(n, n))
+        xs = x.astype(np_t)
+        Z = gb.Matrix.from_coo(src, dst, vals, dtype=dt, nrows=n, ncols=n)
+        u = gb.Vector.from_dense(xs, dtype=dt)
+        ring = gb.semiring.plus_times[dt]
+        tag = dt.lower()
+        vxm = _record(gb, torch, out, f"vxm plus_times {tag}",
+                      lambda: u.vxm(Z, ring).new(), profile=dt == "FC32")
+        mxv = _record(gb, torch, out, f"mxv plus_times {tag}",
+                      lambda: Z.mxv(u, ring).new())
+        rows = _record(gb, torch, out, f"reduce_rowwise plus {tag}",
+                       lambda: Z.reduce_rowwise(gb.monoid.plus[dt]).new(),
+                       profile=dt == "FC32")
+        prod = Z.reduce_rowwise(gb.monoid.times[dt]).new()
+        total = Z.reduce_scalar(gb.monoid.plus[dt]).new().value
+        x128 = xs.astype(np.complex128)
+        errs = []
+        for name, vec, ref in (("vxm", vxm, M.T @ x128), ("mxv", mxv, M @ x128),
+                               ("rows plus", rows,
+                                np.asarray(M.sum(axis=1)).ravel())):
+            idx, got = vec.to_coo()
+            if vec.dtype.name != dt or len(idx) != n:
+                fail(f"complex_udt: {name} {dt}: {vec.dtype} with "
+                     f"{len(idx)} entries")
+            errs.append(_cclose(f"{name} {dt}", got, ref[idx.astype(
+                np.int64)], rel))
+        starts = np.searchsorted(src, np.arange(n))
+        nonempty = np.flatnonzero(np.bincount(src, minlength=n))
+        pref = np.multiply.reduceat(vals.astype(np.complex128),
+                                    starts[nonempty])
+        idx, got = prod.to_coo()
+        if not np.array_equal(idx.astype(np.int64), nonempty):
+            fail(f"complex_udt: times reduce {dt}: structure differs")
+        errs.append(_cclose(f"rows times {dt}", got, pref, rel))
+        errs.append(_cclose(f"reduce_scalar {dt}", [total], [M.sum()], rel))
+        log(f"  {dt}: vxm, mxv, plus and times row reduces, reduce_scalar "
+            f"within rel {rel} (max abs err {max(errs):.3g})")
+        out[f"max_abs_err_{tag}"] = max(errs)
+        if dt == "FC64":
+            Z64, vals64, M64 = Z, vals, M
+        del M, Z, u, vxm, mxv, rows, prod
+    # the complex unaries, cmplx, transpose and a cast, against numpy
+    for opname, fn, rtype in (("conj", np.conj, "FC64"),
+                              ("creal", np.real, "FP64"),
+                              ("cimag", np.imag, "FP64"),
+                              ("carg", np.angle, "FP64"),
+                              ("abs", np.abs, "FP64")):
+        Y = Z64.apply(getattr(gb.unary, opname)).new()
+        k, v = _keys(Y, n)
+        if Y.dtype.name != rtype or not np.array_equal(k, keys):
+            fail(f"complex_udt: {opname}: {Y.dtype} or structure differs")
+        if opname in ("conj", "creal", "cimag"):
+            _same_bits(opname, v, fn(vals64))
+        else:
+            _cclose(opname, v, fn(vals64), 1e-15)
+    wv = w  # FP32 1/outdeg
+    vv = (np.sin(theta) / outdeg[src]).astype(np.float32)
+    V = gb.Matrix.from_coo(src, dst, vv, dtype="FP32", nrows=n, ncols=n)
+    Zc = A.ewise_mult(V, gb.binary.cmplx).new()
+    zc = np.empty(nnz, np.complex64)
+    zc.real, zc.imag = wv, vv
+    k, v = _keys(Zc, n)
+    if Zc.dtype.name != "FC32" or not np.array_equal(k, keys):
+        fail("complex_udt: cmplx: type or structure differs")
+    _same_bits("cmplx", v, zc)
+    T = Z64.T.new()
+    tr, tc, tv = T.to_coo()
+    order = np.lexsort((src, dst))
+    if not (np.array_equal(tr.astype(np.int64), dst[order])
+            and np.array_equal(tc.astype(np.int64), src[order])):
+        fail("complex_udt: A.T structure differs")
+    _same_bits("A.T", tv, vals64[order])
+    C32 = Z64.dup("FP32")
+    _same_bits("cast FC64 to FP32", C32.to_coo()[2],
+               vals64.real.astype(np.float32))
+    _no_launch(K, before, "the complex SpMV, reduces and unaries")
+    log("  conj, creal, cimag bitwise; carg, abs within 1e-15; cmplx, A.T, "
+        "the cast bitwise; no kernel launched")
+
+    # ---- 2. into the kernels: creal and cimag of W cmplx V
+    Re = Zc.apply(gb.unary.creal).new()
+    Im = Zc.apply(gb.unary.cimag).new()
+    for tag, got, want in (("creal(Z)", Re, A), ("cimag(Z)", Im, V)):
+        if got.dtype.name != "FP32" or got._sparse is None or \
+                not got._sparse.vals.is_contiguous():
+            fail(f"complex_udt: {tag} is not a contiguous FP32 store")
+        if not torch.equal(got._sparse.rows, want._sparse.rows) or \
+                not torch.equal(got._sparse.cols, want._sparse.cols) or \
+                not torch.equal(got._sparse.vals.view(torch.int32),
+                                want._sparse.vals.view(torch.int32)):
+            fail(f"complex_udt: {tag} is not bitwise equal to its part")
+    runs = {}
+    for tag, M in (("W", A), ("creal(Z)", Re)):
+        runs[tag] = _pagerank_run(gb, torch, K, M, n, 20)
+    (rw, cw), (rr, cr) = runs["W"], runs["creal(Z)"]
+    _same_bits("pagerank on creal(Z)", rr, rw)
+    if cw != cr or any(cr[k] == 0 for k in LANEPIPE_FAST):
+        fail(f"complex_udt: PageRank launches differ: W {cw}, creal(Z) {cr}")
+    log(f"  pagerank (20 iterations) on creal(Z) bitwise equal to W's, "
+        f"launches {cr}")
+    k5 = K.launches["lane_segscan"]
+    dw = gb.algorithms.sssp(A, 0)
+    k5w = K.launches["lane_segscan"] - k5
+    dr = gb.algorithms.sssp(Re, 0)
+    k5r = K.launches["lane_segscan"] - k5 - k5w
+    iw, vw_ = dw.to_coo()
+    ir, vr = dr.to_coo()
+    if not np.array_equal(iw, ir) or k5r == 0 or k5r != k5w:
+        fail(f"complex_udt: SSSP on creal(Z): structure or K5 launches "
+             f"({k5r} vs {k5w}) differ")
+    _same_bits("sssp on creal(Z)", vr, vw_)
+    k6 = K.launches["segscan"]
+    ri = Im.reduce_rowwise().new()
+    if K.launches["segscan"] == k6:
+        fail("complex_udt: cimag(Z).reduce_rowwise() did not run K6")
+    rv_ = V.reduce_rowwise().new()
+    if not np.array_equal(ri.to_coo()[0], rv_.to_coo()[0]):
+        fail("complex_udt: the row reduce of cimag(Z): structure differs")
+    _same_bits("cimag(Z).reduce_rowwise()", ri.to_coo()[1], rv_.to_coo()[1])
+    ab = Zc.apply(gb.unary.abs).new()
+    _cclose("abs(Z)", ab.to_coo()[2], np.abs(zc), 1e-6)
+    log(f"  sssp on creal(Z) bitwise ({k5r} K5 launches), cimag(Z) row "
+        f"reduce through K6 bitwise, abs(Z) within rel 1e-6")
+    del Re, Im, Zc, V, ri, rv_, ab, dw, dr, C32, T
+
+    # ---- 3. dense: a 4096^2 FC32 product, min_plus on creal through K7
+    drng = np.random.default_rng(SEED + 18)
+    with gb.config.set(auto_sparse_limit=1 << 25):  # products stay dense
+        X = (drng.uniform(-1, 1, (CU_DENSE_N, CU_DENSE_N))
+             + 1j * drng.uniform(-1, 1, (CU_DENSE_N, CU_DENSE_N))).astype(
+                 np.complex64)
+        D = gb.Matrix.from_dense(X)
+        before = dict(K.launches)
+        P = _record(gb, torch, out, f"mxm plus_times fc32 {CU_DENSE_N}",
+                    lambda: D.mxm(D, gb.semiring.plus_times["FC32"]).new())
+        _no_launch(K, before, "the FC32 product")
+        t0 = time.perf_counter()
+        ref = X @ X
+        ref_s = time.perf_counter() - t0
+        err = _cclose("mxm plus_times fc32", P.to_dense(), ref, 1e-5)
+        log(f"  {CU_DENSE_N}^2 FC32 plus_times within rel 1e-5 of numpy (max "
+            f"abs err {err:.3g}; numpy {ref_s:.2f} s)")
+        del D, P, X, ref
+        m = CU_MINPLUS_N
+        stored = drng.random((m, m)) < 0.1
+        r2, c2 = np.nonzero(stored)
+        cz = (drng.uniform(0.05, 1.05, len(r2))
+              + 1j * drng.uniform(-1, 1, len(r2))).astype(np.complex64)
+        Dz = gb.Matrix.from_coo(r2, c2, cz, dtype="FC32", nrows=m, ncols=m)
+        Dre = Dz.apply(gb.unary.creal).new()
+        Dr = gb.Matrix.from_coo(r2, c2, cz.real.copy(), dtype="FP32",
+                                nrows=m, ncols=m)
+        if Dz._sparse is not None or Dre._sparse is not None:
+            fail("complex_udt: the 2048^2 matrices are not dense-backed")
+        k7 = K.launches["tropical_matmul"]
+        got = Dre.mxm(Dre, gb.semiring.min_plus).new()
+        if K.launches["tropical_matmul"] == k7:
+            fail("complex_udt: min_plus on creal did not run K7")
+        want = Dr.mxm(Dr, gb.semiring.min_plus).new()
+        if not got.isequal(want, check_dtype=True):
+            fail("complex_udt: min_plus on creal is not bitwise equal")
+        log(f"  min_plus on creal of a {m}^2 FC32 matrix (10% stored) "
+            f"through K7, bitwise equal to the FP32 matrix's")
+        del Dz, Dre, Dr, got, want
+
+    # ---- 4. user-defined types: point_t on the zipf graph, a subarray
+    before = dict(K.launches)
+    pt = gb.dtypes.register_anonymous(
+        np.dtype([("x", np.float64), ("y", np.float64)]), "point_t")
+    urng = np.random.default_rng(SEED + 19)
+    pv = np.empty(nnz, pt.np_type)
+    pv["x"], pv["y"] = urng.integers(-50, 50, nnz), urng.integers(-50, 50, nnz)
+    P = gb.Matrix.from_coo(src, dst, pv, dtype=pt, nrows=n, ncols=n)
+    qkeys = np.unique(dst * n + src)  # the transposed structure
+    qv = np.empty(len(qkeys), pt.np_type)
+    qv["x"], qv["y"] = (urng.integers(-50, 50, len(qkeys)),
+                        urng.integers(-50, 50, len(qkeys)))
+    Q = gb.Matrix.from_coo(qkeys // n, qkeys % n, qv, dtype=pt, nrows=n,
+                           ncols=n)
+    add = gb.binary.register_anonymous(
+        lambda a, b: {"x": a["x"] + b["x"], "y": a["y"] * b["y"]},
+        name="point_add", is_udt=True)
+    flip = gb.unary.register_anonymous(
+        lambda a: {"x": -a["y"], "y": a["x"] * 2}, name="point_flip",
+        is_udt=True)
+    psum = gb.monoid.register_anonymous(gb.binary.register_anonymous(
+        lambda a, b: {"x": a["x"] + b["x"], "y": a["y"] + b["y"]},
+        name="point_sum", is_udt=True), 0.0)
+    E = _record(gb, torch, out, "udt ewise_add", lambda: P.ewise_add(
+        Q, add).new(), profile=True)
+    both = np.intersect1d(keys, qkeys)
+    ia = np.searchsorted(keys, both)
+    ib = np.searchsorted(qkeys, both)
+    union = np.union1d(keys, qkeys)
+    ex = np.empty(len(union), pt.np_type)
+    in_p, in_q = np.isin(union, keys), np.isin(union, qkeys)
+    ex[in_p] = pv[np.searchsorted(keys, union[in_p])]
+    ex[in_q & ~in_p] = qv[np.searchsorted(qkeys, union[in_q & ~in_p])]
+    hit = np.searchsorted(union, both)
+    ex["x"][hit] = pv["x"][ia] + qv["x"][ib]
+    ex["y"][hit] = pv["y"][ia] * qv["y"][ib]
+    k, v = _keys(E, n)
+    if E.dtype is not pt or not np.array_equal(k, union) or \
+            not np.array_equal(v, ex):
+        fail("complex_udt: UDT ewise_add differs from numpy")
+    Mu = P.ewise_mult(Q, add).new()
+    k, v = _keys(Mu, n)
+    if not np.array_equal(k, both) or not np.array_equal(v, ex[hit]):
+        fail("complex_udt: UDT ewise_mult differs from numpy")
+    F = P.apply(flip).new()
+    fx = np.empty(nnz, pt.np_type)
+    fx["x"], fx["y"] = -pv["y"], pv["x"] * 2
+    if not np.array_equal(_keys(F, n)[1], fx):
+        fail("complex_udt: UDT apply differs from numpy")
+    S = P.reduce_rowwise(psum).new()
+    nonempty = np.flatnonzero(np.bincount(src, minlength=n))
+    st_ = np.searchsorted(src, nonempty)
+    si, sv = S.to_coo()
+    if not (np.array_equal(si.astype(np.int64), nonempty)
+            and np.array_equal(sv["x"], np.add.reduceat(pv["x"], st_))
+            and np.array_equal(sv["y"], np.add.reduceat(pv["y"], st_))):
+        fail("complex_udt: the UDT monoid's row reduce differs from numpy")
+    rows = np.sort(urng.choice(n, n // 2, replace=False))
+    cols = np.sort(urng.choice(n, n // 2, replace=False))
+    X_ = P[rows, cols].new()
+    inv_r = np.full(n, -1)
+    inv_r[rows] = np.arange(len(rows))
+    inv_c = np.full(n, -1)
+    inv_c[cols] = np.arange(len(cols))
+    keep = (inv_r[src] >= 0) & (inv_c[dst] >= 0)
+    xk = inv_r[src[keep]] * len(cols) + inv_c[dst[keep]]
+    xr, xc, xv = X_.to_coo()
+    if not (np.array_equal(xr.astype(np.int64) * len(cols)
+                           + xc.astype(np.int64), xk)
+            and np.array_equal(xv, pv[keep])):
+        fail("complex_udt: UDT extract by index lists differs from numpy")
+    C = P.dup()
+    sub = Q[rows, cols].new()
+    C[rows, cols] = sub
+    region = np.isin(src, rows) & np.isin(dst, cols)
+    qs, qd = qkeys // n, qkeys % n
+    qin = np.isin(qs, rows) & np.isin(qd, cols)
+    ck = np.concatenate([keys[~region], qkeys[qin]])
+    cv = np.concatenate([pv[~region], qv[qin]])
+    o = np.argsort(ck)
+    k, v = _keys(C, n)
+    if not (np.array_equal(k, ck[o]) and np.array_equal(v, cv[o])):
+        fail("complex_udt: UDT assign by index lists differs from numpy")
+    del C[rows, cols]
+    k, v = _keys(C, n)
+    if not (np.array_equal(k, keys[~region])
+            and np.array_equal(v, pv[~region])):
+        fail("complex_udt: UDT delete differs from numpy")
+    G = P.dup()
+    G.clear()
+    G(Q.S) << P
+    k, v = _keys(G, n)
+    if not (np.array_equal(k, both) and np.array_equal(v, pv[ia])):
+        fail("complex_udt: UDT structural-mask write differs from numpy")
+    r_, c_, v_ = P.to_coo()
+    P2 = gb.Matrix.from_coo(r_, c_, v_, dtype=pt, nrows=n, ncols=n)
+    if not P2.isequal(P, check_dtype=True) or v_.dtype != pt.np_type:
+        fail("complex_udt: UDT to_coo round trip differs")
+    v3 = gb.dtypes.register_anonymous(np.dtype("(3,)float32"), "vec3_t")
+    a3 = urng.integers(-9, 9, (n, 3)).astype(np.float32)
+    b_idx = np.sort(urng.choice(n, n // 2, replace=False))
+    b3 = urng.integers(-9, 9, (len(b_idx), 3)).astype(np.float32)
+    wa = gb.Vector.from_coo(np.arange(n), a3, dtype=v3, size=n)
+    wb = gb.Vector.from_coo(b_idx, b3, dtype=v3, size=n)
+    vadd = gb.binary.register_anonymous(lambda a, b: a + 2 * b,
+                                        name="vec3_add", is_udt=True)
+    ws = wa.ewise_add(wb, vadd).new()
+    e3 = a3.copy()
+    e3[b_idx] = a3[b_idx] + 2 * b3
+    si, sv = ws.to_coo()
+    if not (np.array_equal(si.astype(np.int64), np.arange(n))
+            and sv.shape == (n, 3) and np.array_equal(sv, e3)):
+        fail("complex_udt: the (3,)float32 vector's ewise_add differs")
+    _no_launch(K, before, "the user-defined types")
+    log("  point_t ewise_add/ewise_mult/apply, the monoid's row reduce, "
+        "extract, assign, delete, the structural mask, to_coo and the "
+        "(3,)float32 vector: exact, no kernel launched")
+    del E, Mu, F, S, X_, C, sub, G, P2, wa, wb, ws
+
+    # ---- 5. interchange of FC64 and point_t
+    before = dict(K.launches)
+    blk = np.arange(min(CU_MINPLUS_N, n))
+    for tag, M, dt in (("fc64", Z64, None), ("point_t", P, pt)):
+        kw = {} if dt is None else {"dtype": dt}
+        blob = M.ss.serialize()
+        back = gb.Matrix.ss.deserialize(blob, **kw)
+        pk = pickle.loads(pickle.dumps(M))
+        csr = gb.Matrix.ss.import_csr(**M.ss.export("csr"), **kw)
+        Mb = M[blk, blk].new()
+        bm = gb.Matrix.ss.import_bitmapr(**Mb.ss.export("bitmapr"), **kw)
+        for what, got, want in (("serialize", back, M), ("pickle", pk, M),
+                                ("csr", csr, M), ("bitmapr", bm, Mb)):
+            if not got.isequal(want, check_dtype=True):
+                fail(f"complex_udt: {tag} {what} round trip differs")
+        log(f"  {tag}: serialize ({blob.nbytes} bytes), pickle, csr and "
+            f"bitmapr round trips equal")
+        del blob, back, pk, csr, Mb, bm
+    rs, rd, rn = build_rmat(12)
+    low = rs > rd
+    lk = np.unique(rs[low] * rn + rd[low])
+    lr, lc = lk // rn, lk % rn
+    hrng = np.random.default_rng(SEED + 20)
+    lv = hrng.uniform(-1, 1, len(lk)) + 1j * hrng.uniform(-1, 1, len(lk))
+    dv = hrng.uniform(-1, 1, rn)
+    lines = ["%%MatrixMarket matrix coordinate complex hermitian",
+             f"{rn} {rn} {len(lk) + rn}"]
+    lines += [f"{i + 1} {i + 1} {float(dv[i])!r} 0" for i in range(rn)]
+    lines += [f"{a + 1} {b + 1} {float(z.real)!r} {float(z.imag)!r}"
+              for a, b, z in zip(lr, lc, lv)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hermitian.mtx")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        H = timed_calls(torch, lambda: gb.io.mmread(path), reps=1)[0]
+        path2 = os.path.join(tmp, "fc64.mtx")
+        gb.io.mmwrite(path2, H)
+        H2 = gb.io.mmread(path2)
+    hk = np.concatenate([np.arange(rn) * (rn + 1), lk, lc * rn + lr])
+    hv = np.concatenate([dv.astype(np.complex128), lv, np.conj(lv)])
+    o = np.argsort(hk)
+    k, v = _keys(H, rn)
+    if H.dtype.name != "FC64" or not np.array_equal(k, hk[o]) or \
+            not np.array_equal(v, hv[o]):
+        fail("complex_udt: the hermitian Matrix Market file reads wrong")
+    if not H2.isequal(H, check_dtype=True):
+        fail("complex_udt: the FC64 Matrix Market round trip differs")
+    _no_launch(K, before, "the interchange")
+    log(f"  Matrix Market: hermitian RMAT 12 ({len(k)} entries) exact, "
+        f"FC64 round trip equal")
+    out["launches"] = check_launches(K, "complex_udt", totals, need=KERNELS)
+    results["complex_udt"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
           "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
-          "index", "positional_agg", "operators", "infix", "ss_io")
+          "index", "positional_agg", "operators", "infix", "ss_io",
+          "complex_udt")
 
 
 def main():
@@ -3640,6 +4101,10 @@ def main():
         if "ss_io" in phases:
             log("phase: ss_io")
             ss_io_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals)
+        if "complex_udt" in phases:
+            log("phase: complex_udt")
+            complex_udt_phase(gb, torch, K, src, dst, w, n, A, results,
+                              totals)
         del A, Ab
         if "hypersparse" in phases:
             log("phase: hypersparse")

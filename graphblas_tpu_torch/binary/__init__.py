@@ -1,8 +1,7 @@
 """``graphblas_tpu_torch.binary``: the binary operators of the port.  The
 eight positional ones (``firsti``, ``firsti1``, ... ``secondj1``) live
 under ``binary.ss``, as in the JAX package, and the numpy ufuncs under
-``binary.numpy``.  ``cmplx`` waits for the complex types and raises
-NotImplementedError."""
+``binary.numpy``."""
 
 import importlib
 
@@ -11,8 +10,6 @@ from ..core.operator.base import missing
 from ..core.operator.binary import BUILTINS as _B, BinaryOp, TypedBinaryOp
 from ..core.ss.jit import jit_register
 
-# the names of graphblas_tpu.binary that the port lacks
-WAITING = frozenset(("cmplx",))
 
 register_new = BinaryOp.register_new
 register_anonymous = BinaryOp.register_anonymous
@@ -35,7 +32,7 @@ class _SSNamespace:
                                    left_type, right_type, ret_type)
 
     def __getattr__(self, name):
-        raise missing("binary.ss", name, ())
+        raise missing("binary.ss", name)
 
 
 ss = _SSNamespace({k: v for k, v in _B.items()
@@ -57,7 +54,7 @@ def __getattr__(name):
         mod = __name__.rsplit(".", 1)[1]
         raise AttributeError(f"gb.{mod}.{name} is available as "
                              f"gb.{mod}.ss.{name}")
-    raise missing("binary", name, WAITING)
+    raise missing("binary", name)
 
 
 __all__ = ["BinaryOp", "TypedBinaryOp", "register_new", "register_anonymous",

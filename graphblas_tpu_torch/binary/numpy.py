@@ -12,7 +12,7 @@ import torch
 from .. import exceptions
 from ..core import dtypes as _dt
 from ..core.operator import ufuncs as uf
-from ..core.operator.binary import ALL11, INTS8, BinaryOp
+from ..core.operator.binary import ALL11, ALL13, INTS8, BinaryOp
 
 _NAMES = frozenset((
     "add", "subtract", "multiply", "divide", "logaddexp", "logaddexp2",
@@ -36,7 +36,7 @@ TO_GRAPHBLAS = {
 
 def float_ret(dt):
     """The float type a numpy float ufunc gives dt in the JAX package."""
-    if dt.is_float:
+    if dt.is_float or dt.is_complex:
         return dt
     return _dt.FP64 if dt.bits == 64 else _dt.FP32
 
@@ -96,6 +96,15 @@ def _int_or_float(int_fn, float_fn):
     return lambda dt: float_fn if dt.is_float else on_ints(dt)
 
 
+def _logaddexp2(x, y):
+    if x.is_complex():  # torch has no complex logaddexp2
+        return torch.logaddexp(x * _LN2, y * _LN2) / _LN2
+    return torch.logaddexp2(x, y)
+
+
+_LN2 = 0.6931471805599453
+
+
 def _floor(x, y):
     return uf.float_divmod(x, y)[0]
 
@@ -107,9 +116,9 @@ def _mod(x, y):
 _INT_DOMAIN = (_dt.BOOL,) + INTS8
 # name -> (domains, make(dt), return rule)
 _OWN = {
-    "float_power": (ALL11, in_ret(torch.pow, float_ret), float_ret),
-    "logaddexp": (ALL11, in_ret(torch.logaddexp, float_ret), float_ret),
-    "logaddexp2": (ALL11, in_ret(torch.logaddexp2, float_ret), float_ret),
+    "float_power": (ALL13, in_ret(torch.pow, float_ret), float_ret),
+    "logaddexp": (ALL13, in_ret(torch.logaddexp, float_ret), float_ret),
+    "logaddexp2": (ALL13, in_ret(_logaddexp2, float_ret), float_ret),
     "nextafter": (ALL11, in_ret(torch.nextafter, float_ret), float_ret),
     "floor_divide": (ALL11, _int_or_float(_floor_divide, _floor), int_ret),
     "fmod": (ALL11, _int_or_float(_by_nonzero(torch.fmod), torch.fmod),

@@ -104,7 +104,7 @@ def is_scalar_like(value):
     """A Python or numpy scalar (what the JAX package's
     ``_is_scalar_like`` takes)."""
     return isinstance(value, (int, float, bool, complex, np.number,
-                              np.bool_))
+                              np.bool_, np.void))
 
 
 class BaseType:

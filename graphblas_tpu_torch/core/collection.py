@@ -109,8 +109,7 @@ def _scalar_value(x):
 
 def _lookup(op, opclasses):
     """An operator string, parsed as the first of opclasses that knows it
-    (the JAX package's ``apply``).  A name the JAX package knows and the
-    port lacks raises NotImplementedError."""
+    (the JAX package's ``apply``)."""
     for opclass in opclasses:
         try:
             return op_from_string(op, opclass)
@@ -170,7 +169,13 @@ def _indexunary_expr(self, op, thunk, method):
     if hasattr(thunk, "ndim") and getattr(thunk, "ndim", 0):
         raise TypeError(f"thunk must be a scalar; got {type(thunk).__name__}")
     tdt = scalar_dtype(thunk)
-    iop = op if isinstance(op, TypedOpBase) else op[unify(src.dtype, tdt)]
+    if isinstance(op, TypedOpBase):
+        iop = op
+    elif src.dtype._is_udt and (op._positional is not None
+                                or op._udf is not None):
+        iop = op[src.dtype]  # a user-defined type's own instance
+    else:
+        iop = op[unify(src.dtype, tdt)]
     if method == "select" and iop.return_type is not _dt.BOOL:
         raise TypeError("select operator must return BOOL")
     t_val = scalar_tensor(thunk, tdt, src.device)
@@ -309,6 +314,10 @@ class Collection(BaseType):
                         f"{need}")
         kw = dict(mask=mask, accum=accum, replace=replace,
                   is_submask=is_submask, cmask_vec=cmask_vec)
+        if (isinstance(value, tuple) and self.dtype._is_udt
+                and self.dtype.np_type.names is not None):
+            # a struct element from a tuple, by numpy's struct rule
+            value = np.array(value, dtype=self.dtype.np_type)[()]
         if isinstance(value, Scalar) or is_scalar_like(value):
             if not isinstance(value, Scalar):
                 value = Scalar.from_value(value)

@@ -22,6 +22,11 @@ from . import tropical
 
 
 def truthy(vals, dtype):
+    """The truth of each value; a user-defined type's value is true, as
+    the JAX package's ``!= 0`` of a pytree is (a value mask over one acts
+    as its structure)."""
+    if dtype._is_udt:
+        return torch.ones(vals.shape, dtype=torch.bool, device=vals.device)
     return vals if dtype.is_bool else vals != 0
 
 
@@ -202,11 +207,10 @@ def reduce_monoid(vals, valid, mono, in_dt, axis=None):
         ok = valid.to(torch.uint8)
         if axis is None:
             if x.numel() == 0:
-                return torch.zeros((), dtype=x.dtype, device=x.device), out_valid
+                return x.new_zeros(()), out_valid
             return x.reshape(-1)[ok.reshape(-1).argmax()], out_valid
         if x.shape[axis] == 0:
-            return torch.zeros(out_valid.shape, dtype=x.dtype,
-                               device=x.device), out_valid
+            return x.new_zeros(out_valid.shape), out_valid
         first = ok.argmax(dim=axis, keepdim=True)
         return torch.take_along_dim(x, first, dim=axis).squeeze(axis), out_valid
     ident = st.identity_value_array(mono, mono.type, x.device)
@@ -366,8 +370,9 @@ def semiring_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt):
                                b_valid & truthy(bv, mult.type2))
             return _dt.normalize(cnt > 0.5, mono.type), out_valid
         # torch.matmul has no integer kernel on CUDA: integers take the
-        # generic product there (exact), never a float cast
-        if mult.type.is_float or dev.type == "cpu":
+        # generic product there (exact), never a float cast; a complex
+        # product is a library product, as jnp.matmul in the JAX package
+        if mult.type.is_float or mult.type.is_complex or dev.type == "cpu":
             av = torch.where(a_valid, av, torch.zeros((), dtype=av.dtype,
                                                       device=dev))
             bv = torch.where(b_valid, bv, torch.zeros((), dtype=bv.dtype,
@@ -411,7 +416,7 @@ def _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
     name = mono.parent.name
     is_any = name == "any"
     if is_any:
-        ident = torch.zeros((), dtype=mono.type.torch_type, device=dev)
+        ident = st.zeros_values((), mono.type, dev)
     else:
         ident = st.identity_value_array(mono, mono.type, dev)
     acc_vals = ident.expand(m, n).clone()
@@ -459,7 +464,7 @@ def kron(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
 def reposition(vals, valid, offsets, out_shape):
     """Every element moved by offsets into a store of out_shape; what falls
     outside is dropped."""
-    out_vals = torch.zeros(out_shape, dtype=vals.dtype, device=vals.device)
+    out_vals = vals.new_zeros(out_shape)
     out_valid = torch.zeros(out_shape, dtype=torch.bool, device=vals.device)
     src, dst = [], []
     for off, n_in, n_out in zip(offsets, valid.shape, out_shape):
@@ -486,7 +491,7 @@ def diag_extract(a_vals, a_valid, k):
 
 def diag_build(v_vals, v_valid, k, n):
     """(n, n) store with v on diagonal k."""
-    vals = torch.zeros((n, n), dtype=v_vals.dtype, device=v_vals.device)
+    vals = v_vals.new_zeros((n, n))
     valid = torch.zeros((n, n), dtype=torch.bool, device=v_vals.device)
     torch.diagonal(vals, offset=k).copy_(v_vals)
     torch.diagonal(valid, offset=k).copy_(v_valid)
@@ -540,7 +545,7 @@ def scatter_matrix(shape, rows, cols, z_vals, z_valid, dtype):
     shape, and the region itself.  Where an index repeats, which of its
     elements lands is unspecified, as in the JAX package."""
     dev = z_valid.device
-    out_vals = torch.zeros(shape, dtype=dtype.torch_type, device=dev)
+    out_vals = st.zeros_values(shape, dtype, dev)
     out_valid = torch.zeros(shape, dtype=torch.bool, device=dev)
     region = torch.zeros(shape, dtype=torch.bool, device=dev)
     r, c = rows[:, None], cols[None, :]
@@ -552,7 +557,7 @@ def scatter_matrix(shape, rows, cols, z_vals, z_valid, dtype):
 
 def scatter_vector(size, idx, z_vals, z_valid, dtype):
     dev = z_valid.device
-    out_vals = torch.zeros(size, dtype=dtype.torch_type, device=dev)
+    out_vals = st.zeros_values((size,), dtype, dev)
     out_valid = torch.zeros(size, dtype=torch.bool, device=dev)
     region = torch.zeros(size, dtype=torch.bool, device=dev)
     out_vals[idx] = z_vals.expand(len(idx))
@@ -587,7 +592,7 @@ def subassign(c_vals, c_valid, c_dt, z_vals, z_valid, z_dt, region,
 def _row_order(vals, valid, dtype, how, rng_keys=None):
     """Permutation ordering each row's stored elements by ``how``
     (sparse.order_key), ties by column; missing elements order last."""
-    from .sparse import order_key
+    from .sparse import argsort_key, order_key
 
     n = valid.shape[-1]
     colid = torch.arange(n, dtype=torch.int64, device=valid.device)
@@ -597,7 +602,7 @@ def _row_order(vals, valid, dtype, how, rng_keys=None):
     else:
         key = order_key(vals, dtype, how, rng_keys)
         if key is not None:
-            order = torch.sort(key, dim=-1, stable=True)[1]
+            order = argsort_key(key)
     missing = torch.gather((~valid).to(torch.int8), -1, order)
     return torch.gather(order, -1, torch.sort(missing, dim=-1,
                                               stable=True)[1])

@@ -141,7 +141,7 @@ def sorted_dedup_coo(rows, cols, values, nrows, ncols, dtype, dup_op):
     cols = np.ascontiguousarray(cols, np.int64)
     perm = native.coo_argsort(rows, cols, nrows, ncols)
     r, c = rows[perm], cols[perm]
-    v = np.asarray(values)[perm].astype(dtype.np_type, copy=False)
+    v = np.asarray(values)[perm].astype(_dt.host_np_type(dtype), copy=False)
     flags, uniq = native.coo_mark_unique(r, c)
     if uniq != len(r):
         if dup_op is None:
@@ -194,7 +194,7 @@ def build_sparse_store(rows, cols, values, nrows, ncols, dtype, device,
 def empty_store(nrows, ncols, dtype, device):
     e = torch.zeros(0, dtype=_I64, device=device)
     return SparseStore(Structure(e, e, nrows, ncols),
-                       torch.zeros(0, dtype=dtype.torch_type, device=device),
+                       st.zeros_values((0,), dtype, device),
                        dtype)
 
 
@@ -236,8 +236,7 @@ def diag_sparse_store(v_vals, v_valid, dtype, k, n):
 def densify(sp, dtype, device):
     """SparseStore -> (vals, valid) bitmap store on device.  The store holds
     each coordinate once, so the scatter has no ties."""
-    vals = torch.zeros((sp.nrows, sp.ncols), dtype=dtype.torch_type,
-                       device=device)
+    vals = st.zeros_values((sp.nrows, sp.ncols), dtype, device)
     valid = torch.zeros((sp.nrows, sp.ncols), dtype=torch.bool, device=device)
     if sp.nvals():
         lin = sp.struct.keys().to(device)
@@ -263,7 +262,10 @@ def csc_perm_of(cols):
 # segmented monoid reduction
 def _wide_acc(dt):
     """Accumulator of the plus reduce (the JAX package's exact cumsum
-    type): float64 for floats, int64 for the integers."""
+    type): float64 for floats, complex128 for the complex types, int64
+    for the integers."""
+    if dt.is_complex:
+        return torch.complex128
     return torch.float64 if dt.is_float else torch.int64
 
 
@@ -306,6 +308,19 @@ _RUN = 256  # the most atomics _scatter_minmax sends to one address
 _SHARE = 32
 
 
+def _hub_runs(seg, start, end, n):
+    """None where the longest segment of the sorted seg holds at most
+    max(_RUN, slots / _SHARE) slots (one device read); else the flags that
+    start each run of at most _RUN consecutive slots of one segment."""
+    m = seg.numel()
+    longest = int((end - start).max()) if n else 0
+    if longest <= max(_RUN, m // _SHARE):
+        return None
+    brk = torch.ones(m, dtype=torch.bool, device=seg.device)
+    brk[1:] = (seg[1:] != seg[:-1]) | (_iota(m, seg.device)[1:] % _RUN == 0)
+    return brk
+
+
 def _scatter_minmax(seg, x, red, ident, n, start, end):
     """``ident.expand(n).clone().scatter_reduce_(0, seg, x, red)`` for a
     sorted seg whose segments span [start, end).  A scatter straight into
@@ -316,19 +331,39 @@ def _scatter_minmax(seg, x, red, ident, n, start, end):
     atomics.  The probe of commit 25bd9b5 (scripts/segment_minmax_probe.py)
     timed the ways on the zipf graph's hub of 499,786 in-edges."""
     out = ident.expand(n).clone()
-    m = seg.numel()
-    longest = int((end - start).max()) if n else 0
-    if longest <= max(_RUN, m // _SHARE):
+    brk = _hub_runs(seg, start, end, n)
+    if brk is None:
         return out.scatter_reduce_(0, seg, x, red)
-    dev = seg.device
-    brk = torch.ones(m, dtype=torch.bool, device=dev)
-    brk[1:] = (seg[1:] != seg[:-1]) | (_iota(m, dev)[1:] % _RUN == 0)
+    m, dev = seg.numel(), seg.device
     run = torch.cumsum(brk, 0) - 1
     n_runs = min(m, n + m // _RUN + 1)  # at least the runs made
     run_vals = ident.expand(n_runs).clone().scatter_reduce_(0, run, x, red)
     run_seg = torch.zeros(n_runs, dtype=_I64, device=dev).scatter_(0, run,
                                                                    seg)
     return out.scatter_reduce_(0, run_seg, run_vals, red)
+
+
+def _complex_sums(seg, x, bounds, start, end, n):
+    """The complex128 sum of each segment of x (sorted by seg), as the
+    real and imaginary parts in float64.  torch.segment_reduce has no
+    complex kernel; on the (slots, 2) view its CUDA kernel sums each
+    segment in one thread (65 ms for the zipf graph's hub, of 499,786
+    slots), and as two 1-d reduces it takes CUB's segmented reduce (1.28
+    ms against 0.043 over the zipf graph's rows;
+    scripts/complex_sum_probe.py).  So where one segment is long
+    (_hub_runs), its runs of at most _RUN slots add first, then the
+    runs."""
+    parts = torch.view_as_real(x)
+    brk = _hub_runs(seg, start, end, n)
+    if brk is not None:
+        first = brk.nonzero().reshape(-1)
+        parts = torch.segment_reduce(
+            parts, "sum", offsets=torch.cat([first, first.new_tensor(
+                [seg.numel()])]), unsafe=True, initial=0.0)
+        bounds = torch.searchsorted(seg[first], _iota(n + 1, seg.device))
+    sums = torch.segment_reduce(parts, "sum", offsets=bounds, unsafe=True,
+                                initial=0.0)
+    return torch.view_as_complex(sums.contiguous())
 
 
 def _minmax(seg, x, name, n, ident, mono, start, end):
@@ -356,8 +391,10 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
     entries meet one destination; slots where ``ok`` is False take the
     identity, and ``any`` keeps the first valid element.  Integer sums are
     differences of one running sum (exact in int64); float sums add each
-    segment on its own in float64, since a difference of running sums
-    would carry the rounding of every earlier segment.  min and max
+    segment on its own in float64 (complex ones their real and imaginary
+    parts so), since a difference of running sums would carry the
+    rounding of every earlier segment.  A user-defined monoid folds by
+    the segmented scan, its values a Tree (store.py).  min and max
     scatter, in two levels where one segment is long (_scatter_minmax);
     times, band and bor fold by a segmented scan."""
     dev = vals.device
@@ -376,7 +413,9 @@ def segment_reduce_sorted(seg, vals, ok, mono, n, in_dt):
     xi = torch.where(ok, x, ident)
     if name == "plus":
         acc = _wide_acc(mono.type)
-        if acc.is_floating_point:
+        if acc.is_complex:
+            sums = _complex_sums(seg, xi.to(acc), bounds, start, end, n)
+        elif acc.is_floating_point:
             sums = torch.segment_reduce(xi.to(acc), "sum", offsets=bounds,
                                         unsafe=True, initial=0.0)
         else:
@@ -466,7 +505,7 @@ def extract_element(sp, at, i, j):
         i, j = j, i
     dev = sp.device
     if sp.nvals() == 0:
-        return (torch.zeros((), dtype=sp.vals.dtype, device=dev),
+        return (sp.vals.new_zeros(()),
                 torch.zeros((), dtype=torch.bool, device=dev))
     key = sp.struct.keys()
     target = torch.tensor([i * max(sp.ncols, 1) + j], dtype=_I64, device=dev)
@@ -526,7 +565,7 @@ def mxm_diag(sp, d, left_diag, ring, a_dt, d_dt):
     mult = ring.binaryop
     n = d.nrows
     dev = sp.device
-    dv = torch.zeros(n, dtype=d.vals.dtype, device=dev)
+    dv = d.vals.new_zeros((n,)).to(dev)
     dok = torch.zeros(n, dtype=torch.bool, device=dev)
     dv[d.rows] = d.vals
     dok[d.rows] = True
@@ -604,7 +643,7 @@ def ewise_mult_sparse_dense(sp, op, sp_dt, d_vals, d_valid, d_dt,
 def _take(vals, idx):
     """vals[idx] with idx clamped into range; zeros where vals is empty."""
     if vals.numel() == 0:
-        return torch.zeros(idx.shape, dtype=vals.dtype, device=idx.device)
+        return vals.new_zeros(idx.shape).to(idx.device)
     return vals[idx.clamp(0, vals.numel() - 1)]
 
 
@@ -914,7 +953,7 @@ def extract_rowcol_dense(sp, fixed, idx, axis_row):
     target = fixed * ncols + idx if axis_row else idx * ncols + fixed
     q, found = _find(sp.struct.keys(), target)
     vals = torch.where(found, _take(sp.vals, q),
-                       torch.zeros((), dtype=sp.vals.dtype, device=q.device))
+                       sp.vals.new_zeros(()).to(q.device))
     return vals, found
 
 
@@ -1015,13 +1054,19 @@ def order_key(vals, dtype, how, rng_keys=None):
     ``_row_order``): BOOL as a small integer, descending as ``~v`` for
     integers and ``-v`` for floats, UINT64 by its unsigned order; the
     random keys given for "random"; None for "first" and "last", which
-    order by position."""
+    order by position.  A complex value orders by its real part, then its
+    imaginary part (XLA's sort), so its key is that pair of tensors."""
     if how in ("first", "last"):
         return None
     if how == "random":
         return rng_keys
     if how not in ("smallest", "asc", "largest", "desc"):
         raise ValueError(f"Invalid how: {how}")
+    if dtype.is_complex:
+        v = vals.to(torch.complex128)
+        if how in ("largest", "desc"):
+            v = -v
+        return v.real, v.imag
     if dtype.is_float:
         v = vals.to(torch.float64)
         return -v if how in ("largest", "desc") else v
@@ -1029,6 +1074,18 @@ def order_key(vals, dtype, how, rng_keys=None):
     if dtype is _dt.UINT64:
         v = v ^ torch.iinfo(_I64).min
     return ~v if how in ("largest", "desc") else v
+
+
+def argsort_key(key, dim=-1):
+    """A stable argsort by key, or lexicographically by a tuple of keys
+    (the first key major)."""
+    if not isinstance(key, tuple):
+        return torch.sort(key, dim=dim, stable=True)[1]
+    order = torch.sort(key[-1], dim=dim, stable=True)[1]
+    for k in reversed(key[:-1]):
+        order = torch.gather(order, dim, torch.sort(
+            torch.gather(k, dim, order), dim=dim, stable=True)[1])
+    return order
 
 
 def group_order(group, key, how="first"):
@@ -1041,7 +1098,7 @@ def group_order(group, key, how="first"):
     if how == "last":
         order = torch.flip(order, (0,))
     elif key is not None:
-        order = torch.sort(key, stable=True)[1]
+        order = argsort_key(key)
     order = order[torch.sort(group[order], stable=True)[1]]
     g = group[order]
     start = torch.searchsorted(g, g, right=False)
@@ -1218,7 +1275,7 @@ def concat_stores(grid, dtype):
     dev = grid[0][0].device
     out_r = torch.empty(total, dtype=_I64, device=dev)
     out_c = torch.empty(total, dtype=_I64, device=dev)
-    out_v = torch.empty(total, dtype=dtype.torch_type, device=dev)
+    out_v = st.zeros_values((total,), dtype, dev)
     base = r_off = 0
     for row in grid:
         if sum(t.ncols for t in row) != ncols:

@@ -666,7 +666,7 @@ _DENSE_IMPL = {
 
 def _empty_result(expr, dev):
     n_out = expr.shape[0]
-    return (torch.zeros(n_out, dtype=expr.dtype.torch_type, device=dev),
+    return (st.zeros_values((n_out,), expr.dtype, dev),
             torch.zeros(n_out, dtype=torch.bool, device=dev))
 
 

@@ -21,6 +21,8 @@ _MAX_COLS = 14
 def _fmt_val(v, dtype):
     if dtype.is_float:
         return f"{v:.6g}"
+    if dtype.is_complex:
+        return f"{v:.4g}"
     if dtype.is_bool:
         return "True" if v else "False"
     return str(v)
@@ -106,8 +108,9 @@ def _header(name, type_lines, cols):
 def _with_grid(header, width, obj, dtype, nrows, ncols, *, transposed=False,
                shown=None):
     """header, a rule and the window's grid; shown maps the stored values
-    to what is printed (a mask's 0/1)."""
-    if nrows == 0 or ncols == 0:
+    to what is printed (a mask's 0/1).  A user-defined type shows the
+    header alone, as in the JAX package."""
+    if nrows == 0 or ncols == 0 or obj.dtype._is_udt:
         return header
     is_vector = obj.ndim == 1
     rows_w, cols_w = _grid_cells(nrows, ncols, is_vector)
@@ -153,7 +156,7 @@ def format_matrix(m, type_name="gb.Matrix"):
         [("nvals", str(m.nvals)), ("nrows", str(m.nrows)),
          ("ncols", str(m.ncols)), ("dtype", m.dtype.name),
          ("format", m.ss.format)])
-    if m.nrows == 0 or m.ncols == 0:
+    if m.nrows == 0 or m.ncols == 0 or m.dtype._is_udt:
         return header
     if _too_big(m):
         return _sparse_summary(header, m._sparse)
@@ -169,7 +172,7 @@ def format_transposed(t):
         [("nvals", str(m.nvals)), ("nrows", str(t.nrows)),
          ("ncols", str(t.ncols)), ("dtype", m.dtype.name),
          ("format", "bitmapc")])
-    if t.nrows == 0 or t.ncols == 0:
+    if t.nrows == 0 or t.ncols == 0 or m.dtype._is_udt:
         return header
     if _too_big(m):
         return _sparse_summary(header, m._sparse)
@@ -240,7 +243,7 @@ def format_matrix_html(m, mask=None):
     name = m.name or "gb.Matrix"
     header = (f"<b>{name}</b> — nvals={m.nvals}, nrows={m.nrows}, "
               f"ncols={m.ncols}, dtype={m.dtype.name}, format=bitmap")
-    if m.nrows == 0 or m.ncols == 0:
+    if m.nrows == 0 or m.ncols == 0 or m.dtype._is_udt:
         return f"<div>{header}</div>"
     if _too_big(m):
         body = _sparse_summary("", m._sparse).replace("\n", "<br>")
@@ -254,7 +257,7 @@ def format_vector_html(v, mask=None):
     name = v.name or "gb.Vector"
     header = (f"<b>{name}</b> — nvals={v.nvals}, size={v.size}, "
               f"dtype={v.dtype.name}")
-    if v.size == 0:
+    if v.size == 0 or v.dtype._is_udt:
         return f"<div>{header}</div>"
     rows_w, cols_w = _grid_cells(1, v.size, True)
     grid = _html_grid(_cells(v, rows_w, cols_w), v.dtype, rows_w, cols_w)

@@ -31,12 +31,13 @@ from .base import BaseExpression, SSDescriptor
 from .collection import Collection, apply_expr, ewise_expr, select_expr
 from .collection import untranspose as _untranspose
 from .engine import sparse as spx
+from .engine import store as st
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 from .operator.utils import reduce_op
 from .scalar import Scalar
 from .utils import get_order, ints_to_numpy_buffer
-from .vector import Vector, _values_dtype
+from .vector import Vector, _broadcast_values, _values_dtype
 
 
 def _shape_of(mat, transposed):
@@ -60,8 +61,7 @@ class Matrix(Collection):
                                                    self._device))
         else:
             self._set_store(
-                torch.zeros((nrows, ncols), dtype=self.dtype.torch_type,
-                            device=self._device),
+                st.zeros_values((nrows, ncols), self.dtype, self._device),
                 torch.zeros((nrows, ncols), dtype=torch.bool,
                             device=self._device))
 
@@ -94,7 +94,7 @@ class Matrix(Collection):
         rows = np.asarray(rows, np.int64).reshape(-1)
         columns = np.asarray(columns, np.int64).reshape(-1)
         values, dt = _values_dtype(values, dtype)
-        values = np.broadcast_to(values, rows.shape)
+        values = np.broadcast_to(values, rows.shape + _dt.value_shape(dt))
         if len(rows) != len(columns):
             raise ValueError("`rows` and `columns` lengths must match")
         if nrows is None:
@@ -251,9 +251,8 @@ class Matrix(Collection):
                                  "clear=True")
         rows = ints_to_numpy_buffer(rows, np.int64, name="row indices")
         cols = ints_to_numpy_buffer(columns, np.int64, name="column indices")
-        values = _values_dtype(values, self.dtype)[0]
-        if values.ndim == 0:
-            values = np.broadcast_to(values, rows.shape)
+        values = _broadcast_values(_values_dtype(values, self.dtype)[0],
+                                   rows.shape, self.dtype)
         if not len(rows) == len(cols) == len(values):
             raise ValueError(f"The lengths of `rows`, `columns`, and "
                              f"`values` must match: {len(rows)}, "
@@ -314,8 +313,8 @@ class Matrix(Collection):
         if self._sparse is not None:
             self._set_sparse_store(spx.resized(self._sparse, nrows, ncols))
         else:
-            vals = torch.zeros((nrows, ncols), dtype=self.dtype.torch_type,
-                               device=self._device)
+            vals = st.zeros_values((nrows, ncols), self.dtype,
+                                   self._device)
             valid = torch.zeros((nrows, ncols), dtype=torch.bool,
                                 device=self._device)
             r, c = min(nrows, self._nrows), min(ncols, self._ncols)
@@ -399,8 +398,9 @@ class Matrix(Collection):
         """Pickled as the JAX package pickles a Matrix: its COO, shape,
         type and name (the backing follows the shape when loaded)."""
         r, c, v = self.to_coo()
-        return (Matrix._deserialize, (self.dtype.name, self._nrows,
-                                      self._ncols, r, c, v, self._name))
+        dt = self.dtype if self.dtype._is_udt else self.dtype.name
+        return (Matrix._deserialize, (dt, self._nrows, self._ncols, r, c, v,
+                                      self._name))
 
     @staticmethod
     def _deserialize(dtype, nrows, ncols, r, c, v, name):
@@ -432,7 +432,8 @@ class Matrix(Collection):
         if self.shape != other.shape:
             return False
         common = self.dtype if check_dtype else _dt.unify(self.dtype, other.dtype)
-        if self._sparse is not None or other._sparse is not None:
+        if (self._sparse is not None or other._sparse is not None
+                or common._is_udt):
             return _coo_equal(self, other, common)
         ok = self._valid
         av = _dt.normalize(self._vals, common)
@@ -646,9 +647,9 @@ def _coo_equal(a, b, common):
     sparse path: no dense plane)."""
     ar, ac, av = a.to_coo()
     br, bc, bv = b.to_coo()
+    nt = _dt.host_np_type(common)
     return (np.array_equal(ar, br) and np.array_equal(ac, bc)
-            and np.array_equal(av.astype(common.np_type),
-                               bv.astype(common.np_type)))
+            and np.array_equal(av.astype(nt), bv.astype(nt)))
 
 
 def _as_matrix(other, within):

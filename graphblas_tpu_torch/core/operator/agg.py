@@ -25,7 +25,7 @@ __all__ = ["Aggregator", "TypedAggregator"]
 
 
 def _float_ret(dt):
-    return dt if dt.is_float else _dt.FP64
+    return dt if dt.is_float or dt.is_complex else _dt.FP64
 
 
 class AggSpec:
@@ -65,7 +65,9 @@ def _is_bool(x):
 
 
 def _to_f(x):
-    return x if x.dtype.is_floating_point else x.to(torch.float64)
+    if x.dtype.is_floating_point or x.is_complex():
+        return x
+    return x.to(torch.float64)
 
 
 def _truth(x):
@@ -103,7 +105,7 @@ _spec("count_nonzero", lambda x: (x != 0).to(torch.int64), "plus",
 _spec("count_zero", lambda x: (x == 0).to(torch.int64), "plus",
       ret_rule=_dt.INT64)
 _spec("sum_of_squares", lambda x: x * x, "plus",
-      ret_rule=lambda dt: dt if dt.is_float else _dt.INT64)
+      ret_rule=lambda dt: dt if dt.is_float or dt.is_complex else _dt.INT64)
 _spec("sum_of_inverses", lambda x: 1.0 / _to_f(x), "plus",
       ret_rule=_float_ret)
 _spec("exists", _ones, "any", ret_rule=_dt.INT64)
@@ -262,10 +264,11 @@ def _spec_from_parts(name, *, initval=None, monoid=None, semiring=None,
     return AggSpec(name, map_fn, mono, fin_fn, ret_rule=ret_rule)
 
 
-# the JAX package's domains (its _UINTS and _D11; its FC32 and FC64 wait
-# for ROADMAP.md queue 1, item 12)
+# the JAX package's domains: the unsigned for the bitwise ones, the real
+# types where an order or a variance is taken, and all thirteen elsewhere
 _UINTS = (_dt.UINT8, _dt.UINT16, _dt.UINT32, _dt.UINT64)
 _D11 = _dt.ALL
+_REAL_ONLY = ("min", "max", "minmax", "var_p", "var_s", "std_p", "std_s")
 
 
 class TypedAggregator(TypedOpBase):
@@ -322,9 +325,12 @@ class Aggregator(OpBase):
             domain = _UINTS
         elif isinstance(spec.monoid_name, OpBase):
             mono = spec.monoid_name
-            domain = tuple(dt for dt in _D11 if dt in mono._domains) or _D11
-        else:
+            domain = tuple(dt for dt in _dt.ALL13 if dt in mono._domains) \
+                or _dt.ALL13
+        elif spec.monoid_name in _REAL_ONLY:
             domain = _D11
+        else:
+            domain = _dt.ALL13
         return {dt: TypedAggregator(self, dt).return_type for dt in domain}
 
     def _build_typed(self, dt):
@@ -335,7 +341,7 @@ class Aggregator(OpBase):
     def __contains__(self, dtype):
         try:
             self[dtype]
-        except (KeyError, NotImplementedError):
+        except KeyError:
             return False
         return True
 

@@ -49,7 +49,7 @@ class OpBase:
     def __contains__(self, dtype):
         try:
             self[dtype]
-        except (TypeError, KeyError, ValueError, NotImplementedError):
+        except (TypeError, KeyError, ValueError):
             return False
         return True
 
@@ -162,12 +162,8 @@ def not_ported(what, item):
         f"{item})")
 
 
-def missing(namespace, name, reference_names):
-    """The error for an attribute an operator namespace lacks: the JAX
-    package's names that wait in the port raise NotImplementedError,
-    other names AttributeError."""
-    if name in reference_names:
-        return not_ported(f"{namespace}.{name}", 12)
+def missing(namespace, name):
+    """The error for an attribute an operator namespace lacks."""
     return AttributeError(
         f"module 'graphblas_tpu_torch.{namespace}' has no attribute {name!r}")
 

@@ -1,46 +1,70 @@
 """Binary operators (graphblas_tpu/core/operator/binary.py): the builtin
-table over the eleven real types, the positional operators, the Python
-binaries of the JAX package (``absfirst``, ``binom``, ``floordiv``, ...),
-the parameterized ``isclose``, and user functions over tensors
-(:meth:`BinaryOp.register_anonymous`, :meth:`BinaryOp.register_new`).
+table over the thirteen builtin types, the positional operators, the
+Python binaries of the JAX package (``absfirst``, ``binom``,
+``floordiv``, ...), the parameterized ``isclose``, and user functions
+over tensors (:meth:`BinaryOp.register_anonymous`,
+:meth:`BinaryOp.register_new`; with ``is_udt=True``, over the fields of a
+user-defined type).
 
 Each builtin's function is made for its type by a factory of
 core/operator/ufuncs.py (C semantics: truncated integer division,
 SuiteSparse's x / 0, unsigned UINT64).  ``min`` and ``max`` on floats are
-``fmin``/``fmax`` (GraphBLAS ``min`` ignores a NaN operand).  The eight
+``fmin``/``fmax`` (GraphBLAS ``min`` ignores a NaN operand); they, the
+order comparisons and the logical and bitwise operators have no complex
+instance, as in the JAX package.  ``cmplx`` makes FC32 of two FP32 (FC64
+of two FP64).  The eight
 positional operators (``firsti`` ... ``secondj1``) return an index of the
 pair they are applied to, plus 0 or 1; the engine computes them from
 positions (core/engine/dense.py ``positional_value``), so they have no
 function here, and on a type other than INT32 and INT64 they are their
-INT64 instance.  ``cmplx`` waits for the complex types."""
+INT64 instance."""
 
 import torch
 
 from ... import exceptions
 from .. import dtypes as _dt
+from ..engine import store as st
 from . import ufuncs as uf
 from .base import OpBase, ParameterizedUdf, TypedOpBase, check_arity
 
 ALL11 = _dt.ALL
+ALL13 = _dt.ALL13
 INTS8 = ALL11[1:9]  # INT8 .. UINT64
 FP = (_dt.FP32, _dt.FP64)
+FC = _dt.COMPLEX
+FPFC = FP + FC
 _POS = (_dt.INT32, _dt.INT64)
 
 
 class TypedBinaryOp(TypedOpBase):
     opclass = "BinaryOp"
 
-    def __init__(self, parent, name, type_, return_type, func, type2=None):
+    def __init__(self, parent, name, type_, return_type, func, type2=None,
+                 builtin_udt=False):
         super().__init__(parent, name, type_, return_type, type2)
         self.func = func
         self._positional = parent._positional
+        # a builtin that moves a user-defined type's values as they are
+        self._builtin_udt = builtin_udt
 
     def __call__(self, left, right=None, *, left_default=None,
                  right_default=None):
-        """On storage tensors of self.type, the result in return_type; on
-        collections and infix expressions, an expression (call_op)."""
+        """On storage tensors of self.type (Trees for a user-defined type),
+        the result in return_type; on collections and infix expressions,
+        an expression (call_op)."""
+        if isinstance(left, st.Tree) or isinstance(right, st.Tree):
+            if self._builtin_udt:
+                return self.func(left, right)
+            like = left if isinstance(left, st.Tree) else right
+            out = self.func(*(x.user_view() if isinstance(x, st.Tree)
+                              else x for x in (left, right)))
+            return st.from_user(out, self.return_type, like)
         if isinstance(left, torch.Tensor):
-            return _dt.normalize(self.func(left, right), self.return_type)
+            out = self.func(left, right)
+            if isinstance(out, dict):
+                raise TypeError(f"{self.parent.name} returns a struct: it "
+                                f"takes a user-defined type")
+            return _dt.normalize(out, self.return_type)
         from .utils import call_op
 
         return call_op(self, left, right, left_default=left_default,
@@ -79,13 +103,26 @@ def _ne(dt):
 
 
 def _truediv(dt):
-    if dt.is_float:
+    if dt.is_float or dt.is_complex:
         return lambda x, y: x / y
     return lambda x, y: uf.to_float64(x, dt) / uf.to_float64(y, dt)
 
 
 def _truediv_ret(dt):
-    return dt if dt.is_float else _dt.FP64
+    return dt if dt.is_float or dt.is_complex else _dt.FP64
+
+
+def _cmplx(dt):
+    return torch.complex
+
+
+_CMPLX_RET = {_dt.FP32: _dt.FC32, _dt.FP64: _dt.FC64}
+_FC_TO_FP = {_dt.FC32: _dt.FP32, _dt.FC64: _dt.FP64}
+
+
+def real_of(dt):
+    """The real type of a complex one (abs, creal, ...); dt otherwise."""
+    return _FC_TO_FP.get(dt, dt)
 
 
 def _swap(make):
@@ -117,23 +154,23 @@ _BOOL = _dt.BOOL
 
 # name -> (domains, make(dt) -> torch function, return rule)
 _BUILTIN = {
-    "first": (ALL11, _const(lambda x, y: x), None),
-    "second": (ALL11, _const(lambda x, y: y), None),
-    "pair": (ALL11, _const(lambda x, y: torch.ones_like(x)), None),
-    "any": (ALL11, _const(lambda x, y: x), None),  # either will do: the first
-    "plus": (ALL11, uf.plus, None),
-    "minus": (ALL11, uf.minus, None),
-    "rminus": (ALL11, _swap(uf.minus), None),
-    "times": (ALL11, uf.times, None),
-    "cdiv": (ALL11, uf.div, None),
-    "rdiv": (ALL11, _swap(uf.div), None),
-    "truediv": (ALL11, _truediv, _truediv_ret),
-    "rtruediv": (ALL11, _swap(_truediv), _truediv_ret),
+    "first": (ALL13, _const(lambda x, y: x), None),
+    "second": (ALL13, _const(lambda x, y: y), None),
+    "pair": (ALL13, _const(lambda x, y: torch.ones_like(x)), None),
+    "any": (ALL13, _const(lambda x, y: x), None),  # either will do: the first
+    "plus": (ALL13, uf.plus, None),
+    "minus": (ALL13, uf.minus, None),
+    "rminus": (ALL13, _swap(uf.minus), None),
+    "times": (ALL13, uf.times, None),
+    "cdiv": (ALL13, uf.div, None),
+    "rdiv": (ALL13, _swap(uf.div), None),
+    "truediv": (ALL13, _truediv, _truediv_ret),
+    "rtruediv": (ALL13, _swap(_truediv), _truediv_ret),
     "min": (ALL11, uf.minimum, None),
     "max": (ALL11, uf.maximum, None),
-    "pow": (ALL11, uf.power, None),
-    "iseq": (ALL11, _is_wrap(_eq), None),
-    "isne": (ALL11, _is_wrap(_ne), None),
+    "pow": (ALL13, uf.power, None),
+    "iseq": (ALL13, _is_wrap(_eq), None),
+    "isne": (ALL13, _is_wrap(_ne), None),
     "isgt": (ALL11, _is_wrap(uf.gt), None),
     "islt": (ALL11, _is_wrap(uf.lt), None),
     "isge": (ALL11, _is_wrap(uf.ge), None),
@@ -156,13 +193,16 @@ _BUILTIN = {
     "remainder": (FP, _remainder, None),
     "ldexp": (FP, uf.ldexp, None),
     "copysign": (FP, _const(torch.copysign), None),
-    "eq": (ALL11, _eq, _BOOL),
-    "ne": (ALL11, _ne, _BOOL),
+    "eq": (ALL13, _eq, _BOOL),
+    "ne": (ALL13, _ne, _BOOL),
     "gt": (ALL11, uf.gt, _BOOL),
     "lt": (ALL11, uf.lt, _BOOL),
     "ge": (ALL11, uf.ge, _BOOL),
     "le": (ALL11, uf.le, _BOOL),
+    "cmplx": (FP, _cmplx, _CMPLX_RET.get),
 }
+# the builtins that take a user-defined type: they move its values
+_UDT_CAPABLE = frozenset(("first", "second", "any"))
 
 # the Python binaries of the JAX package (its binary/__init__.py), which
 # it types by tracing: the same table here
@@ -175,6 +215,8 @@ def _absfirst(dt):
 
 def _binom(dt):
     def fn(x, y):
+        if dt.is_complex:  # of the real parts, as the JAX package casts
+            x, y = x.real, y.real
         xf, yf = uf.to_float64(x, dt), uf.to_float64(y, dt)
         r = torch.exp(torch.lgamma(xf + 1) - torch.lgamma(yf + 1)
                       - torch.lgamma(xf - yf + 1))
@@ -201,12 +243,12 @@ def _floordiv(dt):
 
 
 _EXTRA = {
-    "absfirst": (ALL11, _absfirst, None),
-    "abssecond": (ALL11, _swap(_absfirst), None),
-    "binom": (ALL11, _binom, lambda dt: _dt.INT64 if dt.is_bool else dt),
+    "absfirst": (ALL13, _absfirst, real_of),
+    "abssecond": (ALL13, _swap(_absfirst), real_of),
+    "binom": (ALL13, _binom, lambda dt: _dt.INT64 if dt.is_bool else dt),
     "floordiv": (ALL11, _floordiv, None),
     "rfloordiv": (ALL11, _swap(_floordiv), None),
-    "rpow": (ALL11, _swap(uf.power), None),
+    "rpow": (ALL13, _swap(uf.power), None),
 }
 
 _POSITIONAL = {"firsti": ("ai", 0), "firsti1": ("ai", 1),
@@ -269,6 +311,14 @@ class BinaryOp(OpBase):
     def _build_typed(self, dt):
         if self._positional is not None:
             return self[_dt.INT64]
+        if dt._is_udt:
+            if self.name in _UDT_CAPABLE and not self._anonymous:
+                return TypedBinaryOp(self, self.name, dt, dt,
+                                     _BUILTIN[self.name][1](dt),
+                                     builtin_udt=True)
+            if self._udf is None:
+                return None
+            return TypedBinaryOp(self, self.name, dt, dt, self._udf)
         if self._udf is None:
             return None
         try:
@@ -301,19 +351,19 @@ class BinaryOp(OpBase):
                            is_udt=False):
         """A BinaryOp from a Python function over tensors (torch
         operations on storage tensors of one type), typed for each of the
-        eleven types it accepts."""
-        if is_udt:
-            raise NotImplementedError(
-                "user-defined types are not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 12)")
+        thirteen types it accepts; with ``is_udt``, typed on demand (a
+        user-defined type gets its fields)."""
         if parameterized:
-            return ParameterizedBinaryOp(name, func, anonymous=True)
+            return ParameterizedBinaryOp(name, func, anonymous=True,
+                                         is_udt=is_udt)
         check_arity(func, 2, "BinaryOp")
         op = cls(name if name is not None
                  else getattr(func, "__name__", "binary_op"), anonymous=True)
         op._udf = func
         op._refusal = exceptions.UdfParseError
-        for dt in ALL11:
+        if is_udt:
+            return op
+        for dt in ALL13:
             typed = op._build_typed(dt)
             if typed is not None:
                 op._typed_ops[dt] = typed
@@ -332,15 +382,16 @@ class BinaryOp(OpBase):
 
 
 class ParameterizedBinaryOp(ParameterizedUdf):
-    def __init__(self, name, func, *, anonymous=False):
+    def __init__(self, name, func, *, anonymous=False, is_udt=False):
         super().__init__(name if name is not None
                          else getattr(func, "__name__", "binary_op"),
                          anonymous)
         self.func = func
+        self._is_udt = is_udt
 
     def __call__(self, *args, **kwargs):
         return BinaryOp.register_anonymous(self.func(*args, **kwargs),
-                                           self.name)
+                                           self.name, is_udt=self._is_udt)
 
 
 def _isclose(rel_tol=1e-7, abs_tol=0.0):
@@ -352,6 +403,8 @@ def _isclose(rel_tol=1e-7, abs_tol=0.0):
 
 BUILTINS = {name: BinaryOp._builtin(name, *spec)
             for name, spec in {**_BUILTIN, **_EXTRA}.items()}
+for _name in _EXTRA:  # Python functions in the JAX package: a failed trace
+    BUILTINS[_name]._refusal = exceptions.UdfParseError
 BUILTINS["oneb"] = BUILTINS["pair"]
 for _name, _pos in _POSITIONAL.items():
     _op = BinaryOp(_name, positional=_pos)

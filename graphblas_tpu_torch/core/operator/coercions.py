@@ -52,6 +52,8 @@ def install(unary, binary, monoid):
         _alias(binary[name], _SMALL, _dt.FP32)
         _alias(binary[name], _LARGE, _dt.FP64)
     _alias(binary["lxnor"], NUMERIC10, _dt.BOOL)
+    _alias(binary["cmplx"], _SMALL, _dt.FP32)
+    _alias(binary["cmplx"], _LARGE, _dt.FP64)
 
 
 def bool_monoid_substitute(mono):

@@ -8,15 +8,19 @@ the thunk as INT64; the value comparisons (``valueeq`` ... ``valuele``)
 compare the value, cast to the operator's type, with the thunk (UINT64
 unsigned).  A SelectOp is an IndexUnaryOp that returns BOOL; the select
 namespace holds those.  User functions ``f(x, i, j, thunk)`` over tensors
-register with :meth:`IndexUnaryOp.register_anonymous`."""
+register with :meth:`IndexUnaryOp.register_anonymous` (with
+``is_udt=True``, over a user-defined type's fields).  The structural
+operators and ``valueeq``/``valuene`` take FC32 and FC64 too, and the
+structural ones every user-defined type, as in the JAX package."""
 
 import torch
 
 from ... import exceptions
 from .. import dtypes as _dt
+from ..engine import store as st
 from . import ufuncs as uf
 from .base import OpBase, ParameterizedUdf, TypedOpBase, check_arity
-from .binary import ALL11
+from .binary import ALL11, ALL13
 
 
 def _index_only(fn):
@@ -64,6 +68,7 @@ _BUILTIN = {
     "valuelt": (_value_only(uf.lt), _BOOL),
     "valuele": (_value_only(uf.le), _BOOL),
 }
+_EQ = frozenset(("valueeq", "valuene"))
 _POSITIONAL = frozenset(("rowindex", "colindex", "diagindex", "tril", "triu",
                          "diag", "offdiag", "colle", "colgt", "rowle",
                          "rowgt"))
@@ -82,6 +87,12 @@ class TypedIndexUnaryOp(TypedOpBase):
         cols, a 0-d thunk; the result in return_type, shaped like x.  On a
         collection (``select.tril(A, -1)``), an expression
         (call_indexunary; the second argument is the thunk)."""
+        if isinstance(x, st.Tree):
+            if self._positional is not None:
+                out = self.func(x, i, j, thunk)
+                return _dt.normalize(out.expand(x.shape), self.return_type)
+            return st.from_user(self.func(x.user_view(), i, j, thunk),
+                                self.return_type, x)
         if not isinstance(x, torch.Tensor):
             from .utils import call_indexunary
 
@@ -110,12 +121,21 @@ class IndexUnaryOp(OpBase):
     @classmethod
     def _builtin(cls, name, make, ret):
         op = cls(name)
-        for dt in ALL11:
+        domains = ALL13 if name in _POSITIONAL or name in _EQ else ALL11
+        for dt in domains:
             op._typed_ops[dt] = cls._typed_class(
                 op, name, dt, _dt.INT64 if ret is None else ret, make(dt))
         return op
 
     def _build_typed(self, dt):
+        if dt._is_udt:
+            if self._positional is not None:
+                ret = _BUILTIN[self.name][1] or _dt.INT64
+                return self._typed_class(self, self.name, dt, ret,
+                                         _BUILTIN[self.name][0](dt))
+            if self._udf is None:
+                return None
+            return self._typed_class(self, self.name, dt, dt, self._udf)
         if self._udf is None:
             return None
         try:
@@ -134,21 +154,20 @@ class IndexUnaryOp(OpBase):
     def register_anonymous(cls, func, name=None, *, parameterized=False,
                            is_udt=False):
         """An operator from a Python function f(x, i, j, thunk) over
-        tensors, typed for each of the eleven types it accepts (a SelectOp
-        for those where it returns BOOL)."""
-        if is_udt:
-            raise NotImplementedError(
-                "user-defined types are not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 12)")
+        tensors, typed for each of the thirteen types it accepts (a
+        SelectOp for those where it returns BOOL); with ``is_udt``, typed
+        on demand."""
         if parameterized:
-            return ParameterizedIndexUnaryOp(cls, name, func)
+            return ParameterizedIndexUnaryOp(cls, name, func, is_udt=is_udt)
         check_arity(func, 4, cls.opclass)
         op = cls(name if name is not None
                  else getattr(func, "__name__", "indexunary_op"),
                  anonymous=True)
         op._udf = func
         op._refusal = exceptions.UdfParseError
-        for dt in ALL11:
+        if is_udt:
+            return op
+        for dt in ALL13:
             typed = op._build_typed(dt)
             if typed is not None:
                 op._typed_ops[dt] = typed
@@ -178,15 +197,16 @@ class SelectOp(IndexUnaryOp):
 
 
 class ParameterizedIndexUnaryOp(ParameterizedUdf):
-    def __init__(self, cls, name, func):
+    def __init__(self, cls, name, func, is_udt=False):
         super().__init__(name if name is not None
                          else getattr(func, "__name__", "indexunary_op"), True)
         self._cls = cls
         self.func = func
+        self._is_udt = is_udt
 
     def __call__(self, *args, **kwargs):
         return self._cls.register_anonymous(self.func(*args, **kwargs),
-                                            self.name)
+                                            self.name, is_udt=self._is_udt)
 
 
 INDEXUNARY = {name: IndexUnaryOp._builtin(name, make, ret)

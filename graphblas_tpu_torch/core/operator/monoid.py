@@ -1,10 +1,13 @@
 """Monoids: an associative binary op and its identity
 (graphblas_tpu/core/operator/monoid.py, same names, domains, identities
-and terminals): min, max, plus and times over the ten non-BOOL real
-types; lor, land, lxor, lxnor and eq over BOOL; band, bor, bxor and bxnor
-over the unsigned integers; any over all eleven types.  ``any`` picks one
-of its operands and has no identity; the dense engine takes the first
-stored one in index order.
+and terminals): min and max over the ten non-BOOL real types, plus and
+times over those and FC32 and FC64; lor, land, lxor, lxnor and eq over
+BOOL; band, bor, bxor and bxnor over the unsigned integers; any over all
+thirteen types and every user-defined type.  ``any`` picks one of its
+operands and has no identity; the dense engine takes the first stored
+one in index order.  A monoid of a user-defined type's binary op
+(``is_udt=True``) keeps its identity for every type it is typed for: a
+number fills each field.
 
 The coercions of core/operator/coercions.py add aliases: ``min``, ``max``
 and ``times`` over BOOL are the logical monoids ``land``, ``lor`` and
@@ -61,6 +64,7 @@ class Monoid(OpBase):
         super().__init__(name, anonymous=anonymous)
         self._binaryop = binaryop
         self._is_idempotent = is_idempotent
+        self._udt_identity = None
 
     @property
     def binaryop(self):
@@ -82,6 +86,18 @@ class Monoid(OpBase):
         return tuple(t for t, op in self._typed_ops.items() if op.type is t)
 
     def _build_typed(self, dt):
+        if dt._is_udt:
+            # ``any``, and a monoid of a user function, with the identity
+            # it was made with
+            if self._binaryop._udf is None and (self._anonymous
+                                                or self.name != "any"):
+                return None
+            try:
+                bop = self._binaryop[dt]
+            except (KeyError, TypeError, ValueError):
+                return None
+            return TypedMonoid(self, self.name, dt, bop, self._udt_identity,
+                               is_idempotent=self._is_idempotent)
         # a monoid of a user (or numpy) function types it on demand, with
         # no identity, as the JAX package's does
         if self._refusal is KeyError:
@@ -139,7 +155,9 @@ class Monoid(OpBase):
                 continue
             mono._typed_ops[dt] = TypedMonoid(mono, mono.name, dt, bop, ident,
                                               is_idempotent=is_idempotent)
-        if not mono._typed_ops:
+        if binaryop._udf is not None and not explicit:
+            mono._udt_identity = identity
+        if not mono._typed_ops and binaryop._udf is None:
             raise ValueError(f"Unable to create monoid from binaryop "
                              f"{binaryop.name}: no closed dtypes")
         return mono
@@ -180,10 +198,10 @@ BUILTINS = {
                            terminal=_identity_max),
     "max": Monoid._builtin("max", REAL10, _identity_max, is_idempotent=True,
                            terminal=_identity_min),
-    "plus": Monoid._builtin("plus", REAL10, 0),
-    "times": Monoid._builtin("times", REAL10, 1,
+    "plus": Monoid._builtin("plus", REAL10 + _dt.COMPLEX, 0),
+    "times": Monoid._builtin("times", REAL10 + _dt.COMPLEX, 1,
                              terminal=lambda dt: 0 if dt.is_int else None),
-    "any": Monoid._builtin("any", _dt.ALL, None, is_idempotent=True),
+    "any": Monoid._builtin("any", _dt.ALL13, None, is_idempotent=True),
     "lor": Monoid._builtin("lor", _BOOL, False, is_idempotent=True,
                            terminal=True),
     "land": Monoid._builtin("land", _BOOL, True, is_idempotent=True,

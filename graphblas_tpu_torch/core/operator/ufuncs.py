@@ -11,6 +11,9 @@ SuiteSparse pins down edge cases where torch's defaults differ:
 - integer ``pow`` goes through float64 and truncates;
 - ``round`` rounds half away from zero (torch rounds half to even).
 
+A complex type takes the float functions (``minv`` is 1 / x, ``div`` and
+``truediv`` true division), and its own ``pow`` (:func:`_cpow`).
+
 Every function here is made for one DataType by a ``make(dt)`` factory and
 takes storage tensors of that type (core/dtypes.py): UINT64 arrives as
 int64 bits, so its comparisons, min/max, division, shifts and casts to
@@ -130,6 +133,8 @@ def minv(dt):
     if dt.is_int:
         d = idiv(dt)
         return lambda x: d(torch.ones_like(x), x)
+    if dt.is_complex:
+        return torch.reciprocal  # 1 / 0 is inf + nan j, as numpy's
     return lambda x: 1.0 / x
 
 
@@ -166,12 +171,22 @@ def from_float64(r, dt):
     return _dt.normalize(torch.trunc(r), dt)
 
 
+def _cpow(x, y):
+    """Complex x**y: torch's exp(y log x), with numpy's x**0 = 1 (0**0
+    included) and x**1 = x (inf**1 is inf, not inf + nan j)."""
+    out = torch.pow(x, y)
+    out = torch.where(y == 1, x, out)
+    return torch.where(y == 0, torch.ones_like(out), out)
+
+
 def power(dt):
     if dt.is_bool:
         return lambda x, y: x | ~y
     if dt.is_int:
         return lambda x, y: from_float64(
             torch.pow(to_float64(x, dt), to_float64(y, dt)), dt)
+    if dt.is_complex:
+        return _cpow
     return torch.pow
 
 

@@ -6,10 +6,9 @@ parsers with their symbol tables).
 ``"abs[int]"`` and the aggregators' ``"count"`` and ``"ss.argmin"``
 resolve as in the JAX package, through the namespaces and their
 ``numpy`` namespaces: a bracketed type gives that typed operator,
-whatever the operands' types.  An unknown name raises ValueError; a name
-the JAX package knows and the port lacks (``cmplx``, ``conj``) raises
-NotImplementedError naming ROADMAP.md queue 1, item 12.  User operators
-land in their namespace through :func:`register_into_namespace`."""
+whatever the operands' types.  An unknown name raises ValueError.  User
+operators land in their namespace through
+:func:`register_into_namespace`."""
 
 import importlib
 from types import ModuleType
@@ -91,8 +90,7 @@ def _from_string(string, modname, mapping, example):
             f'Bad {modname} string: {string!r}.  "]" not matched by "[".  '
             f"Example usage: {example!r}")
     # as the JAX package: the symbol table, the namespace, its numpy
-    # namespace, then a dotted path (a name the port lacks raises
-    # NotImplementedError from the namespace's hook)
+    # namespace, then a dotted path
     numpy_ns = getattr(module, "numpy", None)
     if base in mapping:
         op = _walk(module, mapping[base])

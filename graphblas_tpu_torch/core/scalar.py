@@ -15,7 +15,9 @@ import torch
 from . import config as _config
 from ..exceptions import EmptyObject
 from .base import BaseExpression, BaseType, is_scalar_like
-from .dtypes import FP64, lookup_dtype, storage_scalar, to_numpy, unify
+from .dtypes import (FP64, host_np_type, lookup_dtype, storage_scalar,
+                     to_numpy, to_tensor, unify)
+from .engine import store as st
 from .mask import Mask
 from .operator.base import find_opclass, typed, unparameterized
 
@@ -38,8 +40,7 @@ class Scalar(BaseType):
         self.name = name
         self._is_cscalar = bool(is_cscalar)
         dev = _config.device()
-        self._set_store(torch.zeros((), dtype=self.dtype.torch_type,
-                                    device=dev),
+        self._set_store(st.zeros_values((), self.dtype, dev),
                         torch.zeros((), dtype=torch.bool, device=dev))
 
     @classmethod
@@ -101,10 +102,12 @@ class Scalar(BaseType):
 
     @property
     def value(self):
-        """The value as a numpy scalar of the dtype; None when empty."""
+        """The value as a numpy scalar of the dtype (a 0-d struct array,
+        or the subarray, of a user-defined type); None when empty."""
         if self.is_empty:
             return None
-        return to_numpy(self._vals, self.dtype)[()]
+        host = to_numpy(self._vals, self.dtype)
+        return host if self.dtype._is_udt else host[()]
 
     @value.setter
     def value(self, val):
@@ -116,10 +119,13 @@ class Scalar(BaseType):
             self.clear()
             return
         dt = self.dtype
-        v = storage_scalar(np.asarray(val).astype(dt.np_type).item(), dt)
         dev = self.device
-        self._set_store(torch.tensor(v, dtype=dt.torch_type, device=dev),
-                        torch.ones((), dtype=torch.bool, device=dev))
+        if dt._is_udt:
+            vals = to_tensor(np.array(val, host_np_type(dt)), dt, dev)
+        else:
+            v = storage_scalar(np.asarray(val).astype(dt.np_type).item(), dt)
+            vals = torch.tensor(v, dtype=dt.torch_type, device=dev)
+        self._set_store(vals, torch.ones((), dtype=torch.bool, device=dev))
 
     def _update_from_value(self, value, accum=None):
         """``s << x`` and ``s(accum=op) << x`` for a Python scalar, a
@@ -150,8 +156,7 @@ class Scalar(BaseType):
 
     def clear(self):
         dev = self.device
-        self._set_store(torch.zeros((), dtype=self.dtype.torch_type,
-                                    device=dev),
+        self._set_store(st.zeros_values((), self.dtype, dev),
                         torch.zeros((), dtype=torch.bool, device=dev))
 
     def dup(self, dtype=None, *, clear=False, is_cscalar=None, name=None,
@@ -187,6 +192,8 @@ class Scalar(BaseType):
             return False
         if self.is_empty or other.is_empty:
             return self.is_empty and other.is_empty
+        if self.dtype._is_udt:
+            return bool(np.array_equal(self.value, other.value))
         return bool(self.value == other.value)
 
     def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
@@ -275,8 +282,9 @@ class Scalar(BaseType):
         return formatting.format_scalar_html(self)
 
     def __reduce__(self):
-        return (_deserialize_scalar, (self.dtype.name, self.value,
-                                      self._is_cscalar, self._name))
+        dt = self.dtype if self.dtype._is_udt else self.dtype.name
+        return (_deserialize_scalar, (dt, self.value, self._is_cscalar,
+                                      self._name))
 
     def __invert__(self):
         from ..unary import lnot

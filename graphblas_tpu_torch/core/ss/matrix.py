@@ -23,6 +23,7 @@ from ...exceptions import InvalidValue
 from .. import dtypes as _dt
 from ..engine import dense
 from ..engine import sparse as spx
+from ..engine import store as st
 from ..utils import normalize_chunks
 
 
@@ -469,7 +470,7 @@ class MatrixSS:
         sp = p._sparse
         lin = sp.cols * p.nrows + sp.rows if colwise else \
             sp.rows * p.ncols + sp.cols
-        vals = torch.zeros(n, dtype=p.dtype.torch_type, device=p.device)
+        vals = st.zeros_values((n,), p.dtype, p.device)
         ok = torch.zeros(n, dtype=torch.bool, device=p.device)
         vals[lin] = sp.vals
         ok[lin] = True
@@ -590,7 +591,7 @@ class MatrixSS:
         None or "none")."""
         p = self._parent
         r, c, v = p.to_coo()
-        payload = pickle.dumps({"dtype": p.dtype.name, "nrows": p.nrows,
+        payload = pickle.dumps({"dtype": _dtype_key(p.dtype), "nrows": p.nrows,
                                 "ncols": p.ncols, "rows": r, "cols": c,
                                 "values": v},
                                protocol=pickle.HIGHEST_PROTOCOL)
@@ -623,6 +624,12 @@ class MatrixSS:
             return Matrix._from_sparse(typed_op.return_type, out, name=name)
         vals, ok = spx.densify(out, typed_op.return_type, p.device)
         return Matrix._from_planes(typed_op.return_type, vals, ok, name=name)
+
+
+def _dtype_key(dt):
+    """The type as a serialized blob names it: a builtin's name, a
+    user-defined type's numpy type string (the JAX package's)."""
+    return dt.np_type.str if dt._is_udt else dt.name
 
 
 def _scan_op(op, dtype):

@@ -13,8 +13,10 @@ from ...exceptions import InvalidValue
 from .. import dtypes as _dt
 from ..engine import dense
 from ..engine import sparse as spx
+from ..engine import store as st
 from ..utils import normalize_chunks
-from .matrix import _blob, _broadcast_iso, _iso, _scan_op, _unblob, rng_keys
+from .matrix import (_blob, _broadcast_iso, _dtype_key, _iso, _scan_op,
+                     _unblob, rng_keys)
 
 
 class VectorSS:
@@ -241,7 +243,7 @@ class VectorSS:
         """The JAX package's ``GBTPU1`` blob."""
         p = self._parent
         idx, v = p.to_coo()
-        payload = pickle.dumps({"dtype": p.dtype.name, "size": p.size,
+        payload = pickle.dumps({"dtype": _dtype_key(p.dtype), "size": p.size,
                                 "indices": idx, "values": v},
                                protocol=pickle.HIGHEST_PROTOCOL)
         return _blob(b"GBTPU1", payload, compression, level)
@@ -265,8 +267,7 @@ class VectorSS:
         idx = p._valid.nonzero().reshape(-1)
         out = spx.scan_values(torch.zeros_like(idx), p._vals[idx], typed_op,
                               p.dtype)
-        vals = torch.zeros(p.size, dtype=typed_op.return_type.torch_type,
-                           device=p.device)
+        vals = st.zeros_values((p.size,), typed_op.return_type, p.device)
         vals[idx] = out
         return Vector._from_store(typed_op.return_type, vals,
                                   p._valid.clone(), name=name)

@@ -16,6 +16,7 @@ from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
                           OutputNotEmpty)
 from .base import BaseExpression, SSDescriptor
 from .collection import Collection, apply_expr, ewise_expr, select_expr
+from .engine import store as st
 from .mask import StructuralMask, ValueMask
 from .operator.base import typed
 from .utils import ints_to_numpy_buffer
@@ -29,7 +30,15 @@ def _values_dtype(values, dtype):
         values = np.asarray(values)
         return values, _dt.lookup_dtype(values.dtype)
     dt = _dt.lookup_dtype(dtype)
-    return np.array(values, dt.np_type, copy=None), dt
+    return np.array(values, _dt.host_np_type(dt), copy=None), dt
+
+
+def _broadcast_values(values, shape, dt):
+    """values, or one value broadcast to every index of shape."""
+    sub = _dt.value_shape(dt)
+    if values.ndim == len(sub):
+        return np.broadcast_to(values, tuple(shape) + sub)
+    return values
 
 
 class Vector(Collection):
@@ -42,8 +51,7 @@ class Vector(Collection):
             raise ValueError("size must be non-negative")
         self.name = name
         dev = _config.device()
-        self._set_store(torch.zeros(size, dtype=self.dtype.torch_type,
-                                    device=dev),
+        self._set_store(st.zeros_values((size,), self.dtype, dev),
                         torch.zeros(size, dtype=torch.bool, device=dev))
 
     @classmethod
@@ -87,8 +95,8 @@ class Vector(Collection):
     def __reduce__(self):
         """Pickled as the JAX package pickles a Vector: its COO."""
         idx, vals = self.to_coo()
-        return (Vector._deserialize, (self.dtype.name, self.size, idx, vals,
-                                      self._name))
+        dt = self.dtype if self.dtype._is_udt else self.dtype.name
+        return (Vector._deserialize, (dt, self.size, idx, vals, self._name))
 
     @staticmethod
     def _deserialize(dtype, size, idx, vals, name):
@@ -104,7 +112,8 @@ class Vector(Collection):
                  dup_op=None, name=None):
         indices = np.asarray(indices, np.int64).reshape(-1)
         values, dt = _values_dtype(values, dtype)
-        values = np.broadcast_to(values, indices.shape)
+        values = np.broadcast_to(values,
+                                 indices.shape + _dt.value_shape(dt))
         if size is None:
             if len(indices) == 0:
                 raise ValueError("No indices provided. Unable to infer size.")
@@ -147,9 +156,8 @@ class Vector(Collection):
             raise OutputNotEmpty("Vector already contains values; use "
                                  "clear=True")
         indices = ints_to_numpy_buffer(indices, np.int64, name="indices")
-        values = _values_dtype(values, self.dtype)[0]
-        if values.ndim == 0:
-            values = np.broadcast_to(values, indices.shape)
+        values = _broadcast_values(_values_dtype(values, self.dtype)[0],
+                                   indices.shape, self.dtype)
         if len(indices) != len(values):
             raise ValueError(f"`indices` and `values` lengths must match: "
                              f"{len(indices)}, {len(values)}")
@@ -164,7 +172,7 @@ class Vector(Collection):
                                             1, self.dtype, dup_op)
         dev, dt = self.device, self.dtype
         t_idx = torch.from_numpy(np.ascontiguousarray(idx)).to(dev)
-        new_vals = torch.zeros(n, dtype=dt.torch_type, device=dev)
+        new_vals = st.zeros_values((n,), dt, dev)
         new_valid = torch.zeros(n, dtype=torch.bool, device=dev)
         new_vals[t_idx] = _dt.to_tensor(vals, dt, dev)
         new_valid[t_idx] = True
@@ -176,8 +184,7 @@ class Vector(Collection):
         if size < 0:
             raise ValueError("size must be non-negative")
         keep = min(size, self.size)
-        vals = torch.zeros(size, dtype=self.dtype.torch_type,
-                           device=self.device)
+        vals = st.zeros_values((size,), self.dtype, self.device)
         valid = torch.zeros(size, dtype=torch.bool, device=self.device)
         vals[:keep] = self._vals[:keep]
         valid[:keep] = self._valid[:keep]
@@ -275,6 +282,10 @@ class Vector(Collection):
         if self.shape != other.shape:
             return False
         common = self.dtype if check_dtype else _dt.unify(self.dtype, other.dtype)
+        if common._is_udt:
+            ai, av = self.to_coo()
+            bi, bv = other.to_coo()
+            return bool(np.array_equal(ai, bi) and np.array_equal(av, bv))
         ok = self._valid
         av = _dt.normalize(self._vals, common)
         bv = _dt.normalize(other._vals.to(self.device), common)

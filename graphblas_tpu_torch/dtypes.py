@@ -1,21 +1,22 @@
-"""``graphblas_tpu_torch.dtypes``: the data types of the port.  The
-complex types and user-defined types (``FC32``, ``FC64``,
-``register_new``, ``register_anonymous``, ``ss``) wait and raise
-NotImplementedError."""
+"""``graphblas_tpu_torch.dtypes``: the data types of the port, with the
+user-defined types that ``register_new`` (and ``ss.register_new``) names
+here."""
 
-from .core.dtypes import (BOOL, FP32, FP64, INT8, INT16, INT32, INT64, UINT8,
-                          UINT16, UINT32, UINT64, DataType, lookup_dtype,
+from .core import dtypes as _core
+from .core.dtypes import (BOOL, FC32, FC64, FP32, FP64, INT8, INT16, INT32,
+                          INT64, UINT8, UINT16, UINT32, UINT64, DataType,
+                          lookup_dtype, register_anonymous, register_new, ss,
                           unify)
-from .core.operator.base import missing
 
-# the names of graphblas_tpu.dtypes that the port lacks
-WAITING = frozenset(("FC32", "FC64", "register_new", "register_anonymous",
-                     "ss"))
-
-__all__ = ["DataType", "lookup_dtype", "unify", "BOOL", "INT8", "INT16",
-           "INT32", "INT64", "UINT8", "UINT16", "UINT32", "UINT64", "FP32",
-           "FP64"]
+__all__ = ["DataType", "lookup_dtype", "unify", "register_new",
+           "register_anonymous", "ss", "BOOL", "INT8", "INT16", "INT32",
+           "INT64", "UINT8", "UINT16", "UINT32", "UINT64", "FP32", "FP64",
+           "FC32", "FC64"]
 
 
 def __getattr__(name):
-    raise missing("dtypes", name, WAITING)
+    rv = vars(_core).get(name)
+    if isinstance(rv, DataType) and rv._is_udt:
+        return rv
+    raise AttributeError(
+        f"module 'graphblas_tpu_torch.dtypes' has no attribute {name!r}")

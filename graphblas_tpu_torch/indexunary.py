@@ -30,14 +30,14 @@ class _SSNamespace:
                                    input_type, thunk_type, ret_type)
 
     def __getattr__(self, name):
-        raise missing("indexunary.ss", name, ())
+        raise missing("indexunary.ss", name)
 
 
 ss = _SSNamespace()
 
 
 def __getattr__(name):
-    raise missing("indexunary", name, ())
+    raise missing("indexunary", name)
 
 
 __all__ = ["IndexUnaryOp", "TypedIndexUnaryOp", "register_new",

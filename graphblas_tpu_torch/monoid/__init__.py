@@ -23,7 +23,7 @@ def __dir__():
 def __getattr__(name):
     if name == "numpy":
         return importlib.import_module(".numpy", __name__)
-    raise missing("monoid", name, ())
+    raise missing("monoid", name)
 
 
 __all__ = ["Monoid", "TypedMonoid", "register_new", "register_anonymous",

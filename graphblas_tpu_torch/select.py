@@ -35,7 +35,7 @@ class _SSNamespace:
                                    input_type, thunk_type)
 
     def __getattr__(self, name):
-        raise missing("select.ss", name, ())
+        raise missing("select.ss", name)
 
 
 ss = _SSNamespace()
@@ -126,7 +126,7 @@ def index(expr):
 
 
 def __getattr__(name):
-    raise missing("select", name, ())
+    raise missing("select", name)
 
 
 __all__ = ["SelectOp", "TypedSelectOp", "register_new", "register_anonymous",

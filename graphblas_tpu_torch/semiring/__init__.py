@@ -39,8 +39,6 @@ def _build(key, positional):
         mult = getattr(_binary.ss, tail)
     else:
         mult = vars(_binary).get(tail)
-        if mult is None and tail in _binary.WAITING:
-            getattr(_binary, tail)  # NotImplementedError, naming its item
         if mult is None:
             mult = getattr(_binary.numpy, tail, None)
         if mult is None:

@@ -2,8 +2,7 @@
 SuiteSparse ones (``erf``, ``erfc``, ``lgamma``, ``tgamma``, ``frexpx``,
 ``frexpe`` and the positional ``positioni`` ... ``positionj1``) live under
 ``unary.ss``, as in the JAX package, and the numpy ufuncs under
-``unary.numpy``.  The complex-only ``conj``, ``creal``, ``cimag`` and
-``carg`` wait for the complex types and raise NotImplementedError."""
+``unary.numpy``."""
 
 import importlib
 
@@ -12,8 +11,6 @@ from ..core.operator.base import missing
 from ..core.operator.unary import BUILTINS as _B, TypedUnaryOp, UnaryOp
 from ..core.ss.jit import jit_register
 
-# the names of graphblas_tpu.unary that the port lacks
-WAITING = frozenset(("conj", "creal", "cimag", "carg"))
 SS_NAMES = frozenset(("erf", "erfc", "frexpe", "frexpx", "lgamma", "tgamma",
                       "positioni", "positioni1", "positionj", "positionj1"))
 
@@ -37,7 +34,7 @@ class _SSNamespace:
                                    input_type, ret_type)
 
     def __getattr__(self, name):
-        raise missing("unary.ss", name, ())
+        raise missing("unary.ss", name)
 
 
 ss = _SSNamespace({k: v for k, v in _B.items() if k in SS_NAMES})
@@ -58,7 +55,7 @@ def __getattr__(name):
         mod = __name__.rsplit(".", 1)[1]
         raise AttributeError(f"gb.{mod}.{name} is available as "
                              f"gb.{mod}.ss.{name}")
-    raise missing("unary", name, WAITING)
+    raise missing("unary", name)
 
 
 __all__ = ["UnaryOp", "TypedUnaryOp", "register_new", "register_anonymous",

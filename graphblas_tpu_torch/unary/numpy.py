@@ -11,7 +11,7 @@ import torch
 
 from .. import exceptions
 from ..core import dtypes as _dt
-from ..core.operator.binary import ALL11
+from ..core.operator.binary import ALL11, ALL13
 from ..core.operator.unary import UnaryOp
 from ..binary.numpy import float_ret, int_ret
 
@@ -52,7 +52,14 @@ def _spacing(x):
 
 
 def _rint_ret(dt):
-    return dt if dt.is_float else _dt.FP64
+    return dt if dt.is_float or dt.is_complex else _dt.FP64
+
+
+def _rint(x):
+    """Round half to even; a complex value's parts each."""
+    if x.is_complex():
+        return torch.complex(torch.round(x.real), torch.round(x.imag))
+    return torch.round(x)
 
 
 def _signbit(dt):
@@ -72,15 +79,21 @@ _OWN = {
     "degrees": (_in_ret(lambda x: x * _DEG, float_ret), float_ret),
     "fabs": (_in_ret(torch.abs, float_ret), float_ret),
     "spacing": (_in_ret(_spacing, float_ret), float_ret),
-    "rint": (_in_ret(torch.round, _rint_ret), _rint_ret),
+    "rint": (_in_ret(_rint, _rint_ret), _rint_ret),
     "square": (_in_ret(torch.square, int_ret), int_ret),
     "logical_not": (lambda dt: lambda x: x == 0, _dt.BOOL),
     "signbit": (_signbit, _dt.BOOL),
 }
 
 
+# the ufuncs the JAX package also takes over FC32 and FC64
+_COMPLEX = frozenset(("deg2rad", "radians", "rad2deg", "degrees", "rint",
+                      "square", "logical_not"))
+
+
 def _build(name):
-    op = UnaryOp._builtin(f"numpy.{name}", ALL11, *_OWN[name])
+    op = UnaryOp._builtin(f"numpy.{name}", ALL13 if name in _COMPLEX
+                          else ALL11, *_OWN[name])
     op._refusal = exceptions.UdfParseError
     return op
 

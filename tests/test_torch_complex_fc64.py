@@ -1,0 +1,12 @@
+"""FC64 in the port against the JAX package: every operator instance of
+the type through the engines on both backings, casts, ``unify`` and
+Scalar (the grid of test_torch_complex_grid.py), within rel 1e-12 of
+the magnitude and with the JAX package's structure exactly."""
+
+import torch
+
+from tests.test_torch_complex_grid import define
+
+torch.set_num_threads(1)
+
+define("FC64", globals())

@@ -2,10 +2,9 @@
 tests/test_dtype.py): the eleven real types, lookups by every key,
 equality and ordering, ``unify`` (numpy's promotion, with the scalar
 asymmetry), pickling, and the storage of the types torch lacks kernels
-for (UINT16 in int32, UINT32 in int64, UINT64 as int64 bits).  What the
-JAX package has and the port lacks (complex types, user-defined types,
-``register_new``) raises NotImplementedError naming ROADMAP.md queue 1,
-item 12."""
+for (UINT16 in int32, UINT32 in int64, UINT64 as int64 bits), the
+complex types and the user-defined types (``register_new``,
+``register_anonymous``, struct and subarray dtypes, a dict of fields)."""
 
 import itertools
 import pickle
@@ -20,6 +19,7 @@ from graphblas_tpu_torch.core import dtypes as core_dtypes
 
 NAMES = ("BOOL", "INT8", "INT16", "INT32", "INT64", "UINT8", "UINT16",
          "UINT32", "UINT64", "FP32", "FP64")
+NAMES13 = NAMES + ("FC32", "FC64")
 
 
 def test_builtin_dtypes():
@@ -28,8 +28,11 @@ def test_builtin_dtypes():
             getattr(gbj.dtypes, name).np_type
     for name in ("FC32", "FC64"):
         assert getattr(gbj.dtypes, name).is_complex
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            getattr(gbt.dtypes, name)
+        got = getattr(gbt.dtypes, name)
+        assert got.is_complex and not got.is_float
+        assert got.np_type == getattr(gbj.dtypes, name).np_type
+    assert gbt.dtypes.FC32.torch_type is torch.complex64
+    assert gbt.dtypes.FC64.torch_type is torch.complex128
 
 
 def test_lookup():
@@ -82,13 +85,31 @@ def test_dtype_attrs():
 
 
 def test_register_udt():
-    """User-defined types wait for item 12; the JAX package has them."""
-    udt = gbj.dtypes.register_anonymous(np.dtype([("x", np.float64),
-                                                  ("y", np.float64)]))
-    assert udt._is_udt
-    for name in ("register_new", "register_anonymous", "ss"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            getattr(gbt.dtypes, name)
+    """register_anonymous and register_new as in the JAX package: one type
+    a dtype, a name's checks, the default names."""
+    for gb in (gbj, gbt):
+        d = gb.dtypes
+        udt = d.register_anonymous(np.dtype([("x", np.float64),
+                                             ("y", np.float64)]))
+        assert udt._is_udt
+        assert d.register_anonymous(np.dtype([("x", np.float64),
+                                              ("y", np.float64)])) is udt
+        sub = d.register_anonymous(np.dtype("(3,)float64"))
+        assert sub._is_udt
+        with pytest.raises(ValueError, match="identifier"):
+            d.register_new("not an identifier", np.dtype("(2,)int8"))
+        with pytest.raises(ValueError, match="unavailable"):
+            d.register_new("INT64", np.dtype("(2,)int8"))
+        with pytest.raises(ValueError, match="struct or subarray"):
+            d.register_anonymous(np.float16)
+    for nt in (np.dtype([("x", np.float64), ("y", np.int32)]),
+               np.dtype("(3,)float64"), np.dtype("(2,2)int8")):
+        assert gbt.dtypes.register_anonymous(nt).name == \
+            gbj.dtypes.register_anonymous(nt).name
+    named = gbt.dtypes.register_new("PortDtypeTestT",
+                                    np.dtype([("a", np.int16)]))
+    assert gbt.dtypes.PortDtypeTestT is named
+    assert pickle.loads(pickle.dumps(named)) is named
 
 
 def test_dtype_to_string_roundtrip():
@@ -122,7 +143,7 @@ def test_unify_dtypes_exact():
 def test_unify_matches_numpy(scalar):
     kw = {"none": {}, "left": {"is_left_scalar": True},
           "right": {"is_right_scalar": True}}[scalar]
-    for a, b in itertools.product(NAMES, NAMES):
+    for a, b in itertools.product(NAMES13, NAMES13):
         want = gbj.dtypes.unify(getattr(gbj.dtypes, a),
                                 getattr(gbj.dtypes, b), **kw)
         got = gbt.dtypes.unify(getattr(gbt.dtypes, a),
@@ -133,18 +154,19 @@ def test_unify_matches_numpy(scalar):
 def test_auto_register_subarray():
     np_type = np.dtype("(17,)int16")
     assert gbj.dtypes.lookup_dtype(np_type).np_type == np_type
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        gbt.dtypes.lookup_dtype(np_type)
+    assert gbt.dtypes.lookup_dtype(np_type).np_type == np_type
+    assert gbt.dtypes.lookup_dtype(np_type)._is_udt
 
 
 def test_record_dtype_from_dict():
-    assert gbj.dtypes.lookup_dtype({"x": int, "y": float}).np_type.names == \
-        ("x", "y")
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        gbt.dtypes.lookup_dtype({"x": int, "y": float})
-    for key in ("FC64", np.complex64, complex):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            gbt.dtypes.lookup_dtype(key)
+    want = gbj.dtypes.lookup_dtype({"x": int, "y": float}).np_type
+    assert want.names == ("x", "y")
+    assert gbt.dtypes.lookup_dtype({"x": int, "y": float}).np_type == want
+    for key in ("FC64", "GxB_FC64", "complex128", "c16", np.complex128,
+                complex, "complex", torch.complex128):
+        assert gbt.dtypes.lookup_dtype(key) is gbt.dtypes.FC64
+    for key in ("FC32", "GxB_FC32", np.complex64, "c8", torch.complex64):
+        assert gbt.dtypes.lookup_dtype(key) is gbt.dtypes.FC32
 
 
 def test_dtype_bad_comparison():
@@ -154,21 +176,21 @@ def test_dtype_bad_comparison():
 
 
 def test_pickle_all_builtins():
-    for name in NAMES:
+    for name in NAMES13:
         val = getattr(gbt.dtypes, name)
         assert pickle.loads(pickle.dumps(val)) is val
 
 
 def test_lookup_by_many_keys():
-    for name in NAMES:
+    for name in NAMES13:
         dj, dt = getattr(gbj.dtypes, name), getattr(gbt.dtypes, name)
         for key in (name, name.lower(), dj.gb_name, dj.np_type,
                     dj.np_type.name, dj.np_type.str, dj.np_type.type):
             assert gbj.dtypes.lookup_dtype(key) is dj
             assert gbt.dtypes.lookup_dtype(key) is dt
-    assert sorted(gbt.dtypes.lookup_dtype(n) for n in NAMES) == \
+    assert sorted(gbt.dtypes.lookup_dtype(n) for n in NAMES13) == \
         [gbt.dtypes.lookup_dtype(d.name)
-         for d in sorted(gbj.dtypes.lookup_dtype(n) for n in NAMES)]
+         for d in sorted(gbj.dtypes.lookup_dtype(n) for n in NAMES13)]
 
 
 STORE = [(-(2**63), "UINT64"), (2**64 - 1, "UINT64"), (2**63, "UINT64"),

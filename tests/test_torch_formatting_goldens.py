@@ -1,15 +1,7 @@
 """The reference's golden reprs against the port (the twin of
 tests/test_formatting_goldens.py), run on the CPU: every golden text byte
-for byte.  Its fixtures include FC64 and user-defined-type collections,
-which wait for item 12: the port raises NotImplementedError building
-them, the fixture binds that error (``defer``), and the cases that print
-them must raise it."""
+for byte, the FC64 and user-defined-type collections included."""
 
 from tests.test_torch_operator_grids import twin
 
-twin("test_formatting_goldens", globals(), defer=("_fixtures",),
-     not_ported=(
-         "test_matrix_G_fc64", "test_vector_cvec_fc64", "test_vector_pv_udt",
-         "test_scalar_sC_fc64", "test_mask_G_S", "test_mask_G_V_complement",
-         "test_expr_G_ewise_mult", "test_expr_G_apply", "test_transposed_G",
-         "test_html_matrix_G_fc64", "test_html_vector_pv_udt"))
+twin("test_formatting_goldens", globals())

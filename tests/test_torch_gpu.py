@@ -1273,3 +1273,134 @@ def test_concat_dense_tiles_then_min_plus_launches_k7(cuda):
         torch.cuda.synchronize()
         assert K.launches["tropical_matmul"] > before
         assert got.isequal(E.mxm(E, gb.semiring.min_plus).new())
+
+
+# --------------------------------------------------------------------- #
+# the complex types and user-defined types on the card: torch ops, no
+# kernel, until a complex value turns real (creal, cimag)
+def _magnetic(gb, n, dtype, seed=71):
+    """A zipf-like digraph with weights exp(i theta) / outdeg."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, 6 * n)
+    c = (rng.zipf(1.5, 6 * n) - 1) % n
+    lin = np.unique(r * n + c)
+    r, c = lin // n, lin % n
+    deg = np.bincount(r, minlength=n)
+    theta = rng.uniform(0, 2 * np.pi, len(r))
+    w = (np.exp(1j * theta) / deg[r]).astype(
+        gb.dtypes.lookup_dtype(dtype).np_type)
+    return r, c, w, theta, deg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [("FC32", 1e-5), ("FC64", 1e-12)])
+def test_complex_vxm_and_reduce_on_the_card(cuda, dtype, rel):
+    import scipy.sparse as sps
+
+    import graphblas_tpu_torch as gb
+
+    n = 1 << 14
+    r, c, w, _, _ = _magnetic(gb, n, dtype)
+    M = sps.csr_matrix((w.astype(np.complex128), (r, c)), shape=(n, n))
+    rng = np.random.default_rng(72)
+    x = (rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)).astype(w.dtype)
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        A = gb.Matrix.from_coo(r, c, w, dtype=dtype, nrows=n, ncols=n)
+        u = gb.Vector.from_dense(x, dtype=dtype)
+        before = _launch_counts()
+        got = {"vxm": u.vxm(A, gb.semiring.plus_times[dtype]).new(),
+               "mxv": A.mxv(u, gb.semiring.plus_times[dtype]).new(),
+               "rows": A.reduce_rowwise(gb.monoid.plus[dtype]).new(),
+               "cols": A.reduce_columnwise(gb.monoid.plus[dtype]).new()}
+        total = A.reduce_scalar(gb.monoid.plus[dtype]).new().value
+        torch.cuda.synchronize()
+        assert _launch_counts() == before  # no complex value in a kernel
+    xs = x.astype(np.complex128)
+    want = {"vxm": M.T @ xs, "mxv": M @ xs,
+            "rows": np.asarray(M.sum(axis=1)).ravel(),
+            "cols": np.asarray(M.sum(axis=0)).ravel()}
+    for key, vec in got.items():
+        idx, vals = vec.to_coo()
+        assert vec.dtype.name == dtype
+        ref = want[key][idx.astype(np.int64)]
+        scale = np.abs(ref).max()
+        assert np.all(np.abs(vals - ref) <= rel * np.maximum(np.abs(ref),
+                                                            scale)), key
+    assert abs(total - M.sum()) <= rel * abs(M.sum()) + rel
+
+
+@pytest.mark.gpu
+def test_udt_ewise_add_on_the_card(cuda):
+    import graphblas_tpu_torch as gb
+
+    pt = gb.dtypes.register_anonymous(
+        np.dtype([("x", np.float64), ("y", np.float64)]), "gpu_point_t")
+    rng = np.random.default_rng(73)
+    n = 1 << 12
+    mats = []
+    for _ in range(2):
+        lin = np.unique(rng.integers(0, n * n, 8 * n))
+        v = np.empty(len(lin), pt.np_type)
+        v["x"], v["y"] = rng.random(len(lin)), rng.random(len(lin))
+        mats.append((lin, v))
+    add = gb.binary.register_anonymous(
+        lambda a, b: {"x": a["x"] + b["x"], "y": a["y"] - b["y"]},
+        is_udt=True)
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        A, B = (gb.Matrix.from_coo(lin // n, lin % n, v, dtype=pt, nrows=n,
+                                   ncols=n) for lin, v in mats)
+        before = _launch_counts()
+        C = A.ewise_add(B, add).new()
+        torch.cuda.synchronize()
+        assert _launch_counts() == before
+        assert C._sparse is not None and C._sparse.vals.device.type == "cuda"
+    (la, va), (lb, vb) = mats
+    keys = np.union1d(la, lb)
+    r, c, got = C.to_coo()
+    assert np.array_equal(r.astype(np.int64) * n + c.astype(np.int64), keys)
+    ia, ib = np.isin(keys, la), np.isin(keys, lb)
+    wx, wy = np.zeros(len(keys)), np.zeros(len(keys))
+    pa, pb = np.searchsorted(la, keys[ia]), np.searchsorted(lb, keys[ib])
+    wx[ia] += va["x"][pa]
+    wx[ib] += vb["x"][pb]
+    wy[ia] += va["y"][pa]
+    wy[ib & ia] -= vb["y"][np.searchsorted(lb, keys[ib & ia])]
+    wy[ib & ~ia] = vb["y"][np.searchsorted(lb, keys[ib & ~ia])]
+    assert np.array_equal(got["x"], wx) and np.array_equal(got["y"], wy)
+
+
+@pytest.mark.gpu
+def test_creal_of_cmplx_runs_pagerank_through_the_kernels(cuda):
+    """creal(W cmplx V) is W bit for bit, contiguous, and a PageRank vxm
+    on it launches the same kernels as on W, with the same result."""
+    import graphblas_tpu_torch as gb
+
+    n = 1 << 15
+    r, c, w, theta, deg = _magnetic(gb, n, "FC32")
+    wr = (1.0 / deg[r]).astype(np.float32)
+    vi = (np.sin(theta) / deg[r]).astype(np.float32)
+    ring = gb.semiring.plus_times["FP32"]
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        W = gb.Matrix.from_coo(r, c, wr, dtype="FP32", nrows=n, ncols=n)
+        V = gb.Matrix.from_coo(r, c, vi, dtype="FP32", nrows=n, ncols=n)
+        Z = W.ewise_mult(V, gb.binary.cmplx).new()
+        assert Z.dtype.name == "FC32"
+        Re = Z.apply(gb.unary.creal).new()
+        Im = Z.apply(gb.unary.cimag).new()
+        assert Re._sparse.vals.is_contiguous()
+        assert Re.isequal(W, check_dtype=True)
+        assert Im.isequal(V, check_dtype=True)
+        u = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+        outs, counts = [], []
+        for M in (W, Re):
+            u.vxm(M, ring).new()  # plans
+            before = _launch_counts()
+            outs.append(u.vxm(M, ring).new())
+            torch.cuda.synchronize()
+            counts.append({k: K.launches[k] - v for k, v in before.items()})
+        assert counts[0] == counts[1] and counts[0]["gather_mult"] == 1
+        assert outs[0].isequal(outs[1])
+        before = K.launches["segscan"]
+        rim = Im.reduce_rowwise().new()
+        assert K.launches["segscan"] > before
+        assert rim.isequal(V.reduce_rowwise().new())

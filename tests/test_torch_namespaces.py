@@ -1,12 +1,9 @@
 """Every name of the JAX package's operator namespaces, with their
-``numpy`` and ``ss`` namespaces, against the port's, over the eleven real
-types: the same normal form (name, input and return type; for a semiring
-its monoid and binary op too), or the same exception.
+``numpy`` and ``ss`` namespaces, against the port's, over the thirteen
+builtin types: the same normal form (name, input and return type; for a
+semiring its monoid and binary op too), or the same exception.
 
-Two differences are allowed and asserted as such.  What waits for ROADMAP
-queue 1, item 12 (the complex-only ``conj``, ``creal``, ``cimag``,
-``carg``, and ``cmplx`` with the semirings over it) raises
-NotImplementedError naming that item.  Where the JAX package's lookup of a
+One difference is allowed and asserted as such.  Where the JAX package's lookup of a
 positional semiring under a bitwise or logical monoid never returns (it
 recurses until Python's limit: its positional fallback asks for the INT64
 instance, which the monoid refuses in turn), the port raises KeyError."""
@@ -17,9 +14,7 @@ import graphblas_tpu as gbj
 import graphblas_tpu_torch as gbt
 
 TYPES = ("BOOL", "INT8", "INT16", "INT32", "INT64", "UINT8", "UINT16",
-         "UINT32", "UINT64", "FP32", "FP64")
-WAITING = {"unary.conj", "unary.creal", "unary.cimag", "unary.carg",
-           "binary.cmplx"}
+         "UINT32", "UINT64", "FP32", "FP64", "FC32", "FC64")
 
 
 def normal_form(op):
@@ -67,21 +62,10 @@ POSITIONAL = ("firsti", "firsti1", "firstj", "firstj1", "secondi",
 def _check(path):
     for dtype in TYPES:
         want, got = resolve(gbj, path, dtype), resolve(gbt, path, dtype)
-        if path in WAITING or path.endswith("_cmplx"):
-            assert got == "NotImplementedError", (path, dtype)
-            with pytest.raises(NotImplementedError, match="item 12"):
-                resolve_raising(path, dtype)
-        elif want == "RecursionError":
+        if want == "RecursionError":
             assert got == "KeyError", (path, dtype)
         else:
             assert got == want, (path, dtype)
-
-
-def resolve_raising(path, dtype):
-    obj = gbt
-    for part in path.split("."):
-        obj = getattr(obj, part)
-    return obj[dtype]
 
 
 @pytest.mark.parametrize("path", PATHS)

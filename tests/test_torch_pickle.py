@@ -3,12 +3,9 @@
 tests/data/pickles_v1.pkl holds Matrices, a Vector, Scalars, operators,
 an aggregator and dtypes pickled by the JAX package.  An Unpickler whose
 ``find_class`` reads every ``graphblas_tpu`` module as the port's loads
-it: each entry equals what the JAX package loads.  The ``udt_vector``
-entry and the user-defined type among ``dtypes`` wait for the
-user-defined types: the port's ``_deserialize_udt`` raises
-NotImplementedError naming item 12, which the Unpickler keeps in a
-placeholder (so that the other entries load) and every use of it raises
-again.  A port-to-port round trip keeps names and backings."""
+it: each entry equals what the JAX package loads, the user-defined type
+among ``dtypes`` and the ``udt_vector`` of that type included.  A
+port-to-port round trip keeps names and backings."""
 
 import pathlib
 import pickle
@@ -18,7 +15,6 @@ import pytest
 
 import graphblas_tpu as gbj
 import graphblas_tpu_torch as gbt
-from tests.test_torch_operator_grids import Deferred
 
 DATA = pathlib.Path(__file__).parent / "data" / "pickles_v1.pkl"
 
@@ -27,25 +23,7 @@ class _PortUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module == "graphblas_tpu" or module.startswith("graphblas_tpu."):
             module = "graphblas_tpu_torch" + module[len("graphblas_tpu"):]
-            obj = super().find_class(module, name)
-            return _deferring(obj) if callable(obj) and not isinstance(
-                obj, type) else obj
         return super().find_class(module, name)
-
-
-def _deferring(fn):
-    """fn, but a NotImplementedError becomes a Deferred result, and a
-    Deferred argument makes the result that Deferred."""
-    def call(*args):
-        for a in args:
-            if isinstance(a, Deferred):
-                return a
-        try:
-            return fn(*args)
-        except NotImplementedError as exc:
-            return Deferred(exc)
-
-    return call
 
 
 @pytest.fixture(scope="module")
@@ -99,17 +77,24 @@ def test_dtypes_load(loaded):
     i64, f32, udt = port["dtypes"]
     assert i64 is gbt.dtypes.INT64
     assert f32 is gbt.dtypes.FP32
-    with pytest.raises(NotImplementedError, match="item 12"):
-        udt.np_type
+    want = ref_udt = loaded[1]["dtypes"][2]
+    assert udt._is_udt and udt.np_type == want.np_type
+    assert udt.name == ref_udt.name
 
 
-def test_udt_vector_waits_for_item_12(loaded):
+def test_udt_vector_equals_jax(loaded):
     port, ref = loaded
-    assert ref["udt_vector"].dtype._is_udt
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port["udt_vector"].to_coo()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        repr(port["udt_vector"])
+    got, want = port["udt_vector"], ref["udt_vector"]
+    assert want.dtype._is_udt and got.dtype._is_udt
+    assert got.dtype.np_type == want.dtype.np_type
+    _same(got, want)
+    (gi, gv), (wi, wv) = got.to_coo(), want.to_coo()
+    assert np.array_equal(gi, wi) and np.array_equal(gv, wv)
+    assert gv.dtype == wv.dtype
+    assert repr(got) == repr(want)
+    with gbt.config.set(device="cpu"):
+        back = pickle.loads(pickle.dumps(got))
+    assert back.dtype is got.dtype and back.isequal(got)
 
 
 def test_meta_loads(loaded):

@@ -4,8 +4,7 @@ Operator strings: every form the JAX package parses (``"+"``,
 ``"plus[FP64]"``, ``"min_plus[FP64]"``, ``"min.+"``, ``"abs[FP64]"``, ...)
 gives the same result in the port, exactly (each output value is one
 operation of the same operands, in the same type); an unknown name raises
-ValueError in both; a name the JAX package knows and the port lacks
-raises NotImplementedError naming ROADMAP.md queue 1, item 12.
+ValueError in both.
 
 The name walk: every public name of the JAX package on ``gb``, a Matrix,
 a Vector and a Scalar either works in the port or raises
@@ -122,6 +121,9 @@ def test_unknown_operator_strings(form):
 
 NOT_PORTED = {
     "apply ainv": lambda A, B: A.apply("ainv"),
+    "ewise_mult cmplx": lambda A, B: A.ewise_mult(B, "cmplx"),
+    "apply creal of cmplx": lambda A, B: A.ewise_mult(
+        B, "cmplx").new().apply("creal"),
     "apply -": lambda A, B: A.apply("-"),
     "ewise_add <": lambda A, B: A.ewise_add(B, "<"),
     "ewise_add logaddexp": lambda A, B: A.ewise_add(B, "logaddexp"),
@@ -138,8 +140,8 @@ def test_not_ported_operator_strings(form):
     got, want = both(lambda gb: NOT_PORTED[form](*mats(gb)).new())
     assert got.dtype.name == want.dtype.name
     for g, w in zip(got.to_coo(), want.to_coo()):
-        np.testing.assert_allclose(np.asarray(g, np.float64),
-                                   np.asarray(w, np.float64), rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(g, np.complex128),
+                                   np.asarray(w, np.complex128), rtol=1e-6)
 
 
 # --------------------------------------------------------------------- #
@@ -225,13 +227,15 @@ def test_infix_operators_name_their_item():
 
 
 def test_stubs_and_small_ports():
-    """The stubs raise, naming their items; ``clear``, ``get``,
-    ``replace`` and the package's GraphblasException work as in the JAX
-    package."""
-    for obj, name, item in ((gbt, "parallel", 13), (gbt.dtypes, "FC64", 12),
-                            (gbt.op, "conj", 12)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            getattr(obj, name)
+    """The stub raises, naming its item; ``dtypes.FC64`` and ``op.conj``,
+    stubs before the complex types, are the JAX package's; ``clear``,
+    ``get``, ``replace`` and the package's GraphblasException work as in
+    the JAX package."""
+    with pytest.raises(NotImplementedError, match="item 13"):
+        gbt.parallel
+    assert gbt.dtypes.FC64.np_type == gbj.dtypes.FC64.np_type
+    assert gbt.op.conj["FC64"].return_type.name == \
+        gbj.op.conj["FC64"].return_type.name
     with gbt.config.set(device="cpu"):
         v = gbt.Vector.from_coo([0, 2], [1.5, 2.0], size=3)
         assert v.reduce(gbt.agg.count).new().value == 2
@@ -268,6 +272,6 @@ def test_only_ss_waits_on_collections(kind):
             try:
                 getattr(obj, name)
             except NotImplementedError as exc:
-                assert "item 12" in str(exc)
+                assert ITEM.search(str(exc)), (name, str(exc))
                 waiting.append(name)
     assert waiting == []
