@@ -148,7 +148,21 @@ engine) from the sources, then:
    assign, delete and a structural mask against numpy; FC64 and point_t
    through serialize, pickle and the csr and bitmapr formats, and FC64
    through Matrix Market (hermitian, RMAT 12).  Every one of K1-K7
-   launches in it.
+   launches in it;
+16. gb.parallel (phase `parallel`, on the zipf graph): make_mesh() is one
+   block on the one card, and PageRank (20 iterations under ss.iterate) on
+   the sharded matrix is bitwise the unsharded run with the same K1-K4
+   launches; on a mesh of four cuda:0 blocks PageRank within rel 1e-5 of
+   the largest unsharded rank and within the scipy bar, level BFS exactly
+   the numpy levels, SSSP (K5 on each block) within rel 1e-5 of
+   Dijkstra, row, column and scalar plus reduces (K6) within rel 1e-5 of
+   numpy in float64 and the max reduces exactly, A[rows, cols],
+   select(valuegt) and apply(ainv) (which keep the row blocks) and
+   ewise_blocked exactly the unsharded calls; C(L.S) << plus_pair(L @
+   L.T) on RMAT 17 with L over four blocks, B replicated and B sharded
+   (the rotation), exactly scipy's count, with each call's idle share and
+   peak memory.  Each call's host ms (median of 3) on one block and on
+   four, and their ratio; the four-block calls must launch K1-K6.
 
 Each main-path phase sets the kernels' launch counts to 0 just before it
 runs and fails if a kernel of its path was not launched, or if an exchange
@@ -4005,10 +4019,279 @@ def complex_udt_phase(gb, torch, K, src, dst, w, n, A, results, totals):
     results["complex_udt"] = out
 
 
+def parallel_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals):
+    """gb.parallel on one card, at full width on bench.py's zipf graph (n =
+    2**19): make_mesh() is one block on the one H100, and PageRank (20
+    iterations under ss.iterate) on the sharded matrix is bitwise the
+    unsharded run with the same K1-K4 launches; on four blocks of cuda:0
+    PageRank within rel 1e-5 of the largest unsharded rank and within the
+    scipy bar, level BFS exactly the numpy levels, SSSP (K5) within rel
+    1e-5 of Dijkstra, row/column/scalar plus reduces (K6) within rel 1e-5
+    of numpy in float64 and the max reduces exact, A[rows, cols], select
+    and apply (keeping the row blocks) and ewise_blocked exactly the
+    unsharded calls; C(L.S) << plus_pair(L @ L.T) on RMAT 17 with L over
+    four blocks, B replicated and B sharded (the rotation), exactly
+    scipy's count.  Each call's warm host ms (median of 3) on one block
+    and on four, and their ratio; the triangle calls' idle share and
+    peak memory.  The four-block calls must launch K1-K6."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import dijkstra
+
+    from graphblas_tpu_torch.parallel import (ewise_blocked, make_mesh,
+                                              shard_matrix)
+
+    t_phase = time.perf_counter()
+    out = {"calls": {}}
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    mesh1 = make_mesh()
+    if mesh1.size != 1 or mesh1.devices[0] != cuda:
+        fail(f"parallel: make_mesh() gave {mesh1} on {list(mesh1.devices)}")
+    mesh4 = make_mesh((4,), ("i",), devices=[cuda] * 4)
+    A1 = shard_matrix(A.dup(), mesh1)
+    Ab1 = shard_matrix(Ab.dup(), mesh1)
+    if A1._dist.blocks[0] is not A._sparse:
+        fail("parallel: the one block is not the matrix's own store")
+    t0 = time.perf_counter()
+    A4 = shard_matrix(A.dup(), mesh4)
+    Ab4 = shard_matrix(Ab.dup(), mesh4)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    d4 = A4._dist
+    log(f"  four blocks: rows_per {d4.rows_per}, entries "
+        f"{[blk.nvals() for blk in d4.blocks]}, cut in {split_s:.3f} s")
+    reset_counts(K)
+    l4 = {k: 0 for k in KERNELS}
+
+    def four(fn):
+        before = dict(K.launches)
+        res = fn()
+        for k in KERNELS:
+            l4[k] += K.launches[k] - before.get(k, 0)
+        return res
+
+    def timed(tag, fn1, fn4):
+        r1, ms1, runs1, _ = timed_calls(torch, fn1, reps=3)
+        r4, ms4, runs4, first4 = timed_calls(torch, lambda: four(fn4),
+                                             reps=3)
+        out["calls"][tag] = {"ms_1": ms1, "ms_4": ms4, "ratio": ms4 / ms1,
+                             "ms_1_runs": runs1, "ms_4_runs": runs4,
+                             "first_4_s": first4}
+        log(f"  {tag}: ms one block {ms1:.4f}, four blocks {ms4:.4f} "
+            f"(ratio {ms4 / ms1:.3f}; first four-block call {first4:.2f} s)")
+        return r1, r4
+
+    # PageRank: the one block is bitwise the unsharded run
+    r0, la = _pagerank_run(gb, torch, K, A, n, 20)
+    r1, lb = _pagerank_run(gb, torch, K, A1, n, 20)
+    _same_bits("parallel pagerank, one block", r1, r0)
+    if any(la[k] != lb[k] for k in LANEPIPE_FAST):
+        fail(f"parallel pagerank: one block launched {lb}, unsharded {la}")
+    t0 = time.perf_counter()
+    r4, lc = four(lambda: _pagerank_run(gb, torch, K, A4, n, 20))
+    plan4_s = time.perf_counter() - t0
+    ref = pagerank_ref(src, dst, w, n, 20)
+    err0 = float(np.abs(r4.astype(np.float64) - r0).max())
+    err = float(np.abs(r4.astype(np.float64) - ref).max())
+    if not np.isfinite(r4).all() or err0 > 1e-5 * np.abs(r0).max():
+        fail(f"parallel pagerank, four blocks: max|r4 - r1| {err0}")
+    if err > 1e-4 * np.abs(ref).max():
+        fail(f"parallel pagerank, four blocks: max|r - r_ref| {err}")
+    log(f"  pagerank: one block bitwise with launches {lb}; four blocks "
+        f"max|r4 - r1| {err0:.3g}, max|r4 - scipy| {err:.3g}, launches "
+        f"{lc} (with the plans: {plan4_s:.2f} s)")
+    out["pagerank"] = {"launches_1": lb, "launches_4": lc,
+                       "max_abs_err_vs_1": err0, "max_abs_err_ref": err}
+    ring = gb.semiring.plus_times["FP32"]
+    dt = gb.unary.register_anonymous(
+        lambda x: x * np.float32(0.85) + np.float32(0.15 / n),
+        name="damp_tele_parallel")
+
+    def pr20(M):
+        def body(s, i):
+            s["y"] << s["rank"].vxm(M, ring)
+            s["rank"] << s["y"].apply(dt)
+
+        rank = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+        gb.ss.iterate(body, {"rank": rank, "y": gb.Vector(gb.dtypes.FP32, n)},
+                      max_iter=20)
+        return rank
+
+    timed("pagerank x20", lambda: pr20(A1), lambda: pr20(A4))
+
+    # level BFS (bench.py's body) on the BOOL twin
+    lev, depth = bfs_ref(src, dst, n)
+    ref_i = np.flatnonzero(lev)
+    (v1, it1), (v4, it4) = timed("bfs", lambda: _bfs_levels(gb, Ab1, n),
+                                 lambda: _bfs_levels(gb, Ab4, n))
+    for tag, v, it in (("one block", v1, it1), ("four blocks", v4, it4)):
+        check_vector(f"parallel bfs, {tag}", v, ref_i, lev[ref_i])
+        if it != depth:
+            fail(f"parallel bfs, {tag}: depth {it}, numpy {depth}")
+
+    # SSSP (the sparse-vector branch: K5 on each block)
+    dref = dijkstra(sps.csr_matrix((w.astype(np.float64), (src, dst)),
+                                   shape=(n, n)), indices=0)
+    reach = np.flatnonzero(np.isfinite(dref))
+    before = K.launches["lane_segscan"]
+    d1, d4_ = timed("sssp", lambda: gb.algorithms.sssp(A1, 0),
+                    lambda: gb.algorithms.sssp(A4, 0))
+    if K.launches["lane_segscan"] == before:
+        fail("parallel sssp: K5 never launched")
+    e1 = check_vector("parallel sssp, one block", d1, reach, dref[reach],
+                      rel=1e-5)
+    e4 = check_vector("parallel sssp, four blocks", d4_, reach, dref[reach],
+                      rel=1e-5)
+    log(f"  sssp: max abs err {e1:.3g} (one block), {e4:.3g} (four)")
+
+    # reduces (K6 on each block)
+    w64 = w.astype(np.float64)
+    rows_i = np.flatnonzero(np.bincount(src, minlength=n))
+    cols_i = np.flatnonzero(np.bincount(dst, minlength=n))
+    rowmax = np.full(n, -np.inf)
+    np.maximum.at(rowmax, src, w64)
+    colmax = np.full(n, -np.inf)
+    np.maximum.at(colmax, dst, w64)
+    for tag, f, ref_i2, ref_v, rel in (
+            ("reduce_rowwise(plus)", lambda M: M.reduce_rowwise("plus"),
+             rows_i, np.bincount(src, weights=w64, minlength=n)[rows_i],
+             1e-5),
+            ("reduce_columnwise(plus)",
+             lambda M: M.reduce_columnwise("plus"), cols_i,
+             np.bincount(dst, weights=w64, minlength=n)[cols_i], 1e-5),
+            ("reduce_rowwise(max)", lambda M: M.reduce_rowwise("max"),
+             rows_i, rowmax[rows_i].astype(np.float32), None),
+            ("reduce_columnwise(max)", lambda M: M.reduce_columnwise("max"),
+             cols_i, colmax[cols_i].astype(np.float32), None)):
+        g1, g4 = timed(tag, lambda: f(A1).new(), lambda: f(A4).new())
+        check_vector(f"parallel {tag}, one block", g1, ref_i2, ref_v, rel)
+        check_vector(f"parallel {tag}, four blocks", g4, ref_i2, ref_v, rel)
+    tot = float(w64.sum())
+    s1, s4 = timed("reduce_scalar(plus)",
+                   lambda: A1.reduce_scalar("plus").new().value,
+                   lambda: A4.reduce_scalar("plus").new().value)
+    for tag, s in (("one block", s1), ("four blocks", s4)):
+        if abs(float(s) - tot) > 1e-5 * abs(tot):
+            fail(f"parallel reduce_scalar, {tag}: {s} vs {tot}")
+
+    # extract, select, apply, ewise_blocked: exactly the unsharded calls
+    rng = np.random.default_rng(11)
+    rows = np.sort(rng.choice(n, n // 2, replace=False))
+    cols = np.sort(rng.choice(n, n // 2, replace=False))
+    thr = np.float32(np.median(w))
+
+    def same_matrix(tag, got, want):
+        gk, gv = _keys(got, n)
+        wk, wv = _keys(want, n)
+        if not np.array_equal(gk, wk):
+            fail(f"parallel {tag}: structure differs from unsharded")
+        _same_bits(f"parallel {tag}", gv, wv)
+
+    B = A.apply(gb.binary.times, right=np.float32(2.0)).new()
+    B4 = shard_matrix(B.dup(), mesh4)
+    B1 = shard_matrix(B.dup(), mesh1)
+    for tag, f, keeps in (
+            ("A[rows, cols]", lambda M, N: M[rows, cols], False),
+            ("select(valuegt)", lambda M, N: M.select("valuegt", thr), True),
+            ("apply(ainv)", lambda M, N: M.apply(gb.unary.ainv), True),
+            ("ewise_blocked(plus)", None, True)):
+        if f is None:
+            g1, g4 = timed(tag, lambda: ewise_blocked(A1, B1, gb.binary.plus),
+                           lambda: ewise_blocked(A4, B4, gb.binary.plus))
+            want = A.ewise_mult(B, gb.binary.plus).new()
+        else:
+            g1, g4 = timed(tag, lambda: f(A1, B1).new(),
+                           lambda: f(A4, B4).new())
+            want = f(A, B).new()
+        same_matrix(f"{tag}, one block", g1, want)
+        same_matrix(f"{tag}, four blocks", g4, want)
+        if keeps and (g4._dist is None or g4._dist.n_blocks != 4 or
+                      g4._dist.nnz != want.nvals):
+            fail(f"parallel {tag}: the row blocks were not kept")
+    # the kept blocks drive a distributed reduce
+    S4 = A4.select("valuegt", thr).new()
+    S = A.select("valuegt", thr).new()
+    check_vector("parallel select's reduce", four(
+        lambda: S4.reduce_columnwise("max").new()),
+        *S.reduce_columnwise("max").new().to_coo())
+
+    # triangles on RMAT 17: L over four blocks, B replicated and sharded
+    rs, rd, rn = build_rmat(17)
+    tri_ref = triangles_ref(rs, rd, rn)
+    lin = np.unique(np.concatenate([rs * rn + rd, rd * rn + rs]))
+    r, c = lin // rn, lin % rn
+    keep = r != c
+    r, c = r[keep], c[keep]
+    rank = np.empty(rn, np.int64)
+    rank[np.argsort(np.bincount(r, minlength=rn), kind="stable")] = \
+        np.arange(rn)
+    r, c = rank[r], rank[c]
+    low = r > c
+    L = gb.Matrix.from_coo(r[low], c[low], np.ones(int(low.sum()), np.int64),
+                           dtype="INT64", nrows=rn, ncols=rn)
+    Ls = {1: shard_matrix(L.dup(), mesh1), 4: shard_matrix(L.dup(), mesh4)}
+    pp = gb.semiring.plus_pair["INT64"]
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    blocks = Ls[4]._dist.blocks
+    terms = [int(spx.spgemm_dot_total(
+        blk, L._sparse, blk, L.dtype, True, False, True, blk.nrows, rn,
+        rn)[1]) for blk in blocks]
+    log(f"  L over four blocks: entries {[b.nvals() for b in blocks]}, "
+        f"masked-dot terms a block with B replicated {terms}")
+
+    def tri(Lx, b_sharded):
+        C = gb.Matrix(gb.dtypes.INT64, rn, rn)
+        C(Lx.S) << Lx.mxm((Lx if b_sharded else L).T, pp)
+        return int(C.reduce_scalar("plus").new().value)
+
+    out["triangles"] = {"reference": tri_ref, "block_terms": terms,
+                        "block_entries": [b.nvals() for b in blocks]}
+    for tag, b_sharded in (("B replicated", False), ("B sharded", True)):
+        with gb.Recorder() as rec:
+            tri(Ls[4], b_sharded)
+        rot = "mxm distributed: sharded-B rotation SpGEMM" in rec.data
+        if rot != b_sharded or any("fallback" in x for x in rec.data):
+            fail(f"parallel triangles, {tag}: dispatch {rec.data}")
+        rec_out = {}
+        for nb in (1, 4):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            cnt, ms, runs, first_s = timed_calls(
+                torch, (lambda: four(lambda: tri(Ls[4], b_sharded)))
+                if nb == 4 else (lambda: tri(Ls[1], b_sharded)), reps=3)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            if cnt != tri_ref:
+                fail(f"parallel triangles, {tag}, {nb} blocks: {cnt}, "
+                     f"scipy {tri_ref}")
+            prof = profile_breakdown(
+                torch, lambda: tri(Ls[nb], b_sharded),
+                f"triangles {tag}, {nb} block(s)", ms)
+            rec_out[nb] = {"ms": ms, "ms_runs": runs, "first_s": first_s,
+                           "peak_gb": peak, "idle_share": prof["idle_share"],
+                           "device_busy_ms": prof["device_busy_ms"]}
+            log(f"  triangles rmat17, {tag}, {nb} block(s): {cnt} (scipy "
+                f"{tri_ref}); ms {[round(x, 4) for x in runs]} (median "
+                f"{ms:.4f}), peak +{peak:.3f} GB, idle share "
+                f"{prof['idle_share']:.4f}")
+        rec_out["ratio"] = rec_out[4]["ms"] / rec_out[1]["ms"]
+        out["triangles"][tag] = rec_out
+    del Ls, L
+    zero = [k for k in KERNELS[:6] if l4[k] == 0]
+    if zero:
+        fail(f"parallel: the four-block calls never launched {zero}")
+    out["launches_four_blocks"] = l4
+    out["launches"] = check_launches(K, "parallel", totals,
+                                     need=KERNELS[:6])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  parallel: four-block launches {l4}; phase {out['wall_s']:.1f} s")
+    results["parallel"] = out
+
+
 PHASES = ("kernels", "tropical", "pagerank_zipf", "bfs", "pagerank_rmat",
           "sssp", "reduce", "hypersparse", "sparse_algorithms", "apsp",
           "index", "positional_agg", "operators", "infix", "ss_io",
-          "complex_udt")
+          "complex_udt", "parallel")
 
 
 def main():
@@ -4105,6 +4388,10 @@ def main():
             log("phase: complex_udt")
             complex_udt_phase(gb, torch, K, src, dst, w, n, A, results,
                               totals)
+        if "parallel" in phases:
+            log("phase: parallel")
+            parallel_phase(gb, torch, K, src, dst, w, n, A, Ab, results,
+                           totals)
         del A, Ab
         if "hypersparse" in phases:
             log("phase: hypersparse")

@@ -1,7 +1,7 @@
 """graphblas_tpu_torch: the PyTorch and CUDA port of graphblas_tpu.
 
-The same user code runs after ``import graphblas_tpu_torch as gb`` for the
-part ported so far.  Sparse matrices (``Matrix.from_coo``, and every
+The same user code runs after ``import graphblas_tpu_torch as gb``: the
+port does everything the JAX package does.  Sparse matrices (``Matrix.from_coo``, and every
 matrix over ``auto_sparse_limit`` elements) stay sparse on their device:
 ``vxm``/``mxv`` over the lanepipe SpMV engine, the sort pipeline for the
 matrices it turns down and for row and column reduces, and the generic
@@ -38,8 +38,9 @@ operand in its own type.  Operators may be given as the JAX package's
 strings (``"+"``, ``"min_plus[FP64]"``).  Everything runs
 on ``cuda`` unless the caller asks for the CPU with
 ``config.set(device="cpu")``.  ``backend`` is ``"torch"``: PyTorch with
-the hand-written CUDA kernels.  What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item.
+the hand-written CUDA kernels.  ``parallel`` cuts a sparse matrix into row
+blocks over a mesh of devices (``shard_matrix``), which then compute block
+by block through the same engines.
 
 The package imports torch and numpy only, never jax or graphblas_tpu.
 """
@@ -99,21 +100,9 @@ from .core import infix as _infix  # noqa: E402,F401  (|, &, @, arithmetic)
 from .core.recorder import Recorder  # noqa: E402
 from .exceptions import GraphblasException  # noqa: E402
 
-from . import algorithms, io, viz  # noqa: E402  (they import Vector)
+from . import algorithms, io, parallel, viz  # noqa: E402  (Vector)
 
 __all__ = ["Matrix", "Vector", "Scalar", "Recorder", "config", "agg",
            "algorithms", "backend", "binary", "dtypes", "exceptions",
            "GraphblasException", "indexunary", "init", "io", "monoid", "op",
-           "replace", "select", "semiring", "ss", "unary", "viz"]
-
-# the JAX package's names that the port lacks, and their ROADMAP.md items
-_NOT_PORTED = {"parallel": 13}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        from .core.operator.base import not_ported
-
-        raise not_ported(f"graphblas_tpu_torch.{name}", _NOT_PORTED[name])
-    raise AttributeError(
-        f"module 'graphblas_tpu_torch' has no attribute {name!r}")
+           "parallel", "replace", "select", "semiring", "ss", "unary", "viz"]

@@ -113,6 +113,7 @@ class BaseType:
     _d_vals = None
     _d_valid = None
     _sparse = None
+    _dist = None  # row blocks from parallel.shard_matrix (a BlockedCSR)
     _device = None
     _name = None
     _is_scalar = False
@@ -142,6 +143,7 @@ class BaseType:
         self._d_vals = vals
         self._d_valid = valid
         self._sparse = None
+        self._dist = None
         self._device = valid.device
 
     def _set_sparse_store(self, sp):
@@ -149,6 +151,7 @@ class BaseType:
         self._sparse = sp
         self._d_vals = None
         self._d_valid = None
+        self._dist = None
         self._device = sp.device
 
     @property
@@ -166,8 +169,11 @@ class BaseType:
     def _densify(self):
         """Convert the sparse backing to the bitmap store, guarded by the
         ``dense_limit`` config so that an O(nrows*ncols) allocation on a
-        graph-scale matrix raises instead of exhausting device memory."""
+        graph-scale matrix raises instead of exhausting device memory.  A
+        change of representation only: the row blocks stay."""
+        dist = self._dist
         self._set_store(*self._dense_planes())
+        self._dist = dist
 
     def _dense_planes(self):
         """The sparse backing as (values, valid) planes, under the

@@ -526,9 +526,9 @@ def apply_bound(sp, op, a_dt, scalar_val, scalar_dt, left):
     return sp.with_values(vals, op.return_type)
 
 
-def _indexunary_vals(sp, op, a_dt, thunk_val):
-    return dense.indexunary_vals(sp.vals, sp.rows, sp.cols, op, a_dt,
-                                 thunk_val)
+def _indexunary_vals(sp, op, a_dt, thunk_val, row_offset=0):
+    rows = sp.rows + row_offset if row_offset else sp.rows
+    return dense.indexunary_vals(sp.vals, rows, sp.cols, op, a_dt, thunk_val)
 
 
 def apply_indexunary(sp, op, a_dt, thunk_val):
@@ -536,8 +536,10 @@ def apply_indexunary(sp, op, a_dt, thunk_val):
                           op.return_type)
 
 
-def select_op(sp, op, a_dt, thunk_val, out_dt):
-    pred = _indexunary_vals(sp, op, a_dt, thunk_val)
+def select_op(sp, op, a_dt, thunk_val, out_dt, row_offset=0):
+    """The entries where op holds; row_offset is added to the row ids the
+    op sees (a row block of a distributed matrix sees its global rows)."""
+    pred = _indexunary_vals(sp, op, a_dt, thunk_val, row_offset)
     return _filtered(sp, pred, st.cast_values(sp.vals, a_dt, out_dt), out_dt)
 
 
@@ -874,6 +876,20 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
                       out_nrows, out_ncols, k_dim, total):
     """The masked dot.  An output entry sits at a mask entry (that passes a
     value mask) with at least one term whose index both sides store."""
+    out_vals, out_valid, ok_m = masked_dot_slots(
+        a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure, out_nrows,
+        out_ncols, k_dim, total)
+    keep = (out_valid & ok_m).nonzero().reshape(-1)
+    return store_from_parts(msp.rows[keep], msp.cols[keep], out_vals[keep],
+                            out_nrows, out_ncols, ring.monoid.type)
+
+
+def masked_dot_slots(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
+                     out_nrows, out_ncols, k_dim, total, row_offset=0):
+    """The masked dot's value at each mask entry: (values, valid, ok_m),
+    valid where a term was found and ok_m where the mask passes.  `total`
+    is the term count (spgemm_dot_total); row_offset is added to the row
+    id a positional multiply sees (a row block of a distributed A)."""
     mult, mono = ring.binaryop, ring.monoid
     (a_side, b_side, indptr_a, indptr_b, ok_m, da, db,
      cnt) = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
@@ -904,7 +920,7 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
     elif mult._positional is not None:
         # the term's k: the expanded side's index, which the other side
         # stores wherever the term is found
-        pos = _pos(mult, dense.MATMUL_MAP, i=lambda: mr[mo],
+        pos = _pos(mult, dense.MATMUL_MAP, i=lambda: mr[mo] + row_offset,
                    j=lambda: mc[mo], k=lambda: x_k[src])
         prods = dense.positional_value(mult, pos, found.shape,
                                        dense.MATMUL_MAP)
@@ -915,9 +931,7 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
         prods = dense.apply_binop(mult, av, a_dt, bv, b_dt)
     out_vals, out_valid = segment_reduce_sorted(
         mo, prods, found, mono, msp.nvals(), mult.return_type)
-    keep = (out_valid & ok_m).nonzero().reshape(-1)
-    return store_from_parts(mr[keep], mc[keep], out_vals[keep], out_nrows,
-                            out_ncols, mono.type)
+    return out_vals, out_valid, ok_m
 
 
 # --------------------------------------------------------------------- #

@@ -8,8 +8,13 @@ matrices, is a SparseStore, merged into a sparse target at coordinates
 (``sparse.write_back_sparse``).  Each dispatch writes one line to an
 active Recorder (core/recorder.py) where the JAX package writes it, and
 waits for the card after ``init(blocking=True)``.  PyTorch runs eagerly,
-so there is no jit cache; the distributed branches of the JAX package are
-ROADMAP.md queue 1, item 13."""
+so there is no jit cache.  A matrix that ``parallel.shard_matrix`` gave
+row blocks (``_dist``) takes the distributed branches of the JAX package:
+mxv/vxm, the reduces, the masked SpGEMM and extract run block by block
+(graphblas_tpu_torch/parallel/), each block through the single-device
+routes below (``sparse_matvec``, ``sparse_reduce_axis``,
+``sparse_reduce_scalar``), and ``select``/``apply`` keep the row blocks
+(``_dist_through``)."""
 
 import torch
 
@@ -50,7 +55,9 @@ def materialize(expr, out_dtype, *, mask=None, name=None, opts=None):
         record(lambda: _record_line(None, expr, None, None, False))
         sp = _sparse_out_run(expr, out_dtype, opts=opts)
         _wait(sp.vals)
-        return expr.output_type._from_sparse(out_dtype, sp, name=name)
+        out = expr.output_type._from_sparse(out_dtype, sp, name=name)
+        _dist_through(expr, out)
+        return out
     out = expr.output_type._empty(out_dtype, expr.shape, name=name)
     update_into(out, expr, mask=mask, opts=opts)
     return out
@@ -73,6 +80,8 @@ def update_into(target, expr, *, mask=None, accum=None, replace=False,
     plan = _format_plan(expr)
     typed_accum = None if accum is None else typed(accum, target.dtype,
                                                    "BinaryOp")
+    if plan == "inline":
+        _note_dist_fallback(expr)
     record(lambda: _record_line(target, expr, mask, accum, replace))
     if plan == "sparse":
         _update_sparse(target, expr, mask, typed_accum, replace, opts)
@@ -664,26 +673,59 @@ _DENSE_IMPL = {
 }
 
 
-def _empty_result(expr, dev):
-    n_out = expr.shape[0]
-    return (st.zeros_values((n_out,), expr.dtype, dev),
+def _empty_result(n_out, dtype, dev):
+    return (st.zeros_values((n_out,), dtype, dev),
             torch.zeros(n_out, dtype=torch.bool, device=dev))
 
 
-def _inline_sparse_impl(expr):
-    """mxv/vxm of a sparse matrix and a dense vector: through the lanepipe,
-    or through the sort pipeline when the matrix packs over
-    ``lanepipe.PACK_LIMIT``; the generic sparse engine takes every ring and
-    type those two decline (FP64, INT64, monoids without a scan)."""
+def _dist_of(mat):
+    """The row blocks ``parallel.shard_matrix`` gave a sparse-backed
+    matrix, or None."""
+    return getattr(mat, "_dist", None) if mat._sparse is not None else None
+
+
+def _note_dist_fallback(expr):
+    """Record that an mxv/vxm of a distributed matrix by a positional
+    semiring runs on one device (before the operation's own line, as the
+    JAX package records it)."""
     m = expr._kind
-    tflag = expr._statics[0]
+    if m in ("mxv", "vxm") and expr.op.binaryop._positional is not None:
+        mat = expr.args[0] if m == "mxv" else expr.args[1]
+        if _dist_of(mat) is not None:
+            record(f"{expr.method_name} fallback: single-device (positional "
+                   f"semiring {expr.op.name})")
+
+
+def _inline_sparse_impl(expr):
+    """mxv/vxm of a sparse matrix and a dense vector: block by block when
+    the matrix is distributed (parallel/spmv.py), else sparse_matvec."""
+    m = expr._kind
+    tflag = bool(expr._statics[0])
     mat, vec = (expr.args[0], expr.args[1]) if m == "mxv" else \
         (expr.args[1], expr.args[0])
-    sp = mat._sparse
-    ring = expr.op
+    dist = _dist_of(mat)
+    if dist is not None and expr.op.binaryop._positional is None:
+        from ..parallel.spmv import dist_mxv_ring
+
+        w, ok = dist_mxv_ring(dist, vec._vals, vec._valid, expr.op,
+                              vec.dtype, kind=m, at=tflag)
+        n_out = expr.shape[0]
+        return w[:n_out].to(vec.device), ok[:n_out].to(vec.device)
+    return sparse_matvec(mat._sparse, mat.dtype, m, tflag, vec._vals,
+                         vec._valid, vec.dtype, expr.op)
+
+
+def sparse_matvec(sp, a_dt, kind, at, u_vals, u_valid, u_dt, ring):
+    """w = A u (kind "mxv") or u A ("vxm") of a SparseStore and a dense
+    vector store on its device: through the lanepipe, or through the sort
+    pipeline when the matrix packs over ``lanepipe.PACK_LIMIT``; the
+    generic sparse engine takes every ring and type those two decline
+    (FP64, INT64, monoids without a scan).  ``at`` applies A.T."""
     if sp.nvals() == 0:
-        return _empty_result(expr, vec.device)
-    a_dt, u_dt, u_vals = mat.dtype, vec.dtype, vec._vals
+        n_out = (sp.ncols if at else sp.nrows) if kind == "mxv" else \
+            (sp.nrows if at else sp.ncols)
+        return _empty_result(n_out, ring.return_type, u_valid.device)
+    orig_ring, orig_u_dt, orig_u = ring, u_dt, u_vals
     truth_of = None
     twin = ring.bool_twin()
     if twin is not None:  # lor_land["FP32"]: the BOOL ring on truth values
@@ -694,17 +736,17 @@ def _inline_sparse_impl(expr):
         ring, u_dt = twin, _dt.BOOL
     k_dt = a_dt if truth_of is None else _dt.BOOL  # the matrix's, as computed
     if not lanepipe.eligible(ring, k_dt, u_dt):
-        return spx.spmv(sp, bool(tflag), m, vec._vals, vec._valid, expr.op,
-                        a_dt, vec.dtype)
-    where = dict(dest_is_row=m == "mxv", at=bool(tflag), device=vec.device)
+        return spx.spmv(sp, at, kind, orig_u, u_valid, orig_ring, a_dt,
+                        orig_u_dt)
+    where = dict(dest_is_row=kind == "mxv", at=at, device=u_valid.device)
     entry, dyn = _plan(lanepipe, sp, a_dt, truth_of, **where)
     if entry is None:
         entry, dyn = _plan(sortpipe, sp, a_dt, truth_of, **where)
         return sortpipe.spmv_pipeline(
-            dyn, u_vals, vec._valid, ring, k_dt, u_dt, kind=m,
+            dyn, u_vals, u_valid, ring, k_dt, u_dt, kind=kind,
             n_in=entry["n_in"], L=entry["L"])
-    return lanepipe.spmv_pipeline(dyn, entry, u_vals, vec._valid, ring, k_dt,
-                                  u_dt, kind=m)
+    return lanepipe.spmv_pipeline(dyn, entry, u_vals, u_valid, ring, k_dt,
+                                  u_dt, kind=kind)
 
 
 # where plan_dyn_tuple puts the matrix's values
@@ -740,35 +782,61 @@ def _plan(pipe, sp, a_dt, truth_of, *, dest_is_row, at, device):
 
 
 def _reduce_axis_impl(expr):
-    """Row/column monoid reduce of a sparse matrix through the sort
-    pipeline's destination side, or the generic sparse engine where that
-    declines."""
+    """Row/column monoid reduce of a sparse matrix: block by block when it
+    is distributed (parallel/ops.py), else sparse_reduce_axis."""
     mat = expr.args[0]
     axis, tflag = expr._statics
-    sp = mat._sparse
-    mono = expr.op
-    dev = mat._device
-    in_dt = mat.dtype
+    dist = _dist_of(mat)
+    if dist is not None:
+        from ..parallel import ops as pops
+
+        vals, ok = pops.dist_reduce_axis(
+            dist, expr.op, mat.dtype, dest_rows=(axis == 1) != bool(tflag),
+            n_out=expr.shape[0])
+        return vals.to(mat._device), ok.to(mat._device)
+    return sparse_reduce_axis(mat._sparse, mat.dtype, axis, expr.op,
+                              at=bool(tflag))
+
+
+def sparse_reduce_axis(sp, in_dt, axis, mono, at=False):
+    """Monoid-reduce the rows (axis=1) or columns (axis=0) of a SparseStore
+    to a dense vector store: through the sort pipeline's destination side,
+    or the generic sparse engine where that declines."""
+    dev = sp.device
     if sp.nvals() == 0:
-        return _empty_result(expr, dev)
+        n_out = (sp.ncols if at else sp.nrows) if axis == 1 else \
+            (sp.nrows if at else sp.ncols)
+        return _empty_result(n_out, mono.return_type, dev)
     # lor/land of another type: of the values' truth
     truth_of = in_dt if mono.type is _dt.BOOL and not in_dt.is_bool else None
     k_dt = in_dt if truth_of is None else _dt.BOOL
     if not sortpipe.eligible_reduce(mono, k_dt):
-        return spx.reduce_axis(sp, bool(tflag), axis, mono, in_dt)
+        return spx.reduce_axis(sp, at, axis, mono, in_dt)
     # axis=1 reduces rows (dest=row); axis=0 reduces columns
     _, dyn = _plan(sortpipe, sp, in_dt, truth_of, dest_is_row=axis == 1,
-                   at=bool(tflag), device=dev)
+                   at=at, device=dev)
     return sortpipe.reduce_pipeline(dyn, mono, k_dt)
 
 
 def _reduce_scalar_impl(expr):
-    """reduce_scalar of a sparse matrix: the monoid over its values."""
+    """reduce_scalar of a sparse matrix: the monoid over its values, block
+    by block when it is distributed."""
     mat = expr.args[0]
-    vals = mat._sparse.vals
+    dist = _dist_of(mat)
+    if dist is not None:
+        from ..parallel import ops as pops
+
+        vals, ok = pops.dist_reduce_scalar(dist, expr.op, mat.dtype)
+        return _allow_empty(expr, vals.to(mat._device), ok.to(mat._device))
+    return _allow_empty(expr, *sparse_reduce_scalar(mat._sparse, expr.op,
+                                                    mat.dtype))
+
+
+def sparse_reduce_scalar(sp, mono, in_dt):
+    """The monoid over a SparseStore's values: a 0-d (value, valid)."""
+    vals = sp.vals
     ok = torch.ones(vals.shape, dtype=torch.bool, device=vals.device)
-    return _allow_empty(expr, *dense.reduce_monoid(vals, ok, expr.op,
-                                                   mat.dtype))
+    return dense.reduce_monoid(vals, ok, mono, in_dt)
 
 
 def _extract_element_impl(expr):
@@ -796,7 +864,7 @@ _INLINE_IMPL = {"mxv": _inline_sparse_impl, "vxm": _inline_sparse_impl,
 
 # --------------------------------------------------------------------- #
 # sparse results (graphblas_tpu/core/execute.py _sparse_out_run,
-# _spgemm_run; the distributed branches are ROADMAP.md queue 1, item 13)
+# _spgemm_run, _dist_through)
 def _sparsify(mat):
     """Give a dense-backed matrix a sparse backing (to meet a sparse
     operand of mxm)."""
@@ -849,9 +917,15 @@ def _sparse_out_run(expr, out_dtype, mask=None, opts=None):
     if m == "extract":
         axes = expr._statics[1]
         rows, cols = _index_tensors(axes, src.device)
-        return cast(spx.extract_submatrix(
-            src._sparse, rows, cols,
-            all(ix.is_increasing for ix in axes)))
+        in_order = all(ix.is_increasing for ix in axes)
+        dist = _dist_of(src)
+        if dist is not None:
+            from ..parallel import ops as pops
+
+            record("extract distributed over the row blocks")
+            return cast(pops.dist_extract(dist, rows, cols, in_order,
+                                          src.nrows, src.ncols))
+        return cast(spx.extract_submatrix(src._sparse, rows, cols, in_order))
     sp = src._sparse
     tflag = m == "transpose" or (m != "identity" and expr._statics[-1])
     a = spx.transpose(sp) if tflag else sp
@@ -953,6 +1027,9 @@ def _spgemm_run(expr, mask, opts):
     out_ncols = b_sp.nrows if bt else b_sp.ncols
     k_dim = a_sp.nrows if at else a_sp.ncols
     ring, z_dt = expr.op, expr.dtype
+    dist_out = _dist_spgemm(expr, mask, out_nrows, out_ncols)
+    if dist_out is not None:
+        return dist_out
     if 0 in (a_sp.nvals(), b_sp.nvals(), out_nrows, out_ncols):
         return spx.empty_store(out_nrows, out_ncols, z_dt, a_sp.device)
     method = ((opts or {}).get("axb_method") or "default").lower()
@@ -977,3 +1054,73 @@ def _spgemm_run(expr, mask, opts):
         return spx.spgemm(a_sp, b_sp, at, bt, ring, a.dtype, b.dtype,
                           out_nrows, out_ncols, k_dim, gus,
                           _coord_mask_fn(mask))
+
+
+def _dist_spgemm(expr, mask, out_nrows, out_ncols):
+    """The distributed masked SpGEMM (graphblas_tpu/core/execute.py
+    _spgemm_run): for a distributed A (not transposed) under a mask that is
+    sparse and not complemented, the masked dot of each row block against
+    B, replicated, or, where B is distributed over the same mesh, against
+    B's row blocks in turn (the rotation).  An undistributed mask is first
+    given A's row blocks.  Returns the result in expr.dtype, or None where
+    A is not distributed or the single-device SpGEMM runs (recorded)."""
+    at, bt = (bool(t) for t in expr._statics)
+    a, b = expr.args
+    a_dist = _dist_of(a)
+    if a_dist is None:
+        return None
+    from ..parallel import ops as pops
+    from ..parallel.spmv import make_blocked_csr
+
+    parent = None if mask is None else mask.parent
+    usable = (mask is not None and not mask.complement
+              and parent._sparse is not None and not at)
+    m_dist = _dist_of(parent) if usable else None
+    if usable and m_dist is None:
+        m_dist = make_blocked_csr(parent, a_dist.mesh)
+        parent._dist = m_dist
+        record("mxm mask redistributed to the distributed row blocks")
+    if (usable and a_dist.mesh is m_dist.mesh and out_nrows > 0
+            and out_ncols > 0):
+        b_dist = _dist_of(b)
+        args = (expr.op, a.dtype, b.dtype, parent.dtype, mask.structure)
+        kw = dict(bt=bt, n_out_rows=out_nrows, n_out_cols=out_ncols)
+        if b_dist is not None and b_dist.mesh is a_dist.mesh:
+            record("mxm distributed: sharded-B rotation SpGEMM")
+            return pops.dist_masked_spgemm_sharded(a_dist, b_dist, m_dist,
+                                                   *args, **kw)
+        return pops.dist_masked_spgemm(a_dist, b._sparse, m_dist, *args,
+                                       **kw)
+    record(f"mxm fallback: single-device SpGEMM "
+           f"(mask={'yes' if mask is not None else 'no'}, at={at})")
+    return None
+
+
+def _dist_through(expr, out):
+    """Keep the row blocks through the per-block transforms that need no
+    communication: ``B = A.select(op)`` and ``B = A.apply(op)`` (a unary,
+    not positional op) on a distributed A give B row blocks of its own,
+    each block's select or apply of A's; a positional predicate sees the
+    global row ids (block row + block offset).  The select is the
+    single-device ``sparse.select_op``, so both agree on every
+    predicate."""
+    m = expr._kind
+    if m not in ("select", "apply") or expr.op is None or expr._statics[-1]:
+        return
+    src = expr.args[0]
+    dist = _dist_of(src)
+    if dist is None:
+        return
+    op, src_dt = expr.op, src.dtype
+    if m == "select":
+        thunk = expr._statics[0]
+        blocks = [spx.select_op(blk, op, src_dt, thunk, out.dtype,
+                                row_offset=b * dist.rows_per)
+                  for b, blk in enumerate(dist.blocks)]
+    elif op._positional is None:
+        blocks = [spx.cast_copy(spx.apply_unary(blk, op, src_dt),
+                                op.return_type, out.dtype)
+                  for blk in dist.blocks]
+    else:
+        return
+    out._dist = dist.with_blocks(blocks, out.dtype)

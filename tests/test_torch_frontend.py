@@ -294,9 +294,9 @@ def test_skewed_dest_two_level(rng, monkeypatch, lane_on, cpu, sparse_u):
 
 
 def test_not_ported_raises(cpu):
-    """What the port lacks raises; FP64 products and reduces and a sparse
-    mxm, which raised before the generic sparse engine, match the JAX
-    package."""
+    """What raised before it was ported works: FP64 products and reduces
+    and a sparse mxm (the generic sparse engine) match the JAX package,
+    and so do the names below, down to ``gb.parallel``."""
     A = gbt.Matrix.from_coo([0, 1], [1, 0], [1.0, 2.0], dtype="FP64")
     x = gbt.Vector.from_dense(np.ones(2))
     with gbj.config.set(auto_sparse_limit=0):
@@ -314,8 +314,12 @@ def test_not_ported_raises(cpu):
     assert A.mxm(A).new()._sparse is not None
     assert gbt.dtypes.lookup_dtype("FC64").name == \
         gbj.dtypes.lookup_dtype("FC64").name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gbt.parallel
+    # gb.parallel, a stub before the distribution: row blocks of A
+    mesh = gbt.parallel.make_mesh((2,), devices=["cpu"] * 2)
+    Ad = gbt.parallel.shard_matrix(A.dup(), mesh)
+    assert Ad._dist.n_blocks == 2
+    assert Ad.mxv(x, gbt.semiring.plus_times["FP64"]).new().isequal(
+        A.mxv(x, gbt.semiring.plus_times["FP64"]).new())
     # conj, which raised before the complex types, matches the JAX package
     C = gbt.Matrix.from_coo([0, 1], [1, 0], [1 + 2j, 3 - 1j])
     with gbj.config.set(auto_sparse_limit=0):

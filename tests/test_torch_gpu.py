@@ -7,6 +7,8 @@ torch and the port only, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1404,3 +1406,113 @@ def test_creal_of_cmplx_runs_pagerank_through_the_kernels(cuda):
         rim = Im.reduce_rowwise().new()
         assert K.launches["segscan"] > before
         assert rim.isequal(V.reduce_rowwise().new())
+
+
+def _parallel_graph(gb, dev, n=1 << 16):
+    rng = np.random.default_rng(31)
+    src = rng.integers(0, n, 8 * n)
+    dst = (rng.zipf(1.5, 8 * n) - 1) % n
+    lin = np.unique(src * n + dst)
+    r, c = lin // n, lin % n
+    deg = np.bincount(r, minlength=n)
+    w = (1.0 / deg[r]).astype(np.float32)
+    with gb.config.set(device=dev, auto_sparse_limit=0):
+        A = gb.Matrix.from_coo(r, c, w, dtype="FP32", nrows=n, ncols=n)
+    return A, r, c
+
+
+@pytest.mark.gpu
+def test_parallel_four_blocks_on_one_card(cuda):
+    """Four row blocks on cuda:0 against the unsharded calls: vxm and mxv
+    through the kernels on every block (K1 launched once a block the
+    lanepipe takes), a
+    sparse-u vxm (K5), row and column reduces (K6), reduce_scalar, extract
+    and the triangle kernel with B sharded."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.parallel import make_mesh, shard_matrix
+
+    A, r, c = _parallel_graph(gb, cuda)
+    n = A.nrows
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        mesh = make_mesh((4,), devices=[cuda] * 4)
+        A4 = shard_matrix(A.dup(), mesh)
+        assert A4._dist.n_blocks == 4
+        assert all(blk.device.type == cuda.type for blk in A4._dist.blocks)
+        ring = gb.semiring.plus_times["FP32"]
+        u = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+        u.vxm(A4, ring).new()  # plans
+        before = _launch_counts()
+        got = u.vxm(A4, ring).new()
+        torch.cuda.synchronize()
+        lane = sum(p is not None for blk in A4._dist.blocks
+                   for p in blk._lanepipe_plans.values())
+        assert lane >= 1
+        assert K.launches["gather_mult"] - before["gather_mult"] == lane
+        assert got.isclose(u.vxm(A, ring).new(), rel_tol=1e-5)
+        assert A4.mxv(u, ring).new().isclose(A.mxv(u, ring).new(),
+                                             rel_tol=1e-5)
+        s = gb.Vector.from_coo([0, 5, n - 1], [0.0, 1.0, 2.0], size=n,
+                               dtype="FP32")
+        mp = gb.semiring.min_plus["FP32"]
+        before = K.launches["lane_segscan"]
+        assert s.vxm(A4, mp).new().isclose(s.vxm(A, mp).new(), rel_tol=1e-5)
+        assert K.launches["lane_segscan"] > before
+        before = K.launches["segscan"]
+        for how in ("reduce_rowwise", "reduce_columnwise"):
+            assert getattr(A4, how)("plus").new().isclose(
+                getattr(A, how)("plus").new(), rel_tol=1e-5)
+            assert getattr(A4, how)("max").new().isequal(
+                getattr(A, how)("max").new())
+        assert K.launches["segscan"] > before
+        tot = float(A.reduce_scalar("plus").new().value)
+        assert abs(float(A4.reduce_scalar("plus").new().value) - tot) <= \
+            1e-5 * tot
+        rows = np.arange(0, n, 3)
+        cols = np.arange(1, n, 2)
+        assert A4[rows, cols].new().isequal(A[rows, cols].new())
+        low = r > c
+        L = gb.Matrix.from_coo(r[low], c[low], 1, dtype="INT64", nrows=n,
+                               ncols=n)
+        L4 = shard_matrix(L.dup(), mesh)
+        C = gb.Matrix(gb.dtypes.INT64, n, n)
+        C(L4.S) << L4.mxm(L4.T, gb.semiring.plus_pair["INT64"])
+        C2 = gb.Matrix(gb.dtypes.INT64, n, n)
+        C2(L.S) << L.mxm(L.T, gb.semiring.plus_pair["INT64"])
+        assert C.isequal(C2)
+
+
+@pytest.mark.gpu
+def test_parallel_one_block_is_bitwise(cuda):
+    """make_mesh() on one card is one block, the matrix's own store:
+    vxm, reduces and extract are bitwise the unsharded calls, with the
+    same launches."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.parallel import make_mesh, shard_matrix
+
+    A, _, _ = _parallel_graph(gb, cuda)
+    n = A.nrows
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        mesh = make_mesh()
+        assert mesh.size == torch.cuda.device_count()
+        mesh = make_mesh((1,), devices=[cuda])
+        A1 = shard_matrix(A.dup(), mesh)
+        assert A1._dist.blocks[0] is A._sparse
+        ring = gb.semiring.plus_times["FP32"]
+        u = gb.Vector.from_dense(np.full(n, 1.0 / n, np.float32))
+        u.vxm(A, ring).new()  # plans
+        A.reduce_rowwise().new()
+        A.reduce_columnwise("max").new()
+        outs, counts = [], []
+        for M in (A, A1):
+            before = collections.Counter(K.launches)
+            outs.append([u.vxm(M, ring).new(), M.reduce_rowwise().new(),
+                         M.reduce_columnwise("max").new(),
+                         M[np.arange(7, n, 5), np.arange(0, n, 2)].new()])
+            torch.cuda.synchronize()
+            counts.append(K.launches - before)
+        assert counts[0] == counts[1]
+        assert counts[0]["gather_mult"] == 1 and counts[0]["segscan"] == 2
+        for a, b in zip(*outs):
+            assert a.isequal(b)
+            for x, y in zip(a.to_coo(), b.to_coo()):
+                assert x.tobytes() == y.tobytes()

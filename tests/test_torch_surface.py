@@ -178,10 +178,10 @@ def test_public_names_work_or_name_their_item(kind):
             except NotImplementedError as exc:
                 assert ITEM.search(str(exc)), (name, str(exc))
                 stubbed.append(name)
-        # the stubs are what the port lacks, not what it has: on the
-        # package only the distribution (item 13)
+        # the port lacks nothing: the distribution (gb.parallel) was the
+        # last stub of the package
         assert "get" not in stubbed and "clear" not in stubbed
-        assert stubbed == (["parallel"] if kind == "gb" else [])
+        assert stubbed == []
 
 
 _INFIX_CALLS = (lambda A, B, v: A @ B, lambda A, B, v: A | B,
@@ -227,12 +227,14 @@ def test_infix_operators_name_their_item():
 
 
 def test_stubs_and_small_ports():
-    """The stub raises, naming its item; ``dtypes.FC64`` and ``op.conj``,
-    stubs before the complex types, are the JAX package's; ``clear``,
-    ``get``, ``replace`` and the package's GraphblasException work as in
-    the JAX package."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        gbt.parallel
+    """``gb.parallel``, the last stub, has the JAX package's names;
+    ``dtypes.FC64`` and ``op.conj``, stubs before the complex types, are
+    the JAX package's; ``clear``, ``get``, ``replace`` and the package's
+    GraphblasException work as in the JAX package."""
+    import graphblas_tpu.parallel as jpar
+
+    assert set(jpar.__all__) | {"ewise_blocked"} <= set(dir(gbt.parallel))
+    assert gbt.parallel.make_mesh((2,), devices=["cpu"] * 2).shape["i"] == 2
     assert gbt.dtypes.FC64.np_type == gbj.dtypes.FC64.np_type
     assert gbt.op.conj["FC64"].return_type.name == \
         gbj.op.conj["FC64"].return_type.name
