@@ -8,8 +8,10 @@ parents.
 """
 
 from .. import Vector, dtypes, monoid, semiring
+from ..core import trace as _trace
 
 
+@_trace.spanned("gb.algo:bfs_level")
 def bfs_level(A, source=0):
     """Level of each reachable node (source has level 1).
 
@@ -30,6 +32,7 @@ def bfs_level(A, source=0):
     return v
 
 
+@_trace.spanned("gb.algo:bfs_parent")
 def bfs_parent(A, source=0):
     """Parent of each reachable node in a BFS tree (the source is its own
     parent): the smallest node of the previous level with an edge to it.

@@ -6,8 +6,10 @@ import numpy as np
 
 from .. import binary, dtypes, semiring
 from ..core.vector import Vector
+from ..core import trace as _trace
 
 
+@_trace.spanned("gb.algo:connected_components")
 def connected_components(A):
     """The component label of each vertex: the smallest vertex id it
     reaches, with the edges taken as undirected.  Returns an INT64 dense

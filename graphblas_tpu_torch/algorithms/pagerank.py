@@ -2,8 +2,10 @@
 iteration over the row-normalized adjacency ``W = diag(1/outdeg) A``."""
 
 from .. import Vector, binary, dtypes, monoid, semiring, unary
+from ..core import trace as _trace
 
 
+@_trace.spanned("gb.algo:pagerank")
 def pagerank(A, damping=0.85, tol=1e-8, max_iters=100, *, dangling=True):
     """PageRank of the directed graph with adjacency A (A[i,j] = edge i->j).
 

@@ -2,8 +2,10 @@
 Bellman-Ford iteration ``d(min) << d.vxm(A, min_plus)``."""
 
 from .. import Vector, binary, semiring
+from ..core import trace as _trace
 
 
+@_trace.spanned("gb.algo:sssp")
 def sssp(A, source=0, *, max_iters=None):
     """Shortest-path distances from source over the min_plus semiring.
 

@@ -4,8 +4,10 @@ symmetrized pattern.  On a sparse-backed graph the product is the masked
 dot, bounded by the mask (execute._spgemm_run)."""
 
 from .. import Matrix, binary, dtypes, monoid, select, semiring, unary
+from ..core import trace as _trace
 
 
+@_trace.spanned("gb.algo:triangle_count")
 def triangle_count(A):
     """Number of triangles in the undirected graph of A (pattern only)."""
     S = A.apply(unary.one).new(dtype=dtypes.INT64)

@@ -16,6 +16,7 @@ import torch
 
 from . import config as _config
 from . import execute
+from . import trace as _trace
 from ..exceptions import DimensionMismatch, OutOfMemory
 from .mask import Mask
 from .operator.base import find_opclass
@@ -200,14 +201,15 @@ class BaseType:
     def nvals(self):
         if self._sparse is not None:
             return self._sparse.nvals()
-        return int(self._d_valid.sum())
+        with _trace.span("gb.op:nvals"):
+            return _trace.read("base.nvals", int, self._d_valid.sum())
 
     def _host_arrays(self):
         """(values ndarray, valid ndarray) on the host."""
         from . import dtypes as _dt
 
         return (_dt.to_numpy(self._vals, self.dtype),
-                self._valid.cpu().numpy())
+                _trace.to_host("base.valid", self._valid))
 
     def __call__(self, *optional, mask=None, accum=None, replace=False,
                  input_mask=None, _mask_shape=None, **opts):
@@ -294,7 +296,7 @@ class BaseType:
             raise ValueError(f"how must be 'materialize' or 'complete'; "
                              f"got {how!r}")
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            _trace.read("base.wait", torch.cuda.synchronize, self.device)
         return self
 
 

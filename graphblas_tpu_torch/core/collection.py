@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from . import dtypes as _dt
+from . import trace as _trace
 from .dtypes import unify
 from ..exceptions import DimensionMismatch, EmptyObject
 from .base import BaseExpression, BaseType, is_scalar_like
@@ -233,6 +234,7 @@ class Collection(BaseType):
 
         return AmbiguousAssignOrExtract(self, IndexerResolver(self, keys))
 
+    @_trace.spanned("gb.op:setitem")
     def __setitem__(self, keys, value):
         from .expr import IndexerResolver
 
@@ -244,6 +246,7 @@ class Collection(BaseType):
 
         self._delete_at(IndexerResolver(self, keys), mask=None)
 
+    @_trace.spanned("gb.op:contains")
     def __contains__(self, index):
         """``i in v``, ``(i, j) in A``: is an element stored there?"""
         from .expr import IndexerResolver
@@ -253,6 +256,7 @@ class Collection(BaseType):
                             f"{index!r}")
         return not self[index].new().is_empty
 
+    @_trace.spanned("gb.op:get")
     def get(self, *index, default=None):
         """One element as a Python value, or default where none is stored:
         ``A.get(i, j)``, ``v.get(i)``; the default may follow the indices

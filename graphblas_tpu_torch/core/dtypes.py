@@ -21,6 +21,8 @@ import re
 import numpy as np
 import torch
 
+from . import trace as _trace
+
 __all__ = ["DataType", "BOOL", "INT8", "INT16", "INT32", "INT64", "UINT8",
            "UINT16", "UINT32", "UINT64", "FP32", "FP64", "FC32", "FC64",
            "lookup_dtype", "unify", "register_new", "register_anonymous",
@@ -398,7 +400,7 @@ def to_tensor(array, dt, device):
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # a CPU tensor would share the read-only buffer
         a = a.copy()
-    return torch.from_numpy(a).to(device)
+    return _trace.upload("dtypes.to_tensor", torch.from_numpy(a), device)
 
 
 def to_numpy(t, dt):
@@ -408,7 +410,7 @@ def to_numpy(t, dt):
         from .engine import store
 
         return store.device_values_to_np(t, dt)
-    a = t.detach().cpu().resolve_conj().numpy()
+    a = _trace.read("dtypes.to_numpy", t.detach().cpu).resolve_conj().numpy()
     if dt is UINT64:
         return a.view(np.uint64)
     return a.astype(dt.np_type, copy=False)

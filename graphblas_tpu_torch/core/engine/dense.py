@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as _dt
+from .. import trace as _trace
 from . import store as st
 from . import tropical
 
@@ -387,9 +388,10 @@ def semiring_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt):
     if comb is not None and mult.type.is_float:
         av = st.cast_values(a_vals, a_dt, mult.type).contiguous()
         bv = st.cast_values(b_vals, b_dt, mult.type2).contiguous()
-        vals = tropical.tropical_matmul(av, bv, mono_name, comb,
-                                        a_valid.contiguous(),
-                                        b_valid.contiguous())
+        with _trace.span("gb.engine:tropical"):
+            vals = tropical.tropical_matmul(av, bv, mono_name, comb,
+                                            a_valid.contiguous(),
+                                            b_valid.contiguous())
         return vals, out_valid
     return _generic_matmul(a_vals, a_valid, b_vals, b_valid, ring, a_dt, b_dt,
                            out_valid)
@@ -551,7 +553,7 @@ def scatter_matrix(shape, rows, cols, z_vals, z_valid, dtype):
     r, c = rows[:, None], cols[None, :]
     out_vals[r, c] = z_vals.expand(len(rows), len(cols))
     out_valid[r, c] = z_valid.expand(len(rows), len(cols))
-    region[r, c] = True
+    _trace.put("dense.scatter", region, (r, c), True)
     return out_vals, out_valid, region
 
 
@@ -562,7 +564,7 @@ def scatter_vector(size, idx, z_vals, z_valid, dtype):
     region = torch.zeros(size, dtype=torch.bool, device=dev)
     out_vals[idx] = z_vals.expand(len(idx))
     out_valid[idx] = z_valid.expand(len(idx))
-    region[idx] = True
+    _trace.put("dense.scatter", region, idx, True)
     return out_vals, out_valid, region
 
 

@@ -31,9 +31,12 @@ over PACK_LIMIT or holds values wider than 32 bits; the caller then takes
 the sort pipeline (sortpipe.py) or raises.
 """
 
+import time
+
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from . import kernels as K
 from . import permute as pm
 from . import sortpipe as sp
@@ -532,7 +535,8 @@ def plan_from_numpy(plan, perm_plans, device):
                 arr = arr.astype(np.int32)
             elif arr.dtype == np.uint32:
                 arr = arr.view(np.int32)
-            dev[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+            dev[name] = _trace.upload("lanepipe.plan", torch.from_numpy(
+                np.ascontiguousarray(arr)), device)
     entry = {k: v for k, v in plan.items() if not isinstance(v, np.ndarray)}
     pmeta = {}
     for pname in ("routeP", "extP"):
@@ -552,9 +556,18 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     plans = spstore._lanepipe_plans
     if key in plans:
         return plans[key]
+    t0 = time.perf_counter()
+    plans[key] = entry = _build_entry(spstore, dest_is_row, device)
+    _trace.counts["plan.build_s"] += time.perf_counter() - t0
+    if entry is not None:
+        _trace.counts["plan.bytes"] += _trace.tensor_bytes(entry)
+    return entry
+
+
+def _build_entry(spstore, dest_is_row, device):
+    """The plan entry of :func:`get_plan`'s miss, or None."""
     rows, cols, vals = spstore.host_coo()
     if vals.dtype.itemsize > 4:
-        plans[key] = None
         return None
     d = rows if dest_is_row else cols
     k = cols if dest_is_row else rows
@@ -562,12 +575,12 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     n_in = spstore.ncols if dest_is_row else spstore.nrows
     plan = build_plan(d, k, sp.np_carrier(vals, spstore.dtype), n_out, n_in)
     if plan is None:
-        plans[key] = None
         return None
+    t0 = time.perf_counter()
     perms = {"routeP": pm.build_perm_plan(plan["route"]),
              "extP": pm.build_perm_plan(plan["ext_rank"])}
-    plans[key] = plan_from_numpy(plan, perms, device)
-    return plans[key]
+    _trace.counts["plan.perm_s"] += time.perf_counter() - t0
+    return plan_from_numpy(plan, perms, device)
 
 
 def plan_dyn_tuple(entry):
@@ -694,7 +707,7 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
         out = torch.clamp(e_v[:n_out] - 1, min=0)
         return sp.from_carrier(out, z_dt), e_v[:n_out] > 0
 
-    if bool(u_valid.all()):
+    if _trace.read("lanepipe.u_valid_all", bool, u_valid.all()):
         prods, _ = gather(False, True)
         e_v = run_single(pad_to_L(prods, ident_c), combine, ident_c)
         return sp.from_carrier(e_v[:n_out], z_dt), out_ok[:n_out] != 0

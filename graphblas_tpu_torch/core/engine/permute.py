@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ... import native
+from .. import trace as _trace
 from . import kernels as K
 
 N_TILE = 16384  # elements per Clos block = one (128,128) tile
@@ -148,8 +149,9 @@ def build_perm_plan(pi):
 
 def plan_to_device(plan, device):
     meta = {k: int(plan[k]) for k in ("L", "T", "T_pad", "T128")}
-    dev = tuple(torch.from_numpy(np.ascontiguousarray(plan[k], np.int32))
-                .to(device) for k in ("packed_A", "packed_B", "packed_C"))
+    dev = tuple(_trace.upload("permute.plan", torch.from_numpy(
+        np.ascontiguousarray(plan[k], np.int32)), device)
+        for k in ("packed_A", "packed_B", "packed_C"))
     return meta, dev
 
 

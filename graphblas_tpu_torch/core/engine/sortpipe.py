@@ -38,12 +38,14 @@ engine.
 """
 
 import ctypes
+import time
 from collections import namedtuple
 
 import numpy as np
 import torch
 
 from .. import dtypes as _dt
+from .. import trace as _trace
 from . import dense
 from . import kernels as K
 from . import store as st
@@ -281,7 +283,7 @@ def _plan_len(n_in, n_out, cap):
 def _free_slots(used_ranks, L, count):
     """Ascending list of the `count` positions in [0, L) not in used_ranks."""
     mark = torch.zeros(L, dtype=torch.uint8, device=used_ranks.device)
-    mark[used_ranks] = 1
+    _trace.put("sortpipe.plan", mark, used_ranks, 1)
     return torch.argsort(mark, stable=True)[:count]
 
 
@@ -312,7 +314,7 @@ def build_plan_device(rowids, cols, ok, *, cap, n_out, n_in, dest_is_row=True):
     free_m = _free_slots(rank_x, L, L - n_in)
     rank_m = torch.cat([rank_x, free_m])
     barrier_m = torch.zeros(L, dtype=torch.int32, device=dev)
-    barrier_m[rank_x] = 1
+    _trace.put("sortpipe.plan", barrier_m, rank_x, 1)
 
     # ---- interleaved destination side
     dest_dd, dd_of = torch.sort(dest_eff, stable=True)
@@ -321,7 +323,7 @@ def build_plan_device(rowids, cols, ok, *, cap, n_out, n_in, dest_is_row=True):
     inter_slot_of_d = torch.zeros(cap, dtype=i64, device=dev)
     inter_slot_of_d[dd_of] = iota(cap) + dest_dd + 1
     barrier_i = torch.zeros(L, dtype=torch.int32, device=dev)
-    barrier_i[ident_pos] = 1
+    _trace.put("sortpipe.plan", barrier_i, ident_pos, 1)
 
     # rank_back: merged slot -> interleaved slot (free slots paired in order)
     free_src = _free_slots(merged_slot_of_d, L, L - cap)
@@ -377,7 +379,8 @@ def plan_from_numpy(plan, vals_m, ok_m, n_in, n_out, device):
         a = np.asarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.from_numpy(np.array(a)).to(device)
+        return _trace.upload("sortpipe.plan", torch.from_numpy(np.array(a)),
+                             device)
 
     return _plan_entry({k: dev(v) for k, v in plan.items()}, dev(vals_m),
                        dev(ok_m), n_in, n_out)
@@ -393,6 +396,7 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     plans = spstore._sortpipe_plans
     if key in plans:
         return plans[key]
+    t0 = time.perf_counter()
     n_out = spstore.nrows if dest_is_row else spstore.ncols
     n_in = spstore.ncols if dest_is_row else spstore.nrows
     cap = spstore.nvals()
@@ -407,9 +411,13 @@ def get_plan(spstore, dest_is_row, *, at=False, device):
     vals_m = torch.zeros(L, dtype=vals.dtype, device=device)
     vals_m[slot] = vals
     ok_m = torch.zeros(L, dtype=torch.int32, device=device)
-    ok_m[slot] = 1
-    plans[key] = _plan_entry(plan, vals_m, ok_m, n_in, n_out)
-    return plans[key]
+    _trace.put("sortpipe.plan", ok_m, slot, 1)
+    plans[key] = entry = _plan_entry(plan, vals_m, ok_m, n_in, n_out)
+    if device.type == "cuda":  # the plan's host seconds run until it is ready
+        _trace.read("sortpipe.plan_ready", torch.cuda.synchronize, device)
+    _trace.counts["plan.build_s"] += time.perf_counter() - t0
+    _trace.counts["plan.bytes"] += _trace.tensor_bytes(entry)
+    return entry
 
 
 def plan_dyn_tuple(entry):

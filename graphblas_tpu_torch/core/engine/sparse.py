@@ -33,6 +33,7 @@ import torch
 from ... import native
 from ...exceptions import InvalidValue
 from .. import dtypes as _dt
+from .. import trace as _trace
 from . import dense
 from . import store as st
 from ..operator.base import typed
@@ -67,7 +68,8 @@ class Structure:
 
     def host(self):
         if self._host is None:
-            self._host = (self.rows.cpu().numpy(), self.cols.cpu().numpy())
+            self._host = (_trace.to_host("sparse.host_coo", self.rows),
+                          _trace.to_host("sparse.host_coo", self.cols))
         return self._host
 
     def keys(self):
@@ -184,8 +186,10 @@ def build_sparse_store(rows, cols, values, nrows, ncols, dtype, device,
     host (native), uploaded once; the host arrays stay as its host copy."""
     r, c, v = sorted_dedup_coo(rows, cols, values, nrows, ncols, dtype,
                                dup_op)
-    struct = Structure(torch.from_numpy(r).to(device),
-                       torch.from_numpy(c).to(device), nrows, ncols,
+    struct = Structure(_trace.upload("sparse.build", torch.from_numpy(r),
+                                     device),
+                       _trace.upload("sparse.build", torch.from_numpy(c),
+                                     device), nrows, ncols,
                        host=(r, c))
     return SparseStore(struct, _dt.to_tensor(v, dtype, device), dtype,
                        host_vals=v)
@@ -206,7 +210,7 @@ def store_from_parts(rows, cols, vals, nrows, ncols, dtype):
 def _filtered(sp, keep, vals, dtype):
     """sp's entries where keep, with vals; sp's structure when keep holds
     everywhere (one device read of the count)."""
-    idx = keep.nonzero().reshape(-1)
+    idx = _trace.nonzero("sparse.filtered", keep)
     if idx.numel() == sp.nvals():
         return sp.with_values(vals, dtype)
     return SparseStore(Structure(sp.rows[idx], sp.cols[idx], sp.nrows,
@@ -218,7 +222,7 @@ def resized(sp, nrows, ncols):
     """sp's entries inside nrows x ncols, in a store of that shape (the
     (row, col) order holds)."""
     keep = (sp.rows < nrows) & (sp.cols < ncols)
-    idx = keep.nonzero().reshape(-1)
+    idx = _trace.nonzero("sparse.resized", keep)
     return SparseStore(Structure(sp.rows[idx], sp.cols[idx], nrows, ncols),
                        sp.vals[idx], sp.dtype)
 
@@ -226,7 +230,7 @@ def resized(sp, nrows, ncols):
 def diag_sparse_store(v_vals, v_valid, dtype, k, n):
     """Sparse k-offset diagonal (n x n) of a dense vector store; is_diag
     for k == 0, which is what the mxm scaling path keys on."""
-    idx = v_valid.nonzero().reshape(-1)
+    idx = _trace.nonzero("sparse.diag_store", v_valid)
     rows = idx + (0 if k >= 0 else -k)
     cols = idx + (k if k >= 0 else 0)
     return SparseStore(Structure(rows, cols, n, n), v_vals[idx], dtype,
@@ -241,14 +245,14 @@ def densify(sp, dtype, device):
     if sp.nvals():
         lin = sp.struct.keys().to(device)
         vals.view(-1)[lin] = st.cast_values(sp.vals, sp.dtype, dtype).to(device)
-        valid.view(-1)[lin] = True
+        _trace.put("sparse.densify", valid.view(-1), lin, True)
     return vals, valid
 
 
 def from_dense(vals, valid, dtype):
     """Bitmap store -> SparseStore on the same device."""
     nrows, ncols = valid.shape
-    r, c = valid.nonzero(as_tuple=True)
+    r, c = _trace.read("sparse.from_dense", valid.nonzero, as_tuple=True)
     return store_from_parts(r, c, vals[r, c], nrows, ncols, dtype)
 
 
@@ -313,7 +317,8 @@ def _hub_runs(seg, start, end, n):
     max(_RUN, slots / _SHARE) slots (one device read); else the flags that
     start each run of at most _RUN consecutive slots of one segment."""
     m = seg.numel()
-    longest = int((end - start).max()) if n else 0
+    longest = _trace.read("sparse.hub_runs", int, (end - start).max()) \
+        if n else 0
     if longest <= max(_RUN, m // _SHARE):
         return None
     brk = torch.ones(m, dtype=torch.bool, device=seg.device)
@@ -356,7 +361,7 @@ def _complex_sums(seg, x, bounds, start, end, n):
     parts = torch.view_as_real(x)
     brk = _hub_runs(seg, start, end, n)
     if brk is not None:
-        first = brk.nonzero().reshape(-1)
+        first = _trace.nonzero("sparse.complex_runs", brk)
         parts = torch.segment_reduce(
             parts, "sum", offsets=torch.cat([first, first.new_tensor(
                 [seg.numel()])]), unsafe=True, initial=0.0)
@@ -508,7 +513,8 @@ def extract_element(sp, at, i, j):
         return (sp.vals.new_zeros(()),
                 torch.zeros((), dtype=torch.bool, device=dev))
     key = sp.struct.keys()
-    target = torch.tensor([i * max(sp.ncols, 1) + j], dtype=_I64, device=dev)
+    target = _trace.read("sparse.element", torch.tensor,
+                         [i * max(sp.ncols, 1) + j], dtype=_I64, device=dev)
     pos = torch.searchsorted(key, target).clamp(max=key.numel() - 1)
     return sp.vals[pos][0], (key[pos] == target)[0]
 
@@ -570,7 +576,7 @@ def mxm_diag(sp, d, left_diag, ring, a_dt, d_dt):
     dv = d.vals.new_zeros((n,)).to(dev)
     dok = torch.zeros(n, dtype=torch.bool, device=dev)
     dv[d.rows] = d.vals
-    dok[d.rows] = True
+    _trace.put("sparse.mxm_diag", dok, d.rows, True)
     ids = sp.rows if left_diag else sp.cols
     x = dv[ids]
     # one k an entry: the diagonal's index
@@ -602,8 +608,8 @@ def outer(a_vals, a_valid, b_vals, b_valid, op, a_dt, b_dt):
     """The outer product of two dense vector stores as a SparseStore in
     op's return type: op(a[i], b[j]) at every (i, j) both store, in
     (row, col) order."""
-    ia = a_valid.nonzero().reshape(-1)
-    ib = b_valid.nonzero().reshape(-1)
+    ia = _trace.nonzero("sparse.outer", a_valid)
+    ib = _trace.nonzero("sparse.outer", b_valid)
     rows = ia.repeat_interleave(ib.numel())
     cols = ib.repeat(ia.numel())
     z = dense.apply_binop(op, a_vals[rows], a_dt, b_vals[cols], b_dt,
@@ -671,7 +677,7 @@ def merge_slots(a, b):
     b_only = (~b_in_a).to(_I64)
     pos_b_only = qb + torch.cumsum(b_only, 0) - b_only
     pos_b = torch.where(b_in_a, _take(pos_a, qb), pos_b_only)
-    u = na + nb - int(matched.sum())
+    u = na + nb - _trace.read("sparse.union_size", int, matched.sum())
     a_idx = torch.full((u,), -1, dtype=_I64, device=dev)
     b_idx = torch.full((u,), -1, dtype=_I64, device=dev)
     a_idx[pos_a] = _iota(na, dev)
@@ -752,7 +758,7 @@ def write_back_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn):
         out_ok = torch.where(msk, has_c | has_z, keep_c)
         vals = torch.where(msk & has_c & has_z, both,
                            torch.where(msk & has_z & ~has_c, z_cast, c_val))
-    idx = out_ok.nonzero().reshape(-1)
+    idx = _trace.nonzero("sparse.write_back", out_ok)
     return store_from_parts(rows[idx], cols[idx], vals[idx], c.nrows,
                             c.ncols, c_dt)
 
@@ -778,7 +784,8 @@ def spgemm_total(a, b, at, bt, k_dim):
     """Number of products Gustavson's expansion makes (a device scalar)."""
     _, a_k = _a_sides(a, at)
     b_k = b.cols if bt else b.rows
-    rowlen = torch.bincount(b_k, minlength=k_dim)
+    rowlen = _trace.read("sparse.spgemm_rowlen", torch.bincount, b_k,
+                         minlength=k_dim)
     return rowlen[a_k].sum()
 
 
@@ -807,7 +814,7 @@ def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
     b_slot = indptr_b[a_k[e]] + t
     i, j = a_i[e], b_j[b_slot]
     if mask_fn is not None:
-        keep = mask_fn(i, j).nonzero().reshape(-1)
+        keep = _trace.nonzero("sparse.spgemm_mask", mask_fn(i, j))
         e, b_slot, i, j = e[keep], b_slot[keep], i[keep], j[keep]
     if mult._positional is not None:
         pos = _pos(mult, dense.MATMUL_MAP, i=lambda: i, j=lambda: j,
@@ -818,7 +825,8 @@ def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
                                   b_dt)
     prods = st.cast_values(prods, mult.return_type, mono.type)
     key, order = torch.sort(i * max(out_ncols, 1) + j, stable=True)
-    uniq, seg = torch.unique_consecutive(key, return_inverse=True)
+    uniq, seg = _trace.read("sparse.spgemm_unique", torch.unique_consecutive,
+                            key, return_inverse=True)
     ok = torch.ones(key.numel(), dtype=torch.bool, device=dev)
     vals, _ = segment_reduce_sorted(seg, prods[order], ok, mono, uniq.numel(),
                                     mono.type)
@@ -879,7 +887,7 @@ def spgemm_masked_dot(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
     out_vals, out_valid, ok_m = masked_dot_slots(
         a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure, out_nrows,
         out_ncols, k_dim, total)
-    keep = (out_valid & ok_m).nonzero().reshape(-1)
+    keep = _trace.nonzero("sparse.masked_dot", out_valid & ok_m)
     return store_from_parts(msp.rows[keep], msp.cols[keep], out_vals[keep],
                             out_nrows, out_ncols, ring.monoid.type)
 
@@ -950,7 +958,7 @@ def extract_submatrix(sp, rows, cols, in_order):
     inv_c = torch.full((sp.ncols,), -1, dtype=_I64, device=dev)
     inv_c[cols] = _iota(n_c, dev)
     nr, nc = inv_r[sp.rows], inv_c[sp.cols]
-    keep = ((nr >= 0) & (nc >= 0)).nonzero().reshape(-1)
+    keep = _trace.nonzero("sparse.extract", (nr >= 0) & (nc >= 0))
     nr, nc, vals = nr[keep], nc[keep], sp.vals[keep]
     if not in_order:
         w = max(n_c, 1)
@@ -988,7 +996,8 @@ def region_store(rows, cols, v_vals, v_ok, nrows, ncols, dtype, in_order):
     its present elements (one device read: how many)."""
     n_c = cols.numel()
     shape = (rows.numel(), n_c)
-    idx = v_ok.expand(shape).reshape(-1).nonzero().reshape(-1)
+    idx = _trace.nonzero("sparse.region_store",
+                         v_ok.expand(shape).reshape(-1))
     vals = v_vals.expand(shape).reshape(-1)[idx]
     return _keyed_store(rows[idx // max(n_c, 1)], cols[idx % max(n_c, 1)],
                         vals, nrows, ncols, dtype, in_order)
@@ -1004,9 +1013,9 @@ def placed_store(v, rows, cols, nrows, ncols, in_order):
 def membership_fn(rows, cols, nrows, ncols):
     """in_region(r, c): is (r, c) in rows x cols (int64 on the device)?"""
     in_r = torch.zeros(nrows, dtype=torch.bool, device=rows.device)
-    in_r[rows] = True
+    _trace.put("sparse.membership", in_r, rows, True)
     in_c = torch.zeros(ncols, dtype=torch.bool, device=cols.device)
-    in_c[cols] = True
+    _trace.put("sparse.membership", in_c, cols, True)
 
     def fn(r, c):
         return in_r[r] & in_c[c]
@@ -1050,7 +1059,7 @@ def assign_sparse(c, z, c_dt, z_dt, accum, replace, mask_fn, in_region_fn,
         take_zp = msk
         out_ok = torch.where(msk, zp_ok, kept_c)
     vals = torch.where(take_zp, zp_val, c_val)
-    idx = out_ok.nonzero().reshape(-1)
+    idx = _trace.nonzero("sparse.assign", out_ok)
     return store_from_parts(rows[idx], cols[idx], vals[idx], c.nrows,
                             c.ncols, c_dt)
 
@@ -1164,7 +1173,7 @@ def compactify_store(sp, how, width, rng_keys=None):
     0..min(count, width)-1 of an nrows x width store."""
     order, rank = group_order(
         sp.rows, order_key(sp.vals, sp.dtype, how, rng_keys), how)
-    keep = (rank < width).nonzero().reshape(-1)
+    keep = _trace.nonzero("sparse.compactify", rank < width)
     order, rank = order[keep], rank[keep]
     return store_from_parts(sp.rows[order], rank, sp.vals[order], sp.nrows,
                             width, sp.dtype)
@@ -1224,8 +1233,8 @@ def _scan_left_to_right(group, x, fn):
     folds strictly left to right."""
     rank = group_order(group, None)[1]
     acc = x.clone()
-    for k in range(1, int(rank.max()) + 1):
-        idx = (rank == k).nonzero().reshape(-1)
+    for k in range(1, _trace.read("sparse.scan_longest", int, rank.max()) + 1):
+        idx = _trace.nonzero("sparse.scan_step", rank == k)
         acc[idx] = fn(acc[idx - 1], x[idx])
     return acc
 
@@ -1252,9 +1261,10 @@ def split_store(sp, row_sizes, col_sizes):
     dev = sp.device
     r_edges = np.concatenate([[0], np.cumsum(row_sizes)]).astype(np.int64)
     c_edges = np.concatenate([[0], np.cumsum(col_sizes)]).astype(np.int64)
-    bounds = torch.searchsorted(
-        sp.rows, torch.from_numpy(r_edges).to(dev)).tolist()
-    inner = torch.from_numpy(c_edges[1:-1]).to(dev)
+    bounds = _trace.read("sparse.split_bounds", lambda: torch.searchsorted(
+        sp.rows, torch.from_numpy(r_edges).to(dev)).tolist())
+    inner = _trace.upload("sparse.split_edges", torch.from_numpy(
+        c_edges[1:-1]), dev)
     grid = []
     for t, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
         rows, cols, vals = sp.rows[lo:hi], sp.cols[lo:hi], sp.vals[lo:hi]
@@ -1262,7 +1272,8 @@ def split_store(sp, row_sizes, col_sizes):
         if len(col_sizes) > 1:
             p = torch.sort(tile, stable=True)[1]
             rows, cols, vals = rows[p], cols[p], vals[p]
-        counts = torch.bincount(tile, minlength=len(col_sizes)).tolist()
+        counts = _trace.read("sparse.split_counts", lambda: torch.bincount(
+            tile, minlength=len(col_sizes)).tolist())
         row, start = [], 0
         for j, cnt in enumerate(counts):
             sl = slice(start, start + cnt)
@@ -1296,7 +1307,8 @@ def concat_stores(grid, dtype):
             raise ValueError("tiles in each row must have the same total "
                              "number of columns")
         h = row[0].nrows
-        counts = [torch.bincount(t.rows, minlength=h) for t in row]
+        counts = [_trace.read("sparse.concat_counts", torch.bincount, t.rows,
+                               minlength=h) for t in row]
         row_start = base + _exclusive_cumsum(sum(counts))
         before = torch.zeros(h, dtype=_I64, device=dev)
         c_off = 0

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as _dt
+from .. import trace as _trace
 
 
 def _leaf_np_dtypes(dtype):
@@ -286,8 +287,8 @@ def full_values(shape, dtype, fill, device):
         f = fill[name] if isinstance(fill, dict) else fill
         if isinstance(f, np.void):
             f = f.item()
-        v.copy_(torch.as_tensor(np.asarray(f), dtype=v.dtype).expand(
-            v.shape))
+        _trace.read("store.fill", v.copy_, torch.as_tensor(
+            np.asarray(f), dtype=v.dtype).expand(v.shape))
     return out
 
 
@@ -332,10 +333,12 @@ def from_user(out, dtype, like):
         return out
     subs = like.subs
     if isinstance(out, dict):
-        fields = {k: torch.as_tensor(v, device=like.device)
+        fields = {k: _trace.read("store.from_user", torch.as_tensor, v,
+                                 device=like.device)
                   for k, v in out.items()}
     else:
-        fields = {None: torch.as_tensor(out, device=like.device)}
+        fields = {None: _trace.read("store.from_user", torch.as_tensor, out,
+                                    device=like.device)}
     lead = tuple(like.shape)
     return Tree({k: v.expand(lead + tuple(subs[k])) if v.dim() < len(lead)
                  + len(subs[k]) else v for k, v in fields.items()}, subs)
@@ -362,5 +365,6 @@ def identity_value_array(mono, dtype, device):
         return None
     if dtype._is_udt:
         return full_values((), dtype, ident, device)
-    return torch.tensor(_dt.storage_scalar(ident, dtype),
-                        dtype=dtype.torch_type, device=device)
+    return _trace.read("store.identity", torch.tensor,
+                       _dt.storage_scalar(ident, dtype),
+                       dtype=dtype.torch_type, device=device)

@@ -20,6 +20,7 @@ import torch
 
 from . import config as _config
 from . import dtypes as _dt
+from . import trace as _trace
 from .engine import dense, lanepipe, sortpipe
 from .engine import sparse as spx
 from .engine import store as st
@@ -49,11 +50,13 @@ def as_expr(obj):
     raise TypeError(f"cannot assign {type(obj).__name__} with <<")
 
 
+@_trace.spanned("gb.op:materialize")
 def materialize(expr, out_dtype, *, mask=None, name=None, opts=None):
     opts = validate_opts(opts)
     if mask is None and _format_plan(expr) == "sparse":
         record(lambda: _record_line(None, expr, None, None, False))
-        sp = _sparse_out_run(expr, out_dtype, opts=opts)
+        with _trace.span("gb.engine:sparse"):
+            sp = _sparse_out_run(expr, out_dtype, opts=opts)
         _wait(sp.vals)
         out = expr.output_type._from_sparse(out_dtype, sp, name=name)
         _dist_through(expr, out)
@@ -63,6 +66,7 @@ def materialize(expr, out_dtype, *, mask=None, name=None, opts=None):
     return out
 
 
+@_trace.spanned("gb.op:update_into")
 def update_into(target, expr, *, mask=None, accum=None, replace=False,
                 opts=None):
     if tuple(target.shape) != tuple(expr.shape):
@@ -84,13 +88,15 @@ def update_into(target, expr, *, mask=None, accum=None, replace=False,
         _note_dist_fallback(expr)
     record(lambda: _record_line(target, expr, mask, accum, replace))
     if plan == "sparse":
-        _update_sparse(target, expr, mask, typed_accum, replace, opts)
+        with _trace.span("gb.engine:sparse"):
+            _update_sparse(target, expr, mask, typed_accum, replace, opts)
     else:
         z_vals, z_valid = compute(expr, plan)
         mask_arr = None if mask is None else mask._as_array()
-        target._set_store(*dense.write_back(
-            target._vals, target._valid, target.dtype, z_vals, z_valid,
-            expr.dtype, mask_arr, typed_accum, replace))
+        with _trace.span("gb.engine:dense"):
+            target._set_store(*dense.write_back(
+                target._vals, target._valid, target.dtype, z_vals, z_valid,
+                expr.dtype, mask_arr, typed_accum, replace))
     _wait(target._d_valid if target._sparse is None else target._sparse.vals)
 
 
@@ -99,7 +105,7 @@ def _wait(t):
     from . import _blocking
 
     if _blocking and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+        _trace.read("execute.wait", torch.cuda.synchronize, t.device)
 
 
 def _record_line(target, expr, mask, accum, replace):
@@ -156,7 +162,8 @@ def _update_sparse(target, expr, mask, accum, replace, opts):
 # assign and delete by index lists (graphblas_tpu/core/execute.py
 # assign_update, _assign_sparse_target, delete_region)
 def _index_tensors(axes, device):
-    return [torch.from_numpy(ix.array()).to(device) for ix in axes]
+    return [_trace.upload("execute.index", torch.from_numpy(ix.array()),
+                          device) for ix in axes]
 
 
 def _assign_accum(accum, c_dt, v_dt):
@@ -166,6 +173,7 @@ def _assign_accum(accum, c_dt, v_dt):
                                             "BinaryOp")
 
 
+@_trace.spanned("gb.op:assign_update")
 def assign_update(target, axes, value, *, mask=None, accum=None,
                   replace=False, is_submask=False, value_is_scalar=False,
                   cmask_vec=None):
@@ -177,12 +185,21 @@ def assign_update(target, axes, value, *, mask=None, accum=None,
     target) except for a Vector mask on a row or column, an index list with
     duplicates and a dense value over ``dense_limit`` elements, which take
     the dense path as in the JAX package."""
-    if target._sparse is not None and cmask_vec is None and \
-            _assign_sparse_target(target, axes, value, mask=mask,
-                                  accum=accum, replace=replace,
-                                  is_submask=is_submask,
-                                  value_is_scalar=value_is_scalar):
-        return
+    if target._sparse is not None and cmask_vec is None:
+        with _trace.span("gb.engine:sparse"):
+            done = _assign_sparse_target(
+                target, axes, value, mask=mask, accum=accum, replace=replace,
+                is_submask=is_submask, value_is_scalar=value_is_scalar)
+        if done:
+            return
+    with _trace.span("gb.engine:dense"):
+        _assign_dense(target, axes, value, mask, accum, replace, is_submask,
+                      cmask_vec)
+
+
+def _assign_dense(target, axes, value, mask, accum, replace, is_submask,
+                  cmask_vec):
+    """assign_update on the dense engine."""
     c_dt, v_dt = target.dtype, value.dtype
     typed_accum = _assign_accum(accum, c_dt, v_dt)
     c_vals, c_valid = target._vals, target._valid
@@ -310,26 +327,35 @@ def _assign_sparse_target(target, axes, value, *, mask, accum, replace,
     return True
 
 
+@_trace.spanned("gb.op:delete_region")
 def delete_region(target, axes, *, mask=None):
     """``del C[axes]`` and ``del C(mask)[axes]``: the elements of the
     region (where the mask holds) are removed; a sparse target stays
     sparse."""
     if target._sparse is not None:
-        c_sp = target._sparse
-        rows, cols = _index_tensors(axes, c_sp.device)
-        region = spx.membership_fn(rows, cols, c_sp.nrows, c_sp.ncols)(
-            c_sp.rows, c_sp.cols)
-        if mask is not None:
-            region = region & _coord_mask_fn(mask)(c_sp.rows, c_sp.cols)
-        target._set_sparse_store(spx.delete_where(c_sp, region))
+        with _trace.span("gb.engine:sparse"):
+            c_sp = target._sparse
+            rows, cols = _index_tensors(axes, c_sp.device)
+            region = spx.membership_fn(rows, cols, c_sp.nrows, c_sp.ncols)(
+                c_sp.rows, c_sp.cols)
+            if mask is not None:
+                region = region & _coord_mask_fn(mask)(c_sp.rows, c_sp.cols)
+            target._set_sparse_store(spx.delete_where(c_sp, region))
         return
+    with _trace.span("gb.engine:dense"):
+        _delete_dense(target, axes, mask)
+
+
+def _delete_dense(target, axes, mask):
+    """delete_region on the dense engine."""
     valid = target._valid
     idx = _index_tensors(axes, valid.device)
     region = torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
     if len(idx) == 2:
-        region[idx[0][:, None], idx[1][None, :]] = True
+        _trace.put("execute.delete_region", region,
+                   (idx[0][:, None], idx[1][None, :]), True)
     else:
-        region[idx[0]] = True
+        _trace.put("execute.delete_region", region, idx[0], True)
     if mask is not None:
         region = region & mask._as_array()
     target._set_store(target._vals, valid & ~region)
@@ -401,13 +427,14 @@ def compute(expr, plan=None):
     m = expr._kind
     if plan == "inline":
         return _INLINE_IMPL[m](expr)
-    if plan == "densify":
-        for a in _sp_args(expr):
-            a._densify()
-    impl = _DENSE_IMPL.get(m)
-    if impl is None:
-        raise NotImplementedError(f"{m} is not in the PyTorch port yet")
-    return impl(expr)
+    with _trace.span("gb.engine:dense"):
+        if plan == "densify":
+            for a in _sp_args(expr):
+                a._densify()
+        impl = _DENSE_IMPL.get(m)
+        if impl is None:
+            raise NotImplementedError(f"{m} is not in the PyTorch port yet")
+        return impl(expr)
 
 
 def _store(obj, transposed=False):
@@ -707,8 +734,9 @@ def _inline_sparse_impl(expr):
     if dist is not None and expr.op.binaryop._positional is None:
         from ..parallel.spmv import dist_mxv_ring
 
-        w, ok = dist_mxv_ring(dist, vec._vals, vec._valid, expr.op,
-                              vec.dtype, kind=m, at=tflag)
+        with _trace.span("gb.engine:parallel"):
+            w, ok = dist_mxv_ring(dist, vec._vals, vec._valid, expr.op,
+                                  vec.dtype, kind=m, at=tflag)
         n_out = expr.shape[0]
         return w[:n_out].to(vec.device), ok[:n_out].to(vec.device)
     return sparse_matvec(mat._sparse, mat.dtype, m, tflag, vec._vals,
@@ -736,17 +764,20 @@ def sparse_matvec(sp, a_dt, kind, at, u_vals, u_valid, u_dt, ring):
         ring, u_dt = twin, _dt.BOOL
     k_dt = a_dt if truth_of is None else _dt.BOOL  # the matrix's, as computed
     if not lanepipe.eligible(ring, k_dt, u_dt):
-        return spx.spmv(sp, at, kind, orig_u, u_valid, orig_ring, a_dt,
-                        orig_u_dt)
+        with _trace.span("gb.engine:sparse"):
+            return spx.spmv(sp, at, kind, orig_u, u_valid, orig_ring, a_dt,
+                            orig_u_dt)
     where = dict(dest_is_row=kind == "mxv", at=at, device=u_valid.device)
-    entry, dyn = _plan(lanepipe, sp, a_dt, truth_of, **where)
-    if entry is None:
+    with _trace.span("gb.engine:lanepipe"):
+        entry, dyn = _plan(lanepipe, sp, a_dt, truth_of, **where)
+        if entry is not None:
+            return lanepipe.spmv_pipeline(dyn, entry, u_vals, u_valid, ring,
+                                          k_dt, u_dt, kind=kind)
+    with _trace.span("gb.engine:sortpipe"):
         entry, dyn = _plan(sortpipe, sp, a_dt, truth_of, **where)
         return sortpipe.spmv_pipeline(
             dyn, u_vals, u_valid, ring, k_dt, u_dt, kind=kind,
             n_in=entry["n_in"], L=entry["L"])
-    return lanepipe.spmv_pipeline(dyn, entry, u_vals, u_valid, ring, k_dt,
-                                  u_dt, kind=kind)
 
 
 # where plan_dyn_tuple puts the matrix's values
@@ -778,6 +809,7 @@ def _plan(pipe, sp, a_dt, truth_of, *, dest_is_row, at, device):
         vals = st.cast_values(sortpipe.from_carrier(dyn[i], a_dt), a_dt,
                               truth_of)
         truth[truth_of] = (vals != 0).to(torch.int32)
+        _trace.counts["plan.bytes"] += _trace.tensor_bytes(truth[truth_of])
     return entry, dyn[:i] + (truth[truth_of],) + dyn[i + 1:]
 
 
@@ -790,9 +822,10 @@ def _reduce_axis_impl(expr):
     if dist is not None:
         from ..parallel import ops as pops
 
-        vals, ok = pops.dist_reduce_axis(
-            dist, expr.op, mat.dtype, dest_rows=(axis == 1) != bool(tflag),
-            n_out=expr.shape[0])
+        with _trace.span("gb.engine:parallel"):
+            vals, ok = pops.dist_reduce_axis(
+                dist, expr.op, mat.dtype,
+                dest_rows=(axis == 1) != bool(tflag), n_out=expr.shape[0])
         return vals.to(mat._device), ok.to(mat._device)
     return sparse_reduce_axis(mat._sparse, mat.dtype, axis, expr.op,
                               at=bool(tflag))
@@ -811,11 +844,13 @@ def sparse_reduce_axis(sp, in_dt, axis, mono, at=False):
     truth_of = in_dt if mono.type is _dt.BOOL and not in_dt.is_bool else None
     k_dt = in_dt if truth_of is None else _dt.BOOL
     if not sortpipe.eligible_reduce(mono, k_dt):
-        return spx.reduce_axis(sp, at, axis, mono, in_dt)
+        with _trace.span("gb.engine:sparse"):
+            return spx.reduce_axis(sp, at, axis, mono, in_dt)
     # axis=1 reduces rows (dest=row); axis=0 reduces columns
-    _, dyn = _plan(sortpipe, sp, in_dt, truth_of, dest_is_row=axis == 1,
-                   at=at, device=dev)
-    return sortpipe.reduce_pipeline(dyn, mono, k_dt)
+    with _trace.span("gb.engine:sortpipe"):
+        _, dyn = _plan(sortpipe, sp, in_dt, truth_of, dest_is_row=axis == 1,
+                       at=at, device=dev)
+        return sortpipe.reduce_pipeline(dyn, mono, k_dt)
 
 
 def _reduce_scalar_impl(expr):
@@ -826,10 +861,12 @@ def _reduce_scalar_impl(expr):
     if dist is not None:
         from ..parallel import ops as pops
 
-        vals, ok = pops.dist_reduce_scalar(dist, expr.op, mat.dtype)
+        with _trace.span("gb.engine:parallel"):
+            vals, ok = pops.dist_reduce_scalar(dist, expr.op, mat.dtype)
         return _allow_empty(expr, vals.to(mat._device), ok.to(mat._device))
-    return _allow_empty(expr, *sparse_reduce_scalar(mat._sparse, expr.op,
-                                                    mat.dtype))
+    with _trace.span("gb.engine:sparse"):
+        return _allow_empty(expr, *sparse_reduce_scalar(
+            mat._sparse, expr.op, mat.dtype))
 
 
 def sparse_reduce_scalar(sp, mono, in_dt):
@@ -841,7 +878,8 @@ def sparse_reduce_scalar(sp, mono, in_dt):
 
 def _extract_element_impl(expr):
     mat = expr.args[0]
-    return spx.extract_element(mat._sparse, False, *expr._statics[0])
+    with _trace.span("gb.engine:sparse"):
+        return spx.extract_element(mat._sparse, False, *expr._statics[0])
 
 
 def _extract_rowcol_impl(expr):
@@ -851,7 +889,8 @@ def _extract_rowcol_impl(expr):
     sp = mat._sparse
     (idx,) = _index_tensors([cix if pattern == "row" else rix], sp.device)
     fixed = rix.index if pattern == "row" else cix.index
-    return spx.extract_rowcol_dense(sp, fixed, idx, pattern == "row")
+    with _trace.span("gb.engine:sparse"):
+        return spx.extract_rowcol_dense(sp, fixed, idx, pattern == "row")
 
 
 _INLINE_IMPL = {"mxv": _inline_sparse_impl, "vxm": _inline_sparse_impl,
@@ -923,8 +962,9 @@ def _sparse_out_run(expr, out_dtype, mask=None, opts=None):
             from ..parallel import ops as pops
 
             record("extract distributed over the row blocks")
-            return cast(pops.dist_extract(dist, rows, cols, in_order,
-                                          src.nrows, src.ncols))
+            with _trace.span("gb.engine:parallel"):
+                return cast(pops.dist_extract(dist, rows, cols, in_order,
+                                              src.nrows, src.ncols))
         return cast(spx.extract_submatrix(src._sparse, rows, cols, in_order))
     sp = src._sparse
     tflag = m == "transpose" or (m != "identity" and expr._statics[-1])
@@ -1038,19 +1078,18 @@ def _spgemm_run(expr, mask, opts):
             and mask.parent._sparse is not None
             and method in ("default", "dot")):
         msp, m_dt = mask.parent._sparse, mask.parent.dtype
-        gus, dot = spx.spgemm_dot_total(
+        gus, dot = _trace.read("execute.spgemm_totals", spx.spgemm_dot_total(
             a_sp, b_sp, msp, m_dt, mask.structure, at, bt, out_nrows,
-            out_ncols, k_dim).tolist()
+            out_ncols, k_dim).tolist)
         if method == "dot" or dot <= gus:
-            with torch.profiler.record_function(
-                    _SPGEMM_RANGE.format("dot", dot, gus, dot)):
+            with _trace.span(_SPGEMM_RANGE, "dot", dot, gus, dot):
                 return spx.spgemm_masked_dot(
                     a_sp, b_sp, msp, at, bt, ring, a.dtype, b.dtype, m_dt,
                     mask.structure, out_nrows, out_ncols, k_dim, dot)
     else:
-        gus = int(spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
-    with torch.profiler.record_function(
-            _SPGEMM_RANGE.format("gustavson", gus, gus, dot)):
+        gus = _trace.read("execute.spgemm_total", int,
+                          spx.spgemm_total(a_sp, b_sp, at, bt, k_dim))
+    with _trace.span(_SPGEMM_RANGE, "gustavson", gus, gus, dot):
         return spx.spgemm(a_sp, b_sp, at, bt, ring, a.dtype, b.dtype,
                           out_nrows, out_ncols, k_dim, gus,
                           _coord_mask_fn(mask))
@@ -1085,12 +1124,13 @@ def _dist_spgemm(expr, mask, out_nrows, out_ncols):
         b_dist = _dist_of(b)
         args = (expr.op, a.dtype, b.dtype, parent.dtype, mask.structure)
         kw = dict(bt=bt, n_out_rows=out_nrows, n_out_cols=out_ncols)
-        if b_dist is not None and b_dist.mesh is a_dist.mesh:
-            record("mxm distributed: sharded-B rotation SpGEMM")
-            return pops.dist_masked_spgemm_sharded(a_dist, b_dist, m_dist,
-                                                   *args, **kw)
-        return pops.dist_masked_spgemm(a_dist, b._sparse, m_dist, *args,
-                                       **kw)
+        with _trace.span("gb.engine:parallel"):
+            if b_dist is not None and b_dist.mesh is a_dist.mesh:
+                record("mxm distributed: sharded-B rotation SpGEMM")
+                return pops.dist_masked_spgemm_sharded(
+                    a_dist, b_dist, m_dist, *args, **kw)
+            return pops.dist_masked_spgemm(a_dist, b._sparse, m_dist, *args,
+                                           **kw)
     record(f"mxm fallback: single-device SpGEMM "
            f"(mask={'yes' if mask is not None else 'no'}, at={at})")
     return None
@@ -1112,15 +1152,16 @@ def _dist_through(expr, out):
     if dist is None:
         return
     op, src_dt = expr.op, src.dtype
-    if m == "select":
-        thunk = expr._statics[0]
-        blocks = [spx.select_op(blk, op, src_dt, thunk, out.dtype,
-                                row_offset=b * dist.rows_per)
-                  for b, blk in enumerate(dist.blocks)]
-    elif op._positional is None:
-        blocks = [spx.cast_copy(spx.apply_unary(blk, op, src_dt),
-                                op.return_type, out.dtype)
-                  for blk in dist.blocks]
-    else:
+    if m == "apply" and op._positional is not None:
         return
-    out._dist = dist.with_blocks(blocks, out.dtype)
+    with _trace.span("gb.engine:parallel"):
+        if m == "select":
+            thunk = expr._statics[0]
+            blocks = [spx.select_op(blk, op, src_dt, thunk, out.dtype,
+                                    row_offset=b * dist.rows_per)
+                      for b, blk in enumerate(dist.blocks)]
+        else:
+            blocks = [spx.cast_copy(spx.apply_unary(blk, op, src_dt),
+                                    op.return_type, out.dtype)
+                      for blk in dist.blocks]
+        out._dist = dist.with_blocks(blocks, out.dtype)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import dtypes as _dt
+from . import trace as _trace
 
 _MAX_ROWS = 12
 _MAX_COLS = 14
@@ -57,8 +58,9 @@ def _cells(obj, rows_w, cols_w, transposed=False):
         r, c, vals = obj._sparse.host_coo()
     else:  # the window's cells only, gathered on the device
         rr, cc = (want_c, want_r) if transposed else (want_r, want_c)
-        ri, ci = (torch.from_numpy(x).to(obj.device) for x in (rr, cc))
-        ok = obj._d_valid[ri][:, ci].cpu().numpy()
+        ri, ci = (_trace.upload("formatting.window", torch.from_numpy(x),
+                                obj.device) for x in (rr, cc))
+        ok = _trace.to_host("formatting.window", obj._d_valid[ri][:, ci])
         r, c = np.nonzero(ok)
         vals = _dt.to_numpy(obj._d_vals[ri][:, ci], obj.dtype)[r, c]
         r, c = rr[r], cc[c]
@@ -130,8 +132,8 @@ def _too_big(m):
 def _sparse_summary(header, sp, max_entries=10):
     """The first entries of a graph-scale sparse store, one a line."""
     k = min(max_entries, sp.nvals())
-    r = sp.rows[:k].cpu().numpy()
-    c = sp.cols[:k].cpu().numpy()
+    r = _trace.to_host("formatting.summary", sp.rows[:k])
+    c = _trace.to_host("formatting.summary", sp.cols[:k])
     vals = [str(x.item() if hasattr(x, "item") else x)
             for x in _dt.to_numpy(sp.vals[:k], sp.dtype)]
     lines = [f"  ({i}, {j})\t{v}" for i, j, v in zip(r, c, vals)]

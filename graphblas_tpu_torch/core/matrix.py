@@ -25,6 +25,7 @@ import torch
 
 from . import config as _config
 from . import dtypes as _dt
+from . import trace as _trace
 from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
                           OutputNotEmpty)
 from .base import BaseExpression, SSDescriptor
@@ -125,7 +126,8 @@ class Matrix(Collection):
         if missing_value is None:
             valid = torch.ones(values.shape, dtype=torch.bool, device=dev)
         else:
-            valid = torch.from_numpy(values != missing_value).to(dev)
+            valid = _trace.upload("matrix.from_dense", torch.from_numpy(
+                values != missing_value), dev)
         m._set_store(_dt.to_tensor(values, dt, dev), valid)
         return m
 
@@ -282,7 +284,8 @@ class Matrix(Collection):
         r, c, v = self.to_coo(dtype)
         if by_col:
             if self._sparse is not None:
-                perm = self._sparse.csc_perm().cpu().numpy()
+                perm = _trace.to_host("matrix.csc_perm",
+                                       self._sparse.csc_perm())
             else:
                 perm = np.argsort(c, kind="stable")
             r, c, v = c[perm], r[perm], v[perm]
@@ -334,6 +337,7 @@ class Matrix(Collection):
             out.setdefault(int(i), {})[int(j)] = val
         return out
 
+    @_trace.spanned("gb.op:to_coo")
     def to_coo(self, dtype=None, *, rows=True, columns=True, values=True,
                sort=True):
         if self._sparse is not None:
@@ -348,6 +352,7 @@ class Matrix(Collection):
                 c.astype(np.uint64) if columns else None,
                 v if values else None)
 
+    @_trace.spanned("gb.op:to_dense")
     def to_dense(self, fill_value=None, dtype=None):
         host_vals, host_ok = self._host_arrays()
         dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
@@ -423,6 +428,7 @@ class Matrix(Collection):
             execute.update_into(out, execute.as_expr(self), mask=mask)
         return out
 
+    @_trace.spanned("gb.op:isequal")
     def isequal(self, other, *, check_dtype=False):
         """Exact equality: same shape, structure and values (compared on
         the device; one read of the verdict)."""
@@ -439,7 +445,7 @@ class Matrix(Collection):
         av = _dt.normalize(self._vals, common)
         bv = _dt.normalize(other._vals.to(self.device), common)
         same = (ok == other._valid.to(self.device)) & ((av == bv) | ~ok)
-        return bool(same.all())
+        return _trace.read("matrix.isequal", bool, same.all())
 
     def isclose(self, other, *, rel_tol=1e-7, abs_tol=0.0, check_dtype=False):
         other = _as_matrix(other, "isclose")

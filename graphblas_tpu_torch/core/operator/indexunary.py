@@ -17,6 +17,7 @@ import torch
 
 from ... import exceptions
 from .. import dtypes as _dt
+from .. import trace as _trace
 from ..engine import store as st
 from . import ufuncs as uf
 from .base import OpBase, ParameterizedUdf, TypedOpBase, check_arity
@@ -99,7 +100,8 @@ class TypedIndexUnaryOp(TypedOpBase):
             return call_indexunary(self, x, i if thunk is None else thunk)
         out = self.func(x, i, j, thunk)
         if not isinstance(out, torch.Tensor):
-            out = torch.as_tensor(out, device=x.device)
+            out = _trace.read("operator.user_result", torch.as_tensor, out,
+                              device=x.device)
         return _dt.normalize(out.expand(x.shape), self.return_type)
 
 

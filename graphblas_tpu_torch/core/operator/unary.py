@@ -19,6 +19,7 @@ import torch
 
 from ... import exceptions
 from .. import dtypes as _dt
+from .. import trace as _trace
 from ..engine import store as st
 from . import ufuncs as uf
 from .base import OpBase, ParameterizedUdf, TypedOpBase, check_arity
@@ -55,7 +56,8 @@ class TypedUnaryOp(TypedOpBase):
             raise TypeError(f"{self.parent.name} returns a struct: it takes "
                             f"a user-defined type")
         if not isinstance(out, torch.Tensor):
-            out = torch.as_tensor(out, device=x.device).expand(x.shape)
+            out = _trace.read("operator.user_result", torch.as_tensor, out,
+                              device=x.device).expand(x.shape)
         return _dt.normalize(out, self.return_type)
 
 

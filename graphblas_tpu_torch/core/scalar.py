@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import config as _config
+from . import trace as _trace
 from ..exceptions import EmptyObject
 from .base import BaseExpression, BaseType, is_scalar_like
 from .dtypes import (FP64, host_np_type, lookup_dtype, storage_scalar,
@@ -94,20 +95,22 @@ class Scalar(BaseType):
 
     @property
     def is_empty(self):
-        return not bool(self._valid)
+        return not _trace.read("scalar.is_empty", bool, self._valid)
 
     @property
     def nvals(self):
-        return 0 if self.is_empty else 1
+        with _trace.span("gb.op:nvals"):
+            return 0 if self.is_empty else 1
 
     @property
     def value(self):
         """The value as a numpy scalar of the dtype (a 0-d struct array,
         or the subarray, of a user-defined type); None when empty."""
-        if self.is_empty:
-            return None
-        host = to_numpy(self._vals, self.dtype)
-        return host if self.dtype._is_udt else host[()]
+        with _trace.span("gb.op:value"):
+            if self.is_empty:
+                return None
+            host = to_numpy(self._vals, self.dtype)
+            return host if self.dtype._is_udt else host[()]
 
     @value.setter
     def value(self, val):
@@ -124,7 +127,8 @@ class Scalar(BaseType):
             vals = to_tensor(np.array(val, host_np_type(dt)), dt, dev)
         else:
             v = storage_scalar(np.asarray(val).astype(dt.np_type).item(), dt)
-            vals = torch.tensor(v, dtype=dt.torch_type, device=dev)
+            vals = _trace.read("scalar.value", torch.tensor, v,
+                               dtype=dt.torch_type, device=dev)
         self._set_store(vals, torch.ones((), dtype=torch.bool, device=dev))
 
     def _update_from_value(self, value, accum=None):
@@ -147,7 +151,7 @@ class Scalar(BaseType):
         if getattr(accum, "opclass", None) == "Monoid":
             accum = accum.binaryop
         op = typed(accum, unify(self.dtype, vdt), "BinaryOp")
-        y = torch.tensor(storage_scalar(
+        y = _trace.read("scalar.accum", torch.tensor, storage_scalar(
             np.asarray(value).astype(vdt.np_type).item(), vdt),
             dtype=vdt.torch_type, device=self.device)
         z = dense.apply_binop(op, self._vals, self.dtype, y, vdt)
@@ -180,6 +184,7 @@ class Scalar(BaseType):
             raise TypeError(f"Bad type for {within}: {type(other)}")
         return Scalar.from_value(other)
 
+    @_trace.spanned("gb.op:isequal")
     def isequal(self, other, *, check_dtype=False):
         """Same emptiness and value (and dtype, with check_dtype; a Python
         value's inferred dtype is not checked)."""

@@ -21,6 +21,7 @@ import torch
 
 from ...exceptions import InvalidValue
 from .. import dtypes as _dt
+from .. import trace as _trace
 from ..engine import dense
 from ..engine import sparse as spx
 from ..engine import store as st
@@ -315,8 +316,8 @@ class MatrixSS:
             else:
                 m._set_store(_dt.to_tensor(np.ascontiguousarray(vals), dt,
                                            dev),
-                             torch.from_numpy(np.ascontiguousarray(bitmap))
-                             .to(dev))
+                             _trace.upload("ss.bitmap", torch.from_numpy(
+                                 np.ascontiguousarray(bitmap)), dev))
             return m
         if fmt in ("fullr", "fullc"):
             vals = np.asarray(kwargs["values"])
@@ -473,7 +474,7 @@ class MatrixSS:
         vals = st.zeros_values((n,), p.dtype, p.device)
         ok = torch.zeros(n, dtype=torch.bool, device=p.device)
         vals[lin] = sp.vals
-        ok[lin] = True
+        _trace.put("ss.diag", ok, lin, True)
         return Vector._from_store(p.dtype, vals, ok, name=name)
 
     def reshape(self, nrows, ncols=None, order="rowwise", *, name=None):
@@ -510,7 +511,8 @@ class MatrixSS:
     def _keys(self, how, shape):
         if how != "random":
             return None
-        return torch.from_numpy(rng_keys(shape)).to(self._parent.device)
+        return _trace.upload("ss.random_keys", torch.from_numpy(
+            rng_keys(shape)), self._parent.device)
 
     def selectk(self, how, k, *, name=None):
         """At most k entries of each row, chosen by how (first, last,

@@ -11,6 +11,7 @@ import torch
 
 from ...exceptions import InvalidValue
 from .. import dtypes as _dt
+from .. import trace as _trace
 from ..engine import dense
 from ..engine import sparse as spx
 from ..engine import store as st
@@ -105,7 +106,8 @@ class VectorSS:
             dt = _dt.lookup_dtype(dtype if dtype is not None else vals.dtype)
             v = Vector(dt, bitmap.shape[0])
             v._set_store(_dt.to_tensor(vals, dt, v.device),
-                         torch.from_numpy(bitmap.copy()).to(v.device))
+                         _trace.upload("ss.bitmap", torch.from_numpy(
+                             bitmap.copy()), v.device))
             return v
         if fmt == "full":
             n = size if size is not None else \
@@ -203,7 +205,8 @@ class VectorSS:
         if how != "random":
             return None
         p = self._parent
-        return torch.from_numpy(rng_keys(p.size)).to(p.device)
+        return _trace.upload("ss.random_keys",
+                             torch.from_numpy(rng_keys(p.size)), p.device)
 
     def selectk(self, how, k, *, name=None):
         from ..vector import Vector

@@ -12,6 +12,7 @@ import torch
 
 from . import config as _config
 from . import dtypes as _dt
+from . import trace as _trace
 from ..exceptions import (DimensionMismatch, EmptyObject, IndexOutOfBound,
                           OutputNotEmpty)
 from .base import BaseExpression, SSDescriptor
@@ -171,11 +172,12 @@ class Vector(Collection):
             idx, _, vals = sorted_dedup_coo(idx, np.zeros_like(idx), vals, n,
                                             1, self.dtype, dup_op)
         dev, dt = self.device, self.dtype
-        t_idx = torch.from_numpy(np.ascontiguousarray(idx)).to(dev)
+        t_idx = _trace.upload("vector.build", torch.from_numpy(
+            np.ascontiguousarray(idx)), dev)
         new_vals = st.zeros_values((n,), dt, dev)
         new_valid = torch.zeros(n, dtype=torch.bool, device=dev)
         new_vals[t_idx] = _dt.to_tensor(vals, dt, dev)
-        new_valid[t_idx] = True
+        _trace.put("vector.build", new_valid, t_idx, True)
         self._set_store(new_vals, new_valid)
 
     def resize(self, size):
@@ -229,7 +231,8 @@ class Vector(Collection):
             valid = torch.ones(values.shape[0], dtype=torch.bool,
                                device=v.device)
         else:
-            valid = torch.from_numpy(values != missing_value).to(v.device)
+            valid = _trace.upload("vector.from_dense", torch.from_numpy(
+                values != missing_value), v.device)
         v._set_store(vals, valid)
         return v
 
@@ -238,8 +241,9 @@ class Vector(Collection):
         idx, vals = self.to_coo()
         return {int(i): v for i, v in zip(idx.tolist(), vals.tolist())}
 
+    @_trace.spanned("gb.op:to_coo")
     def to_coo(self, dtype=None, *, indices=True, values=True, sort=True):
-        ok = self._valid.cpu().numpy()
+        ok = _trace.to_host("vector.valid", self._valid)
         idx = np.nonzero(ok)[0]
         out_vals = None
         if values:
@@ -248,8 +252,9 @@ class Vector(Collection):
                 out_vals = out_vals.astype(_dt.lookup_dtype(dtype).np_type)
         return (idx.astype(np.uint64) if indices else None), out_vals
 
+    @_trace.spanned("gb.op:to_dense")
     def to_dense(self, fill_value=None, dtype=None):
-        ok = self._valid.cpu().numpy()
+        ok = _trace.to_host("vector.valid", self._valid)
         dt = self.dtype if dtype is None else _dt.lookup_dtype(dtype)
         out = _dt.to_numpy(self._vals, self.dtype).astype(dt.np_type)
         if not ok.all():
@@ -272,6 +277,7 @@ class Vector(Collection):
             return False
         return bool(np.all(np.isclose(av, bv, rtol=rel_tol, atol=abs_tol)))
 
+    @_trace.spanned("gb.op:isequal")
     def isequal(self, other, *, check_dtype=False):
         """Exact equality: same size, same structure, same values (compared
         on the device; one read of the verdict)."""
@@ -290,7 +296,7 @@ class Vector(Collection):
         av = _dt.normalize(self._vals, common)
         bv = _dt.normalize(other._vals.to(self.device), common)
         same = (ok == other._valid.to(self.device)) & ((av == bv) | ~ok)
-        return bool(same.all())
+        return _trace.read("vector.isequal", bool, same.all())
 
     def dup(self, dtype=None, *, clear=False, mask=None, name=None):
         """A copy, optionally cast, masked or cleared."""
@@ -325,7 +331,8 @@ class Vector(Collection):
 
     def __iter__(self):
         """The indices of the stored elements, in order."""
-        return iter(np.nonzero(self._valid.cpu().numpy())[0].tolist())
+        return iter(np.nonzero(_trace.to_host("vector.valid", self._valid))[0]
+                    .tolist())
 
     def vxm(self, other, op="plus_times"):
         """Row vector times matrix (graphblas_tpu vector.py vxm)."""

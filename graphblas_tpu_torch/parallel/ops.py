@@ -28,6 +28,7 @@ device.
 
 import torch
 
+from ..core import trace as _trace
 from .spmv import _combine_partials, _to
 
 
@@ -110,9 +111,9 @@ def _dot_block(a_blk, b_sp, m_blk, ring, a_dt, b_dt, m_dt, structure, bt,
     if 0 in (a_blk.nvals(), b_sp.nvals(), m_blk.nvals()):
         return None
     rows = a_blk.nrows
-    total = int(spx.spgemm_dot_total(a_blk, b_sp, m_blk, m_dt, structure,
-                                     False, bt, rows, n_out_cols,
-                                     k_dim)[1])
+    total = _trace.read("parallel.dot_total", int, spx.spgemm_dot_total(
+        a_blk, b_sp, m_blk, m_dt, structure, False, bt, rows, n_out_cols,
+        k_dim)[1])
     if total == 0:
         return None
     vals, valid, ok_m = spx.masked_dot_slots(
@@ -125,7 +126,7 @@ def _mask_entries(m_blk, slots, off):
     """The (global rows, cols, vals) of a block's mask entries that hold a
     value."""
     vals, ok = slots
-    keep = ok.nonzero().reshape(-1)
+    keep = _trace.nonzero("parallel.mask_entries", ok)
     return m_blk.rows[keep] + off, m_blk.cols[keep], vals[keep]
 
 

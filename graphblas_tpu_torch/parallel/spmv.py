@@ -33,6 +33,8 @@ is a no-op.
 import numpy as np
 import torch
 
+from ..core import trace as _trace
+
 __all__ = ["make_blocked_csr", "dist_mxv", "dist_mxv_ring", "dist_bfs_step",
            "dist_pagerank_step", "BlockedCSR"]
 
@@ -92,8 +94,8 @@ def _split_rows(sp, n, rows_per, devices):
     if host is not None:
         bounds = np.searchsorted(host[0], edges).tolist()
     else:
-        bounds = torch.searchsorted(
-            sp.rows, torch.from_numpy(edges).to(sp.device)).tolist()
+        bounds = _trace.read("parallel.split_rows", lambda: torch.searchsorted(
+            sp.rows, torch.from_numpy(edges).to(sp.device)).tolist())
     host_vals = sp._host_vals
     blocks = []
     for b, dev in enumerate(devices):
@@ -247,7 +249,8 @@ def dist_bfs_step(blocked, frontier, visited, levels, depth):
     from .. import semiring as semiring_ns
     from ..core.dtypes import BOOL
 
-    depth = torch.as_tensor(depth, dtype=levels.dtype, device=levels.device)
+    depth = _trace.read("parallel.bfs_depth", torch.as_tensor, depth,
+                        dtype=levels.dtype, device=levels.device)
     levels = torch.where(frontier, depth, levels)
     visited = visited | frontier
     ring = semiring_ns.lor_land[BOOL]

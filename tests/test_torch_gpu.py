@@ -1516,3 +1516,115 @@ def test_parallel_one_block_is_bitwise(cuda):
             assert a.isequal(b)
             for x, y in zip(a.to_coo(), b.to_coo()):
                 assert x.tobytes() == y.tobytes()
+
+
+# ---- the port's spans on the card (core/trace.py): one clock for the
+# program's ranges, the runtime calls and the device's work
+_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+          "cudaEventSynchronize")
+
+
+def _card_trace(fn):
+    """The Chrome trace's complete events of fn() under torch.profiler,
+    CPU and CUDA activity."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def _ranges(events, prefix):
+    return [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation"
+            and e["name"].startswith(prefix)]
+
+
+def _corr(e):
+    return (e.get("args") or {}).get("correlation")
+
+
+def _host_calls(events):
+    return [e for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+
+
+def _card_graph(gb, seed, dtype):
+    """A uniform random undirected graph, n = 2^13, degree about 32."""
+    n = 1 << 13
+    rng = np.random.default_rng(seed)
+    r, c = rng.integers(0, n, (2, 16 * n))
+    keep = r != c
+    key = np.unique(np.r_[r[keep] * n + c[keep], c[keep] * n + r[keep]])
+    return gb.Matrix.from_coo(key // n, key % n, 1, dtype=dtype, nrows=n,
+                              ncols=n)
+
+
+def _spanned_call(gb, algo):
+    A = _card_graph(gb, 5, "BOOL" if algo == "bfs_level" else "INT32")
+    call = {"bfs_level": lambda: gb.algorithms.bfs_level(A, 3),
+            "triangle_count": lambda: gb.algorithms.triangle_count(A)}[algo]
+    call()  # the plan and the kernels' build, outside the trace
+    return call
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["bfs_level", "triangle_count"])
+def test_every_host_wait_lies_in_a_sync_span(cuda, algo):
+    """Each runtime call inside the algorithm's span that blocks the host
+    (a synchronise, a copy to the host) lies inside a gb.sync: range: the
+    sync helper misses no read, and the ranges share the calls' clock."""
+    import graphblas_tpu_torch as gb
+
+    events = _card_trace(_spanned_call(gb, algo))
+    (a0, a1), = _ranges(events, f"gb.algo:{algo}")
+    syncs = _ranges(events, "gb.sync:")
+    dtoh = {_corr(e) for e in events if e.get("cat") == "gpu_memcpy"
+            and "DtoH" in e["name"]}
+    waits = [e for e in _host_calls(events)
+             if (e["name"] in _WAITS or _corr(e) in dtoh)
+             and a0 <= e["ts"] <= a1]
+    assert waits
+    # two microseconds of slack for the clocks' rounding
+    outside = [e["name"] for e in waits
+               if not any(s - 2 <= e["ts"] and e["ts"] + e["dur"] <= t + 2
+                          for s, t in syncs)]
+    assert not outside, outside
+
+
+@pytest.mark.gpu
+def test_lanepipe_span_holds_the_hand_kernels(cuda):
+    """The hand kernels launched inside gb.engine:lanepipe ranges are the
+    launches kernels.launches counts for the call."""
+    import graphblas_tpu_torch as gb
+
+    call = _spanned_call(gb, "bfs_level")
+    before = sum(K.launches.values())
+    events = _card_trace(call)
+    delta = sum(K.launches.values()) - before
+    lane = _ranges(events, "gb.engine:lanepipe")
+    launched = {_corr(e): e["ts"] for e in _host_calls(events)
+                if _corr(e) is not None}
+    names = {f"{src}_kernel" for src in K.SOURCES}
+
+    def symbol(name):
+        head = name.split("(", 1)[0].split("<", 1)[0].strip()
+        return head.split()[-1].split("::")[-1] if head else name
+
+    mine = [e for e in events if e.get("cat") == "kernel"
+            and symbol(e["name"]) in names
+            and any(s <= launched.get(_corr(e), -1) <= t for s, t in lane)]
+    assert delta > 0 and len(mine) == delta

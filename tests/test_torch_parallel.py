@@ -448,16 +448,18 @@ def test_udt_and_complex_partials_fold():
     shard_matrix(A, mesh8())
     same(A.reduce_columnwise(gbt.monoid.plus).new(),
          A2.reduce_columnwise(gbt.monoid.plus).new(), rel=1e-12)
-    pt = gbt.dtypes.register_anonymous(np.dtype([("x", "f8"), ("y", "f8")]),
-                                       "pt_parallel")
+    # fields of its own: the registry holds one type per numpy dtype, and
+    # test_torch_pickle.py loads a ("x", "y") type under its own name
+    pt = gbt.dtypes.register_anonymous(
+        np.dtype([("px", "f8"), ("py", "f8")]), "pt_parallel")
     v = np.zeros(len(r), pt.np_type)
-    v["x"] = rng.integers(-9, 10, len(r))
-    v["y"] = rng.integers(-9, 10, len(r))
+    v["px"] = rng.integers(-9, 10, len(r))
+    v["py"] = rng.integers(-9, 10, len(r))
     P_, P2 = (gbt.Matrix.from_coo(r, c, v, dtype=pt, nrows=N, ncols=N)
               for _ in range(2))
     shard_matrix(P_, mesh8())
     add = gbt.binary.register_anonymous(
-        lambda a, b: {"x": a["x"] + b["x"], "y": a["y"] + b["y"]},
+        lambda a, b: {"px": a["px"] + b["px"], "py": a["py"] + b["py"]},
         is_udt=True)
     mono = gbt.monoid.register_anonymous(add, 0.0)
     got = P_.reduce_columnwise(mono).new()
