@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out DIR]
 
 Run from the repository root.  It builds the host native libraries and
-the seven CUDA kernels (six of the two SpMV engines, one of the dense
-engine) from the sources, then:
+the eight CUDA kernels (six of the two SpMV engines, one of the dense
+engine, one of the generic sparse engine) from the sources, then:
 
 1. kernel phase: on the plans of bench.py's zipf graph (n = 2**19, degree
    8, FP32 weights 1/outdeg, and its BOOL twin), runs each kernel and its
@@ -54,8 +54,13 @@ engine) from the sources, then:
    `D(accum=min) << D.mxm(D, min_plus)` loop under ss.iterate, checked
    against scipy's Dijkstra in float64 (rel 1e-5); the lor_land closure;
    an FP32 plus_times mxm against the same call on the CPU;
-9. the generic sparse engine (phase `sparse_algorithms`): triangle_count
-   on bench.py's RMAT graph (scale 17) through the masked dot, its count
+9. the generic sparse engine (phase `sparse_algorithms`): K8
+   (masked_dot) at the kron18 cell's shapes (Graph500 Kronecker scale 18,
+   degree 16, ids permuted; C<L> = L pair L.T, 4.5e8 terms) against its
+   plain version (bitwise), one launch a masked dot, the wrapper timed
+   warm and after an L2 flush, the plain version once,
+   and triangle_count on that graph; triangle_count on bench.py's RMAT
+   graph (scale 17) through the masked dot, its count
    exactly against scipy's L .* (L @ L), and pagerank (damping 0.85, tol
    1e-8, at most 100 iterations) on the zipf graph with FP32 values of 1,
    its FP64 ranks within 1e-9 of the largest against a float64 power
@@ -71,7 +76,7 @@ engine) from the sources, then:
    C(accum=plus)[rows, cols] << B, C(M.S, replace)[rows, cols] << B and
    del C[rows, cols], and on vectors of 2**19 f[parents] (repeated
    indices) and v[idx] = s (2**17 indices), each exactly against numpy,
-   with its time (median of 5) and idle share.  None of the seven kernels
+   with its time (median of 5) and idle share.  None of the eight kernels
    may launch in it;
 11. positional operators, aggregators, kronecker and reposition (phase
    `positional_agg`): bfs_parent on the zipf graph and on bench.py's RMAT
@@ -85,7 +90,7 @@ engine) from the sources, then:
    in float64; kronecker to 8192 x 8192 against np.kron; reposition of
    that matrix and of a vector of 2**19 against numpy slicing.  Each call
    with its time (median of 3, of 5 under 10 ms), idle share and peak
-   memory; none of the seven kernels may launch in it;
+   memory; none of the eight kernels may launch in it;
 12. the operators slice (phase `operators`): on the zipf graph with values
    of each type, vxm and mxv through the lanepipe with each operand in its
    own type (BOOL x FP32 and BOOL x INT32 plus_times, INT32 x FP32
@@ -1348,8 +1353,9 @@ def tropical_phase(gb, torch, dev, results):
 
 
 KERNELS = ("gather_mult", "mid_perm", "fused_permC_scan_permA", "tile_perm",
-           "lane_segscan", "segscan", "tropical_matmul")
+           "lane_segscan", "segscan", "tropical_matmul", "masked_dot")
 LANEPIPE_FAST = KERNELS[:4]
+KERNELS_1_7 = KERNELS[:7]  # the SpMV engines' and the dense engine's
 
 
 def reset_counts(K):
@@ -1881,15 +1887,115 @@ def apsp_phase(gb, torch, K, results, totals):
         "peak_memory_bytes": int(peak), "launches": got_l, "profile": prof}
 
 
+# the kron18 graph K8 is timed on: a seed past 2**31, as the benchmark's
+KRON18_SEED = 3_000_000_019
+
+
+def cell_graph(config, seed):
+    """A benchmark configuration's graph, drawn on the card by its own
+    generator (gbbench/gen) from ``seed``: (rows, cols, n) in numpy."""
+    from gbbench import gen, spec
+
+    g = gen.build(spec.config(config), seed, "cuda")
+    return g.rows.cpu().numpy(), g.cols.cpu().numpy(), g.n
+
+
+def masked_dot_kernel_check(gb, torch, K, results, totals):
+    """K8 on the kron18 cell's own graph (its generator, KRON18_SEED): the
+    masked dot C<L> = L pair L.T of triangle counting, the kernel's counts against its plain version
+    (bitwise), one launch a call; the wrapper (zero fill, running count,
+    int32 keys, kernel) timed warm and after an L2 flush, the plain
+    version once; then triangle_count on the graph."""
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    r, c, n = cell_graph("kron18", KRON18_SEED)
+    low = r > c
+    L = gb.Matrix.from_coo(r[low], c[low], np.ones(int(low.sum()), np.int64),
+                           dtype="INT64", nrows=n, ncols=n)
+    lsp = L._sparse
+    (a_side, b_side, ia, ib, _, _, _, cnt) = spx._dot_degrees(
+        lsp, lsp, lsp, gb.dtypes.INT64, True, False, True, n, n)
+    total = int(cnt.sum())
+    args = (a_side, b_side, ia, ib, lsp.rows, lsp.cols, cnt, total, n)
+    reset_counts(K)
+    got = spx.masked_dot_counts(*args)
+    torch.cuda.synchronize()
+    if K.launches["masked_dot"] != 1:
+        fail(f"masked_dot: {K.launches['masked_dot']} launches for one call")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    want = spx.masked_dot_counts_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_peak = torch.cuda.max_memory_allocated() - before
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"masked_dot: {bad} of {got.numel()} counts differ from the "
+             f"plain version")
+    del want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: spx.masked_dot_counts(*args))
+    cold = cuda_ms(torch, lambda: spx.masked_dot_counts(*args), cold=True)
+    nm = lsp.nvals()
+    # the sides' int32 k, one array where both sides are L's rows
+    nk = a_side[1].numel() + (0 if b_side[1] is a_side[1]
+                              else b_side[1].numel())
+    # read once: the mask's coordinates and running count (24 B an entry),
+    # the int32 k and both int64 indptrs; written once: the counts
+    nbytes = 24 * nm + 4 * nk + 2 * 8 * (n + 1) + 8 * nm
+    b_ms, b_by = bound(nbytes)
+    log(f"  masked_dot kron18: {nm} mask entries, {total} terms, "
+        f"{int(got.sum())} matches; {ms:.4f} ms (after an L2 flush "
+        f"{cold:.4f}), {total / ms / 1e6:.4g} G terms/s; plain "
+        f"{plain_ms:.1f} ms (one run, {plain_peak / 1e9:.2f} GB above the "
+        f"inputs); bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+    row = {"name": "masked_dot", "route": "cuda",
+           "source": "graphblas_tpu_torch/csrc/masked_dot.cu",
+           "replaces": None, "launches": 0, "max_abs_err": 0, "ms": ms,
+           "ms_after_flush": cold, "plain_ms": plain_ms,
+           "plain_peak_bytes": int(plain_peak), "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "terms": total,
+           "terms_per_s": total / ms * 1e3, "library_ms": None}
+    results.setdefault("kernels", {})["masked_dot"] = row
+    del got, a_side, b_side, ia, ib, cnt, lsp, L
+    torch.cuda.empty_cache()
+
+    G = gb.Matrix.from_coo(r, c, np.ones(len(r), np.int32), dtype="INT32",
+                           nrows=n, ncols=n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts(K)
+    count, tc_ms, runs, first_s = timed_calls(
+        torch, lambda: gb.algorithms.triangle_count(G), reps=5)
+    peak = torch.cuda.max_memory_allocated() - before
+    got_l = check_launches(K, "triangle_count kron18", totals,
+                           need=("masked_dot",))
+    if got_l["masked_dot"] != 6:
+        fail(f"triangle_count kron18: {got_l['masked_dot']} K8 launches in "
+             f"6 calls")
+    log(f"  triangle_count kron18: {count} triangles, ms {runs} (median "
+        f"{tc_ms:.4f}), first call {first_s:.2f} s; peak memory over the "
+        f"graph {peak / 1e9:.3f} GB")
+    return {"n": n, "nnz": int(len(r)), "mask_entries": nm, "terms": total,
+            "kernel": row, "triangles": count, "triangle_count_ms": tc_ms,
+            "triangle_count_ms_runs": runs,
+            "triangle_count_peak_bytes": int(peak)}
+
+
 def sparse_algorithms_phase(gb, torch, K, src, dst, n, results, totals):
-    """The generic sparse engine at full size: triangle_count on bench.py's
-    RMAT graph (scale 17), exact against scipy, and pagerank (its defaults)
+    """The generic sparse engine at full size: K8 on the kron18 cell's
+    graph (masked_dot_kernel_check), triangle_count on bench.py's RMAT
+    graph (scale 17), exact against scipy, and pagerank (its defaults)
     on the zipf graph with FP32 values of 1 against a float64 power
-    iteration.  Kernels: the FP32 outdegree reduce runs K6; the rest is
-    torch ops (the masked dot, the FP64 SpMV, merges)."""
+    iteration.  Kernels: the masked dot of triangle_count runs K8, the
+    FP32 outdegree reduce K6; the rest is torch ops (the FP64 SpMV,
+    merges)."""
     from graphblas_tpu_torch.core import execute as ex
 
-    out = {}
+    out = {"masked_dot_kron18": masked_dot_kernel_check(gb, torch, K,
+                                                        results, totals)}
     rs, rd, rn = build_rmat(17)
     t0 = time.perf_counter()
     ref = triangles_ref(rs, rd, rn)
@@ -1903,7 +2009,9 @@ def sparse_algorithms_phase(gb, torch, K, src, dst, n, results, totals):
     count, ms, runs, first_s = timed_calls(
         torch, lambda: gb.algorithms.triangle_count(G), reps=3)
     peak = torch.cuda.max_memory_allocated() - before
-    check_launches(K, "triangle_count", totals, need=())
+    got_l = check_launches(K, "triangle_count", totals, need=("masked_dot",))
+    if got_l["masked_dot"] != 4:  # the warm-up call and three timed
+        fail(f"triangle_count: {got_l['masked_dot']} K8 launches in 4 calls")
     if count != ref:
         fail(f"triangle_count: {count} triangles, scipy {ref}")
     log(f"  triangle_count rmat17: {count} triangles (scipy {ref}, "
@@ -1982,7 +2090,7 @@ def index_phase(gb, torch, K, src, dst, w, n, results, totals):
     assign and delete by index lists on the zipf FP32 matrix and extract
     with repeated indices from an INT64 vector of 2**19, each exactly
     against numpy.  All of it is torch ops on the generic sparse engine and
-    the dense one: it fails if any of the seven kernels launches."""
+    the dense one: it fails if any of the eight kernels launches."""
     out = {}
 
     def no_kernels(what):
@@ -2194,7 +2302,7 @@ def positional_agg_phase(gb, torch, K, src, dst, n, results, totals):
     8192 x 8192 FP32 matrix against numpy in float64 (counts and indices
     exactly, the rest within rel 1e-5); kronecker to 8192 x 8192 against
     np.kron; reposition of a matrix and a vector against numpy slicing.
-    All of it is torch ops: it fails if any of the seven kernels launches.
+    All of it is torch ops: it fails if any of the eight kernels launches.
     Each call's time is the median of 3 runs (5 under 10 ms), with its
     device idle share and its peak memory."""
     from graphblas_tpu_torch.core import execute as ex
@@ -3224,7 +3332,7 @@ def infix_phase(gb, torch, K, src, dst, w, n, results, totals):
                 D1.to_dense(fill_value=np.inf).view(np.uint32),
                 D2.to_dense(fill_value=np.inf).view(np.uint32)):
             fail("infix: min_plus(D @ D) differs from the method form")
-    never = [k for k in KERNELS if phase[k] == 0]
+    never = [k for k in KERNELS_1_7 if phase[k] == 0]
     if never:
         fail(f"infix: kernels never launched in the phase: {never}")
     log(f"  launches in the phase: {phase}")
@@ -3572,7 +3680,7 @@ def ss_io_phase(gb, torch, K, src, dst, w, n, A, Ab, results, totals):
         if not got.isequal(want, check_dtype=True):
             fail("ss_io: min_plus on the concat is not bitwise equal")
     del tiles, Dd, E, got, want
-    out["launches"] = check_launches(K, "ss_io", totals, need=KERNELS)
+    out["launches"] = check_launches(K, "ss_io", totals, need=KERNELS_1_7)
     results["ss_io"] = out
 
 
@@ -4015,7 +4123,8 @@ def complex_udt_phase(gb, torch, K, src, dst, w, n, A, results, totals):
     _no_launch(K, before, "the interchange")
     log(f"  Matrix Market: hermitian RMAT 12 ({len(k)} entries) exact, "
         f"FC64 round trip equal")
-    out["launches"] = check_launches(K, "complex_udt", totals, need=KERNELS)
+    out["launches"] = check_launches(K, "complex_udt", totals,
+                                     need=KERNELS_1_7)
     results["complex_udt"] = out
 
 

@@ -12,8 +12,9 @@ dot, and scaling by a diagonal) and the masked write-back.  Dense-backed
 matrices (``from_dense``, and every matrix of at most
 ``auto_sparse_limit`` elements) take the dense engine: ``mxm``,
 ``mxv``/``vxm``/``inner``, ``power``, element-wise operations, reduces and
-``diag``, whose tropical products run a kernel of their own (seven
-hand-written CUDA kernels for the H100 in all).  Dense vectors, masks,
+``diag``, whose tropical products run a kernel of their own (eight
+hand-written CUDA kernels for the H100 in all, the last the masked dot's
+count of matching terms under a ``pair`` ring).  Dense vectors, masks,
 extract, assign and delete by index lists (``A[rows, cols]``,
 ``C(mask, accum)[idx] << v``, ``C[idx](mask) << v``, ``del C[idx]``),
 membership and iteration, the infix expressions (``A @ B``, ``x | y``,

@@ -25,14 +25,15 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 SOURCES = ("tile_perm", "mid_perm", "gather_mult", "fused_scan",
-           "lane_segscan", "segscan", "tropical")
+           "lane_segscan", "segscan", "tropical", "masked_dot")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset, keyed by the kernel's name
 # (fused_permC_scan_permA and lane_segscan one per call: the kernel, not
 # the memset of its scratch before it; segscan one per group of channels;
-# tropical_matmul counts both entry points of tropical.cu)
+# tropical_matmul counts both entry points of tropical.cu; masked_dot one
+# per masked dot with terms, not the zero fill of its counts)
 launches = collections.Counter()
 
 DT = {"f32": 0, "i32": 1, "u32": 2, "bool": 3}
@@ -67,6 +68,7 @@ _ARGTYPES = {
     "segscan": [_P] * 4 + [_I, _P, _I, _P],
     "tropical_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "tropical_matmul_masked": [_P] * 5 + [_I] * 6 + [_P],
+    "masked_dot": [_P] * 8 + [_I, _I, ctypes.c_longlong, _P],
 }
 # C entry points of a source, where they are not the one named after it
 _ENTRY_POINTS = {"tropical": ("tropical_matmul", "tropical_matmul_masked"),

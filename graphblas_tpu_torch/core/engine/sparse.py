@@ -37,6 +37,8 @@ from .. import trace as _trace
 from . import dense
 from . import store as st
 from ..operator.base import typed
+from ..operator.binary import BUILTINS as _BINARIES
+from ..operator.monoid import BUILTINS as _MONOIDS
 
 _I64 = torch.int64
 
@@ -839,9 +841,11 @@ def spgemm(a, b, at, bt, ring, a_dt, b_dt, out_nrows, out_ncols, k_dim,
 # the masked dot: C(M) << A @ B for a mask M that is sparse and not
 # complemented.  For each mask entry (i, j) the shorter of A(i, :) and
 # B(:, j) is expanded and each of its contraction indices k is looked up
-# by a binary search in the other side's (major, k)-sorted keys.  Work and
-# memory: one term per expanded index, sum over M of min(deg_A(i),
-# deg_B(j)), against Gustavson's sum over k of deg_A(k) * deg_B(k).
+# by a binary search in the other side's (major, k)-sorted keys.  Work:
+# one term per expanded index, sum over M of min(deg_A(i), deg_B(j)),
+# against Gustavson's sum over k of deg_A(k) * deg_B(k).  The terms are
+# tensors in memory, except under a `pair` ring (dot_by_counts), where
+# kernel K8 counts each entry's matching terms in registers.
 def _dot_side(sp, use_csc):
     """(major, k, vals) of one side, sorted by (major, k)."""
     if use_csc:
@@ -897,31 +901,159 @@ def masked_dot_slots(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
     """The masked dot's value at each mask entry: (values, valid, ok_m),
     valid where a term was found and ok_m where the mask passes.  `total`
     is the term count (spgemm_dot_total); row_offset is added to the row
-    id a positional multiply sees (a row block of a distributed A)."""
+    id a positional multiply sees (a row block of a distributed A).  A
+    ring that dot_by_counts takes needs only each entry's number of
+    matching terms (masked_dot_counts: K8 on the card); every other ring
+    expands the terms (_dot_term_slots)."""
+    _trace.counts["masked_dot.entries"] += msp.nvals()
+    if not dot_by_counts(ring):
+        return _dot_term_slots(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt,
+                               structure, out_nrows, out_ncols, k_dim, total,
+                               row_offset)
+    _trace.counts["masked_dot.kernel_entries"] += msp.nvals()
+    (a_side, b_side, indptr_a, indptr_b, ok_m, _, _,
+     cnt) = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
+                         out_ncols)
+    count = masked_dot_counts(a_side, b_side, indptr_a, indptr_b, msp.rows,
+                              msp.cols, cnt, total, k_dim)
+    out_vals, out_valid = _counted_values(count, ring.monoid)
+    return out_vals, out_valid, ok_m
+
+
+# monoids whose value over n > 0 products of `pair` (each 1) follows from n
+_COUNTED = ("plus", "any", "min", "max", "times", "land", "lor", "band",
+            "bor")
+
+
+def dot_by_counts(ring):
+    """True where the masked dot under ring needs only the number of
+    matching terms at each mask entry: the builtin ``pair`` multiply and a
+    builtin monoid of _COUNTED over a builtin real type."""
+    mult, mono = ring.binaryop, ring.monoid
+    t = mono.type
+    return (mult.parent is _BINARIES["pair"]
+            and mono.parent.name in _COUNTED
+            and mono.parent is _MONOIDS[mono.parent.name]
+            and not t._is_udt and not t.is_complex)
+
+
+def _counted_values(count, mono):
+    """(values, valid) of the masked dot under pair and mono from each mask
+    entry's count of matching terms, as _dot_term_slots's reduce of that
+    many ones gives them: under plus the count, cast as the int64 (or
+    float64) sum is; under land True everywhere and under lor the
+    validity; under any 1 where valid and 0 elsewhere; under the others 1
+    where valid and the identity elsewhere."""
+    valid = count > 0
+    name, t = mono.parent.name, mono.type
+    if name == "plus":
+        return _dt.normalize(count.to(_wide_acc(t)), t), valid
+    if name == "land":
+        return torch.ones_like(valid), valid
+    if name == "lor":
+        return count > 0, valid
+    fill = 0 if name == "any" else _dt.storage_scalar(mono.identity, t)
+    out = torch.full(count.shape, fill, dtype=t.torch_type,
+                     device=count.device)
+    return out.masked_fill_(valid, 1), valid
+
+
+def masked_dot_counts_plain(a_side, b_side, indptr_a, indptr_b, mr, mc, cnt,
+                            total, k_dim):
+    """Plain version of K8 (:func:`masked_dot_counts`): the terms expanded
+    and searched as _dot_term_slots does (_dot_terms), and the hits added
+    per mask entry.  Holds a few int64 tensors of `total` terms."""
+    ua = ((indptr_a[1:] - indptr_a[:-1])[mr]
+          <= (indptr_b[1:] - indptr_b[:-1])[mc])
+    mo, _, _, found, _ = _dot_terms(a_side, b_side, indptr_a, indptr_b, mr,
+                                    mc, ua, cnt, total, k_dim)
+    count = torch.zeros(mr.numel(), dtype=_I64, device=mr.device)
+    return count.index_add_(0, mo, found.to(_I64))
+
+
+def masked_dot_counts(a_side, b_side, indptr_a, indptr_b, mr, mc, cnt,
+                      total, k_dim):
+    """For each mask entry e: the number of indices k that both A's row
+    mr[e] (a_side's k over indptr_a, each row sorted) and B's column mc[e]
+    (b_side's k over indptr_b) store, as int64; the sides are _dot_side's
+    (major, k, ...), cnt[e] = min of the two degrees (0 where the entry
+    does not pass the mask) and total = cnt.sum().
+
+    Kernel K8 (csrc/masked_dot.cu) on the card: one launch, after the
+    counts' zero fill, where total > 0 and none where it is 0; the keys
+    go to it as int32 where k_dim < 2**31.  No tensor of `total` terms is
+    made.  On the CPU the plain version."""
+    if mr.device.type == "cpu":
+        return masked_dot_counts_plain(a_side, b_side, indptr_a, indptr_b,
+                                       mr, mc, cnt, total, k_dim)
+    from . import kernels as K
+
+    a_k, b_k = a_side[1], b_side[1]
+
+    n_m = mr.numel()
+    count = torch.zeros(n_m, dtype=_I64, device=mr.device)
+    if total == 0:
+        return count
+    if max(a_k.numel(), b_k.numel(), n_m) >= 1 << 31:
+        raise ValueError("masked_dot: a side or the mask holds 2**31 "
+                         "entries or more")
+    wide = k_dim >= 1 << 31
+    ak = a_k.to(_I64 if wide else torch.int32).contiguous()
+    bk = ak if b_k is a_k else b_k.to(ak.dtype).contiguous()
+    cs = torch.cumsum(cnt, 0)
+    args = [ak, bk, indptr_a, indptr_b, mr, mc, cs, count]
+    K.require_cuda("masked_dot", args, word=None)
+    if any(x.dtype != _I64 for x in args[2:]):
+        raise TypeError("masked_dot: indptrs, mask coordinates and counts "
+                        "must be int64")
+    K.check("masked_dot", K.lib("masked_dot").masked_dot(
+        *(x.data_ptr() for x in args), int(wide), n_m, total,
+        K.stream_ptr(count)))
+    K.launches["masked_dot"] += 1
+    return count
+
+
+def _dot_terms(a_side, b_side, indptr_a, indptr_b, mr, mc, ua, cnt, total,
+               k_dim):
+    """The masked dot's terms: each mask entry's cnt of them, from A's row
+    where ua and from B's column elsewhere, each term's k looked up in the
+    other side.  Returns (mo, src, q, found, x_k): the term's mask entry,
+    its position in x_k (both sides' k, A's first), and its position q in
+    both sides' composite keys (B's first) and whether that holds its k."""
+    a_major, a_k = a_side[0], a_side[1]
+    b_major, b_k = b_side[0], b_side[1]
+    kd1 = k_dim + 1
+    top = indptr_b.numel() * kd1  # above every key of B
+    # x_k: the k of both sides (A first); y: both sides' composite keys (B
+    # first, A's above every key of B), so one search serves either side
+    x_k = torch.cat([a_k, b_k])
+    y = torch.cat([b_major * kd1 + b_k, a_major * kd1 + a_k + top])
+    start = torch.where(ua, indptr_a[:-1][mr],
+                        a_k.numel() + indptr_b[:-1][mc])
+    base = torch.where(ua, mc * kd1, mr * kd1 + top)
+    mo, t = _expand(cnt, total)
+    src = start[mo] + t
+    del t
+    q, found = _find(y, base[mo] + x_k[src])
+    return mo, src, q, found, x_k
+
+
+def _dot_term_slots(a, b, msp, at, bt, ring, a_dt, b_dt, m_dt, structure,
+                    out_nrows, out_ncols, k_dim, total, row_offset=0):
+    """masked_dot_slots by the expansion of every term: each term's k is
+    found by a binary search over both sides' composite keys, its product
+    made, and the products reduced per mask entry."""
     mult, mono = ring.binaryop, ring.monoid
     (a_side, b_side, indptr_a, indptr_b, ok_m, da, db,
      cnt) = _dot_degrees(a, b, msp, m_dt, structure, at, bt, out_nrows,
                          out_ncols)
-    a_major, a_k, a_vals = a_side
-    b_major, b_k, b_vals = b_side
-    na, nb = a_k.numel(), b_k.numel()
+    a_vals, b_vals = a_side[2], b_side[2]
+    na, nb = a_side[1].numel(), b_side[1].numel()
     dev = a.device
-    kd1 = k_dim + 1
     mr, mc = msp.rows, msp.cols
-    # X: the k of both sides (A first); Y: both sides' composite keys (B
-    # first, A's above every key of B), so one search serves either side
-    x_k = torch.cat([a_k, b_k])
-    y = torch.cat([b_major * kd1 + b_k,
-                   a_major * kd1 + a_k + (out_ncols + 1) * kd1])
     ua = da <= db  # expand A's row where it is the shorter side
-    start = torch.where(ua, indptr_a[:-1][mr], na + indptr_b[:-1][mc])
-    base = torch.where(ua, mc * kd1, mr * kd1 + (out_ncols + 1) * kd1)
-    mo, t = _expand(cnt, total)
-    src = start[mo] + t
-    del t
-    tgt = base[mo] + x_k[src]
-    q, found = _find(y, tgt)
-    del tgt
+    mo, src, q, found, x_k = _dot_terms(a_side, b_side, indptr_a, indptr_b,
+                                        mr, mc, ua, cnt, total, k_dim)
     if mult.parent.name == "pair":
         prods = torch.ones(found.shape, dtype=mult.return_type.torch_type,
                            device=dev)

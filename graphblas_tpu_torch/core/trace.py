@@ -48,7 +48,12 @@ Counters, always on:
   ready); ``plan.perm_s``, the part of that in
   ``permute.build_perm_plan``; ``plan.bytes``, the bytes of the device
   tensors the plan holds, with the truth-value twins that
-  ``execute._plan`` adds to it.
+  ``execute._plan`` adds to it.  It also holds the masked dot's, added
+  to at each call of ``engine/sparse.masked_dot_slots``:
+  ``masked_dot.entries``, the mask
+  entries of every masked dot; ``masked_dot.kernel_entries``, those whose
+  matching terms K8 (or its plain version on the CPU) counted, under a
+  ``pair`` ring (``sparse.dot_by_counts``).
 - ``kernels.launches`` (``engine/kernels.py``): hand-kernel launches by
   kernel.
 - ``permute.exchanges`` (``engine/permute.py``): exchange transposes run
@@ -78,7 +83,7 @@ class _Off:
 
 _OFF = _Off()
 
-# the host-plan counters (see the module's docstring); nothing else
+# the host-plan and masked-dot counters (see the module's docstring)
 counts = collections.Counter()
 
 

@@ -8,6 +8,8 @@ torch and the port only, so it also runs where JAX is not installed:
 """
 
 import collections
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -1628,3 +1630,249 @@ def test_lanepipe_span_holds_the_hand_kernels(cuda):
             and symbol(e["name"]) in names
             and any(s <= launched.get(_corr(e), -1) <= t for s, t in lane)]
     assert delta > 0 and len(mine) == delta
+
+
+# ---- K8 masked_dot: bitwise against its plain version, and the launches
+# its wrapper documents (one per masked dot with terms, none without).
+def _kron(scale, seed):
+    """The benchmark's Graph500 Kronecker graph (gbbench/gen, initiator
+    .57/.19/.19, degree 16) at `scale`, drawn on the CPU: sorted unique
+    symmetric (rows, cols) without loops, and n."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    try:
+        from gbbench import gen
+    finally:
+        sys.path.pop(0)
+    g = gen.build({"generator": "kron", "scale": scale, "degree": 16,
+                   "initiator": [0.57, 0.19, 0.19],
+                   "values": {"dtype": "BOOL"}}, seed, "cpu")
+    return g.rows.numpy(), g.cols.numpy(), g.n
+
+
+def _with_hubs(r, c, n, seed, hubs=2, deg=26000):
+    """(r, c) with `hubs` vertices joined to `deg` random others each, both
+    directions: rows of over 25 k entries, as the kron18 cell has."""
+    rng = np.random.default_rng(seed)
+    hr = np.repeat(rng.choice(n, hubs, replace=False), deg)
+    hc = np.concatenate([rng.choice(n, deg, replace=False)
+                         for _ in range(hubs)])
+    keep = hr != hc
+    lin = np.unique(np.r_[r * n + c, hr[keep] * n + hc[keep],
+                          hc[keep] * n + hr[keep]])
+    return lin // n, lin % n
+
+
+def _k8_slots_check(spx, a, b, msp, at, bt, m_dt, structure, dims):
+    """K8 on the stores' masked dot against its plain version, bitwise;
+    the launch count the wrapper documents.  Returns the term count."""
+    nr, nc, kd = dims
+    (a_side, b_side, ia, ib, _, _, _, cnt) = spx._dot_degrees(
+        a, b, msp, m_dt, structure, at, bt, nr, nc)
+    total = int(cnt.sum())
+    before = K.launches["masked_dot"]
+    got = spx.masked_dot_counts(a_side, b_side, ia, ib, msp.rows, msp.cols,
+                                cnt, total, kd)
+    assert K.launches["masked_dot"] - before == (1 if total else 0)
+    want = spx.masked_dot_counts_plain(a_side, b_side, ia, ib, msp.rows,
+                                       msp.cols, cnt, total, kd)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    return total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("at,bt", [(False, True), (False, False),
+                                   (True, True), (True, False)],
+                         ids=["nt", "nn", "tt", "tn"])
+def test_masked_dot_kernel_on_kron_hubs(cuda, at, bt):
+    """Kronecker (RMAT) scale 16 with two hub rows of over 25 k entries:
+    C<L> = S pair S.T (L its lower triangle) under a structural and a
+    value mask, each side transposed or not (the stores of A.T and B.T
+    hold the same effective operands)."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    r, c, n = _kron(16, 41)
+    r, c = _with_hubs(r, c, n, 42)
+    assert np.bincount(r, minlength=n).max() > 25000
+    low = r > c
+    rng = np.random.default_rng(43)
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        S = gb.Matrix.from_coo(r, c, 1, dtype="INT32", nrows=n, ncols=n)
+        mv = rng.random(int(low.sum())) < 0.6
+        L = gb.Matrix.from_coo(r[low], c[low], mv, dtype="BOOL", nrows=n,
+                               ncols=n)
+        s = S._sparse
+        for structure in (True, False):
+            total = _k8_slots_check(spx, s, s, L._sparse, at, bt,
+                                    gb.dtypes.BOOL, structure, (n, n, n))
+            assert total > 10**6
+        ring = gb.semiring.plus_pair["INT64"]
+        C = gb.Matrix("INT64", n, n)
+        before = _launch_counts()
+        C(L.S) << S.mxm(S.T, ring)
+        got = C.to_coo()
+        assert {k: v - before.get(k, 0) for k, v in K.launches.items()
+                if v != before.get(k, 0)} == {"masked_dot": 1}
+        # the same product by the expansion of every term (torch ops)
+        m = L._sparse
+        total = int(spx.spgemm_dot_total(s, s, m, gb.dtypes.BOOL, True,
+                                         False, True, n, n, n)[1])
+        vals, valid, _ = spx._dot_term_slots(
+            s, s, m, False, True, ring, gb.dtypes.INT32, gb.dtypes.INT32,
+            gb.dtypes.BOOL, True, n, n, n, total)
+        keep = valid.nonzero().reshape(-1)
+        want = (m.rows[keep], m.cols[keep], vals[keep])
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_masked_dot_kernel_on_one_entry_rows_and_edges(cuda):
+    """Rows of one entry each (a permutation and a shifted one): every
+    term a single probe; an empty mask and a mask of entries with no term
+    launch nothing; keys of 64 bits (k_dim >= 2**31) take the wide
+    instance."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    n = 1 << 17
+    rng = np.random.default_rng(44)
+    p = rng.permutation(n)
+    # A(i, p[i]) and B(p[j], j): A's row i meets B's column j at i == j
+    # only; the mask holds the diagonal and 3n random entries
+    mi = np.r_[rng.integers(0, n, 3 * n), np.arange(n)]
+    mj = np.r_[rng.integers(0, n, 3 * n), np.arange(n)]
+    lin = np.unique(mi * n + mj)
+    mi, mj = lin // n, lin % n
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        A = gb.Matrix.from_coo(np.arange(n), p, 1, dtype="INT64", nrows=n,
+                               ncols=n)
+        Bt = gb.Matrix.from_coo(np.arange(n), p, 1, dtype="INT64",
+                                nrows=n, ncols=n)
+        M = gb.Matrix.from_coo(mi, mj, rng.random(len(mi)) < 0.5,
+                               dtype="BOOL", nrows=n, ncols=n)
+        E = gb.Matrix("BOOL", n, n)
+        a, b = A._sparse, Bt._sparse
+        for structure in (True, False):
+            assert _k8_slots_check(spx, a, b, M._sparse, False, True,
+                                   gb.dtypes.BOOL, structure, (n, n, n)) > 0
+        before = K.launches["masked_dot"]
+        C = A.mxm(Bt.T, gb.semiring.plus_pair["INT64"]).new(mask=E.S)
+        assert C.nvals == 0 and K.launches["masked_dot"] == before
+        # the wide keys: the same rows with every k moved past 2**32
+        (a_side, b_side, ia, ib, _, _, _, cnt) = spx._dot_degrees(
+            a, b, M._sparse, gb.dtypes.BOOL, True, False, True, n, n)
+        total = int(cnt.sum())
+        shift = 1 << 32
+        got = spx.masked_dot_counts(
+            (a_side[0], a_side[1] + shift), (b_side[0], b_side[1] + shift),
+            ia, ib, M._sparse.rows, M._sparse.cols, cnt, total, shift + n)
+        want = spx.masked_dot_counts_plain(a_side, b_side, ia, ib,
+                                           M._sparse.rows, M._sparse.cols,
+                                           cnt, total, n)
+        assert torch.equal(got, want) and int(want.sum()) == n
+        zero = torch.zeros_like(cnt)
+        before = K.launches["masked_dot"]
+        got = spx.masked_dot_counts(a_side, b_side, ia, ib, M._sparse.rows,
+                                    M._sparse.cols, zero, 0, n)
+        assert not bool(got.any()) and K.launches["masked_dot"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mono,typ", [("plus", "INT8"), ("plus", "FP32"),
+                                      ("any", "BOOL"), ("min", "UINT64"),
+                                      ("land", "BOOL"), ("bor", "UINT64")])
+def test_masked_dot_count_mode_values_on_the_card(cuda, mono, typ):
+    """The count mode's values and validity on the card are the term
+    path's (``_dot_term_slots``, torch ops) bit for bit, value mask."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.core.engine import sparse as spx
+
+    r, c, n = _kron(12, 45)
+    rng = np.random.default_rng(46)
+    low = r > c
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        S = gb.Matrix.from_coo(r, c, 1, dtype="INT64", nrows=n, ncols=n)
+        mv = rng.random(int(low.sum())) < 0.7
+        L = gb.Matrix.from_coo(r[low], c[low], mv, dtype="BOOL", nrows=n,
+                               ncols=n)
+        s, m = S._sparse, L._sparse
+        ring = getattr(gb.semiring, f"{mono}_pair")[typ]
+        total = int(spx.spgemm_dot_total(s, s, m, gb.dtypes.BOOL, False,
+                                         False, True, n, n, n)[1])
+        args = (s, s, m, False, True, ring, gb.dtypes.INT64, gb.dtypes.INT64,
+                gb.dtypes.BOOL, False, n, n, n, total)
+        got = spx.masked_dot_slots(*args)
+        want = spx._dot_term_slots(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if g.dtype.is_floating_point:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_masked_dot_kernel_on_four_blocks(cuda, monkeypatch):
+    """gb.parallel on four row blocks of cuda:0: the triangle product with
+    B replicated and with B sharded, against the CPU's plain version;
+    every block step with terms launches K8 once."""
+    import graphblas_tpu_torch as gb
+    from graphblas_tpu_torch.core.engine import sparse as spx
+    from graphblas_tpu_torch.parallel import make_mesh, shard_matrix
+
+    r, c, n = _kron(13, 47)
+    low = r > c
+    calls = []
+    real = spx.masked_dot_counts
+
+    def counted(*args):
+        calls.append(args[7])  # total
+        return real(*args)
+
+    monkeypatch.setattr(spx, "masked_dot_counts", counted)
+    with gb.config.set(device="cpu", auto_sparse_limit=0):
+        Lc = gb.Matrix.from_coo(r[low], c[low], 1, dtype="INT64", nrows=n,
+                                ncols=n)
+        Cc = gb.Matrix("INT64", n, n)
+        Cc(Lc.S) << Lc.mxm(Lc.T, gb.semiring.plus_pair["INT64"])
+        want = Cc.to_coo()
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        L = gb.Matrix.from_coo(r[low], c[low], 1, dtype="INT64", nrows=n,
+                               ncols=n)
+        mesh = make_mesh((4,), devices=[cuda] * 4)
+        L4 = shard_matrix(L.dup(), mesh)
+        for B in (L, L4):  # B replicated, then sharded
+            calls.clear()
+            before = K.launches["masked_dot"]
+            C = gb.Matrix(gb.dtypes.INT64, n, n)
+            C(L4.S) << L4.mxm(B.T, gb.semiring.plus_pair["INT64"])
+            got = C.to_coo()
+            assert len(calls) >= 4
+            assert K.launches["masked_dot"] - before == \
+                sum(1 for t in calls if t > 0)
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_triangle_count_rmat17_through_the_kernel(cuda):
+    """triangle_count on the Kronecker (RMAT) graph of scale 17 equals
+    scipy's sum of L .* (L @ L), with one K8 launch and no other hand
+    kernel."""
+    import scipy.sparse as sps
+
+    import graphblas_tpu_torch as gb
+
+    r, c, n = _kron(17, 1)
+    low = r > c
+    L = sps.csr_matrix((np.ones(int(low.sum()), np.int64),
+                        (r[low], c[low])), shape=(n, n))
+    want = int(L.multiply(L @ L).sum())
+    with gb.config.set(device=cuda, auto_sparse_limit=0):
+        G = gb.Matrix.from_coo(r, c, True, dtype="BOOL", nrows=n, ncols=n)
+        before = _launch_counts()
+        got = gb.algorithms.triangle_count(G)
+    assert got == want
+    assert {k: v - before.get(k, 0) for k, v in K.launches.items()
+            if v != before.get(k, 0)} == {"masked_dot": 1}
