@@ -20,8 +20,9 @@ def sssp(A, source=0, *, max_iters=None):
     ring = semiring.min_plus
     iters = n if max_iters is None else max_iters
     for _ in range(iters):
-        prev = d.dup()
-        d(accum=binary.min) << d.vxm(A, ring)
-        if d.isequal(prev):
-            break
+        with _trace.span("sssp:round"):
+            prev = d.dup()
+            d(accum=binary.min) << d.vxm(A, ring)
+            if d.isequal(prev):
+                break
     return d

@@ -640,7 +640,9 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
     a fully valid u (the PageRank shape) takes the fast branch, with one
     value channel and the plan's static output structure (deg > 0); a
     sparse u takes the slow branch, which routes and scans a validity
-    channel too (:func:`lane_segscan`).
+    channel too (:func:`lane_segscan`).  The slow branch runs inside the
+    span ``lanepipe:sparse`` and each two-level tail inside
+    ``lanepipe:tail`` (``core/trace.py``).
     """
     (gmeta, idx1, locidx, okg, avals, barrier, oks, routeP, extP,
      out_ok) = plan_dyn[:10]
@@ -678,16 +680,17 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
         """Recombine split-destination partials: identity-mask the appendix
         groups, tree-reduce each with the monoid, scatter the results into
         the natural-order totals."""
-        app = e_v[n_out:n_out + n_split * W2].reshape(n_split, W2)
-        app = torch.where(l2_mask != 0, app, fill)
-        w = W2
-        while w > 1:
-            half = w // 2
-            app = cmb(app[:, :half], app[:, half:w])
-            w = half
-        out = e_v[:n_out].clone()
-        out[l2_ids.long()] = app[:, 0].to(out.dtype)
-        return out
+        with _trace.span("lanepipe:tail"):
+            app = e_v[n_out:n_out + n_split * W2].reshape(n_split, W2)
+            app = torch.where(l2_mask != 0, app, fill)
+            w = W2
+            while w > 1:
+                half = w // 2
+                app = cmb(app[:, :half], app[:, half:w])
+                w = half
+            out = e_v[:n_out].clone()
+            out[l2_ids.long()] = app[:, 0].to(out.dtype)
+            return out
 
     def run_single(pv_flat, cmb, fill):
         """Route + scan + extract one channel; returns flat e_v."""
@@ -701,6 +704,8 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
             e_v = tail_two_level(e_v, cmb.fn, fill)
         return e_v
 
+    if two_level:
+        _trace.counts["lanepipe.tail_calls"] += 1
     if packed:
         codes, _ = gather(True, False)
         e_v = run_single(pad_to_L(codes, 0), combine_packed, 0)
@@ -712,22 +717,24 @@ def spmv_pipeline(plan_dyn, meta, u_vals, u_valid, ring, a_dt, u_dt, *,
         e_v = run_single(pad_to_L(prods, ident_c), combine, ident_c)
         return sp.from_carrier(e_v[:n_out], z_dt), out_ok[:n_out] != 0
 
-    prods, okp = gather(False, False)
-    pf = pad_to_L(prods, ident_c)
-    hf = pad_to_L(okp, 0)
-    pv2, ph_r = pm.apply_perm(meta["permmeta"]["routeP"], routeP, [pf, hf],
-                              skip_a=True)
-    ph2 = (ph_r != 0) & (oks != 0)
-    pv2 = torch.where(ph2, pv2, ident_c)
-    s_v, s_h = lane_segscan(barrier, pv2, ph2.to(torch.int32), combine)
-    e_v, e_h = pm.apply_perm(meta["permmeta"]["extP"], extP, [s_v, s_h],
-                             out_limit=lim1)
-    e_v = e_v.reshape(-1)
-    e_h = e_h.reshape(-1)
-    if two_level:
-        # partials with no valid contribution act as the identity; group
-        # validity = any partial valid
-        e_v = torch.where(e_h != 0, e_v, ident_c)
-        e_v = tail_two_level(e_v, comb, ident_c)
-        e_h = tail_two_level(e_h, torch.maximum, 0)
-    return sp.from_carrier(e_v[:n_out], z_dt), e_h[:n_out] > 0
+    _trace.counts["lanepipe.sparse_calls"] += 1
+    with _trace.span("lanepipe:sparse"):
+        prods, okp = gather(False, False)
+        pf = pad_to_L(prods, ident_c)
+        hf = pad_to_L(okp, 0)
+        pv2, ph_r = pm.apply_perm(meta["permmeta"]["routeP"], routeP,
+                                  [pf, hf], skip_a=True)
+        ph2 = (ph_r != 0) & (oks != 0)
+        pv2 = torch.where(ph2, pv2, ident_c)
+        s_v, s_h = lane_segscan(barrier, pv2, ph2.to(torch.int32), combine)
+        e_v, e_h = pm.apply_perm(meta["permmeta"]["extP"], extP,
+                                 [s_v, s_h], out_limit=lim1)
+        e_v = e_v.reshape(-1)
+        e_h = e_h.reshape(-1)
+        if two_level:
+            # partials with no valid contribution act as the identity; group
+            # validity = any partial valid
+            e_v = torch.where(e_h != 0, e_v, ident_c)
+            e_v = tail_two_level(e_v, comb, ident_c)
+            e_h = tail_two_level(e_h, torch.maximum, 0)
+        return sp.from_carrier(e_v[:n_out], z_dt), e_h[:n_out] > 0

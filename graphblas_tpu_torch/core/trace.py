@@ -36,6 +36,15 @@ Spans, by layer (their names are fixed strings):
 - ``spgemm:<formulation>:terms=<t>:gustavson=<g>:dot=<d>``: the sparse
   product's choice (``execute._spgemm_run``, ``execute.spgemm_record``),
   inside ``gb.engine:sparse``.
+- ``lanepipe:sparse``: the lanepipe's sparse-vector branch, from after
+  the ``lanepipe.u_valid_all`` read to the return of
+  ``lanepipe.spmv_pipeline`` (K1 with its validity output, the
+  two-channel route, the mask fold, K5, the extract and the tail), inside
+  ``gb.engine:lanepipe``.  ``lanepipe:tail``: each call of the two-level
+  tail, which recombines destinations split over ``lanepipe.SPLIT_DEG``
+  entries, on any branch whose plan is two-level.
+- ``sssp:round``: each Bellman-Ford iteration of ``algorithms.sssp``,
+  inside ``gb.algo:sssp``.
 
 Counters, always on:
 
@@ -54,6 +63,9 @@ Counters, always on:
   entries of every masked dot; ``masked_dot.kernel_entries``, those whose
   matching terms K8 (or its plain version on the CPU) counted, under a
   ``pair`` ring (``sparse.dot_by_counts``).
+  And the lanepipe's, added to at each ``lanepipe.spmv_pipeline`` call:
+  ``lanepipe.sparse_calls``, the calls that took the sparse-vector
+  branch; ``lanepipe.tail_calls``, the calls that ran the two-level tail.
 - ``kernels.launches`` (``engine/kernels.py``): hand-kernel launches by
   kernel.
 - ``permute.exchanges`` (``engine/permute.py``): exchange transposes run
@@ -83,7 +95,8 @@ class _Off:
 
 _OFF = _Off()
 
-# the host-plan and masked-dot counters (see the module's docstring)
+# the host-plan, masked-dot and lanepipe counters (see the module's
+# docstring)
 counts = collections.Counter()
 
 
